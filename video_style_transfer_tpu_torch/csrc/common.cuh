@@ -1,0 +1,152 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace vst {
+
+// dtype codes passed from Python
+constexpr int kFloat32 = 0;
+constexpr int kBFloat16 = 1;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ constexpr size_t align128(size_t x) {
+  return (x + 127) / 128 * 128;
+}
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x);
+template <>
+__device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f<bf16>(bf16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Elements of T in one 16-byte vector.
+template <typename T>
+struct Vec {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+// Unpack one 16-byte vector of T into floats.
+template <typename T>
+__device__ __forceinline__ void unpack16(const T* p, float* out) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  if constexpr (std::is_same<T, float>::value) {
+    out[0] = __uint_as_float(u.x);
+    out[1] = __uint_as_float(u.y);
+    out[2] = __uint_as_float(u.z);
+    out[3] = __uint_as_float(u.w);
+  } else {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+}
+
+// Pack floats into one 16-byte vector of T.
+template <typename T>
+__device__ __forceinline__ void pack16(T* p, const float* in) {
+  uint4 u;
+  if constexpr (std::is_same<T, float>::value) {
+    u.x = __float_as_uint(in[0]);
+    u.y = __float_as_uint(in[1]);
+    u.z = __float_as_uint(in[2]);
+    u.w = __float_as_uint(in[3]);
+  } else {
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      h[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    }
+  }
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// 16-byte asynchronous global->shared copy; when `pred` is false the
+// destination is zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---- tensor-core building blocks (mma.sync m16n8k16, bf16 in, f32 acc)
+//
+// Fragment layouts, g = lane / 4, t = lane % 4:
+//   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 =
+//     (g, 2t+8..), a3 = (g+8, 2t+8..)
+//   B (16x8, k x n): b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
+//   C (16x8, f32): c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
+
+__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
+                                          const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// two 8x8 b16 matrices, transposed: the B fragment from a row-major
+// (k, n) tile; lanes 0-15 address the 16 k rows
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
+                                                  const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+}  // namespace vst

@@ -1,0 +1,99 @@
+"""Multi-head attention and the GEGLU feed-forward.
+
+Counterpart of the JAX package's models/attention.py in ``"base"`` mode:
+every projection is a plain linear (``dual_linear`` without its LoRA
+branches; the UnZipLoRA modes come with the LoRA slice). Self-attention
+runs one fused (C, 3*inner) projection whose output the flash kernel
+reads in place; cross-attention may take precomputed prompt k/v.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from video_style_transfer_tpu_torch.models import layers
+from video_style_transfer_tpu_torch.ops.attention import (
+    merge_heads, sdpa, sdpa_fused_qkv, split_heads)
+from video_style_transfer_tpu_torch.ops.geglu import geglu_projection
+
+_QKV = ("to_q", "to_k", "to_v")
+
+
+def init_attention(ini, query_dim: int, *, heads: int,
+                   dim_head: Optional[int] = None,
+                   cross_attention_dim: Optional[int] = None,
+                   out_bias: bool = True, qkv_bias: bool = False):
+    if dim_head is None:
+        dim_head = query_dim // heads
+    inner = heads * dim_head
+    kv_dim = cross_attention_dim or query_dim
+    return {
+        "to_q": layers.init_linear(ini, query_dim, inner, bias=qkv_bias),
+        "to_k": layers.init_linear(ini, kv_dim, inner, bias=qkv_bias),
+        "to_v": layers.init_linear(ini, kv_dim, inner, bias=qkv_bias),
+        "to_out": layers.init_linear(ini, inner, query_dim, bias=out_bias),
+    }
+
+
+def fused_qkv_projection(p, x):
+    """One (C, 3*inner) matmul for q, k and v (matmul columns are
+    independent, so this equals three separate projections)."""
+    w = torch.cat([p[n]["weight"].to(x.dtype) for n in _QKV], dim=0)
+    b = None
+    if any("bias" in p[n] for n in _QKV):
+        b = torch.cat([p[n]["bias"].to(x.dtype) if "bias" in p[n] else
+                       torch.zeros(p[n]["weight"].shape[0], dtype=x.dtype,
+                                   device=x.device) for n in _QKV])
+    return F.linear(x, w, b)
+
+
+def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None):
+    """x: (N, S, C). ctx: None for self-attention, or a (combined,
+    content, style) tuple of encoder states (base mode reads the combined
+    one). kv: optional precomputed (k, v), each (Bk, Sk, inner); Bk may
+    divide N by a frame-replication factor."""
+    if kv is not None:
+        q = layers.linear(p["to_q"], x)
+        k, v = kv
+        n = x.shape[0]
+        if k.shape[0] != n:
+            rep = n // k.shape[0]
+            k = k.repeat_interleave(rep, dim=0)
+            v = v.repeat_interleave(rep, dim=0)
+        o = merge_heads(sdpa(split_heads(q, heads),
+                             split_heads(k.to(q.dtype), heads),
+                             split_heads(v.to(q.dtype), heads)))
+        return layers.linear(p["to_out"], o)
+    if ctx is None:
+        o = sdpa_fused_qkv(fused_qkv_projection(p, x), heads)
+        return layers.linear(p["to_out"], o)
+    c = ctx[0]
+    q = layers.linear(p["to_q"], x)
+    k = layers.linear(p["to_k"], c)
+    v = layers.linear(p["to_v"], c)
+    o = merge_heads(sdpa(split_heads(q, heads), split_heads(k, heads),
+                         split_heads(v, heads)))
+    return layers.linear(p["to_out"], o)
+
+
+def cross_attention_kv(p, ctx: Tuple):
+    """The prompt-side k/v projections of one cross-attention (loop
+    invariant across denoise steps). Returns (k, v), each
+    (B, Sk, inner)."""
+    c = ctx[0]
+    return layers.linear(p["to_k"], c), layers.linear(p["to_v"], c)
+
+
+def init_feed_forward(ini, dim: int, *, mult: int = 4):
+    """GEGLU MLP (diffusers FeedForward with GEGLU activation)."""
+    inner = dim * mult
+    return {"proj": layers.init_linear(ini, dim, inner * 2),
+            "out": layers.init_linear(ini, inner, dim)}
+
+
+def feed_forward(p, x):
+    h = geglu_projection(x, p["proj"]["weight"].to(x.dtype),
+                         p["proj"]["bias"].to(x.dtype))
+    return layers.linear(p["out"], h)
