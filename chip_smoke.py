@@ -5,22 +5,28 @@
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
    video_style_transfer_tpu_torch/csrc/ and prints the build time.
-2. Holds each kernel against its plain PyTorch version at the serving
-   path's shapes, in bf16 and in fp32 (TF32 off), and times the kernel,
-   the plain version and, where one PyTorch call computes the same
-   function, that call (the yardstick only; the port never calls it).
-3. Holds the tiny pipeline on the card against the same pipeline on the
-   CPU (the plain versions), then drives the serving path through
-   ``cli.infer_video.generate`` at full SDXL + AnimateDiff-XL width and
-   depth (seeded random weights, 16 frames, 1024^2, CFG 7.5, 2 steps,
-   --modes base, bf16 UNet, fp32 VAE decode), with every kernel's launch
-   counter set to 0 just before and read just after.
-4. Prints one JSON line with every kernel's numbers, then the last line
+2. Holds each kernel against its plain PyTorch version at the shapes of
+   the serving and stage-2 training paths, in bf16 and in fp32 (TF32
+   off), and times the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call (the yardstick only; the
+   port never calls it): K1-K3 forward, K4-K5 backward, and K1's d=192
+   instance, which stands for the JAX package's unpacked kernel (K6).
+3. Holds the tiny pipeline and a tiny stage-2 training step on the card
+   against the same on the CPU (the plain versions).
+4. Drives the serving path through ``cli.infer_video.generate`` at full
+   SDXL + AnimateDiff-XL width and depth (seeded random weights, 16
+   frames, 1024^2, CFG 7.5, 2 steps, --modes base, bf16 UNet, fp32 VAE
+   decode), then the stage-2 trainer through
+   ``cli.train_animatediff.train`` (8 frames, 1024^2, 3 steps, bf16 UNet,
+   fp32 VAE encode), each with every kernel's launch counters set to 0
+   just before and read just after.
+5. Prints one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,8 +49,27 @@ PEAK_BYTES = 3.35e12
 # of the f32 sums differs, and the card shows at most ~2e-6 at these
 # shapes (sums over up to 4096 keys or 1280 channels).
 TOL = {"bfloat16": (2e-2, 2 ** -6), "float32": (1e-5, 0.0)}
+# backward kernels (K4, K5), each output (dq, dk, dv) on its own:
+# - bf16 against the output's own scale. K4's gradients are ~1/sqrt(S) in
+#   size (rms ~0.04, largest ~0.3 at S = 1024-4096), so an absolute 2e-2
+#   would pass a kernel wrong by the gradients' own size. Kernel and plain
+#   version round p and ds (K4) at the same points, so only rounding
+#   flips differ: on an H100, at most 2.4e-4 normwise and 5.3e-3 of the
+#   largest entry (one bf16 ulp of an entry near the largest is up to
+#   2^-7 of it). Limits: |kernel - plain|_2 <= 2^-10 |plain|_2, and the
+#   largest error <= 2^-6 max|plain| (two such ulps).
+# - fp32 1e-5 absolute plus 1e-5 relative: dk and dv are sums over up to
+#   4096 query rows (K4) whose f32 order differs, and K4 recomputes p with
+#   exp2 where the plain version takes exp.
+# Each backward phase also holds two faulty copies of the kernel's
+# outputs to the same check, and fails unless both are refused: the
+# outputs scaled by 0.97, and the outputs plus noise of 2^-5 of each
+# output's rms.
+BWD_BF16_LIMITS = (2 ** -10, 2 ** -6)
+TOL_BWD_F32 = (1e-5, 1e-5)
 
 NUM_FRAMES, RESOLUTION, STEPS = 16, 1024, 2
+TRAIN_FRAMES, TRAIN_STEPS = 8, 3
 
 
 def fail(msg):
@@ -83,41 +108,95 @@ def bound(flops, nbytes, dtype_name):
             "operations" if t_ops >= t_mem else "bytes")
 
 
+def bwd_check(outs, refs, dtype_name):
+    """(passes, worst normwise error, worst largest-error share) of
+    backward outputs against the plain ones (see BWD_BF16_LIMITS)."""
+    nrm = mx = excess = 0.0
+    for o, r in zip(outs, refs):
+        d, r = o.double() - r.double(), r.double()
+        nrm = max(nrm, d.norm().item() / r.norm().item())
+        mx = max(mx, d.abs().max().item() / r.abs().max().item())
+        excess = max(excess,
+                     (d.abs() - TOL_BWD_F32[1] * r.abs()).max().item())
+    if dtype_name == "bfloat16":
+        ok = nrm <= BWD_BF16_LIMITS[0] and mx <= BWD_BF16_LIMITS[1]
+    else:
+        ok = excess <= TOL_BWD_F32[0]
+    return ok, nrm, mx
+
+
+def faulty_copies(outs, refs):
+    """The two faults every backward check must refuse."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    scaled = [(o.float() * 0.97).to(o.dtype) for o in outs]
+    noisy = [(o.float() + torch.randn(o.shape, device=o.device,
+                                      generator=gen)
+              * (2 ** -5 * r.float().square().mean().sqrt())).to(o.dtype)
+             for o, r in zip(outs, refs)]
+    return {"scale 0.97": scaled, "noise 2^-5 rms": noisy}
+
+
 def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
-                iters):
-    """Compare kernel vs plain, time all three; returns the phase dict."""
+                iters, bwd=False):
+    """Compare kernel vs plain (bwd: each output against its own scale,
+    with the faulty-copy controls), time all three; returns the phase
+    dict."""
     import torch
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    atol, rtol = TOL[dtype_name]
     err = max((o.float() - r.float()).abs().max().item()
               for o, r in zip(outs, refs))
-    excess = max(((o.float() - r.float()).abs()
-                  - rtol * r.float().abs()).max().item()
-                 for o, r in zip(outs, refs))
     finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    extra = {}
+    if bwd:
+        ok, nrm, mx = bwd_check(outs, refs, dtype_name)
+        controls = {c: bwd_check(f, refs, dtype_name)
+                    for c, f in faulty_copies(outs, refs).items()}
+        limit = (f"limit normwise {BWD_BF16_LIMITS[0]:g}, largest "
+                 f"{BWD_BF16_LIMITS[1]:g} of max|plain|"
+                 if dtype_name == "bfloat16" else
+                 f"limit {TOL_BWD_F32[0]:g} + {TOL_BWD_F32[1]:g}*|plain|")
+        reading = (f"normwise {nrm:.3e}, largest {mx:.3e} of max|plain|, "
+                   f"{limit}; controls " + ", ".join(
+                       f"{c}: {'passed' if c_ok else 'refused'} "
+                       f"(normwise {c_nrm:.3e})"
+                       for c, (c_ok, c_nrm, _) in controls.items()))
+        extra = {"normwise_err": nrm, "largest_err_share": mx,
+                 "controls": {c: {"refused": not v[0], "normwise_err": v[1]}
+                              for c, v in controls.items()}}
+        del controls
+    else:
+        atol, rtol = TOL[dtype_name]
+        excess = max(((o.float() - r.float()).abs()
+                      - rtol * r.float().abs()).max().item()
+                     for o, r in zip(outs, refs))
+        ok = excess <= atol
+        reading = (f"limit {atol:g} + {rtol:g}*|plain|, excess "
+                   f"{excess:.3e}")
+        extra = {"atol": atol, "rtol": rtol}
     del out, ref, outs, refs
     ms = time_ms(kernel, iters)
     plain_ms = time_ms(plain, max(1, iters // 4))
     library_ms = None if library is None else time_ms(library,
                                                       max(1, iters // 4))
     bound_ms, bound_by = bound(flops, nbytes, dtype_name)
-    print(f"  {name}: max_abs_err {err:.3e} (limit {atol:g} + "
-          f"{rtol:g}*|plain|, excess {excess:.3e}) kernel {ms:.4f} ms"
+    print(f"  {name}: max_abs_err {err:.3e} ({reading}) kernel {ms:.4f} ms"
           f" plain {plain_ms:.4f} ms library "
           f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} "
           f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
     if not finite:
         fail(f"{name}: kernel output is not finite")
-    if not excess <= atol:
-        fail(f"{name}: error exceeds {atol} + {rtol}*|plain| by "
-             f"{excess - atol}")
+    if not ok:
+        fail(f"{name}: error beyond the limit ({reading})")
+    if bwd and not all(c["refused"] for c in extra["controls"].values()):
+        fail(f"{name}: the check passed a faulty copy ({reading})")
     torch.cuda.empty_cache()
     return {"phase": name, "dtype": dtype_name, "max_abs_err": err,
-            "atol": atol, "rtol": rtol, "ms": ms, "plain_ms": plain_ms,
+            **extra, "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -160,6 +239,23 @@ def kernel_phases():
             dtype_name=str(dt)[6:], iters=iters))
         del qkv, q, k, v, qt, kt, vt
 
+    # K6: the JAX package's unpacked (B*H, S, D) kernel serves head dims
+    # the TPU cannot pack (d = 192); the port's K1 reads any (B, S, H, D)
+    # view, so its d=192 instance stands for it
+    b, s_, h, d = 2, 4096, 2, 192
+    qkv = randn(b, s_, 3 * h * d, dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    phases["flash_attention_fwd_d192"] = [check_phase(
+        "K6 (K1 d=192) (2,4096,2x192) bfloat16",
+        lambda: fa.flash_attention_fwd(q, k, v),
+        lambda: fa.flash_attention_plain(q, k, v, d ** -0.5),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+        flops=4 * b * h * s_ * s_ * d,
+        nbytes=4 * b * s_ * h * d * 2 + b * h * s_ * 4,
+        dtype_name="bfloat16", iters=10)]
+    del qkv, q, k, v, qt, kt, vt
+
     # K2: spatial level-2 FF and motion level-0 FF (bf16), level-2 fp32
     for tag, (m, c), dt, iters in (
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
@@ -176,7 +272,7 @@ def kernel_phases():
         es = x.element_size()
         phases["geglu_projection"].append(check_phase(
             f"K2 {tag} {str(dt)[6:]} gate {gate}",
-            lambda: geglu.geglu_projection(x, w, bias),
+            lambda: geglu.geglu_fwd(x, w, bias, gate),
             lambda: geglu.geglu_plain(x, w, bias, gate),
             None,
             flops=4 * m * c * inner,
@@ -193,13 +289,91 @@ def kernel_phases():
         es = qkv.element_size()
         phases["temporal_attention"].append(check_phase(
             f"K3 motion_l0 (16,32768,8x40) {str(dt)[6:]}",
-            lambda: ta.temporal_attention(q, k, v),
+            lambda: ta.temporal_attention_fwd(q, k, v),
             lambda: ta.temporal_attention_plain(q, k, v, d ** -0.5),
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
             flops=4 * f * f * n * h * d,
             nbytes=4 * f * n * h * d * es,
             dtype_name=str(dt)[6:], iters=iters))
         del qkv, q, k, v, qt, kt, vt
+    return phases
+
+
+def bwd_phases():
+    """K4 and K5 against their plain versions at the stage-2 path's
+    shapes (B*F = 8 rows at 1024^2). The library yardstick is
+    scaled_dot_product_attention's backward (forward taken once through
+    autograd, the backward timed alone)."""
+    import torch
+    import torch.nn.functional as F
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, device="cuda", generator=gen,
+                           dtype=torch.float32).to(dtype)
+
+    def sdpa_bwd(q, k, v, do, perm):
+        qt, kt, vt = (t.permute(*perm).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qt, kt, vt)
+        go = do.unflatten(-1, (q.shape[2], q.shape[3])).permute(*perm)
+        return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
+                                           retain_graph=True)
+
+    phases = {"flash_attention_bwd": [], "temporal_attention_bwd": []}
+    # K4: spatial self-attention at level 1 (S = 4096, 10 heads) and
+    # level 2 (S = 1024, 20 heads), d = 64; flops are the JAX cost
+    # estimate 10*B*H*Sq*Sk*D; bytes q, k, v, o, dO in and dq, dk, dv out
+    # plus lse and delta
+    for tag, (b, s, h, d), dt, iters in (
+            ("unet_l1 (8,4096,10x64)", (8, 4096, 10, 64), torch.bfloat16, 5),
+            ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.bfloat16,
+             20),
+            ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.float32, 3)):
+        qkv = randn(b, s, 3 * h * d, dtype=dt)
+        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        do = randn(b, s, h * d, dtype=dt)
+        es = qkv.element_size()
+        phases["flash_attention_bwd"].append(check_phase(
+            f"K4 {tag} {str(dt)[6:]}",
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
+            lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                 d ** -0.5),
+            sdpa_bwd(q, k, v, do, (0, 2, 1, 3)),
+            flops=10 * b * h * s * s * d,
+            nbytes=8 * b * s * h * d * es + 2 * b * h * s * 4,
+            dtype_name=str(dt)[6:], iters=iters, bwd=True))
+        del qkv, q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    # K5: motion level 0 (F = 8, N = 16384, 8 heads x d = 40) in bf16 and
+    # fp32, levels 1 and 2 in bf16; flops 11*F*F*N*P and bytes
+    # 7*F*N*P*itemsize are the JAX cost estimates
+    for tag, (f, n, h, d), dt, iters in (
+            ("motion_l0 (8,16384,8x40)", (8, 16384, 8, 40), torch.bfloat16,
+             20),
+            ("motion_l0 (8,16384,8x40)", (8, 16384, 8, 40), torch.float32,
+             10),
+            ("motion_l1 (8,4096,8x80)", (8, 4096, 8, 80), torch.bfloat16, 20),
+            ("motion_l2 (8,1024,8x160)", (8, 1024, 8, 160), torch.bfloat16,
+             20)):
+        qkv = randn(f, n, 3 * h * d, dtype=dt)
+        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+        do = randn(f, n, h * d, dtype=dt)
+        es = qkv.element_size()
+        phases["temporal_attention_bwd"].append(check_phase(
+            f"K5 {tag} {str(dt)[6:]}",
+            lambda: ta.temporal_attention_bwd(q, k, v, do),
+            lambda: ta.temporal_attention_bwd_plain(q, k, v, do, d ** -0.5),
+            sdpa_bwd(q, k, v, do, (1, 2, 0, 3)),
+            flops=11 * f * f * n * h * d, nbytes=7 * f * n * h * d * es,
+            dtype_name=str(dt)[6:], iters=iters, bwd=True))
+        del qkv, q, k, v, do
+        torch.cuda.empty_cache()
     return phases
 
 
@@ -255,12 +429,214 @@ def small_reference():
              f"(kernel launches {used})")
 
 
-def main_path():
-    import torch
-    from video_style_transfer_tpu_torch.cli import infer_video
+def counters():
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     from video_style_transfer_tpu_torch.ops import geglu
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "geglu_projection": geglu.LAUNCHES,
+            "temporal_attention": ta.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "temporal_attention_bwd": ta.BWD_LAUNCHES}
+
+
+def reset_counters():
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import geglu
+    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+    fa.LAUNCHES = fa.BWD_LAUNCHES = geglu.LAUNCHES = 0
+    ta.LAUNCHES = ta.BWD_LAUNCHES = 0
+
+
+def small_training_reference():
+    """One tiny stage-2 loss and backward on the card (fp32: every kernel
+    of the path, K1-K5) against the same on the CPU (the plain versions),
+    from the same weights, LoRAs, batch and draws, all drawn on the CPU.
+    The tiny UNet is widened at level 1 to 128 channels in 2 heads (d =
+    64) and fed 64^2 latents, so that its self-attention (1024 tokens)
+    takes the flash kernels and its motion modules (d = 16) the temporal
+    ones."""
+    import torch
+    from video_style_transfer_tpu_torch.config import UNetConfig
+    from video_style_transfer_tpu_torch.lora.surgery import (
+        insert_temporal_lora, insert_unziplora, iter_motion_attention_paths,
+        spatial_pairs, tree_get)
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.unet import init_unet
+    from video_style_transfer_tpu_torch.schedulers.ddpm import make_schedule
+    from video_style_transfer_tpu_torch.training import stage2
+    from video_style_transfer_tpu_torch.utils.convert import to_device
+
+    cfg = UNetConfig.tiny(use_motion_modules=True,
+                          block_out_channels=(32, 128),
+                          num_attention_heads=(2, 2))
+    params = init_unet(Init(0), cfg)
+    params, state = insert_unziplora(params, Init(1), rank=4)
+    insert_temporal_lora(params, Init(2), rank=4)
+    ini = Init(3)
+    for path in iter_motion_attention_paths(params):
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            tl = tree_get(params, path + (proj, "tlora"))
+            tl["b"] = ini.normal(tuple(tl["b"].shape), 0.05)
+    g = torch.Generator().manual_seed(4)
+    batch = {"latents": torch.randn(1, 2, 64, 64, 4, generator=g),
+             "ctx": torch.randn(1, 7, 32, generator=g),
+             "pooled": torch.randn(1, 32, generator=g),
+             "uncond_ctx": torch.randn(1, 7, 32, generator=g),
+             "uncond_pooled": torch.randn(1, 32, generator=g),
+             "time_ids": torch.tensor([[512., 512, 0, 0, 512, 512]])}
+    draws = stage2.draw_stage2(make_schedule(), (1, 2, 64, 64, 4),
+                               cfg_dropout=0.1, generator=g, device="cpu")
+    mask = stage2.trainable_mask(params)
+
+    def run(dev):
+        p = to_device(params, dev)
+        trainable = stage2.split_trainable(p, mask)
+        loss, _ = stage2.stage2_loss(
+            p, cfg, make_schedule(), to_device(batch, dev),
+            to_device(draws, dev), pairs=spatial_pairs(p), lambda_orth=0.1,
+            mode="both", state=to_device(state, dev), remat=True)
+        loss.backward()
+        return loss.item(), [(path, t.grad.cpu()) for path, t in trainable]
+
+    reset_counters()
+    gpu_loss, gpu_grads = run(torch.device("cuda"))
+    used = counters()
+    cpu_loss, cpu_grads = run(torch.device("cpu"))
+    worst, where = 0.0, None
+    for (path, a), (_, b) in zip(gpu_grads, cpu_grads):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max()) / max(scale, 1e-12)
+        if err > worst:
+            worst, where = err, path
+    loss_err = abs(gpu_loss - cpu_loss) / abs(cpu_loss)
+    print(f"small-input training reference: tiny stage-2 step (fp32, "
+          f"remat blocks), cuda vs cpu loss rel err {loss_err:.2e} (limit "
+          f"1e-5), worst gradient error {worst:.2e} of the tensor's max "
+          f"(limit 1e-4, at {'.'.join(map(str, where or ()))}) over "
+          f"{len(gpu_grads)} trainable tensors; kernel launches on the "
+          f"card {used}", flush=True)
+    if not (loss_err <= 1e-5 and worst <= 1e-4):
+        fail("tiny stage-2 step on cuda differs from cpu")
+    for name, n in used.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched by the tiny stage-2 step")
+
+
+def expected_train_launches(cfg, *, frames, resolution, steps):
+    """Kernel launches of `steps` stage-2 steps at B = 1, from the UNet's
+    block counts: spatial self-attentions of >= 1024 tokens and d % 64 ==
+    0 take K1/K4, every spatial and motion feed-forward K2, every motion
+    attention K3/K5 (d % 8 == 0), and each clip frame's VAE-encoder
+    mid-block attention K1. The trainer stores every activation (no
+    remat), so each forward runs once per step."""
+    from video_style_transfer_tpu_torch.config import CROSS
+    lat = resolution // 8
+    flash = spatial = motion = 0
+    levels = [(i, cfg.layers_per_block, t) for i, t in
+              enumerate(cfg.down_block_types)]
+    levels += [(len(cfg.up_block_types) - 1 - i, cfg.layers_per_block + 1, t)
+               for i, t in enumerate(cfg.up_block_types)]
+    for lvl, n_groups, btype in levels:
+        motion += n_groups
+        if btype == CROSS:
+            layers = n_groups * cfg.transformer_layers_per_block[lvl]
+            spatial += layers
+            tokens = (lat >> lvl) ** 2
+            d = cfg.block_out_channels[lvl] // cfg.num_attention_heads[lvl]
+            if tokens >= 1024 and d % 64 == 0:
+                flash += layers
+    mid = cfg.transformer_layers_per_block[-1]
+    spatial += mid
+    d = cfg.block_out_channels[-1] // cfg.num_attention_heads[-1]
+    if (lat >> (len(cfg.block_out_channels) - 1)) ** 2 >= 1024 and \
+            d % 64 == 0:
+        flash += mid
+    return {"flash_attention_fwd": steps * (flash + frames),
+            "geglu_projection": steps * (spatial + motion),
+            "temporal_attention": steps * 2 * motion,
+            "flash_attention_bwd": steps * flash,
+            "temporal_attention_bwd": steps * 2 * motion}
+
+
+def stage2_path():
+    """The stage-2 trainer at full width: the frozen tensors stay bitwise
+    unchanged, the f32 temporal-LoRA b tensors move, the losses are
+    finite and every kernel launches as often as the block counts say."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import train_animatediff
+
+    args = train_animatediff.build_parser().parse_args([
+        "--prompt", "a horse galloping through a snowy forest",
+        "--num_frames", str(TRAIN_FRAMES), "--resolution", str(RESOLUTION),
+        "--max_train_steps", str(TRAIN_STEPS), "--lr_warmup_steps", "1",
+        "--device", "cuda", "--seed", "0",
+        "--log_every", "1"])
+    snap = {}
+
+    def on_setup(params, trainable):
+        from video_style_transfer_tpu_torch.training.stage2 import (
+            iter_leaves)
+        names = {p for p, _ in trainable}
+        for path, t in iter_leaves(params):
+            snap[path] = (path in names, t.detach().to("cpu", copy=True))
+
+    report = {}
+    reset_counters()
+    t0 = time.perf_counter()
+    params, trainable = train_animatediff.train(args, report, on_setup)
+    total = time.perf_counter() - t0
+    counts = counters()
+    from video_style_transfer_tpu_torch.cli.common import model_configs
+    from video_style_transfer_tpu_torch.training.stage2 import iter_leaves
+    expected = expected_train_launches(
+        model_configs(smoke=False, motion=True)[0], frames=TRAIN_FRAMES,
+        resolution=RESOLUTION, steps=TRAIN_STEPS)
+    print(f"stage-2 path: set-up {report['weight_init_s']:.3f} s, clip "
+          f"encode {', '.join(f'{s:.3f}' for s in report['encode_s'])} s "
+          f"({TRAIN_FRAMES} frames fp32), train steps "
+          f"{', '.join(f'{s:.3f}' for s in report['step_s'])} s, total "
+          f"{total:.3f} s, peak memory {report.get('peak_memory_gib', 0):.2f} "
+          f"GiB (no remat), {report['trainable_tensors']} "
+          f"trainable tensors ({report['trainable_params']} params), "
+          f"losses {report['loss']}", flush=True)
+    print(f"launches on the stage-2 path: {counts} (expected {expected})",
+          flush=True)
+    if not all(map(math.isfinite, report["loss"])):
+        fail(f"non-finite stage-2 losses {report['loss']}")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the stage-2 path")
+        if n != expected[name]:
+            fail(f"kernel {name} launched {n} times on the stage-2 path, "
+                 f"expected {expected[name]}")
+    frozen_moved, b_still, bf16_changed, bf16_total = 0, 0, 0, 0
+    for path, t in iter_leaves(params):
+        was_trainable, before = snap[path]
+        same = torch.equal(t.detach().cpu(), before)
+        if not was_trainable:
+            frozen_moved += not same
+        elif path[-2:-1] == ("tlora",) and path[-1] == "b":
+            b_still += same
+        elif t.dtype == torch.bfloat16:
+            bf16_total += 1
+            bf16_changed += not same
+    n_b = sum(1 for p, _ in trainable if p[-1] == "b" and "tlora" in p)
+    print(f"after {TRAIN_STEPS} steps: {frozen_moved} of "
+          f"{sum(1 for w, _ in snap.values() if not w)} frozen tensors "
+          f"changed (must be 0); {n_b - b_still} of {n_b} f32 temporal-LoRA "
+          f"b tensors moved (must be all); {bf16_changed} of {bf16_total} "
+          f"bf16 trainable tensors changed (reported only: a ~2e-5 Adam "
+          f"step is below half a bf16 ulp for most weights)", flush=True)
+    if frozen_moved or b_still:
+        fail("stage-2 training moved frozen tensors or left temporal-LoRA "
+             "b tensors unchanged")
+    return counts
+
+
+def main_path():
+    import torch
+    from video_style_transfer_tpu_torch.cli import infer_video
 
     args = infer_video.build_parser().parse_args([
         "--prompt", "a horse galloping through a snowy forest",
@@ -269,13 +645,11 @@ def main_path():
         "--guidance_scale", "7.5", "--device", "cuda", "--seed", "0"])
     torch.cuda.reset_peak_memory_stats()
     report = {}
-    fa.LAUNCHES = geglu.LAUNCHES = ta.LAUNCHES = 0
+    reset_counters()
     t0 = time.perf_counter()
     outs = infer_video.generate(args, report)
     total = time.perf_counter() - t0
-    counts = {"flash_attention_fwd": fa.LAUNCHES,
-              "geglu_projection": geglu.LAUNCHES,
-              "temporal_attention": ta.LAUNCHES}
+    counts = counters()
     rep = report["base"]
     print(f"main path: weight init {report['weight_init_s']:.3f} s, text "
           f"encode {rep['text_encode_s']:.3f} s, denoise steps "
@@ -289,13 +663,15 @@ def main_path():
     # and one feed-forward each) and 15 motion modules (two temporal
     # attentions and one feed-forward each); the VAE mid-block attention
     # once per decoded frame
+    # (serving runs no backward)
     expected = {"flash_attention_fwd": 70 * STEPS + NUM_FRAMES,
                 "geglu_projection": 85 * STEPS,
-                "temporal_attention": 30 * STEPS}
+                "temporal_attention": 30 * STEPS,
+                "flash_attention_bwd": 0, "temporal_attention_bwd": 0}
     print(f"launches on the main path: {counts} (expected {expected})",
           flush=True)
     for name, n in counts.items():
-        if n <= 0:
+        if n <= 0 and expected[name] > 0:
             fail(f"kernel {name} was not launched on the main path")
         if n != expected[name]:
             fail(f"kernel {name} launched {n} times, expected "
@@ -349,26 +725,36 @@ def main():
           "checked at S=4096, not the path's 16384, where the plain "
           "version's f32 logits alone would be 1 GB):", flush=True)
     phases = kernel_phases()
+    phases.update(bwd_phases())
     small_reference()
-    counts = main_path()
+    small_training_reference()
+    by_path = {"serving": main_path(), "stage2": stage2_path()}
 
+    csrc = "video_style_transfer_tpu_torch/csrc/"
+    jax_ops = "video_style_transfer_tpu/ops/"
     sources = {
-        "flash_attention_fwd": (
-            "video_style_transfer_tpu_torch/csrc/flash_attention.cu",
-            "video_style_transfer_tpu/ops/flash_attention.py:253"),
-        "geglu_projection": (
-            "video_style_transfer_tpu_torch/csrc/geglu.cu",
-            "video_style_transfer_tpu/ops/geglu.py:100"),
-        "temporal_attention": (
-            "video_style_transfer_tpu_torch/csrc/temporal_attention.cu",
-            "video_style_transfer_tpu/ops/temporal_attention.py:37"),
+        "flash_attention_fwd": ("flash_attention.cu",
+                                "flash_attention.py:253"),
+        "geglu_projection": ("geglu.cu", "geglu.py:100"),
+        "temporal_attention": ("temporal_attention.cu",
+                               "temporal_attention.py:37"),
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "flash_attention.py:596"),
+        "temporal_attention_bwd": ("temporal_attention_bwd.cu",
+                                   "temporal_attention.py:129"),
+        # K1's d=192 instance; no path of the port has that head dim
+        "flash_attention_fwd_d192": ("flash_attention.cu",
+                                     "flash_attention.py:50"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
-        first = phases[name][0]  # the main path's principal shape
+        first = phases[name][0]  # the path's principal shape
+        launches = {path: c.get(name, 0) for path, c in by_path.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": counts[name],
+            "name": name, "route": "cuda", "source": csrc + src,
+            "replaces": jax_ops + replaces,
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions on the
-card. Every test here is marked ``cuda`` and skips without a GPU. The
+card, and gradients through their autograd wrappers against the CPU.
+Every test here is marked ``cuda`` and skips without a GPU. The
 file imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
@@ -73,7 +74,113 @@ def test_cuda_temporal_attention_matches_plain(dtype, d):
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(16, 300, 3 * 8 * d, device="cuda", generator=g,
                       dtype=dtype)
-    out = tta.temporal_attention_qkv(qkv, 8)
     q, k, v = (t.unflatten(-1, (8, d)) for t in qkv.split(8 * d, -1))
+    out = tta.temporal_attention(q, k, v)
     ref = tta.temporal_attention_plain(q, k, v, d ** -0.5)
     _assert_close(out, ref)
+
+
+def _assert_close_bwd(out, ref):
+    """Backward kernels. bf16, against each output's own scale (the
+    gradients are ~1/sqrt(S) in size, far below an absolute 2e-2): the
+    normwise error |out - ref|_2 / |ref|_2 at most 2^-10 and the largest
+    entry's error at most 2^-6 of max |ref|, two bf16 ulps (both round p
+    and ds at the same points, so only rounding flips differ: ~2e-4
+    normwise). fp32:
+    1e-5 absolute plus 1e-5 relative (dk/dv are f32 sums over every query
+    row, and K4 takes exp2 where the plain version takes exp)."""
+    diff = out.double() - ref.double()
+    if out.dtype == torch.bfloat16:
+        assert diff.norm().item() <= 2 ** -10 * ref.double().norm().item()
+        assert (diff.abs().max().item()
+                <= 2 ** -6 * ref.double().abs().max().item())
+        return
+    excess = diff.abs() - 1e-5 * ref.double().abs()
+    assert excess.max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bwd_matches_plain(dtype):
+    # S = 1100 leaves masked q and kv tails in both kernels
+    _need_cuda()
+    d = 64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(2, 1100, 3 * 2 * d, device="cuda", generator=g,
+                      dtype=dtype)
+    q, k, v = (t.unflatten(-1, (2, d)) for t in qkv.split(2 * d, -1))
+    do = torch.randn(2, 1100, 2 * d, device="cuda", generator=g, dtype=dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    for a, b in zip(got, ref):
+        _assert_close_bwd(a, b)
+        # the check sees a 3 % scale fault
+        with pytest.raises(AssertionError):
+            _assert_close_bwd((a.float() * 0.97).to(dtype), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f,d", [(torch.bfloat16, 8, 40),
+                                       (torch.float32, 16, 160),
+                                       (torch.bfloat16, 32, 80)])
+def test_cuda_temporal_attention_bwd_matches_plain(dtype, f, d):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(f, 300, 3 * 8 * d, device="cuda", generator=g,
+                      dtype=dtype)
+    q, k, v = (t.unflatten(-1, (8, d)) for t in qkv.split(8 * d, -1))
+    do = torch.randn(f, 300, 8 * d, device="cuda", generator=g, dtype=dtype)
+    got = tta.temporal_attention_bwd(q, k, v, do)
+    ref = tta.temporal_attention_bwd_plain(q, k, v, do, d ** -0.5)
+    for a, b in zip(got, ref):
+        _assert_close_bwd(a, b)
+
+
+def _grads_vs_cpu(fn, inputs):
+    """fn's output on the card carries a grad_fn, and its gradients (the
+    kernel forward, the kernel or torch backward) match the same call on
+    the CPU (the plain versions); fp32, 1e-4 of each gradient's max."""
+    cuda_in = [t.cuda().requires_grad_() for t in inputs]
+    cpu_in = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*cuda_in)
+    assert out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    (out * cot.cuda()).sum().backward()
+    (fn(*cpu_in) * cot).sum().backward()
+    for a, b in zip(cuda_in, cpu_in):
+        scale = b.grad.abs().max().item()
+        assert (a.grad.cpu() - b.grad).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_flash():
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 1100, 2, 64, generator=g) for _ in range(3))
+    before = tfa.BWD_LAUNCHES
+    _grads_vs_cpu(tfa.flash_attention, [q, k, v])
+    assert tfa.BWD_LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_geglu():
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1000, 320, generator=g)
+    w = torch.randn(2 * 1280, 320, generator=g) * 0.05
+    b = torch.randn(2 * 1280, generator=g) * 0.1
+    before = tgeglu.LAUNCHES
+    _grads_vs_cpu(tgeglu.geglu_projection, [x, w, b])
+    assert tgeglu.LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_temporal_attention():
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(8, 300, 8, 40, generator=g) for _ in range(3))
+    before = (tta.LAUNCHES, tta.BWD_LAUNCHES)
+    _grads_vs_cpu(tta.temporal_attention, [q, k, v])
+    assert (tta.LAUNCHES, tta.BWD_LAUNCHES) == (before[0] + 1,
+                                                before[1] + 1)

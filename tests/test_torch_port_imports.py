@@ -31,6 +31,10 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
     assert "video_style_transfer_tpu_torch/cli/infer_video.py" in names
+    for mod in ("cli/train_animatediff.py", "training/stage2.py",
+                "training/schedules.py", "lora/unzip.py", "lora/temporal.py",
+                "lora/surgery.py"):
+        assert f"video_style_transfer_tpu_torch/{mod}" in names
     assert len(names) > 20
 
 
@@ -49,3 +53,12 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
         ["--smoke", "--prompt", "a horse", "--device", "cuda"])
     with pytest.raises(SystemExit, match="CUDA is not available"):
         infer_video.generate(args)
+
+
+def test_train_cuda_device_without_cuda_raises(monkeypatch):
+    from video_style_transfer_tpu_torch.cli import train_animatediff
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_animatediff.build_parser().parse_args(
+        ["--smoke", "--prompt", "a horse", "--device", "cuda"])
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        train_animatediff.train(args)

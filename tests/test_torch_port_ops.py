@@ -146,11 +146,14 @@ def test_temporal_attention_matches_jax(no_library, f, h, d, n):
 
 
 def test_temporal_attention_qkv_reads_fused_segments(no_library):
+    # the motion module passes strided (F, N, H, d) views of one fused
+    # (F, N, 3P) projection
     f, n, h, d = 3, 16, 2, 8
     qkv = _t(_rand(50, (f, n, 3 * h * d)))
-    q, k, v = (t.reshape(f, n, h, d) for t in qkv.split(h * d, dim=-1))
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, dim=-1))
+    assert not q.is_contiguous()
     np.testing.assert_array_equal(
-        tta.temporal_attention_qkv(qkv, h).numpy(),
+        tta.temporal_attention(q, k, v).numpy(),
         tta.temporal_attention(q.contiguous(), k.contiguous(),
                                v.contiguous()).numpy())
 
@@ -166,7 +169,34 @@ def test_cpu_calls_count_no_launches(no_library):
 
 
 def test_backward_is_refused():
+    # the first backward runs (K4's plain version on the CPU); the kernel
+    # backward is itself not differentiable, so a second order is refused
     q = _t(_rand(70, (1, 8, 1, 64))).requires_grad_()
     out = tfa.flash_attention(q, q.detach(), q.detach())
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
+    cot = torch.ones_like(out).requires_grad_()
+    (g,) = torch.autograd.grad(out, q, grad_outputs=cot, create_graph=True)
+    assert torch.isfinite(g).all()
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        g.sum().backward()
+
+
+def test_ctypes_signatures_match_c_entries():
+    # every C entry point's parameter list (from the .cu source) matches
+    # the argument types ctypes passes: a mismatch reads the stream
+    # pointer from the wrong slot and crashes the process on the card
+    import ctypes
+    import re
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    seen = set()
+    for src in sorted(cuda_build.CSRC.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            types = []
+            for p in params.split(","):
+                decl = " ".join(p.split()[:-1])
+                types.append(ctypes.c_void_p if "*" in p
+                             else kinds[decl])
+            assert cuda_build.SIGNATURES[name] == types, name
+            seen.add(name)
+    assert seen == set(cuda_build.SIGNATURES)

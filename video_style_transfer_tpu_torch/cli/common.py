@@ -1,5 +1,5 @@
 """Shared CLI runtime: device selection, model assembly with seeded
-random weights, and text conditioning.
+random weights, text conditioning and VAE-encoded training latents.
 
 Checkpoint loading and the CLIP tokenizer are not ported yet, so every
 model is built from a seed and every prompt becomes seeded token ids
@@ -21,7 +21,8 @@ from video_style_transfer_tpu_torch.models.clip import (
     encode_sdxl_prompt, init_clip)
 from video_style_transfer_tpu_torch.models.layers import Init
 from video_style_transfer_tpu_torch.models.unet import init_unet
-from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
+from video_style_transfer_tpu_torch.models.vae import (
+    init_vae_decoder, init_vae_encoder, vae_encode)
 from video_style_transfer_tpu_torch.pipelines.image import default_time_ids
 from video_style_transfer_tpu_torch.pipelines.sampling import Conditioning
 
@@ -42,6 +43,7 @@ class ModelBundle:
     clip_g_cfg: CLIPConfig
     device: torch.device
     vae_scale_factor: int = 8
+    vae_encoder: Any = None
 
 
 def resolve_device(name: str) -> torch.device:
@@ -67,9 +69,10 @@ def model_configs(smoke: bool, motion: bool):
 
 def load_models(pretrained: Optional[str], *, smoke: bool = False,
                 motion: bool = True, dtype=torch.bfloat16, seed: int = 0,
-                device="cpu") -> ModelBundle:
-    """UNet and CLIPs in `dtype`, the VAE decoder in fp32 (the reference
-    decodes in fp32), all drawn from `seed` on `device`."""
+                device="cpu", encoder: bool = False) -> ModelBundle:
+    """UNet and CLIPs in `dtype`, the VAE decoder (and with `encoder` the
+    VAE encoder) in fp32 (the reference keeps the VAE in fp32), all drawn
+    from `seed` on `device`."""
     if pretrained:
         raise SystemExit("loading checkpoints is not ported yet: run "
                          "without --pretrained_model_name_or_path for "
@@ -84,7 +87,9 @@ def load_models(pretrained: Optional[str], *, smoke: bool = False,
         clip_l_cfg=lcfg,
         clip_g=init_clip(Init(seed + 3, device, dtype), gcfg),
         clip_g_cfg=gcfg, device=device,
-        vae_scale_factor=2 ** (len(vcfg.block_out_channels) - 1))
+        vae_scale_factor=2 ** (len(vcfg.block_out_channels) - 1),
+        vae_encoder=(init_vae_encoder(Init(seed + 4, device), vcfg)
+                     if encoder else None))
 
 
 def prompt_token_ids(prompt: str, cfg: CLIPConfig, *, pad_with_eos: bool):
@@ -132,3 +137,19 @@ def negative_conditioning(bundle: ModelBundle, negative_prompt: str, *,
     return Conditioning(ctx=(emb, emb, emb), pooled=pooled,
                         time_ids=default_time_ids(height, width, 1,
                                                   device=bundle.device))
+
+
+def encode_latents(bundle: ModelBundle, images, generator: torch.Generator):
+    """(N, H, W, 3) in [-1, 1] -> scaled latents (N, H/f, W/f, 4), each a
+    draw mean + std * eps of the posterior: fp32 encode one frame per call
+    (a whole 8-frame 1024^2 clip at once holds far more activation
+    memory)."""
+    out = []
+    for k in range(images.shape[0]):
+        x = images[k:k + 1].float()
+        eps = torch.randn((1, x.shape[1] // bundle.vae_scale_factor,
+                           x.shape[2] // bundle.vae_scale_factor,
+                           bundle.vae_cfg.latent_channels),
+                          generator=generator, device=x.device)
+        out.append(vae_encode(bundle.vae_encoder, bundle.vae_cfg, x, eps))
+    return torch.cat(out)

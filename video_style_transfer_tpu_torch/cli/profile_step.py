@@ -1,16 +1,20 @@
-"""Where the time of one denoise step goes, on the GPU.
+"""Where the time of one denoise or training step goes, on the GPU.
 
 Builds the full-width SDXL + AnimateDiff-XL UNet with seeded random
-weights (as ``cli.infer_video`` does without a checkpoint), runs one
-warm-up CFG denoise call, then traces one more with ``torch.profiler``
-and prints, as one JSON line: the step's host seconds (ending in a
-synchronise), the device kernels' summed time by category (the port's
-three kernels, GEMMs, convolutions, everything else) with launch counts,
-the device's idle share between the first and the last kernel, and the
-slowest kernel names.
+weights (as ``cli.infer_video`` and ``cli.train_animatediff`` do without a
+checkpoint) and warms each phase up once. Serving has one phase, a CFG
+denoise call; training (``--train``) has two, the fp32 VAE encode of one
+clip and the train step (forward, backward, optimizer update). Each
+phase runs once without the profiler, then once traced with
+``torch.profiler``, and is printed as one JSON line: its host seconds
+both ways (each ending in a synchronise; their difference is the
+profiler's own cost), the device kernels' summed time by category (the
+port's kernels, GEMMs, convolutions, everything else) with launch counts,
+the device's idle share between the first and the last kernel, peak
+memory and the slowest kernel names.
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--num_frames 16] [--resolution 1024]
+        [--train] [--num_frames N] [--resolution 1024]
 """
 from __future__ import annotations
 
@@ -25,7 +29,9 @@ CATEGORIES = (
     ("K1 flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
-    ("conv", ("conv", "cudnn", "fprop", "dgrad", "winograd")),
+    ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq")),
+    ("K5 temporal_attention_bwd", ("ta_bwd_kernel",)),
+    ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
 )
 
@@ -38,19 +44,11 @@ def category(name: str) -> str:
     return "other"
 
 
-def main(argv=None):
+def _serving_phases(args, dev):
+    """[("cfg_denoise", fn)]: one CFG denoise call, warmed up."""
     from video_style_transfer_tpu_torch.cli import common
     from video_style_transfer_tpu_torch.pipelines.sampling import (
         make_cfg_denoiser)
-
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--num_frames", type=int, default=16)
-    p.add_argument("--resolution", type=int, default=1024)
-    p.add_argument("--top", type=int, default=15)
-    args = p.parse_args(argv)
-    dev = common.resolve_device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
     with torch.inference_mode():
         bundle = common.load_models(None, motion=True, dtype=torch.bfloat16,
@@ -67,15 +65,56 @@ def main(argv=None):
         x = torch.randn(f, res // 8, res // 8, 4, generator=gen, device=dev,
                         dtype=torch.float32).to(torch.bfloat16)
         t = torch.tensor(958.0, device=dev)
-        eps_fn(x, t)
-        torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
+
+    def denoise():
+        with torch.inference_mode():
             eps_fn(x, t)
-            torch.cuda.synchronize()
-            step_s = time.perf_counter() - t0
+    denoise()
+    return [("cfg_denoise", denoise)], {"cfg_rows": 2 * args.num_frames}
+
+
+def _train_phases(args, dev):
+    """[("stage2_encode", fn), ("stage2_train", fn)]: the fp32 VAE encode
+    of one synthetic clip and one train step on it, warmed up."""
+    from video_style_transfer_tpu_torch.cli import train_animatediff as ta
+
+    targs = ta.build_parser().parse_args([
+        "--prompt", "a horse galloping", "--num_frames", str(args.num_frames),
+        "--resolution", str(args.resolution),
+        "--lr_warmup_steps", "1", "--max_train_steps", "1000",
+        "--device", str(dev)])
+    tr = ta.prepare(targs)
+    micro = []
+
+    def encode():
+        micro[:] = ta.sample_micro_batches(tr)
+
+    def train():
+        tr.step(tr.params, micro, tr.generator)
+    encode()
+    train()
+    return ([("stage2_encode", encode), ("stage2_train", train)],
+            {"train_rows": tr.batch * tr.frames,
+             "trainable_params": sum(t.numel() for _, t in tr.trainable)})
+
+
+def _host_seconds(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def trace(fn, top: int):
+    """Run fn once without and once under the profiler; returns the
+    summary of the traced run."""
+    torch.cuda.reset_peak_memory_stats()
+    untraced_s = _host_seconds(fn)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        traced_s = _host_seconds(fn)
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -101,11 +140,10 @@ def main(argv=None):
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
     window = spans[-1][1] - spans[0][0]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]
-    print(json.dumps({
-        "device": torch.cuda.get_device_name(0),
-        "num_frames": f, "resolution": res, "cfg_rows": 2 * f,
-        "step_host_s": step_s,
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "step_host_s": traced_s, "untraced_host_s": untraced_s,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "kernel_ms_total": sum(v[0] for v in by_cat.values()),
         "device_busy_ms": busy / 1e3, "device_window_ms": window / 1e3,
         "device_idle_share": 1.0 - busy / window,
@@ -113,7 +151,33 @@ def main(argv=None):
                         for k, v in sorted(by_cat.items(),
                                            key=lambda kv: -kv[1][0])},
         "top_kernels": [{"name": k, "ms": v[0], "launches": v[1]}
-                        for k, v in top]}))
+                        for k, v in ranked]}
+
+
+def main(argv=None):
+    from video_style_transfer_tpu_torch.cli import common
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--num_frames", type=int, default=None,
+                   help="16 for serving, 8 for --train")
+    p.add_argument("--resolution", type=int, default=1024)
+    p.add_argument("--train", action="store_true",
+                   help="trace a stage-2 clip encode and train step")
+    p.add_argument("--top", type=int, default=15)
+    args = p.parse_args(argv)
+    if args.num_frames is None:
+        args.num_frames = 8 if args.train else 16
+    dev = common.resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phases, extra = (_train_phases if args.train else _serving_phases)(
+        args, dev)
+    for name, fn in phases:
+        print(json.dumps({
+            "device": torch.cuda.get_device_name(0), "step": name,
+            "num_frames": args.num_frames, "resolution": args.resolution,
+            **extra, **trace(fn, args.top)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,108 @@
+"""UnZipLoRA dual-branch LoRA (the JAX package's lora/unzip.py forward).
+
+- ``params`` (trainable in stage 1, frozen in stage 2): content/style
+  ``down`` (in, r) and ``up`` (r, out) matrices and per-output-column
+  merger vectors ``merge_content`` / ``merge_style``;
+- ``state`` (never trainable): boolean column masks, mask-enable flags,
+  branch gates and cone scores;
+- ``mode``: "base" | "both" | "content" | "style".
+
+The delta runs in the factored rank-space form ``(x @ down) @ (up *
+gate)`` in fp32 whatever the activation dtype, and is rounded once to it;
+the gate is merge x mask x on per output column ("both") or mask x on
+("content"/"style": the single-branch modes skip the merger). The LoRA
+matrices keep the JAX (in, r) / (r, out) orientation, so ``x @ down``
+needs no transpose.
+"""
+from __future__ import annotations
+
+import torch
+
+from video_style_transfer_tpu_torch.models import layers
+
+BRANCHES = ("content", "style")
+
+
+def init_unzip_lora_params(ini, in_features: int, out_features: int,
+                           rank: int = 64, dtype=torch.float32):
+    """down and up ~ N(0, 1/rank) (the reference does not zero-init up,
+    so the delta is nonzero at step 0); mergers start at one."""
+    std = 1.0 / rank
+
+    def pair():
+        return {"down": ini.normal((in_features, rank), std, dtype),
+                "up": ini.normal((rank, out_features), std, dtype)}
+
+    ones = torch.ones(out_features, dtype=dtype, device=ini.device)
+    return {"content": pair(), "style": pair(),
+            "merge_content": ones, "merge_style": ones.clone()}
+
+
+def init_unzip_lora_state(out_features: int, device="cpu"):
+    """mask_* hard column filter, use_mask_* whether it applies, on_*
+    branch gate, score_* cone column scores."""
+    st = {}
+    for b in BRANCHES:
+        st[f"mask_{b}"] = torch.zeros(out_features, dtype=torch.bool,
+                                      device=device)
+        st[f"use_mask_{b}"] = torch.tensor(False, device=device)
+        st[f"on_{b}"] = torch.tensor(True, device=device)
+        st[f"score_{b}"] = torch.zeros(out_features, dtype=torch.float32,
+                                       device=device)
+    return st
+
+
+def _column_gate(params, state, branch: str, with_merge: bool):
+    """Per-output-column multiplicative gate of one branch."""
+    merge = params[f"merge_{branch}"]
+    gate = torch.ones_like(merge)
+    if with_merge:
+        gate = gate * merge
+    if state is not None:
+        mask = torch.where(state[f"use_mask_{branch}"],
+                           state[f"mask_{branch}"].to(gate.dtype),
+                           torch.ones_like(gate))
+        gate = gate * mask * state[f"on_{branch}"].to(gate.dtype)
+    return gate
+
+
+def _branch_out(params, state, branch, x32, with_merge):
+    p = params[branch]
+    gate = _column_gate(params, state, branch, with_merge)
+    h = x32 @ p["down"].float()
+    return h @ (p["up"].float() * gate.float()[None, :])
+
+
+def apply_unzip_lora(params, x_content, x_style=None, *, mode: str = "both",
+                     state=None):
+    """The LoRA delta (to add to the base projection), in x's dtype."""
+    out_features = params["merge_content"].shape[0]
+    if mode == "base":
+        return x_content.new_zeros(x_content.shape[:-1] + (out_features,))
+    if x_style is None:
+        x_style = x_content
+    c32 = x_content.float()
+    s32 = c32 if x_style is x_content else x_style.float()
+    if mode == "both":
+        out = (_branch_out(params, state, "content", c32, True)
+               + _branch_out(params, state, "style", s32, True))
+    elif mode == "content":
+        out = _branch_out(params, state, "content", c32, False)
+    elif mode == "style":
+        out = _branch_out(params, state, "style", s32, False)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    return out.to(x_content.dtype)
+
+
+def dual_linear(p, x, x_content=None, x_style=None, *, mode: str = "base",
+                state=None):
+    """Base linear in the activation dtype plus, outside "base" mode, the
+    fp32 UnZipLoRA delta of the content/style streams (both default to
+    x)."""
+    y = layers.linear(p, x)
+    if mode != "base" and "lora" in p:
+        y = y + apply_unzip_lora(
+            p["lora"], x if x_content is None else x_content,
+            x if x_style is None else x_style, mode=mode, state=state)
+    return y

@@ -1,10 +1,16 @@
 """Multi-head attention and the GEGLU feed-forward.
 
-Counterpart of the JAX package's models/attention.py in ``"base"`` mode:
-every projection is a plain linear (``dual_linear`` without its LoRA
-branches; the UnZipLoRA modes come with the LoRA slice). Self-attention
-runs one fused (C, 3*inner) projection whose output the flash kernel
-reads in place; cross-attention may take precomputed prompt k/v.
+Counterpart of the JAX package's models/attention.py. Each projection is
+``dual_linear`` over a params dict that may carry a ``lora`` (UnZipLoRA,
+used outside "base" mode with its ``state``) or a ``tlora`` (temporal
+LoRA) entry. Self-attention without either runs one fused (C, 3*inner)
+projection whose output the flash kernel reads in place; with one it
+projects q, k and v separately. Threading of the three streams:
+
+- q and out projections, self-attention k/v: the hidden states;
+- cross-attention k/v: the (combined, content, style) prompt embeddings
+  (content/style default to the combined one);
+- cross-attention may take precomputed prompt k/v instead.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from video_style_transfer_tpu_torch.lora.temporal import apply_temporal_lora
+from video_style_transfer_tpu_torch.lora.unzip import dual_linear
 from video_style_transfer_tpu_torch.models import layers
 from video_style_transfer_tpu_torch.ops.attention import (
     merge_heads, sdpa, sdpa_fused_qkv, split_heads)
@@ -49,13 +57,26 @@ def fused_qkv_projection(p, x):
     return F.linear(x, w, b)
 
 
-def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None):
+def _proj(p, st, name, x, x_c, x_s, mode):
+    sub = None if st is None else st.get(name)
+    y = dual_linear(p[name], x, x_c, x_s, mode=mode, state=sub)
+    if "tlora" in p[name]:
+        y = y + apply_temporal_lora(p[name]["tlora"], x)
+    return y
+
+
+def _plain(pp) -> bool:
+    return "lora" not in pp and "tlora" not in pp
+
+
+def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None,
+              mode: str = "base", state=None):
     """x: (N, S, C). ctx: None for self-attention, or a (combined,
-    content, style) tuple of encoder states (base mode reads the combined
-    one). kv: optional precomputed (k, v), each (Bk, Sk, inner); Bk may
-    divide N by a frame-replication factor."""
+    content, style) tuple of encoder states. kv: optional precomputed
+    (k, v), each (Bk, Sk, inner); Bk may divide N by a frame-replication
+    factor. state: this attention's UnZipLoRA state ({proj: entry})."""
     if kv is not None:
-        q = layers.linear(p["to_q"], x)
+        q = _proj(p, state, "to_q", x, x, x, mode)
         k, v = kv
         n = x.shape[0]
         if k.shape[0] != n:
@@ -65,17 +86,22 @@ def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None):
         o = merge_heads(sdpa(split_heads(q, heads),
                              split_heads(k.to(q.dtype), heads),
                              split_heads(v.to(q.dtype), heads)))
-        return layers.linear(p["to_out"], o)
-    if ctx is None:
+        return _proj(p, state, "to_out", o, o, o, mode)
+    if ctx is None and all(_plain(p[n]) for n in _QKV):
         o = sdpa_fused_qkv(fused_qkv_projection(p, x), heads)
-        return layers.linear(p["to_out"], o)
-    c = ctx[0]
-    q = layers.linear(p["to_q"], x)
-    k = layers.linear(p["to_k"], c)
-    v = layers.linear(p["to_v"], c)
+        return _proj(p, state, "to_out", o, o, o, mode)
+    q = _proj(p, state, "to_q", x, x, x, mode)
+    if ctx is None:
+        c = c_c = c_s = x
+    else:
+        c, c_c, c_s = ctx
+        c_c = c if c_c is None else c_c
+        c_s = c if c_s is None else c_s
+    k = _proj(p, state, "to_k", c, c_c, c_s, mode)
+    v = _proj(p, state, "to_v", c, c_c, c_s, mode)
     o = merge_heads(sdpa(split_heads(q, heads), split_heads(k, heads),
                          split_heads(v, heads)))
-    return layers.linear(p["to_out"], o)
+    return _proj(p, state, "to_out", o, o, o, mode)
 
 
 def cross_attention_kv(p, ctx: Tuple):

@@ -12,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class Init:
@@ -30,16 +31,24 @@ class Init:
         t.uniform_(-bound, bound, generator=self.gen)
         return t.to(self.dtype)
 
-    def normal(self, shape, std: float):
+    def normal(self, shape, std: float, dtype=None):
         t = torch.empty(shape, device=self.device, dtype=torch.float32)
         t.normal_(0.0, std, generator=self.gen)
-        return t.to(self.dtype)
+        return t.to(self.dtype if dtype is None else dtype)
 
     def ones(self, n: int):
         return torch.ones(n, device=self.device, dtype=self.dtype)
 
     def zeros(self, n: int):
         return torch.zeros(n, device=self.device, dtype=self.dtype)
+
+
+def remat(fn, *args):
+    """fn(*args) with its activations recomputed in the backward instead
+    of stored (``jax.checkpoint``'s counterpart). Nothing inside draws
+    random numbers, so the RNG state is not stashed."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def init_linear(ini: Init, in_features: int, out_features: int, *,
@@ -102,6 +111,10 @@ def group_norm(p, x, *, num_groups: int, eps: float = 1e-5):
     # x*scale + shift in f32 and rounds once into the input dtype
     scale = torch.rsqrt(var + eps) * p["weight"].float().view(num_groups, -1)
     shift = p["bias"].float().view(num_groups, -1) - mean * scale
+    if scale.requires_grad or shift.requires_grad:
+        # autograd cannot differentiate an ``out=`` write: the same f32
+        # affine as a graph op, rounded once to the input dtype
+        return torch.addcmul(shift, xf, scale).to(x.dtype).reshape(x.shape)
     out = torch.empty(xf.shape, dtype=x.dtype, device=x.device)
     torch.addcmul(shift, xf, scale, out=out)
     return out.reshape(x.shape)

@@ -11,19 +11,23 @@ frame-sharded `_motion_module_sharded` comes with multi-GPU):
       norm3 -> ff (GEGLU)
   proj_out
 
-Tokens are (F, N, C) inside the module. q/k/v come from one fused
-(C, 3P) projection as (F, N, 3P) and the temporal-attention kernel (K3)
-reads the three segments in place.
+Tokens are (F, N, C) inside the module. Without a temporal LoRA, q/k/v
+come from one fused (C, 3P) projection as (F, N, 3P) and the
+temporal-attention kernels (K3, K5) read the three segments in place;
+with one (stage-2 training), each projection adds its fp32 rank-space
+delta, rounded once to the activation dtype, and the kernels read the
+three (F, N, P) results as (F, N, H, d) views.
 """
 from __future__ import annotations
 
+from video_style_transfer_tpu_torch.lora.temporal import apply_temporal_lora
 from video_style_transfer_tpu_torch.models import layers
 from video_style_transfer_tpu_torch.models.attention import (
     feed_forward, fused_qkv_projection, init_attention, init_feed_forward)
 from video_style_transfer_tpu_torch.models.embeddings import (
     temporal_positional_encoding)
 from video_style_transfer_tpu_torch.ops.temporal_attention import (
-    temporal_attention_plain, temporal_attention_qkv)
+    temporal_attention, temporal_attention_plain)
 
 
 def init_motion_block(ini, dim: int, *, heads: int):
@@ -37,20 +41,36 @@ def init_motion_block(ini, dim: int, *, heads: int):
     }
 
 
+def _linear_tlora(p, x, x32=None):
+    y = layers.linear(p, x)
+    if "tlora" in p:
+        y = y + apply_temporal_lora(p["tlora"], x, x32)
+    return y
+
+
 def _temporal_attention(p, x, *, heads: int):
     """x: (F, N, C) -> (F, N, C); frame-axis self-attention per pixel."""
-    qkv = fused_qkv_projection(p, x)                     # (F, N, 3P)
-    pdim = qkv.shape[-1] // 3
+    if all("tlora" not in p[n] and "bias" not in p[n]
+           for n in ("to_q", "to_k", "to_v")):
+        qkv = fused_qkv_projection(p, x)                 # (F, N, 3P)
+        pdim = qkv.shape[-1] // 3
+        q, k, v = qkv.split(pdim, -1)
+    else:
+        x32 = x.float() if any("tlora" in p[n]
+                               for n in ("to_q", "to_k", "to_v")) else None
+        q, k, v = (_linear_tlora(p[n], x, x32) for n in ("to_q", "to_k",
+                                                         "to_v"))
+        pdim = q.shape[-1]
     d = pdim // heads
+    q, k, v = (t.unflatten(-1, (heads, d)) for t in (q, k, v))
     if d % 8 == 0:
-        o = temporal_attention_qkv(qkv, heads)
+        o = temporal_attention(q, k, v)
     else:
         # head_dim not a multiple of 8 (tiny test configs): the JAX
         # package routes these to its XLA reference, so the port takes
         # the plain version whatever the device
-        q, k, v = (t.unflatten(-1, (heads, d)) for t in qkv.split(pdim, -1))
         o = temporal_attention_plain(q, k, v, d ** -0.5)
-    return layers.linear(p["to_out"], o)
+    return _linear_tlora(p["to_out"], o)
 
 
 def motion_block(p, x, pe, *, heads: int):
@@ -77,8 +97,9 @@ def init_motion_module(ini, in_channels: int, *, num_layers: int = 1,
 
 
 def motion_module(p, x, *, num_frames: int, heads: int, norm_num_groups: int,
-                  max_seq_length: int = 32):
-    """x: (B*F, H, W, C) (spatial batch layout). Returns the same shape."""
+                  max_seq_length: int = 32, remat: bool = False):
+    """x: (B*F, H, W, C) (spatial batch layout). Returns the same shape.
+    remat: recompute each motion block in the backward."""
     bf, h, w, c = x.shape
     b = bf // num_frames
     residual = x
@@ -94,7 +115,9 @@ def motion_module(p, x, *, num_frames: int, heads: int, norm_num_groups: int,
                                       device=y.device)
     pe = pe[:, None, :].to(y.dtype)
     for bp in p["transformer_blocks"]:
-        y = motion_block(bp, y, pe, heads=heads)
+        def block(y_, bp=bp):
+            return motion_block(bp, y_, pe, heads=heads)
+        y = layers.remat(block, y) if remat else block(y)
     y = layers.linear(p["proj_out"], y)
     y = y.reshape(num_frames, b, h, w, c).transpose(0, 1).reshape(bf, h, w, c)
     return y + residual

@@ -1,9 +1,11 @@
 """SDXL UNet2DCondition with AnimateDiff motion modules — functional, NHWC.
 
-Counterpart of the JAX package's models/unet.py in ``"base"`` mode: one
-init/apply pair over a params dict whose keys mirror diffusers module
-paths (down_blocks[i]["attentions"][j]...), with the motion modules as
-first-class sub-modules gated by ``cfg.use_motion_modules``.
+Counterpart of the JAX package's models/unet.py: one init/apply pair over
+a params dict whose keys mirror diffusers module paths
+(down_blocks[i]["attentions"][j]...), with the motion modules as
+first-class sub-modules gated by ``cfg.use_motion_modules``, the
+UnZipLoRA ``mode`` and ``state`` threaded to every spatial attention and
+block-level rematerialisation on ``torch.utils.checkpoint``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import Tuple
 import torch
 
 from video_style_transfer_tpu_torch.config import CROSS, UNetConfig
+from video_style_transfer_tpu_torch.lora.surgery import sub
 from video_style_transfer_tpu_torch.models import layers
 from video_style_transfer_tpu_torch.models.embeddings import (
     init_timestep_embedding, sdxl_add_embedding, sinusoidal_embedding,
@@ -134,7 +137,8 @@ def _kv(cross_kv, path, i, j):
 
 def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
                pooled_text, time_ids, *, num_frames: int = 1,
-               cross_kv=None):
+               cross_kv=None, mode: str = "base", state=None,
+               remat: bool = False):
     """Denoiser forward.
 
     sample:      (N, H, W, C_in) NHWC, N = batch * num_frames
@@ -143,6 +147,10 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
                  (B, S, cross_attention_dim)
     pooled_text: (B, pooled_dim); time_ids: (B, 6)
     cross_kv:    optional precompute_cross_kv output
+    mode, state: UnZipLoRA mode and state tree (insert_unziplora's)
+    remat:       recompute each transformer and motion block in the
+                 backward (the JAX package's remat=True); False stores
+                 every activation
     """
     n = sample.shape[0]
     b = n // num_frames
@@ -182,15 +190,17 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
     def resnet(rp, h):
         return resnet_block(rp, h, emb, num_groups=groups, eps=cfg.norm_eps)
 
-    def attn(ap, h, kv, heads):
-        return transformer_2d(ap, h, ctx, heads=heads, norm_num_groups=groups,
-                              cross_kv=kv)
+    def attn(ap, h, kv, heads, st):
+        return transformer_2d(ap, h, ctx, heads=heads,
+                              norm_num_groups=groups, cross_kv=kv,
+                              mode=mode, state=st, remat=remat)
 
     def motion(mm, h):
         return motion_module(mm, h, num_frames=num_frames,
                              heads=cfg.motion_num_attention_heads,
                              norm_num_groups=groups,
-                             max_seq_length=cfg.motion_max_seq_length)
+                             max_seq_length=cfg.motion_max_seq_length,
+                             remat=remat)
 
     h = layers.conv2d(params["conv_in"], sample)
     skips = [h]
@@ -200,7 +210,8 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
             if cfg.down_block_types[i] == CROSS:
                 h = attn(block["attentions"][j], h,
                          _kv(cross_kv, "down_blocks", i, j),
-                         cfg.num_attention_heads[i])
+                         cfg.num_attention_heads[i],
+                         sub(state, "down_blocks", i, "attentions", j))
             if motion_on and block.get("motion_modules"):
                 h = motion(block["motion_modules"][j], h)
             skips.append(h)
@@ -211,7 +222,8 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
     mid = params["mid_block"]
     h = resnet(mid["resnets"][0], h)
     h = attn(mid["attentions"][0], h, _kv(cross_kv, "mid_block", 0, 0),
-             cfg.num_attention_heads[-1])
+             cfg.num_attention_heads[-1],
+             sub(state, "mid_block", "attentions", 0))
     if motion_on and mid.get("motion_modules"):
         h = motion(mid["motion_modules"][0], h)
     h = resnet(mid["resnets"][1], h)
@@ -223,7 +235,8 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
             if cfg.up_block_types[i] == CROSS:
                 h = attn(block["attentions"][j], h,
                          _kv(cross_kv, "up_blocks", i, j),
-                         cfg.num_attention_heads[tf_idx])
+                         cfg.num_attention_heads[tf_idx],
+                         sub(state, "up_blocks", i, "attentions", j))
             if motion_on and block.get("motion_modules"):
                 h = motion(block["motion_modules"][j], h)
         if "upsamplers" in block:

@@ -39,8 +39,16 @@ SIGNATURES = {
                                 _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                 _F, _P],
+    "vst_flash_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I,
+                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                _F, _P],
     "vst_geglu_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     "vst_temporal_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                                   _F, _P],
+    "vst_temporal_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                    _F, _P],
 }

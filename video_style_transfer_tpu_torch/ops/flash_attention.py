@@ -1,15 +1,19 @@
-"""K1: flash-attention forward — CUDA kernel (csrc/flash_attention.cu)
-and its plain PyTorch version.
+"""K1: flash-attention forward (csrc/flash_attention.cu) and K4: its
+backward (csrc/flash_attention_bwd.cu), each beside its plain PyTorch
+version.
 
-Replaces the JAX package's ops/flash_attention.py Pallas kernels
-(`_attn_kernel_packed_single`, `_attn_kernel_packed`). On the H100 the
-kernel is bound by tensor-core (bf16) or FMA (fp32) throughput; see the
-source for its design. The TPU's head packing, MXU row-sum and block
-tuning have no counterpart: the kernel reads (B, S, H, D) strided views,
-so the fused (B, S, 3*H*D) projection is consumed in place.
+K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
+`_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
+the TPU cannot pack such as d=192, `_attn_kernel`); K4 replaces
+`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. On the H100 both are
+bound by tensor-core (bf16) or FMA (fp32) throughput; see the sources for
+their designs. The TPU's head packing, MXU row-sum and block tuning have
+no counterpart: the kernels read (B, S, H, D) strided views, so the fused
+(B, S, 3*H*D) projection is consumed in place.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version. The backward is the training slice's work.
+Every call goes through one ``torch.autograd.Function`` that saves q, k,
+v, the output and the lse (the JAX residuals). A CUDA tensor launches
+the kernels or raises; a CPU tensor takes the plain versions.
 """
 from __future__ import annotations
 
@@ -19,12 +23,17 @@ import torch
 
 from video_style_transfer_tpu_torch.ops import cuda_build
 
-# launches of the CUDA kernel in this process (the plain version and
-# refused calls do not count)
+# launches of the CUDA kernels in this process (the plain versions and
+# refused calls do not count): LAUNCHES the forward (K1), BWD_LAUNCHES
+# the backward (K4; one per backward call, which runs its dk/dv and its
+# dq kernel)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+# every SDXL head; the VAE's d=512 attention runs under no_grad
+BWD_HEAD_DIMS = (64,)
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -93,21 +102,104 @@ def flash_attention_fwd(q, k, v, *, scale=None):
     return out, lse
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """The backward from the saved lse (the JAX `_recompute_p_ds` math):
+    p = exp(q k^T * scale - lse), dp = dO v^T, delta = rowsum(dO * O),
+    ds = p (dp - delta) scale; dq = ds k, dk = ds^T q, dv = p^T dO, all in
+    f32, with p and ds rounded to the input dtype before their products
+    as the JAX kernels round them. q: (B, Sq, H, D); k, v: (B, Sk, H, D);
+    o, do: (B, Sq, H*D); lse (B, H, Sq) f32. Returns dq, dk, dv shaped
+    like q, k, v in q's dtype."""
+    b, sq, h, d = q.shape
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.reshape(b, sq, h, d).float()
+    delta = (dof * o.reshape(b, sq, h, d).float()).sum(-1)          # (B,Sq,H)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
+    p = p.to(dt).float()
+    ds = ds.to(dt).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check_bwd(q, k, v, o, lse, do):
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention backward: head_dim {d} not in "
+                         f"{BWD_HEAD_DIMS}")
+    for name, t, shape, dtype in (("o", o, (b, sq, h * d), q.dtype),
+                                  ("do", do, (b, sq, h * d), q.dtype),
+                                  ("lse", lse, (b, h, sq), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_cuda:
+            raise ValueError(f"flash attention backward: {name} "
+                             f"{tuple(t.shape)} {t.dtype}, expected "
+                             f"{shape} {dtype} on CUDA")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash attention backward: {name} must be "
+                             f"contiguous and 16-byte aligned")
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None):
+    """Gradients of `flash_attention_fwd`: (dq, dk, dv), each (B, S, H, D)
+    contiguous in q's dtype. delta = rowsum(dO * O) is a torch op (XLA in
+    the JAX package); the kernels recompute p from the saved lse."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    do = do.contiguous()
+    _check_bwd(q, k, v, o, lse, do)
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    delta = (do.unflatten(-1, (h, d)).float()
+             * o.unflatten(-1, (h, d)).float()).sum(-1).transpose(1, 2) \
+        .contiguous()                                             # (B,H,Sq)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.vst_flash_attention_bwd(
+            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, sq, sk, h,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), cuda_build.stream_of(q))
+    cuda_build.check_launch("flash_attention_bwd", err)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
 class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K4 backward; the residuals are the JAX ones (q, k, v,
+    out, lse)."""
+
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, _ = flash_attention_fwd(q, k, v, scale=scale)
+        out, lse = flash_attention_fwd(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
         return out
 
     @staticmethod
+    @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "flash attention backward is the training slice")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, grad,
+                                         scale=ctx.scale)
+        return dq, dk, dv, None
 
 
 def flash_attention_bshd(q, k, v, *, scale=None):
-    """q, k, v: (B, S, H, D) -> (B, Sq, H*D); differentiable only in
-    the sense that asking for a gradient raises."""
+    """q, k, v: (B, S, H, D) -> (B, Sq, H*D), differentiable (K4)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     return _FlashAttention.apply(q, k, v, float(scale))

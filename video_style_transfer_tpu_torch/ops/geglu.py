@@ -13,10 +13,16 @@ default is dtype-gated exactly as there: ``cdf3`` for bf16/f16 (its
 2.6e-5 error is far under bf16 round-off) and ``erf5`` for f32 (cdf3
 would break 2e-5 f32 parity).
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version.
+Every call goes through one ``torch.autograd.Function`` whose backward
+is the JAX package's manual `_geglu_bwd` in plain torch ops (XLA there,
+not Pallas): it recomputes the two halves instead of saving them and
+uses the exact-erf gelu derivative whatever the forward gate. A CUDA
+tensor launches the forward kernel or raises; a CPU tensor takes the
+plain forward.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -121,19 +127,13 @@ def _check(x2d, w, b):
         raise ValueError(f"geglu: {m} rows exceed the launch grid")
 
 
-def geglu_projection(x, w, b, *, gate: str = None):
-    """x: (..., C); w: (2*inner, C); b: (2*inner,). Returns (..., inner)
-    = h * gelu(g) with [h | g] = x @ w^T + b."""
-    if gate is None:
-        gate = _default_gate_for(x.dtype)
-    c = x.shape[-1]
-    inner = w.shape[0] // 2
-    lead = x.shape[:-1]
-    x2d = x.reshape(-1, c)
+def geglu_fwd(x2d, w, b, gate: str):
+    """x2d (M, C) -> (M, inner) (K2; no autograd)."""
     if not x2d.is_cuda:
-        return geglu_plain(x2d, w, b, gate).reshape(*lead, inner)
+        return geglu_plain(x2d, w, b, gate)
     _check(x2d, w, b)
-    m = x2d.shape[0]
+    m, c = x2d.shape
+    inner = w.shape[0] // 2
     out = torch.empty((m, inner), dtype=x2d.dtype, device=x2d.device)
     lib = cuda_build.library()
     with torch.cuda.device(x2d.device):
@@ -144,4 +144,58 @@ def geglu_projection(x, w, b, *, gate: str = None):
     cuda_build.check_launch("geglu_projection", err)
     global LAUNCHES
     LAUNCHES += 1
-    return out.reshape(*lead, inner)
+    return out
+
+
+def geglu_bwd(x2d, w, b, g_out, need=(True, True, True)):
+    """The JAX `_geglu_bwd`: recompute yh = x Wh^T + bh and yg = x Wg^T +
+    bg in x's dtype, then with phi/pdf of the exact normal CDF in f32
+    (d/dz[z*Phi(z)] = Phi(z) + z*pdf(z)) form dyh = g*gelu(yg) and dyg =
+    g*yh*gelu'(yg) in x's dtype; dx = dyh Wh + dyg Wg, dW = [dyh^T x;
+    dyg^T x], db = [sum dyh; sum dyg]. `need` picks which of (dx, dW,
+    db) to compute (frozen weights need dx only); the others are None."""
+    dt = x2d.dtype
+    inner = w.shape[0] // 2
+    wh, wg = w[:inner].to(dt), w[inner:].to(dt)
+    yh = F.linear(x2d, wh, b[:inner].to(dt))
+    yg = F.linear(x2d, wg, b[inner:].to(dt)).float()
+    phi = 0.5 * (1.0 + torch.erf(yg * (2.0 ** -0.5)))
+    pdf = (1.0 / math.sqrt(2.0 * math.pi)) * torch.exp(-0.5 * yg * yg)
+    gf = g_out.float()
+    dyh = (gf * (yg * phi)).to(dt)
+    dyg = (gf * yh.float() * (phi + yg * pdf)).to(dt)
+    del yh, yg, phi, pdf, gf
+    dx = dw = db = None
+    if need[0]:
+        dx = torch.addmm(dyh @ wh, dyg, wg)
+    if need[1]:
+        dw = torch.cat([dyh.t() @ x2d, dyg.t() @ x2d]).to(w.dtype)
+    if need[2]:
+        db = torch.cat([dyh.sum(0), dyg.sum(0)]).to(b.dtype)
+    return dx, dw, db
+
+
+class _Geglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, w, b, gate):
+        ctx.save_for_backward(x2d, w, b)
+        return geglu_fwd(x2d, w, b, gate)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x2d, w, b = ctx.saved_tensors
+        dx, dw, db = geglu_bwd(x2d, w, b, grad, ctx.needs_input_grad[:3])
+        return dx, dw, db, None
+
+
+def geglu_projection(x, w, b, *, gate: str = None):
+    """x: (..., C); w: (2*inner, C); b: (2*inner,). Returns (..., inner)
+    = h * gelu(g) with [h | g] = x @ w^T + b; differentiable."""
+    if gate is None:
+        gate = _default_gate_for(x.dtype)
+    c = x.shape[-1]
+    inner = w.shape[0] // 2
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, c)
+    return _Geglu.apply(x2d, w, b, gate).reshape(*lead, inner)

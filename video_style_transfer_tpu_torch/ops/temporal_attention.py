@@ -1,16 +1,18 @@
-"""K3: per-pixel temporal (frame-axis) attention forward — CUDA kernel
-(csrc/temporal_attention.cu) and its plain PyTorch version.
+"""K3: per-pixel temporal (frame-axis) attention forward
+(csrc/temporal_attention.cu) and K5: its backward
+(csrc/temporal_attention_bwd.cu), each beside its plain PyTorch version.
 
-Replaces the JAX package's ops/temporal_attention.py Pallas kernel
-(`_kernel`). The motion module keeps tokens as (F, N, C), so q/k/v come
+K3 replaces the JAX package's ops/temporal_attention.py Pallas kernel
+`_kernel`, K5 its `_bwd_kernel`. The motion module keeps tokens as (F, N, C), so q/k/v come
 out of one (C, 3P) projection as (F, N, 3P) and reach the kernel as
 (F, N, H, d) strided views; the output is (F, N, P). The JAX package's
 per-frame (P, N) lists are a TPU lane-layout choice with no counterpart
-here. On the H100 the kernel is bound by device-memory bandwidth; see
-the source for its design.
+here. On the H100 both kernels are bound by device-memory bandwidth;
+see the sources for their designs.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version.
+Every call goes through one ``torch.autograd.Function`` (residuals q, k,
+v, as in JAX). A CUDA tensor launches the kernels or raises; a CPU
+tensor takes the plain versions.
 """
 from __future__ import annotations
 
@@ -20,7 +22,10 @@ import torch
 
 from video_style_transfer_tpu_torch.ops import cuda_build
 
+# kernel launches in this process: LAUNCHES the forward (K3),
+# BWD_LAUNCHES the backward (K5)
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FRAMES = 32
@@ -35,6 +40,26 @@ def temporal_attention_plain(q, k, v, scale: float):
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("nhfg,gnhd->fnhd", w.to(v.dtype).float(), v.float())
     return o.to(q.dtype).reshape(f, n, h * d)
+
+
+def temporal_attention_bwd_plain(q, k, v, do, scale: float):
+    """The JAX `_bwd_kernel` math in f32: recompute w = softmax over
+    frames, dp_fg = do_f . v_g, delta_f = sum_g w_fg dp_fg, ds_fg =
+    w_fg (dp_fg - delta_f) scale; dq_f = sum_g ds_fg k_g, dk_g = sum_f
+    ds_fg q_f, dv_g = sum_f w_fg do_f. q, k, v: (F, N, H, d); do:
+    (F, N, H*d). Returns dq, dk, dv, each (F, N, H, d) in q's dtype."""
+    f, n, h, d = q.shape
+    dt = q.dtype
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.reshape(f, n, h, d).float()
+    w = torch.softmax(torch.einsum("fnhd,gnhd->nhfg", qf, kf) * scale, -1)
+    dp = torch.einsum("fnhd,gnhd->nhfg", dof, vf)
+    delta = (w * dp).sum(-1, keepdim=True)
+    ds = w * (dp - delta) * scale
+    dq = torch.einsum("nhfg,gnhd->fnhd", ds, kf)
+    dk = torch.einsum("nhfg,fnhd->gnhd", ds, qf)
+    dv = torch.einsum("nhfg,fnhd->gnhd", w, dof)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
 def _check(q, k, v):
@@ -69,8 +94,8 @@ def _check(q, k, v):
         raise ValueError("temporal attention: N*H beyond the launch grid")
 
 
-def temporal_attention(q, k, v, *, scale=None):
-    """q, k, v: (F, N, H, d) views -> (F, N, H*d)."""
+def temporal_attention_fwd(q, k, v, *, scale=None):
+    """q, k, v: (F, N, H, d) views -> (F, N, H*d) (K3; no autograd)."""
     f, n, h, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
@@ -90,12 +115,53 @@ def temporal_attention(q, k, v, *, scale=None):
     return out
 
 
-def temporal_attention_qkv(qkv, num_heads: int, *, scale=None):
-    """qkv: (F, N, 3P) fused projection -> (F, N, P); the q, k and v
-    segments are strided views read in place."""
-    p = qkv.shape[-1] // 3
-    d = p // num_heads
-    q = qkv[..., :p].unflatten(-1, (num_heads, d))
-    k = qkv[..., p:2 * p].unflatten(-1, (num_heads, d))
-    v = qkv[..., 2 * p:].unflatten(-1, (num_heads, d))
-    return temporal_attention(q, k, v, scale=scale)
+def temporal_attention_bwd(q, k, v, do, *, scale=None):
+    """Gradients of `temporal_attention_fwd` (K5): (dq, dk, dv), each
+    (F, N, H, d) contiguous in q's dtype."""
+    f, n, h, d = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if not q.is_cuda:
+        return temporal_attention_bwd_plain(q, k, v, do, scale)
+    do = do.contiguous()
+    _check(q, k, v)
+    if (tuple(do.shape) != (f, n, h * d) or do.dtype != q.dtype
+            or not do.is_cuda or do.data_ptr() % 16):
+        raise ValueError(f"temporal attention backward: do "
+                         f"{tuple(do.shape)} {do.dtype}, expected "
+                         f"{(f, n, h * d)} {q.dtype} on CUDA")
+    dq, dk, dv = (torch.empty((f, n, h, d), dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    lib = cuda_build.library()
+    with torch.cuda.device(q.device):
+        err = lib.vst_temporal_attention_bwd(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            f, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            float(scale), cuda_build.stream_of(q))
+    cuda_build.check_launch("temporal_attention_bwd", err)
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class _TemporalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return temporal_attention_fwd(q, k, v, scale=scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = temporal_attention_bwd(q, k, v, grad, scale=ctx.scale)
+        return dq, dk, dv, None
+
+
+def temporal_attention(q, k, v, *, scale=None):
+    """q, k, v: (F, N, H, d) views -> (F, N, H*d), differentiable (K5)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _TemporalAttention.apply(q, k, v, float(scale))

@@ -2,7 +2,11 @@
 port's parameters: the inverse of the JAX layouts (linear (in, out) ->
 (out, in), conv HWIO -> OIHW, norm ``scale`` -> ``weight``), with the
 layer-stacked subtrees (leading layer axis) split into per-layer lists.
-Leaves may be any array type ``numpy.asarray`` accepts."""
+A projection's ``lora`` (UnZipLoRA down/up/mergers) and ``tlora``
+(temporal LoRA a/b/scale) keep the JAX orientation and stay f32; the
+UnZipLoRA state tree keeps its dict layout and dtypes, its stacked
+``transformer_blocks`` split into per-layer dict entries. Leaves may be
+any array type ``numpy.asarray`` accepts."""
 from __future__ import annotations
 
 import numpy as np
@@ -50,6 +54,9 @@ def convert_tree(tree, dtype=torch.float32):
             out = {"weight": _tensor(w, dtype)}
             if tree.get("bias") is not None:
                 out["bias"] = _tensor(tree["bias"], dtype)
+            for key in ("lora", "tlora"):
+                if key in tree:
+                    out[key] = convert_tree(tree[key], torch.float32)
             return out
         if set(tree) == {"scale", "bias"}:
             return {"weight": _tensor(tree["scale"], dtype),
@@ -66,6 +73,30 @@ def convert_tree(tree, dtype=torch.float32):
     if isinstance(tree, (list, tuple)):
         return [convert_tree(v, dtype) for v in tree]
     return _tensor(tree, dtype)
+
+
+def convert_lora_state(state):
+    """JAX ``insert_unziplora`` state tree -> the port's: the same dicts
+    (integer keys included), bool and f32 leaves as they are, the stacked
+    ``transformer_blocks`` split into {layer: entry}."""
+    if isinstance(state, dict):
+        out = {}
+        for key, val in state.items():
+            if key in _STACKED:
+                n = np.asarray(next(_leaves(val))).shape[0]
+                out[key] = {i: convert_lora_state(_take(val, i))
+                            for i in range(n)}
+            else:
+                out[key] = convert_lora_state(val)
+        return out
+    return torch.from_numpy(np.array(state))
+
+
+def convert_vae_encoder(params, dtype=torch.float32):
+    """JAX ``init_vae`` tree -> port encoder params (the decoder and
+    post_quant_conv are dropped)."""
+    return convert_tree({"encoder": params["encoder"],
+                         "quant_conv": params["quant_conv"]}, dtype)
 
 
 def convert_vae_decoder(params, dtype=torch.float32):
