@@ -9,17 +9,27 @@
    the serving and stage-2 training paths, in bf16 and in fp32 (TF32
    off), and times the kernel, the plain version and, where one PyTorch
    call computes the same function, that call (the yardstick only; the
-   port never calls it): K1-K3 forward, K4-K5 backward, and K1's d=192
-   instance, which stands for the JAX package's unpacked kernel (K6).
-3. Holds the tiny pipeline and a tiny stage-2 training step on the card
-   against the same on the CPU (the plain versions).
-4. Drives the serving path through ``cli.infer_video.generate`` at full
-   SDXL + AnimateDiff-XL width and depth (seeded random weights, 16
-   frames, 1024^2, CFG 7.5, 2 steps, --modes base, bf16 UNet, fp32 VAE
-   decode), then the stage-2 trainer through
-   ``cli.train_animatediff.train`` (8 frames, 1024^2, 3 steps, bf16 UNet,
-   fp32 VAE encode), each with every kernel's launch counters set to 0
-   just before and read just after.
+   port never calls it): K1-K3 forward, K4-K5 backward, K1's d=192
+   instance, which stands for the JAX package's unpacked kernel (K6),
+   and the one-pass LayerNorm (K7), which no model calls, at the
+   LayerNorm shapes of the serving path.
+3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
+   and video CLIs on a synthetic checkpoint directory with LoRA and
+   motion artifacts read from files, on the card against the same on the
+   CPU (the plain versions).
+4. Drives, at full SDXL + AnimateDiff-XL width and depth with seeded
+   random weights, each with every kernel's launch counters set to 0
+   just before and read just after:
+   - the stage-2 trainer through ``cli.train_animatediff.train`` (8
+     frames, 1024^2, 3 steps, bf16 UNet, fp32 VAE encode), which writes
+     its motion checkpoint;
+   - the serving path through ``cli.infer_video.generate`` (16 frames,
+     1024^2, CFG 7.5, 2 steps, bf16 UNet, fp32 VAE decode) in the modes
+     base, both, content and style, from a rank-64 UnZipLoRA artifact set
+     on disk and the motion checkpoint the trainer just wrote;
+   - the image path through ``cli.infer.generate`` (1024^2, CFG 5, 3
+     DPM-Solver++ steps, mode both with distinct content and style
+     prompts, the same artifact set).
 5. Prints one JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 """
@@ -28,8 +38,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -67,6 +79,16 @@ TOL = {"bfloat16": (2e-2, 2 ** -6), "float32": (1e-5, 0.0)}
 # output's rms.
 BWD_BF16_LIMITS = (2 ** -10, 2 ** -6)
 TOL_BWD_F32 = (1e-5, 1e-5)
+# K7 (LayerNorm): kernel and plain version both keep f32 inside and
+# round once, so in bf16 they differ by at most one output ulp where an
+# f32 difference in the last bits crosses a rounding boundary: 2^-7
+# relative, plus 1e-5 absolute for outputs near zero. fp32: 1e-5 (the
+# order of two 1280-term sums and rsqrt's last bits). The phase must
+# also refuse the two faulty copies of the backward phases.
+TOL_LN = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 0.0)}
+
+IMAGE_STEPS = 3
+LORA_RANK = 64
 
 NUM_FRAMES, RESOLUTION, STEPS = 16, 1024, 2
 TRAIN_FRAMES, TRAIN_STEPS = 8, 3
@@ -138,10 +160,10 @@ def faulty_copies(outs, refs):
 
 
 def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
-                iters, bwd=False):
+                iters, bwd=False, tol=None):
     """Compare kernel vs plain (bwd: each output against its own scale,
-    with the faulty-copy controls), time all three; returns the phase
-    dict."""
+    with the faulty-copy controls; tol: an (atol, rtol) of its own, also
+    with the controls), time all three; returns the phase dict."""
     import torch
     out = kernel()
     ref = plain()
@@ -170,14 +192,24 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
                               for c, v in controls.items()}}
         del controls
     else:
-        atol, rtol = TOL[dtype_name]
-        excess = max(((o.float() - r.float()).abs()
-                      - rtol * r.float().abs()).max().item()
-                     for o, r in zip(outs, refs))
+        atol, rtol = tol or TOL[dtype_name]
+
+        def excess_of(cand):
+            return max(((o.float() - r.float()).abs()
+                        - rtol * r.float().abs()).max().item()
+                       for o, r in zip(cand, refs))
+        excess = excess_of(outs)
         ok = excess <= atol
         reading = (f"limit {atol:g} + {rtol:g}*|plain|, excess "
                    f"{excess:.3e}")
         extra = {"atol": atol, "rtol": rtol}
+        if tol is not None:
+            extra["controls"] = {
+                c: {"refused": excess_of(f) > atol}
+                for c, f in faulty_copies(outs, refs).items()}
+            reading += "; controls " + ", ".join(
+                f"{c}: {'refused' if v['refused'] else 'passed'}"
+                for c, v in extra["controls"].items())
     del out, ref, outs, refs
     ms = time_ms(kernel, iters)
     plain_ms = time_ms(plain, max(1, iters // 4))
@@ -192,7 +224,7 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
         fail(f"{name}: kernel output is not finite")
     if not ok:
         fail(f"{name}: error beyond the limit ({reading})")
-    if bwd and not all(c["refused"] for c in extra["controls"].values()):
+    if not all(c["refused"] for c in extra.get("controls", {}).values()):
         fail(f"{name}: the check passed a faulty copy ({reading})")
     torch.cuda.empty_cache()
     return {"phase": name, "dtype": dtype_name, "max_abs_err": err,
@@ -377,6 +409,78 @@ def bwd_phases():
     return phases
 
 
+def layer_norm_phases():
+    """K7 against its plain version and ``F.layer_norm`` at the LayerNorm
+    shapes of a serving step (UNet levels 2 and 1, motion level 0, the
+    CLIP bigG encoder with M not a multiple of 8), then forward and
+    backward through its autograd Function against the plain formula.
+    Returns (phases, launches made here)."""
+    import torch
+    import torch.nn.functional as F
+    from video_style_transfer_tpu_torch.ops import layer_norm as ln
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale + shift).to(dtype)
+
+    before = ln.LAUNCHES
+    phases = []
+    for tag, (m, c), dt, iters in (
+            ("unet_l2 (32*1024,1280)", (32 * 1024, 1280), torch.bfloat16, 50),
+            ("unet_l1 (32*4096,640)", (32 * 4096, 640), torch.bfloat16, 50),
+            ("motion_l0 (16*32768,320)", (16 * 32768, 320), torch.bfloat16,
+             20),
+            ("clip_g (2*77,1280)", (2 * 77, 1280), torch.bfloat16, 50),
+            ("unet_l2 (32*1024,1280)", (32 * 1024, 1280), torch.float32,
+             20)):
+        x = randn(m, c, dtype=dt, scale=1.5, shift=0.3)
+        w = randn(c, dtype=dt, scale=0.1, shift=1.0)
+        b = randn(c, dtype=dt, scale=0.1)
+        phases.append(check_phase(
+            f"K7 {tag} {str(dt)[6:]}",
+            lambda: ln.layer_norm_fwd(x, w, b),
+            lambda: ln.layer_norm_reference(x, w, b),
+            lambda: F.layer_norm(x, (c,), w, b, 1e-5),
+            flops=8 * m * c, nbytes=2 * m * c * x.element_size(),
+            dtype_name=str(dt)[6:], iters=iters,
+            tol=TOL_LN[str(dt)[6:]]))
+        del x, w, b
+
+    # gradients: the Function's backward differentiates the plain formula
+    worst = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        ins = [randn(4096, 640, dtype=dt), randn(640, dtype=dt, shift=1.0),
+               randn(640, dtype=dt, scale=0.1)]
+        cot = randn(4096, 640, dtype=dt)
+        grads = []
+        for fn in (ln.layer_norm, ln.layer_norm_reference):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            out = fn(*leaves)
+            if out.grad_fn is None:
+                fail("K7: the output carries no grad_fn")
+            grads.append(torch.autograd.grad(out, leaves, cot))
+        for a, r in zip(*grads):
+            worst = max(worst, (a.float() - r.float()).abs().max().item()
+                        / r.float().abs().max().item())
+    print(f"  K7 backward (4096,640) f32 and bf16 through the autograd "
+          f"Function vs the plain formula: worst error {worst:.2e} of the "
+          f"gradient's max (limit 1e-5: both differentiate the same "
+          f"formula on the same inputs)", flush=True)
+    if not worst <= 1e-5:
+        fail("K7: backward through the autograd Function disagrees")
+    try:
+        ln.layer_norm_fwd(randn(8, 324, dtype=torch.bfloat16),
+                          randn(324, dtype=torch.bfloat16),
+                          randn(324, dtype=torch.bfloat16))
+    except ValueError:
+        pass
+    else:
+        fail("K7: an unsupported width on the card did not raise")
+    return phases, ln.LAUNCHES - before
+
+
 def small_reference():
     """The tiny 2-step video pipeline on the card (the GEGLU and
     temporal-attention kernels in fp32, where the tiny shapes take them)
@@ -430,22 +534,98 @@ def small_reference():
 
 
 def counters():
-    from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    from video_style_transfer_tpu_torch.ops import geglu
-    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
-    return {"flash_attention_fwd": fa.LAUNCHES,
-            "geglu_projection": geglu.LAUNCHES,
-            "temporal_attention": ta.LAUNCHES,
-            "flash_attention_bwd": fa.BWD_LAUNCHES,
-            "temporal_attention_bwd": ta.BWD_LAUNCHES}
+    from video_style_transfer_tpu_torch.cli.common import (
+        kernel_launch_counts)
+    return kernel_launch_counts()
 
 
 def reset_counters():
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    from video_style_transfer_tpu_torch.ops import geglu
+    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = geglu.LAUNCHES = 0
-    ta.LAUNCHES = ta.BWD_LAUNCHES = 0
+    ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
+
+
+def write_lora_artifacts(out_dir, unet_cfg, *, rank, seed, device,
+                         up_scale=1.0):
+    """A stage-1 artifact set of seeded factors in the reference's file
+    layout, for a UNet of `unet_cfg`, without building its weights (the
+    LoRA shapes come from a shape-only tree). `up_scale` shrinks the up
+    factors. Returns the number of projections written."""
+    from video_style_transfer_tpu_torch.lora.surgery import (
+        insert_unziplora, iter_spatial_attention_paths, tree_get)
+    from video_style_transfer_tpu_torch.models.layers import Init, MetaInit
+    from video_style_transfer_tpu_torch.models.unet import init_unet
+    from video_style_transfer_tpu_torch.utils.checkpoint import (
+        export_stage1_artifacts)
+
+    params, state = insert_unziplora(init_unet(MetaInit(), unet_cfg),
+                                     Init(seed, device), rank=rank)
+    n = 0
+    for path in iter_spatial_attention_paths(params):
+        for proj in tree_get(params, path).values():
+            for branch in ("content", "style"):
+                proj["lora"][branch]["up"] *= up_scale
+            n += 1
+    export_stage1_artifacts(out_dir, "unziplora", params, state)
+    return n
+
+
+def small_cli_reference(tmp):
+    """The image and video CLIs on the card against the same on the CPU
+    (the plain versions), f32, from files: a synthetic tiny checkpoint
+    directory with byte-level tokenizers, a rank-4 artifact set exported
+    by ``lora/interop.py`` and a motion checkpoint, all written here and
+    read back by the CLIs. The noise of a seed is drawn on the CPU, so
+    both runs start from the same latents."""
+    from video_style_transfer_tpu_torch.cli import common, infer, infer_video
+    from video_style_transfer_tpu_torch.cli.verify_parity import (
+        make_synthetic_checkpoint)
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.unet import init_unet
+    from video_style_transfer_tpu_torch.utils.checkpoint import (
+        export_motion_checkpoint)
+
+    ckpt = make_synthetic_checkpoint(os.path.join(tmp, "tiny_sdxl"))
+    art = os.path.join(tmp, "tiny_stage1")
+    ucfg = common.tiny_checkpoint_configs(motion=True)[0]
+    write_lora_artifacts(art, ucfg, rank=4, seed=1, device="cpu")
+    motion = os.path.join(tmp, "tiny_motion", "motion_modules.safetensors")
+    export_motion_checkpoint(motion, init_unet(Init(5), ucfg))
+    shared = ["--pretrained_model_name_or_path", ckpt, "--config_preset",
+              "tiny", "--unziplora_name_or_path", art]
+    image_args = shared + [
+        "--mode", "both", "--prompt", "a dog in watercolor style",
+        "--prompt_content", "a dog", "--prompt_style", "watercolor style",
+        "--sampler", "dpm", "--num_inference_steps", "3", "--resolution",
+        "32", "--seeds", "7"]
+    video_args = shared + [
+        "--motion_checkpoint", motion, "--modes", "style", "--prompt",
+        "a horse in the snow", "--num_frames", "4", "--resolution", "16",
+        "--num_inference_steps", "2", "--mixed_precision", "no", "--seed",
+        "7"]
+    for label, cli, argv, key in (("image", infer, image_args, "both_seed7"),
+                                  ("video", infer_video, video_args,
+                                   "style")):
+        outs, folded = {}, {}
+        for dev in ("cuda", "cpu"):
+            report = {}
+            outs[dev] = cli.generate(cli.build_parser().parse_args(
+                argv + ["--device", dev]), report)[key]
+            folded[dev] = (report["n_folded"] if label == "image"
+                           else report[key]["n_folded"])
+        diff = int(abs(outs["cuda"].astype(int)
+                       - outs["cpu"].astype(int)).max())
+        print(f"small-input {label} CLI reference: tiny checkpoint, rank-4 "
+              f"artifacts and tokenizers from files, {folded['cuda']} "
+              f"projections folded, output {outs['cuda'].shape}, cuda vs "
+              f"cpu max difference {diff} levels (limit 2)", flush=True)
+        if diff > 2 or folded["cuda"] != folded["cpu"] or not folded["cuda"]:
+            fail(f"tiny {label} CLI on cuda differs from cpu by {diff} "
+                 f"levels (folded {folded})")
+        if float(outs["cuda"].std()) == 0.0:
+            fail(f"tiny {label} CLI output is constant")
 
 
 def small_training_reference():
@@ -518,8 +698,12 @@ def small_training_reference():
           f"card {used}", flush=True)
     if not (loss_err <= 1e-5 and worst <= 1e-4):
         fail("tiny stage-2 step on cuda differs from cpu")
-    for name, n in used.items():
-        if n <= 0:
+    # what a training step runs: the attention and feed-forward kernels
+    # and their backwards (no model calls K7)
+    for name in ("flash_attention_fwd", "flash_attention_bwd",
+                 "geglu_projection", "temporal_attention",
+                 "temporal_attention_bwd"):
+        if used[name] <= 0:
             fail(f"kernel {name} was not launched by the tiny stage-2 step")
 
 
@@ -559,14 +743,20 @@ def expected_train_launches(cfg, *, frames, resolution, steps):
             "temporal_attention_bwd": steps * 2 * motion}
 
 
-def stage2_path():
+def stage2_path(tmp):
     """The stage-2 trainer at full width: the frozen tensors stay bitwise
     unchanged, the f32 temporal-LoRA b tensors move, the losses are
-    finite and every kernel launches as often as the block counts say."""
+    finite, every kernel launches as often as the block counts say, and
+    the motion checkpoint it writes holds the trained weights with the
+    temporal LoRA folded in. Returns (launch counts, checkpoint path)."""
     import torch
     from video_style_transfer_tpu_torch.cli import train_animatediff
+    from video_style_transfer_tpu_torch.lora.surgery import tree_get
+    from video_style_transfer_tpu_torch.utils.motion_convert import (
+        fold_temporal_lora, import_motion_state_dict, load_motion_checkpoint)
 
     args = train_animatediff.build_parser().parse_args([
+        "--output_dir", os.path.join(tmp, "stage2"),
         "--prompt", "a horse galloping through a snowy forest",
         "--num_frames", str(TRAIN_FRAMES), "--resolution", str(RESOLUTION),
         "--max_train_steps", str(TRAIN_STEPS), "--lr_warmup_steps", "1",
@@ -605,11 +795,9 @@ def stage2_path():
     if not all(map(math.isfinite, report["loss"])):
         fail(f"non-finite stage-2 losses {report['loss']}")
     for name, n in counts.items():
-        if n <= 0:
-            fail(f"kernel {name} was not launched on the stage-2 path")
-        if n != expected[name]:
+        if n != expected.get(name, 0):
             fail(f"kernel {name} launched {n} times on the stage-2 path, "
-                 f"expected {expected[name]}")
+                 f"expected {expected.get(name, 0)}")
     frozen_moved, b_still, bf16_changed, bf16_total = 0, 0, 0, 0
     for path, t in iter_leaves(params):
         was_trainable, before = snap[path]
@@ -631,16 +819,62 @@ def stage2_path():
     if frozen_moved or b_still:
         fail("stage-2 training moved frozen tensors or left temporal-LoRA "
              "b tensors unchanged")
-    return counts
+    folded = fold_temporal_lora(params)
+    written = load_motion_checkpoint(report["motion_checkpoint"])
+    reimported = import_motion_state_dict(params, written)
+    motion = [(path, t) for path, t in iter_leaves(folded)
+              if "motion_modules" in path]
+    differing = [path for path, t in motion
+                 if not torch.equal(t, tree_get(reimported, path))]
+    print(f"motion checkpoint: {report['motion_checkpoint']} written in "
+          f"{report['export_s']:.3f} s, {len(written)} tensors, "
+          f"{sum(v.size for v in written.values())} parameters; read back "
+          f"and re-imported, {len(differing)} of {len(motion)} motion "
+          f"tensors differ from the trainer's weights with the temporal "
+          f"LoRA folded in (must be 0)", flush=True)
+    if differing or len(written) != len(motion):
+        fail(f"the motion checkpoint differs from the trained weights, "
+             f"e.g. {differing[:3]}")
+    return counts, report["motion_checkpoint"]
 
 
-def main_path():
+def serving_launches(steps, frames):
+    """Launches of one served video: per denoise step 70 spatial
+    transformer blocks (one self-attention and one feed-forward each) and
+    15 motion modules (two temporal attentions and one feed-forward
+    each); the VAE mid-block attention once per decoded frame. Serving
+    runs no backward and no model calls K7."""
+    return {"flash_attention_fwd": 70 * steps + frames,
+            "geglu_projection": 85 * steps,
+            "temporal_attention": 30 * steps,
+            "flash_attention_bwd": 0, "temporal_attention_bwd": 0,
+            "layer_norm": 0}
+
+
+def check_counts(path, counts, expected):
+    print(f"launches on the {path} path: {counts} (expected {expected})",
+          flush=True)
+    for name, n in counts.items():
+        if n != expected[name]:
+            fail(f"kernel {name} launched {n} times on the {path} path, "
+                 f"expected {expected[name]}")
+
+
+def main_path(artifacts, motion_checkpoint):
+    """Video serving in every mode from the artifact set and the motion
+    checkpoint on disk."""
+    import numpy as np
     import torch
     from video_style_transfer_tpu_torch.cli import infer_video
 
+    modes = ["base", "both", "content", "style"]
     args = infer_video.build_parser().parse_args([
         "--prompt", "a horse galloping through a snowy forest",
-        "--modes", "base", "--num_frames", str(NUM_FRAMES),
+        "--content_prompt", "a horse galloping",
+        "--style_prompt", "a snowy forest in watercolor",
+        "--modes", *modes, "--unziplora_name_or_path", artifacts,
+        "--motion_checkpoint", motion_checkpoint,
+        "--num_frames", str(NUM_FRAMES),
         "--resolution", str(RESOLUTION), "--num_inference_steps", str(STEPS),
         "--guidance_scale", "7.5", "--device", "cuda", "--seed", "0"])
     torch.cuda.reset_peak_memory_stats()
@@ -650,41 +884,90 @@ def main_path():
     outs = infer_video.generate(args, report)
     total = time.perf_counter() - t0
     counts = counters()
-    rep = report["base"]
-    print(f"main path: weight init {report['weight_init_s']:.3f} s, text "
-          f"encode {rep['text_encode_s']:.3f} s, denoise steps "
-          f"{', '.join(f'{s:.3f}' for s in rep['denoise_step_s'])} s "
-          f"(step 1 includes the cross-attention k/v precompute), decode "
-          f"{rep['decode_s']:.3f} s ({NUM_FRAMES} frames), total "
-          f"{total:.3f} s, peak memory "
+    print(f"main path: weight init, motion checkpoint and rank-{LORA_RANK} "
+          f"LoRA import {report['weight_init_s']:.3f} s, total "
+          f"{total:.3f} s for {len(modes)} modes, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
           flush=True)
-    # per denoise step: 70 spatial transformer blocks (one self-attention
-    # and one feed-forward each) and 15 motion modules (two temporal
-    # attentions and one feed-forward each); the VAE mid-block attention
-    # once per decoded frame
-    # (serving runs no backward)
-    expected = {"flash_attention_fwd": 70 * STEPS + NUM_FRAMES,
-                "geglu_projection": 85 * STEPS,
-                "temporal_attention": 30 * STEPS,
-                "flash_attention_bwd": 0, "temporal_attention_bwd": 0}
-    print(f"launches on the main path: {counts} (expected {expected})",
-          flush=True)
-    for name, n in counts.items():
-        if n <= 0 and expected[name] > 0:
-            fail(f"kernel {name} was not launched on the main path")
-        if n != expected[name]:
-            fail(f"kernel {name} launched {n} times, expected "
-                 f"{expected[name]}")
-    video = outs["base"]
+    per_mode = serving_launches(STEPS, NUM_FRAMES)
     shape = (NUM_FRAMES, RESOLUTION, RESOLUTION, 3)
-    if video.shape != shape or str(video.dtype) != "uint8":
-        fail(f"frames {video.shape} {video.dtype}, expected {shape} uint8")
-    if float(video.std()) == 0.0:
-        fail("frames are constant")
-    print(f"frames: {video.shape} uint8, finite before the cast, mean "
-          f"{float(video.mean()):.2f} std {float(video.std()):.2f}",
-          flush=True)
+    for mode in modes:
+        rep = report[mode]
+        print(f"  {mode}: text encode {rep['text_encode_s']:.3f} s, fold "
+              f"{rep['fold_s']:.3f} s ({rep['n_folded']} projections), "
+              f"denoise steps "
+              f"{', '.join(f'{t:.3f}' for t in rep['denoise_step_s'])} s "
+              f"(step 1 includes the cross-attention k/v precompute), "
+              f"decode {rep['decode_s']:.3f} s ({NUM_FRAMES} frames), "
+              f"frames mean {float(outs[mode].mean()):.2f} std "
+              f"{float(outs[mode].std()):.2f}", flush=True)
+        # 70 blocks x (attn1, attn2) x (q, k, v, out)
+        if rep["n_folded"] != (0 if mode == "base" else 560):
+            fail(f"mode {mode} folded {rep['n_folded']} projections")
+        if rep["kernel_launches"] != per_mode:
+            fail(f"mode {mode} launched {rep['kernel_launches']}, expected "
+                 f"{per_mode}")
+        video = outs[mode]
+        if video.shape != shape or str(video.dtype) != "uint8":
+            fail(f"{mode} frames {video.shape} {video.dtype}, expected "
+                 f"{shape} uint8")
+        if float(video.std()) == 0.0:
+            fail(f"{mode} frames are constant")
+    for a in range(len(modes)):
+        for b in range(a + 1, len(modes)):
+            if np.array_equal(outs[modes[a]], outs[modes[b]]):
+                fail(f"modes {modes[a]} and {modes[b]} gave the same frames")
+    print(f"frames: {shape} uint8 per mode, finite before the cast, "
+          f"pairwise different between {modes}", flush=True)
+    check_counts("serving", counts,
+                 {k: len(modes) * v for k, v in per_mode.items()})
+    return counts
+
+
+def image_path(artifacts):
+    """The image path at full SDXL width: mode both with distinct content
+    and style prompts, so 10 of 12 projections per block fold and the
+    cross-attention k/v keep live LoRA branches, cached once."""
+    from video_style_transfer_tpu_torch.cli import infer
+
+    args = infer.build_parser().parse_args([
+        "--prompt", "a dog in watercolor style", "--prompt_content",
+        "a dog", "--prompt_style", "watercolor style", "--mode", "both",
+        "--unziplora_name_or_path", artifacts, "--resolution",
+        str(RESOLUTION), "--guidance_scale", "5", "--sampler", "dpm",
+        "--num_inference_steps", str(IMAGE_STEPS), "--seeds", "0",
+        "--device", "cuda"])
+    report = {}
+    reset_counters()
+    t0 = time.perf_counter()
+    outs = infer.generate(args, report)
+    total = time.perf_counter() - t0
+    counts = counters()
+    (name, img), = outs.items()
+    rep = report["images"][name]
+    print(f"image path: weight init and LoRA import "
+          f"{report['weight_init_s']:.3f} s, fold and text encode "
+          f"{report['text_encode_s']:.3f} s ({report['n_folded']} "
+          f"projections folded), denoise steps "
+          f"{', '.join(f'{t:.3f}' for t in rep['denoise_step_s'])} s (step 1 "
+          f"includes the cross-attention k/v precompute with live LoRA), "
+          f"decode {rep['decode_s']:.3f} s, total {total:.3f} s, peak "
+          f"memory {report['peak_memory_gib']:.2f} GiB", flush=True)
+    # 70 blocks: attn1 q, k, v, out and attn2 q, out fold; attn2 k, v stay
+    if report["n_folded"] != 70 * 6:
+        fail(f"the image path folded {report['n_folded']} projections, "
+             f"expected {70 * 6}")
+    check_counts("image", counts,
+                 {**serving_launches(0, 0),
+                  "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
+                  "geglu_projection": 70 * IMAGE_STEPS})
+    shape = (RESOLUTION, RESOLUTION, 3)
+    if img.shape != shape or str(img.dtype) != "uint8":
+        fail(f"image {img.shape} {img.dtype}, expected {shape} uint8")
+    if float(img.std()) == 0.0:
+        fail("the image is constant")
+    print(f"image: {img.shape} uint8, finite before the cast, mean "
+          f"{float(img.mean()):.2f} std {float(img.std()):.2f}", flush=True)
     return counts
 
 
@@ -726,9 +1009,31 @@ def main():
           "version's f32 logits alone would be 1 GB):", flush=True)
     phases = kernel_phases()
     phases.update(bwd_phases())
+    phases["layer_norm"], ln_launches = layer_norm_phases()
     small_reference()
     small_training_reference()
-    by_path = {"serving": main_path(), "stage2": stage2_path()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        small_cli_reference(tmp)
+        # the trainer first: serving reads the checkpoint it writes
+        stage2_counts, motion_checkpoint = stage2_path(tmp)
+        torch.cuda.empty_cache()
+        from video_style_transfer_tpu_torch.config import UNetConfig
+        artifacts = os.path.join(tmp, "stage1")
+        t0 = time.perf_counter()
+        n = write_lora_artifacts(artifacts, UNetConfig.sdxl(),
+                                 rank=LORA_RANK, seed=11, device="cuda",
+                                 up_scale=0.5)
+        print(f"artifacts: rank-{LORA_RANK} content/style LoRAs and mergers "
+              f"of {n} projections written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        by_path = {"serving": main_path(artifacts, motion_checkpoint),
+                   "stage2": stage2_counts}
+        by_path["image"] = image_path(artifacts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
+    main_paths = ("serving", "stage2", "image")
 
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
@@ -745,6 +1050,9 @@ def main():
         # K1's d=192 instance; no path of the port has that head dim
         "flash_attention_fwd_d192": ("flash_attention.cu",
                                      "flash_attention.py:50"),
+        # no model calls it (as in the JAX package): its launches are
+        # those of its own phase
+        "layer_norm": ("layer_norm.cu", "layer_norm.py:60"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -753,7 +1061,7 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": jax_ops + replaces,
-            "launches": sum(launches.values()),
+            "launches": sum(launches[path] for path in main_paths),
             "launches_by_path": launches,
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],

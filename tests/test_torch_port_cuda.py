@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the
-card, and gradients through their autograd wrappers against the CPU.
+"""The port's CUDA kernels (K1-K5, K7) against their plain PyTorch
+versions on the card, and gradients through their autograd wrappers
+against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
 file imports no JAX, so it also runs on a machine without it:
 
@@ -13,6 +14,7 @@ import torch
 
 from video_style_transfer_tpu_torch.ops import flash_attention as tfa
 from video_style_transfer_tpu_torch.ops import geglu as tgeglu
+from video_style_transfer_tpu_torch.ops import layer_norm as tln
 from video_style_transfer_tpu_torch.ops import temporal_attention as tta
 
 
@@ -184,3 +186,70 @@ def test_cuda_autograd_through_temporal_attention():
     _grads_vs_cpu(tta.temporal_attention, [q, k, v])
     assert (tta.LAUNCHES, tta.BWD_LAUNCHES) == (before[0] + 1,
                                                 before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,c", [(torch.bfloat16, 4096, 1280),
+                                       (torch.bfloat16, 154, 768),
+                                       (torch.bfloat16, 1001, 320),
+                                       (torch.float32, 515, 640),
+                                       (torch.float32, 9, 2048),
+                                       (torch.bfloat16, 3, 8)])
+def test_cuda_layer_norm_matches_plain(dtype, m, c):
+    # any M (the last block's spare warps leave), every width of the
+    # models; both sides keep f32 inside and round once: one output ulp
+    # (2^-7 relative) in bf16, 1e-5 in fp32, plus 1e-5 near zero
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = (torch.randn(m, c, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    before = tln.LAUNCHES
+    out = tln.layer_norm(x.reshape(1, m, c), w, b).reshape(m, c)
+    assert tln.LAUNCHES == before + 1
+    ref = tln.layer_norm_reference(x, w, b)
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 0.0
+    excess = (out.float() - ref.float()).abs() - rtol * ref.float().abs()
+    assert excess.max().item() <= 1e-5
+    # scale and bias held in f32 beside a bf16 x are read as they are
+    out32 = tln.layer_norm(x, w.float(), b.float())
+    assert tln.LAUNCHES == before + 2
+    assert torch.equal(out32, out)
+    # the check sees a 3 % scale fault
+    bad = (out.float() * 0.97).to(dtype)
+    assert ((bad.float() - ref.float()).abs()
+            - rtol * ref.float().abs()).max().item() > 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_raises_on_what_it_does_not_take():
+    _need_cuda()
+    ones = torch.ones(324, device="cuda")
+    with pytest.raises(ValueError, match="multiple of"):
+        tln.layer_norm(torch.randn(8, 324, device="cuda",
+                                   dtype=torch.bfloat16), ones, ones)
+    big = torch.ones(4096, device="cuda")
+    with pytest.raises(ValueError, match="up to 2048"):
+        tln.layer_norm(torch.randn(8, 4096, device="cuda"), big, big)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tln.layer_norm(torch.randn(8, 320, device="cuda",
+                                   dtype=torch.float16), ones[:320],
+                       ones[:320])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tln.layer_norm(torch.randn(8, 320, device="cuda"),
+                       torch.ones(320), torch.ones(320))
+    with pytest.raises(TypeError, match="both in float32"):
+        tln.layer_norm(torch.randn(8, 320, device="cuda"),
+                       ones[:320].bfloat16(), ones[:320].bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_layer_norm():
+    _need_cuda()
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(300, 640, generator=g)
+    w = 1 + 0.1 * torch.randn(640, generator=g)
+    b = 0.1 * torch.randn(640, generator=g)
+    before = tln.LAUNCHES
+    _grads_vs_cpu(tln.layer_norm, [x, w, b])
+    assert tln.LAUNCHES == before + 1

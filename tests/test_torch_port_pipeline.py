@@ -123,8 +123,9 @@ def test_cli_generate_smoke_cpu():
 
 
 def test_cli_refuses_lora_modes():
-    # the UnZipLoRA modes need the LoRA fold, not ported yet
-    with pytest.raises(SystemExit):
-        infer_video.build_parser().parse_args(
-            ["--smoke", "--device", "cpu", "--prompt", "a horse",
-             "--modes", "both"])
+    # the UnZipLoRA modes need stage-1 artifacts: without them (and
+    # outside --smoke) the CLI refuses before it builds any weight
+    args = infer_video.build_parser().parse_args(
+        ["--device", "cpu", "--prompt", "a horse", "--modes", "both"])
+    with pytest.raises(SystemExit, match="required for LoRA modes"):
+        infer_video.generate(args)

@@ -1,13 +1,19 @@
-"""Shared CLI runtime: device selection, model assembly with seeded
-random weights, text conditioning and VAE-encoded training latents.
+"""Shared CLI runtime: device selection, model assembly, text
+conditioning and VAE-encoded training latents.
 
-Checkpoint loading and the CLIP tokenizer are not ported yet, so every
-model is built from a seed and every prompt becomes seeded token ids
-(stable across processes: derived from a CRC of the text), which then
-run through the real CLIP encoders. ``smoke`` selects the tiny configs.
+Two sources of weights:
+
+- a diffusers-layout SDXL directory (``utils/hf_convert.load_sdxl``),
+  with the CLIP tokenizers read from its ``tokenizer/`` and
+  ``tokenizer_2/``;
+- none: every model is drawn from a seed (full width, or the tiny
+  configs with ``smoke``) and every prompt becomes seeded token ids
+  (stable across processes: derived from a CRC of the text), which then
+  run through the real CLIP encoders.
 """
 from __future__ import annotations
 
+import os
 import zlib
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -44,6 +50,42 @@ class ModelBundle:
     device: torch.device
     vae_scale_factor: int = 8
     vae_encoder: Any = None
+    tokenizer: Any = None       # pads with EOS
+    tokenizer_2: Any = None     # pads with 0
+    seeded: bool = True         # weights drawn from a seed, not loaded
+
+
+def kernel_launch_counts() -> dict:
+    """Launches of every hand-written kernel in this process so far, by
+    kernel name (each wrapper counts where it launches, nowhere else)."""
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
+    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "geglu_projection": geglu.LAUNCHES,
+            "temporal_attention": ta.LAUNCHES,
+            "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "temporal_attention_bwd": ta.BWD_LAUNCHES,
+            "layer_norm": layer_norm.LAUNCHES}
+
+
+def launches_since(before: dict) -> dict:
+    return {k: v - before[k] for k, v in kernel_launch_counts().items()}
+
+
+def seeded_generator(seed: int) -> torch.Generator:
+    """The noise of a seed is drawn on the CPU and moved to the device, so
+    a seed gives the same sample on every device."""
+    return torch.Generator().manual_seed(seed)
+
+
+def refuse_unported(args, table: dict):
+    """Raise for every flag of `table` ({flag: (the value that means
+    unused, what it waits for)}) that the caller set."""
+    for flag, (unused, why) in table.items():
+        if getattr(args, flag) != unused:
+            raise SystemExit(f"--{flag} is not ported yet (it waits for "
+                             f"{why})")
 
 
 def resolve_device(name: str) -> torch.device:
@@ -67,17 +109,46 @@ def model_configs(smoke: bool, motion: bool):
             CLIPConfig.sdxl_clip_l(), CLIPConfig.sdxl_big_g())
 
 
+def tiny_checkpoint_configs(motion: bool = False):
+    """The tiny (UNet, VAE, CLIP-L, CLIP-bigG) configs of a synthetic
+    diffusers-layout checkpoint directory
+    (``cli/verify_parity.make_synthetic_checkpoint``)."""
+    return model_configs(True, motion)
+
+
 def load_models(pretrained: Optional[str], *, smoke: bool = False,
                 motion: bool = True, dtype=torch.bfloat16, seed: int = 0,
-                device="cpu", encoder: bool = False) -> ModelBundle:
+                device="cpu", encoder: bool = False,
+                vae_path: Optional[str] = None, configs=None) -> ModelBundle:
     """UNet and CLIPs in `dtype`, the VAE decoder (and with `encoder` the
-    VAE encoder) in fp32 (the reference keeps the VAE in fp32), all drawn
-    from `seed` on `device`."""
-    if pretrained:
-        raise SystemExit("loading checkpoints is not ported yet: run "
-                         "without --pretrained_model_name_or_path for "
-                         "seeded random weights")
+    VAE encoder) in fp32 (the reference keeps the VAE in fp32), on
+    `device`: loaded from the diffusers-layout directory `pretrained`
+    (`vae_path`: a separate VAE checkpoint; `configs`: the four configs
+    of a checkpoint that is not SDXL-sized), or, without one, drawn from
+    `seed`."""
     device = torch.device(device)
+    if pretrained:
+        from video_style_transfer_tpu_torch.data.tokenizer import (
+            CLIPTokenizer)
+        from video_style_transfer_tpu_torch.utils.hf_convert import load_sdxl
+
+        loaded = load_sdxl(pretrained, dtype=dtype, with_motion=motion,
+                           vae_dir=vae_path, configs=configs, device=device,
+                           encoder=encoder)
+        tok = tok2 = None
+        tok_dir = os.path.join(pretrained, "tokenizer")
+        tok2_dir = os.path.join(pretrained, "tokenizer_2")
+        if os.path.isdir(tok_dir):
+            tok = CLIPTokenizer.from_dir(tok_dir)
+        if os.path.isdir(tok2_dir):
+            tok2 = CLIPTokenizer.from_dir(tok2_dir, pad_token_id=0)
+        (unet, ucfg), (vae, vcfg) = loaded["unet"], loaded["vae"]
+        (clip_l, lcfg), (clip_g, gcfg) = loaded["clip_l"], loaded["clip_g"]
+        return ModelBundle(
+            unet, ucfg, vae, vcfg, clip_l, lcfg, clip_g, gcfg, device,
+            vae_scale_factor=2 ** (len(vcfg.block_out_channels) - 1),
+            vae_encoder=loaded["vae_encoder"], tokenizer=tok,
+            tokenizer_2=tok2, seeded=False)
     ucfg, vcfg, lcfg, gcfg = model_configs(smoke, motion)
     return ModelBundle(
         unet=init_unet(Init(seed, device, dtype), ucfg), unet_cfg=ucfg,
@@ -108,35 +179,110 @@ def prompt_token_ids(prompt: str, cfg: CLIPConfig, *, pad_with_eos: bool):
     return ids
 
 
-def encode_prompt(bundle: ModelBundle, prompt: str):
-    """(embeds (1, 77, 2048), pooled (1, proj)) through both encoders."""
+def encode_prompt(bundle: ModelBundle, prompt: str,
+                  prompt_2: Optional[str] = None):
+    """(embeds (1, 77, 2048), pooled (1, proj)) through both encoders.
+    prompt_2 optionally feeds the second (bigG) encoder another text.
+    Loaded weights need the directory's tokenizers: seeded token ids
+    against real weights would be noise presented as a result."""
     dev = bundle.device
-    ids_l = torch.from_numpy(prompt_token_ids(
-        prompt, bundle.clip_l_cfg, pad_with_eos=True)).to(dev)
-    ids_g = torch.from_numpy(prompt_token_ids(
-        prompt, bundle.clip_g_cfg, pad_with_eos=False)).to(dev)
+    if bundle.tokenizer is None:
+        if not bundle.seeded:
+            raise SystemExit(
+                "no tokenizer/ found in the model directory; inference "
+                "with loaded weights needs the CLIP tokenizers")
+        ids_l = prompt_token_ids(prompt, bundle.clip_l_cfg,
+                                 pad_with_eos=True)
+        ids_g = prompt_token_ids(prompt_2 or prompt, bundle.clip_g_cfg,
+                                 pad_with_eos=False)
+        eos_l = bundle.clip_l_cfg.vocab_size - 1
+        eos_g = bundle.clip_g_cfg.vocab_size - 1
+    else:
+        if bundle.tokenizer_2 is None:
+            raise SystemExit("tokenizer/ present but tokenizer_2/ missing: "
+                             "SDXL needs both CLIP tokenizers")
+        ids_l = bundle.tokenizer(prompt)
+        ids_g = bundle.tokenizer_2(prompt_2 or prompt)
+        # the vocabulary's own EOS ids (49407 for both SDXL tokenizers)
+        eos_l = bundle.tokenizer.eos_token_id
+        eos_g = bundle.tokenizer_2.eos_token_id
     return encode_sdxl_prompt(bundle.clip_l, bundle.clip_l_cfg,
-                              bundle.clip_g, bundle.clip_g_cfg, ids_l, ids_g,
-                              eos_l=bundle.clip_l_cfg.vocab_size - 1,
-                              eos_g=bundle.clip_g_cfg.vocab_size - 1)
+                              bundle.clip_g, bundle.clip_g_cfg,
+                              torch.from_numpy(ids_l).to(dev),
+                              torch.from_numpy(ids_g).to(dev),
+                              eos_l=eos_l, eos_g=eos_g)
 
 
-def make_conditioning(bundle: ModelBundle, prompt: str, *, height: int,
-                      width: int) -> Conditioning:
-    emb, pooled = encode_prompt(bundle, prompt)
-    return Conditioning(ctx=(emb, None, None), pooled=pooled,
+def make_conditioning(bundle: ModelBundle, prompt: str,
+                      prompt_content: Optional[str] = None,
+                      prompt_style: Optional[str] = None, *,
+                      height: int, width: int,
+                      prompt_2: Optional[str] = None,
+                      prompt_content_2: Optional[str] = None,
+                      prompt_style_2: Optional[str] = None) -> Conditioning:
+    """Triple-stream conditioning: the combined prompt, and optionally a
+    content and a style prompt for the UnZipLoRA branches (a missing
+    stream falls back to the combined one). The ``*_2`` prompts feed the
+    second encoder another text per stream."""
+    emb, pooled = encode_prompt(bundle, prompt, prompt_2)
+    emb_c = emb_s = None
+    if prompt_content is not None:
+        emb_c, _ = encode_prompt(bundle, prompt_content, prompt_content_2)
+    if prompt_style is not None:
+        emb_s, _ = encode_prompt(bundle, prompt_style, prompt_style_2)
+    return Conditioning(ctx=(emb, emb_c, emb_s), pooled=pooled,
                         time_ids=default_time_ids(height, width, 1,
                                                   device=bundle.device))
 
 
 def negative_conditioning(bundle: ModelBundle, negative_prompt: str, *,
-                          height: int, width: int) -> Conditioning:
-    """Unconditional side of the CFG pair (every stream shares the
-    negative prompt)."""
-    emb, pooled = encode_prompt(bundle, negative_prompt)
-    return Conditioning(ctx=(emb, emb, emb), pooled=pooled,
+                          height: int, width: int,
+                          negative_prompt_2: Optional[str] = None,
+                          negative_prompt_content: Optional[str] = None,
+                          negative_prompt_content_2: Optional[str] = None,
+                          negative_prompt_style: Optional[str] = None,
+                          negative_prompt_style_2: Optional[str] = None
+                          ) -> Conditioning:
+    """Unconditional side of the CFG pair; streams without a negative of
+    their own share the combined one."""
+    emb, pooled = encode_prompt(bundle, negative_prompt, negative_prompt_2)
+    emb_c = emb_s = emb
+    if negative_prompt_content is not None:
+        emb_c, _ = encode_prompt(bundle, negative_prompt_content,
+                                 negative_prompt_content_2)
+    if negative_prompt_style is not None:
+        emb_s, _ = encode_prompt(bundle, negative_prompt_style,
+                                 negative_prompt_style_2)
+    return Conditioning(ctx=(emb, emb_c, emb_s), pooled=pooled,
                         time_ids=default_time_ids(height, width, 1,
                                                   device=bundle.device))
+
+
+def load_unziplora(params, *, base: Optional[str], name: str = "unziplora",
+                   content_path: Optional[str] = None,
+                   style_path: Optional[str] = None,
+                   content_weight_path: Optional[str] = None,
+                   style_weight_path: Optional[str] = None):
+    """Install a stage-1 artifact set into UNet params: `base`/`name` is
+    the directory-plus-name convention ({name}_content/, {name}_style/,
+    {name}_merger_{content,style}.pth); the explicit paths override it
+    piece by piece. Returns (params, lora_state)."""
+    from video_style_transfer_tpu_torch.lora import interop
+
+    def at(flag, default):
+        return flag if flag else os.path.join(base or "", default)
+
+    weights = "pytorch_lora_weights.safetensors"
+    return interop.import_state_dicts(
+        params,
+        interop.load_safetensors(os.path.join(
+            at(content_path, f"{name}_content"), weights)),
+        interop.load_safetensors(os.path.join(
+            at(style_path, f"{name}_style"), weights)),
+        interop.load_merger_pth(at(content_weight_path,
+                                   f"{name}_merger_content.pth")),
+        interop.load_merger_pth(at(style_weight_path,
+                                   f"{name}_merger_style.pth")))
 
 
 def encode_latents(bundle: ModelBundle, images, generator: torch.Generator):

@@ -1,14 +1,20 @@
-"""Video inference CLI: AnimateDiff-XL video generation (plain
-AnimateDiff, ``--modes base``). Defaults mirror the reference's
-inference_animatediff.sh (16 frames, 1024^2, CFG 7.5, 30 steps).
+"""Video inference CLI: the reference's three-mode video generation —
+the motion UNet, a stage-2 motion checkpoint and the stage-1 UnZipLoRA
+artifacts, generating both / content / style videos (and base, plain
+AnimateDiff-XL). Defaults mirror the reference's inference_animatediff.sh
+(16 frames, 1024^2, CFG 7.5, 30 steps).
 
 Without --pretrained_model_name_or_path it builds full-width SDXL +
 AnimateDiff-XL with seeded random weights and seeded prompt token ids;
---smoke uses the tiny configs. ``generate(args)`` returns the frames,
-``main()`` also writes one video per mode.
+--smoke uses the tiny configs and, without artifacts, a seeded rank-4
+LoRA. ``generate(args)`` returns the frames, ``main()`` also writes one
+video per mode.
 
     python -m video_style_transfer_tpu_torch.cli.infer_video \\
-        --prompt "a horse" --modes base --device cuda
+        --pretrained_model_name_or_path sdxl/ \\
+        --motion_checkpoint out/animatediff \\
+        --unziplora_name_or_path out/stage1 --prompt "a horse" \\
+        --modes both content style --device cuda
 """
 from __future__ import annotations
 
@@ -20,34 +26,84 @@ import torch
 
 from video_style_transfer_tpu_torch.cli import common
 
+# flag -> (value that means "unused", what it waits for)
+NOT_PORTED = {
+    "frame_parallel": (1, "multi-GPU serving"),
+    "coordinator_address": (None, "multi-process serving"),
+    "num_processes": (None, "multi-process serving"),
+    "process_id": (None, "multi-process serving"),
+}
+
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--pretrained_model_name_or_path", default=None,
-                   help="checkpoint directory (loading is not ported yet)")
-    p.add_argument("--prompt", required=True)
+                   help="diffusers-layout SDXL directory")
+    p.add_argument("--motion_checkpoint", "--motion_adapter_path",
+                   dest="motion_checkpoint", default=None,
+                   help="motion weights: a stage-2 motion_modules.pth / "
+                        ".safetensors (or a directory holding one), or a "
+                        "diffusers MotionAdapter safetensors file")
+    p.add_argument("--unziplora_name_or_path", default=None,
+                   help="stage-1 artifact directory")
+    p.add_argument("--unziplora_name", default="unziplora")
+    # explicit per-artifact paths, the reference's spelling
+    p.add_argument("--unziplora_content_path", default=None)
+    p.add_argument("--unziplora_style_path", default=None)
+    p.add_argument("--unziplora_content_weight_path", default=None)
+    p.add_argument("--unziplora_style_weight_path", default=None)
+    p.add_argument("--prompt", default=None)
+    p.add_argument("--instance_prompt", default=None,
+                   help="reference spelling for --prompt")
+    p.add_argument("--content_prompt", default=None,
+                   help="prompt of the content-only mode (defaults to "
+                        "--prompt)")
+    p.add_argument("--style_prompt", default=None,
+                   help="prompt of the style-only mode (defaults to "
+                        "--prompt)")
     p.add_argument("--negative_prompt",
                    default=common.DEFAULT_NEGATIVE_PROMPT)
-    p.add_argument("--modes", nargs="+", default=["base"], choices=["base"],
-                   help="plain AnimateDiff-XL; the UnZipLoRA modes "
-                        "(both/content/style) need the LoRA fold, which is "
-                        "not ported yet")
+    p.add_argument("--modes", nargs="+",
+                   default=["both", "content", "style"],
+                   choices=["both", "content", "style", "base"])
     p.add_argument("--output_dir", "--save_dir", dest="output_dir",
                    default="out/videos")
     p.add_argument("--num_frames", type=int, default=16)
     p.add_argument("--num_inference_steps", type=int, default=30)
     p.add_argument("--guidance_scale", type=float, default=7.5)
     p.add_argument("--resolution", type=int, default=1024)
+    p.add_argument("--height", type=int, default=None,
+                   help="defaults to --resolution")
+    p.add_argument("--width", type=int, default=None)
+    p.add_argument("--mixed_precision", default="bf16",
+                   choices=["no", "bf16", "fp16"],
+                   help="UNet dtype; fp16 maps to bf16; the VAE decode "
+                        "dtype is --vae_dtype")
+    p.add_argument("--vae_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="VAE decode dtype: float32 (default, the "
+                        "reference's) or bfloat16 (fast decode)")
     p.add_argument("--fps", type=int, default=8)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--frame_parallel", type=int, default=1,
+                   help="not ported yet")
+    p.add_argument("--coordinator_address", default=None,
+                   help="not ported yet")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="not ported yet")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="not ported yet")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an "
                         "error")
     p.add_argument("--smoke", action="store_true",
-                   help="tiny configs: 4 frames at 16^2, 2 steps, f32 "
-                        "(otherwise the UNet and CLIPs run in bf16 and the "
-                        "VAE decodes in fp32)")
+                   help="tiny configs: 4 frames at 16^2, 2 steps, f32")
+    p.add_argument("--config_preset", default="sdxl",
+                   choices=["sdxl", "tiny"],
+                   help="topology of the --pretrained_model_name_or_path "
+                        "directory: sdxl (default), or tiny, the synthetic "
+                        "checkpoint of cli/verify_parity.py")
     return p
 
 
@@ -69,49 +125,103 @@ class _Clock:
 def generate(args, report=None):
     """Run the video pipeline for every mode; returns {mode: (F, H, W, 3)
     uint8 numpy frames}. When `report` is a dict it receives the phase
-    seconds: weight_init_s, and per mode text_encode_s, denoise_step_s
-    (a list) and decode_s."""
+    seconds: weight_init_s (models, motion checkpoint and LoRA import),
+    and per mode text_encode_s, fold_s and n_folded (the LoRA fold),
+    denoise_step_s (a list), decode_s and kernel_launches."""
+    from video_style_transfer_tpu_torch.lora.surgery import (
+        copy_structure, fold_unziplora, insert_unziplora)
+    from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.pipelines.video import (
         decode_video, generate_video_latents)
 
     if report is None:
         report = {}
-    device = common.resolve_device(args.device)
+    common.refuse_unported(args, NOT_PORTED)
+    prompt = args.prompt or args.instance_prompt
+    if not prompt:
+        raise SystemExit("need --prompt (or --instance_prompt)")
     smoke = args.smoke
-    dtype = torch.float32 if smoke else torch.bfloat16
+    artifacts = bool(args.unziplora_name_or_path or (
+        args.unziplora_content_path and args.unziplora_style_path))
+    if not (artifacts or smoke) and any(m != "base" for m in args.modes):
+        # the LoRA factors are not zero-initialised: folding random ones
+        # into real weights would corrupt every frame
+        raise SystemExit("--unziplora_name_or_path is required for LoRA "
+                         "modes (use --modes base for plain AnimateDiff "
+                         "generation)")
+    device = common.resolve_device(args.device)
+    dtype = (torch.float32 if smoke or args.mixed_precision == "no"
+             else torch.bfloat16)
     res = 16 if smoke else args.resolution
+    height = res if smoke else (args.height or res)
+    width = res if smoke else (args.width or res)
     steps = 2 if smoke else args.num_inference_steps
     frames = 4 if smoke else args.num_frames
+    mode_prompts = {"both": prompt, "base": prompt,
+                    "content": args.content_prompt or prompt,
+                    "style": args.style_prompt or prompt}
 
     outs = {}
     with torch.inference_mode():
         clock = _Clock(device)
-        bundle = common.load_models(args.pretrained_model_name_or_path,
-                                    smoke=smoke, motion=True, dtype=dtype,
-                                    seed=0, device=device)
+        bundle = common.load_models(
+            args.pretrained_model_name_or_path, smoke=smoke, motion=True,
+            dtype=dtype, seed=0, device=device,
+            configs=(common.tiny_checkpoint_configs(motion=True)
+                     if args.config_preset == "tiny" else None))
+        base_params = bundle.unet
+        if args.motion_checkpoint:
+            from video_style_transfer_tpu_torch.utils.motion_convert import (
+                import_motion_state_dict, load_motion_checkpoint)
+            base_params = import_motion_state_dict(
+                base_params, load_motion_checkpoint(args.motion_checkpoint))
+        # "base" serves the tree without any LoRA entry
+        params, state = base_params, None
+        if artifacts:
+            params, state = common.load_unziplora(
+                base_params, base=args.unziplora_name_or_path,
+                name=args.unziplora_name,
+                content_path=args.unziplora_content_path,
+                style_path=args.unziplora_style_path,
+                content_weight_path=args.unziplora_content_weight_path,
+                style_weight_path=args.unziplora_style_weight_path)
+        elif smoke:
+            params, state = insert_unziplora(copy_structure(base_params),
+                                             Init(0, device), rank=4)
         report["weight_init_s"] = clock.lap()
         # the first mode's text_encode_s includes the negative prompt
         uncond = common.negative_conditioning(
-            bundle, args.negative_prompt, height=res, width=res)
+            bundle, args.negative_prompt, height=height, width=width)
         for mode in args.modes:
             rep = report.setdefault(mode, {})
-            cond = common.make_conditioning(bundle, args.prompt, height=res,
-                                            width=res)
+            cond = common.make_conditioning(bundle, mode_prompts[mode],
+                                            height=height, width=width)
             rep["text_encode_s"] = clock.lap()
-            gen = torch.Generator(device=device)
-            gen.manual_seed(args.seed)
+            # video inference feeds one shared prompt, so every LoRA
+            # folds into the base weights and no branch is left to run
+            fparams, rep["n_folded"] = base_params, 0
+            if state is not None and mode != "base":
+                fparams, rep["n_folded"] = fold_unziplora(
+                    params, state, mode=mode, fold_cross_kv=True)
+            rep["fold_s"] = clock.lap()
+            gen = common.seeded_generator(args.seed)
             steps_s = []
+            before = common.kernel_launch_counts()
             latents = generate_video_latents(
-                bundle.unet, bundle.unet_cfg, uncond, cond,
-                num_frames=frames, height=res, width=res,
-                num_steps=steps, cfg_scale=args.guidance_scale, dtype=dtype,
+                fparams, bundle.unet_cfg, uncond, cond,
+                num_frames=frames, height=height, width=width,
+                num_steps=steps, cfg_scale=args.guidance_scale, mode=mode,
+                state=state, dtype=dtype,
                 vae_scale_factor=bundle.vae_scale_factor, device=device,
                 generator=gen, on_step=lambda i: steps_s.append(clock.lap()))
+            del fparams
             rep["denoise_step_s"] = steps_s
             video = decode_video(bundle.vae, bundle.vae_cfg, latents,
                                  chunk=frames if smoke else 1,
+                                 dtype=getattr(torch, args.vae_dtype),
                                  check_finite=True)
             rep["decode_s"] = clock.lap()
+            rep["kernel_launches"] = common.launches_since(before)
             outs[mode] = video.cpu().numpy()
     return outs
 

@@ -3,7 +3,8 @@
 Builds the full-width SDXL + AnimateDiff-XL UNet with seeded random
 weights (as ``cli.infer_video`` and ``cli.train_animatediff`` do without a
 checkpoint) and warms each phase up once. Serving has one phase, a CFG
-denoise call; training (``--train``) has two, the fp32 VAE encode of one
+denoise call on a video's frames, or with ``--image`` on one image
+(plain SDXL, no motion modules); training (``--train``) has two, the fp32 VAE encode of one
 clip and the train step (forward, backward, optimizer update). Each
 phase runs once without the profiler, then once traced with
 ``torch.profiler``, and is printed as one JSON line: its host seconds
@@ -13,13 +14,21 @@ port's kernels, GEMMs, convolutions, everything else) with launch counts,
 the device's idle share between the first and the last kernel, peak
 memory and the slowest kernel names.
 
+With ``--steps N`` nothing is traced: each phase runs N more times and
+its line holds every run's host seconds with the card's name and power
+limit. The package is the one Python finds first, so the same file times
+another checkout in the same call (``cd`` there, ``PYTHONPATH=.``, and
+run this file by its path).
+
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train] [--num_frames N] [--resolution 1024]
+        [--train | --image] [--num_frames N] [--resolution 1024]
+        [--steps N]
 """
 from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 import time
 
 import torch
@@ -31,6 +40,8 @@ CATEGORIES = (
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
     ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq")),
     ("K5 temporal_attention_bwd", ("ta_bwd_kernel",)),
+    ("K7 layer_norm", ("::layer_norm_kernel",)),
+    ("layer_norm (library)", ("layer_norm", "layernorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
 )
@@ -51,8 +62,8 @@ def _serving_phases(args, dev):
         make_cfg_denoiser)
 
     with torch.inference_mode():
-        bundle = common.load_models(None, motion=True, dtype=torch.bfloat16,
-                                    device=dev)
+        bundle = common.load_models(None, motion=not args.image,
+                                    dtype=torch.bfloat16, device=dev)
         res, f = args.resolution, args.num_frames
         uncond = common.negative_conditioning(
             bundle, common.DEFAULT_NEGATIVE_PROMPT, height=res, width=res)
@@ -163,21 +174,37 @@ def main(argv=None):
     p.add_argument("--resolution", type=int, default=1024)
     p.add_argument("--train", action="store_true",
                    help="trace a stage-2 clip encode and train step")
+    p.add_argument("--image", action="store_true",
+                   help="trace the image path's denoise call (one image, "
+                        "no motion modules)")
     p.add_argument("--top", type=int, default=15)
+    p.add_argument("--steps", type=int, default=0,
+                   help="time each phase this many times without the "
+                        "profiler instead of tracing it")
     args = p.parse_args(argv)
     if args.num_frames is None:
-        args.num_frames = 8 if args.train else 16
+        args.num_frames = 1 if args.image else 8 if args.train else 16
     dev = common.resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     phases, extra = (_train_phases if args.train else _serving_phases)(
         args, dev)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
     for name, fn in phases:
+        if args.steps:
+            result = {"card": card, "package": common.__file__,
+                      "host_s": [_host_seconds(fn)
+                                 for _ in range(args.steps)]}
+        else:
+            result = trace(fn, args.top)
         print(json.dumps({
             "device": torch.cuda.get_device_name(0), "step": name,
             "num_frames": args.num_frames, "resolution": args.resolution,
-            **extra, **trace(fn, args.top)}), flush=True)
+            **extra, **result}), flush=True)
 
 
 if __name__ == "__main__":

@@ -4,13 +4,16 @@ train_animatediff.sh: 8 frames at 1024^2, batch 1, AdamW 2e-5 with cosine
 decay after 100 warmup steps, clip 0.5, temporal-LoRA rank 32, bf16 UNet,
 fp32 VAE encode.
 
-Checkpoints, stage-1 artifacts and videos cannot be loaded yet, so it
+It loads a diffusers-layout SDXL directory, a stage-1 artifact set and
+initial motion weights where their flags are given; without them it
 trains on what the JAX CLI uses when none is given: seeded random
-full-width SDXL + AnimateDiff-XL weights, rank-4 UnZipLoRA stage-1 LoRAs,
-and synthetic clips in [-1, 1]. Flags for files or features of later
-slices raise. ``train(args, report)`` runs the loop and returns the
-trained params; ``main()`` also writes the trainable tensors with
-torch.save.
+full-width SDXL + AnimateDiff-XL weights and rank-4 UnZipLoRA stage-1
+LoRAs. Videos cannot be loaded yet: the clips are synthetic, in [-1, 1].
+Flags for features of later slices raise. ``train(args, report)`` runs
+the loop, writes the motion checkpoint (every motion-module weight with
+the temporal LoRA folded in, ``motion_modules.safetensors`` or ``.pth``
+under --output_dir, which ``cli.infer_video --motion_checkpoint`` reads)
+and returns the trained params.
 
     python -m video_style_transfer_tpu_torch.cli.train_animatediff \\
         --prompt "a horse galloping" --device cuda
@@ -25,33 +28,52 @@ import torch
 from video_style_transfer_tpu_torch.cli import common
 from video_style_transfer_tpu_torch.cli.infer_video import _Clock
 
-# flag -> what it waits for
+# flag -> (value that means "unused", what it waits for)
 NOT_PORTED = {
-    "pretrained_model_name_or_path": "checkpoint loading (loader slice)",
-    "unziplora_name_or_path": "stage-1 artifact import (lora/interop.py)",
-    "unziplora_content_path": "stage-1 artifact import (lora/interop.py)",
-    "unziplora_style_path": "stage-1 artifact import (lora/interop.py)",
-    "unziplora_content_weight_path": "stage-1 artifact import",
-    "unziplora_style_weight_path": "stage-1 artifact import",
-    "video_dir": "the video dataset and latent-moment cache",
-    "instance_data_dir": "the video dataset and latent-moment cache",
-    "motion_adapter_path": "motion checkpoint import "
-                           "(utils/motion_convert.py)",
-    "resume_from_checkpoint": "checkpoint save/restore (utils/checkpoint.py)",
-    "checkpointing_steps": "checkpoint save/restore (utils/checkpoint.py)",
-    "num_train_epochs": "the video dataset (epoch accounting)",
-    "data_parallel": "multi-GPU training (slice E)",
-    "frame_parallel": "multi-GPU training (slice E)",
-    "num_processes": "multi-GPU training (slice E)",
+    "video_dir": (None, "the video dataset and latent-moment cache"),
+    "instance_data_dir": (None, "the video dataset and latent-moment cache"),
+    "resume_from_checkpoint": (None, "checkpoint save/restore "
+                                     "(utils/checkpoint.py)"),
+    "checkpointing_steps": (None, "checkpoint save/restore "
+                                  "(utils/checkpoint.py)"),
+    "num_train_epochs": (None, "the video dataset (epoch accounting)"),
+    "data_parallel": (None, "multi-GPU training"),
+    "frame_parallel": (None, "multi-GPU training"),
+    "num_processes": (None, "multi-GPU training"),
+    "optimizer": ("adamw", "training/adam8bit.py"),
 }
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    for flag in NOT_PORTED:
-        p.add_argument(f"--{flag}", default=None,
-                       help=f"not ported yet: waits for {NOT_PORTED[flag]}")
+    for flag, (unused, why) in NOT_PORTED.items():
+        if unused is None:
+            p.add_argument(f"--{flag}", default=None,
+                           help=f"not ported yet: waits for {why}")
+    p.add_argument("--pretrained_model_name_or_path", default=None,
+                   help="diffusers-layout SDXL directory")
+    p.add_argument("--unziplora_name_or_path", default=None,
+                   help="stage-1 artifact directory")
+    p.add_argument("--unziplora_name", default="unziplora")
+    # explicit per-artifact paths, the reference's spelling
+    p.add_argument("--unziplora_content_path", default=None)
+    p.add_argument("--unziplora_style_path", default=None)
+    p.add_argument("--unziplora_content_weight_path", default=None)
+    p.add_argument("--unziplora_style_weight_path", default=None)
+    p.add_argument("--motion_adapter_path", default=None,
+                   help="initial motion weights: diffusers MotionAdapter "
+                        "safetensors, a trained motion_modules.pth, or a "
+                        "directory holding either")
+    p.add_argument("--checkpoint_format", default="safetensors",
+                   choices=["safetensors", "pth"],
+                   help="final motion checkpoint format; pth is the "
+                        "reference's torch format")
+    p.add_argument("--config_preset", default="sdxl",
+                   choices=["sdxl", "tiny"],
+                   help="topology of the --pretrained_model_name_or_path "
+                        "directory: sdxl (default), or tiny, the synthetic "
+                        "checkpoint of cli/verify_parity.py")
     p.add_argument("--prompt", default=None)
     p.add_argument("--instance_prompt", default=None,
                    help="reference spelling for --prompt")
@@ -100,16 +122,6 @@ def build_parser():
     return p
 
 
-def _refuse_unported(args):
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag) is not None:
-            raise SystemExit(f"--{flag} is not ported yet (it waits for "
-                             f"{why})")
-    if args.optimizer != "adamw":
-        raise SystemExit(f"--optimizer {args.optimizer} is not ported yet "
-                         f"(it waits for training/adam8bit.py)")
-
-
 def prepare(args):
     """Build everything the loop needs: models (seeded), the stage-1 and
     temporal LoRAs, the trainable split, the optimizer, the prompt
@@ -117,12 +129,13 @@ def prepare(args):
     from types import SimpleNamespace
 
     from video_style_transfer_tpu_torch.lora.surgery import (
-        insert_temporal_lora, insert_unziplora, spatial_pairs)
+        copy_structure, insert_temporal_lora, insert_unziplora,
+        spatial_pairs)
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.schedulers.ddpm import make_schedule
     from video_style_transfer_tpu_torch.training import stage2
 
-    _refuse_unported(args)
+    common.refuse_unported(args, NOT_PORTED)
     prompt = args.prompt or args.instance_prompt
     if not prompt:
         raise SystemExit("need --prompt (or --instance_prompt)")
@@ -133,10 +146,32 @@ def prepare(args):
              else torch.bfloat16)
     b = args.train_batch_size
 
-    bundle = common.load_models(None, smoke=smoke, motion=True, dtype=dtype,
-                                seed=0, device=device, encoder=True)
-    params, lora_state = insert_unziplora(
-        bundle.unet, Init(args.seed, device), rank=4)
+    bundle = common.load_models(
+        args.pretrained_model_name_or_path, smoke=smoke, motion=True,
+        dtype=dtype, seed=0, device=device, encoder=True,
+        configs=(common.tiny_checkpoint_configs(motion=True)
+                 if args.config_preset == "tiny" else None))
+    params = bundle.unet
+    if args.motion_adapter_path:
+        from video_style_transfer_tpu_torch.utils.motion_convert import (
+            import_motion_state_dict, load_motion_checkpoint)
+        params = import_motion_state_dict(
+            params, load_motion_checkpoint(args.motion_adapter_path))
+    if args.unziplora_name_or_path or (args.unziplora_content_path
+                                       and args.unziplora_style_path):
+        params, lora_state = common.load_unziplora(
+            params, base=args.unziplora_name_or_path,
+            name=args.unziplora_name,
+            content_path=args.unziplora_content_path,
+            style_path=args.unziplora_style_path,
+            content_weight_path=args.unziplora_content_weight_path,
+            style_weight_path=args.unziplora_style_weight_path)
+    else:
+        params, lora_state = insert_unziplora(
+            params, Init(args.seed, device), rank=4)
+    # the imports share the loaded tree's structure: the temporal LoRA
+    # goes into a structure of its own
+    params = copy_structure(params)
     insert_temporal_lora(params, Init(args.seed + 1, device),
                          rank=args.temporal_lora_rank,
                          alpha=args.temporal_lora_alpha)
@@ -195,8 +230,9 @@ def train(args, report=None, on_setup=None):
     When `report` is a dict it receives weight_init_s (set-up through the
     prompt encodings) and per step encode_s, step_s and the losses (host
     seconds, each phase ending in a device synchronise), plus
-    peak_memory_gib (from the first step on) on CUDA. on_setup(params,
-    trainable) runs once before the first step."""
+    peak_memory_gib (from the first step on) on CUDA, and
+    motion_checkpoint, the path of the file written at the end.
+    on_setup(params, trainable) runs once before the first step."""
     if report is None:
         report = {}
     clock = _Clock(common.resolve_device(args.device))
@@ -225,19 +261,22 @@ def train(args, report=None, on_setup=None):
     if tr.device.type == "cuda":
         report["peak_memory_gib"] = (
             torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
+    from video_style_transfer_tpu_torch.utils.checkpoint import (
+        export_motion_checkpoint)
+    out = os.path.join(args.output_dir,
+                       f"motion_modules.{args.checkpoint_format}")
+    export_motion_checkpoint(out, tr.params)
+    report["motion_checkpoint"] = out
+    report["export_s"] = clock.lap()
+    print("saved motion checkpoint:", out, flush=True)
     return tr.params, tr.trainable
 
 
 def main(argv=None):
-    from video_style_transfer_tpu_torch.lora.surgery import path_str
-
     args = build_parser().parse_args(argv)
-    _, trainable = train(args)
-    os.makedirs(args.output_dir, exist_ok=True)
-    path = os.path.join(args.output_dir, "stage2_trainable.pt")
-    torch.save({path_str(p): t.detach().cpu() for p, t in trainable}, path)
-    print("wrote", path)
-    return path
+    report = {}
+    train(args, report)
+    return report["motion_checkpoint"]
 
 
 if __name__ == "__main__":

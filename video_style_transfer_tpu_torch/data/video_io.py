@@ -1,5 +1,7 @@
-"""Video output: mp4 via imageio/libx264 at quality 8, GIF when no H.264
-encoder is available (the reference's export behaviour, 8 fps)."""
+"""Video and image output: mp4 via imageio/libx264 at quality 8, GIF when
+no H.264 encoder is available (the reference's export behaviour, 8 fps);
+png via PIL. Both libraries are imported inside the writers: only a
+CLI's ``main()`` needs them."""
 from __future__ import annotations
 
 import os
@@ -34,3 +36,9 @@ def save_video(frames: Sequence[np.ndarray], path: str, *, fps: int = 8,
         gif_path = os.path.splitext(path)[0] + ".gif"
         imageio.mimsave(gif_path, frames, duration=1.0 / fps)
         return gif_path
+
+
+def save_image(img: np.ndarray, path: str) -> str:
+    from PIL import Image
+    Image.fromarray(np.asarray(img, np.uint8)).save(path)
+    return path

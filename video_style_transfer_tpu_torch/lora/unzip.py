@@ -106,3 +106,42 @@ def dual_linear(p, x, x_content=None, x_style=None, *, mode: str = "base",
             p["lora"], x if x_content is None else x_content,
             x if x_style is None else x_style, mode=mode, state=state)
     return y
+
+
+def composed_delta(params, branch: str, with_merge: bool = False):
+    """The composed (in, out) LoRA delta W = down @ up [* merge]."""
+    w = params[branch]["down"] @ params[branch]["up"]
+    if with_merge:
+        w = w * params[f"merge_{branch}"][None, :]
+    return w
+
+
+def folded_delta(params, state, *, mode: str = "both"):
+    """The composed, fully gated (in, out) delta this layer adds when both
+    input streams coincide, in f32 — for folding into the base weight at
+    load time. Matches apply_unzip_lora's per-mode gating exactly."""
+    def one(branch, with_merge):
+        gate = _column_gate(params, state, branch, with_merge)
+        return ((params[branch]["down"].float() @ params[branch]["up"].float())
+                * gate.float()[None])
+
+    if mode == "both":
+        return one("content", True) + one("style", True)
+    if mode == "content":
+        return one("content", False)
+    if mode == "style":
+        return one("style", False)
+    raise ValueError(mode)
+
+
+def export_weights(params, state, branch: str):
+    """(down, up) in the reference save orientation ((r, in), (out, r))
+    with the column gate folded into up: the mask if the filter is
+    active, else the merger."""
+    down = params[branch]["down"].t()
+    up = params[branch]["up"].t()
+    if state is not None and bool(state[f"use_mask_{branch}"]):
+        gate = state[f"mask_{branch}"].to(up.dtype)
+    else:
+        gate = params[f"merge_{branch}"]
+    return down, up * gate[:, None]

@@ -104,12 +104,17 @@ def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None,
     return _proj(p, state, "to_out", o, o, o, mode)
 
 
-def cross_attention_kv(p, ctx: Tuple):
-    """The prompt-side k/v projections of one cross-attention (loop
-    invariant across denoise steps). Returns (k, v), each
-    (B, Sk, inner)."""
-    c = ctx[0]
-    return layers.linear(p["to_k"], c), layers.linear(p["to_v"], c)
+def cross_attention_kv(p, ctx: Tuple, *, mode: str = "base", state=None):
+    """The prompt-side k/v projections of one cross-attention, any LoRA
+    branches included (loop invariant across denoise steps). ctx:
+    (combined, content, style); state: this attention's UnZipLoRA state.
+    Returns (k, v), each (B, Sk, inner)."""
+    c, c_c, c_s = ctx
+    c_c = c if c_c is None else c_c
+    c_s = c if c_s is None else c_s
+    k = _proj(p, state, "to_k", c, c_c, c_s, mode)
+    v = _proj(p, state, "to_v", c, c_c, c_s, mode)
+    return k, v
 
 
 def init_feed_forward(ini, dim: int, *, mult: int = 4):

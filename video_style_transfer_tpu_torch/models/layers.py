@@ -43,6 +43,24 @@ class Init:
         return torch.zeros(n, device=self.device, dtype=self.dtype)
 
 
+class MetaInit(Init):
+    """Shape-only initialiser: every tensor lives on the ``meta`` device
+    (shape and dtype, no storage), so a full-width parameter tree can be
+    walked for its key names and shapes without allocating it."""
+
+    def __init__(self, dtype=torch.float32):
+        self.device = torch.device("meta")
+        self.dtype = dtype
+        self.gen = None
+
+    def uniform(self, shape, bound: float):
+        return torch.empty(shape, device=self.device, dtype=self.dtype)
+
+    def normal(self, shape, std: float, dtype=None):
+        return torch.empty(shape, device=self.device,
+                           dtype=self.dtype if dtype is None else dtype)
+
+
 def remat(fn, *args):
     """fn(*args) with its activations recomputed in the backward instead
     of stored (``jax.checkpoint``'s counterpart). Nothing inside draws

@@ -42,10 +42,14 @@ def transformer_block(p, x, ctx: Tuple, *, heads: int, kv2=None,
     return x + feed_forward(p["ff"], h)
 
 
-def transformer_2d_cross_kv(p, ctx: Tuple):
-    """Per-layer attn2 (k, v) of one transformer_2d, a list."""
-    return [cross_attention_kv(bp["attn2"], ctx)
-            for bp in p["transformer_blocks"]]
+def transformer_2d_cross_kv(p, ctx: Tuple, *, mode: str = "base",
+                            state=None):
+    """Per-layer attn2 (k, v) of one transformer_2d, a list. state: this
+    transformer_2d's UnZipLoRA state."""
+    return [cross_attention_kv(
+        bp["attn2"], ctx, mode=mode,
+        state=sub(state, "transformer_blocks", i, "attn2"))
+        for i, bp in enumerate(p["transformer_blocks"])]
 
 
 def init_transformer_2d(ini, in_channels: int, *, num_layers: int,

@@ -104,12 +104,14 @@ def init_unet(ini, cfg: UNetConfig):
     return p
 
 
-def precompute_cross_kv(params, cfg: UNetConfig, ctx: Tuple, *, dtype=None,
+def precompute_cross_kv(params, cfg: UNetConfig, ctx: Tuple, *,
+                        mode: str = "base", state=None, dtype=None,
                         num_frames: int = 1):
     """Every cross-attention's prompt-side k/v, evaluated once (they are
-    invariant across denoise steps). ctx: (combined, content, style), each
-    (B, S, cross_attention_dim), not frame-repeated; num_frames bakes the
-    frame repeat into the cache. Returns a dict keyed like params."""
+    invariant across denoise steps), with the UnZipLoRA branches of to_k
+    and to_v under `mode` and `state`. ctx: (combined, content, style),
+    each (B, S, cross_attention_dim), not frame-repeated; num_frames bakes
+    the frame repeat into the cache. Returns a dict keyed like params."""
     if dtype is not None:
         ctx = tuple(None if e is None else e.to(dtype) for e in ctx)
     if num_frames > 1:
@@ -120,10 +122,14 @@ def precompute_cross_kv(params, cfg: UNetConfig, ctx: Tuple, *, dtype=None,
                         ("up_blocks", cfg.up_block_types)):
         for i, block in enumerate(params[path]):
             if types[i] == CROSS:
-                cache[path][i] = [transformer_2d_cross_kv(ap, ctx)
-                                  for ap in block["attentions"]]
+                cache[path][i] = [
+                    transformer_2d_cross_kv(
+                        ap, ctx, mode=mode,
+                        state=sub(state, path, i, "attentions", j))
+                    for j, ap in enumerate(block["attentions"])]
     cache["mid_block"] = [transformer_2d_cross_kv(
-        params["mid_block"]["attentions"][0], ctx)]
+        params["mid_block"]["attentions"][0], ctx, mode=mode,
+        state=sub(state, "mid_block", "attentions", 0))]
     return cache
 
 

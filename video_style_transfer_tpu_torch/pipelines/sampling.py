@@ -8,6 +8,8 @@ import torch
 
 from video_style_transfer_tpu_torch.models.unet import (
     precompute_cross_kv, unet_apply)
+from video_style_transfer_tpu_torch.schedulers.dpm import (
+    dpm_init_carry, dpm_step, to_x0)
 from video_style_transfer_tpu_torch.schedulers.euler import (
     euler_step, scale_model_input)
 
@@ -17,6 +19,16 @@ class Conditioning(NamedTuple):
     ctx: Tuple           # (combined, content, style) prompt embeddings
     pooled: torch.Tensor
     time_ids: torch.Tensor
+
+
+def tile_conditioning(c: Conditioning, n: int) -> Conditioning:
+    """Repeat a batch-1 Conditioning to n serving rows (the same prompt
+    set conditions every sample of a batch)."""
+    def rep(x):
+        return None if x is None else x.repeat((n,) + (1,) * (x.dim() - 1))
+
+    return Conditioning(ctx=tuple(rep(e) for e in c.ctx),
+                        pooled=rep(c.pooled), time_ids=rep(c.time_ids))
 
 
 def _cat_cond(uncond: Conditioning, cond: Conditioning) -> Conditioning:
@@ -35,26 +47,49 @@ def _cat_cond(uncond: Conditioning, cond: Conditioning) -> Conditioning:
         time_ids=torch.cat([uncond.time_ids, cond.time_ids], dim=0))
 
 
+def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale: float):
+    """CFG rescale ("Common Diffusion Noise Schedules are Flawed", 3.4):
+    match the CFG prediction's per-sample standard deviation to the
+    text prediction's, blended by guidance_rescale."""
+    axes = tuple(range(1, noise_cfg.dim()))
+    std_text = noise_pred_text.std(dim=axes, keepdim=True, correction=0)
+    std_cfg = noise_cfg.std(dim=axes, keepdim=True, correction=0)
+    rescaled = noise_cfg * (std_text / std_cfg)
+    return (guidance_rescale * rescaled
+            + (1.0 - guidance_rescale) * noise_cfg)
+
+
 def make_cfg_denoiser(unet_params, unet_cfg, uncond: Conditioning,
                       cond: Conditioning, *, cfg_scale: float,
-                      num_frames: int = 1, dtype=None) -> Callable:
+                      guidance_rescale: float = 0.0, mode: str = "both",
+                      state=None, num_frames: int = 1,
+                      dtype=None) -> Callable:
     """Returns eps_fn(latents, t) with the CFG pair batched as a doubled
-    leading axis ([uncond, cond]). Every cross-attention's prompt k/v is
-    evaluated once here (it is invariant across steps); `dtype` casts the
-    prompt embeddings before projecting."""
+    leading axis ([uncond, cond]). Every cross-attention's prompt k/v,
+    live LoRA branches included, is evaluated once here (it is invariant
+    across steps); `dtype` casts the prompt embeddings before
+    projecting."""
     both = _cat_cond(uncond, cond)
-    kv = precompute_cross_kv(unet_params, unet_cfg, both.ctx, dtype=dtype,
+    kv = precompute_cross_kv(unet_params, unet_cfg, both.ctx, mode=mode,
+                             state=state, dtype=dtype,
                              num_frames=num_frames)
 
     def eps_fn(latents, t):
         doubled = torch.cat([latents, latents], dim=0)
         out = unet_apply(unet_params, unet_cfg, doubled, t, both.ctx,
-                         both.pooled, both.time_ids, num_frames=num_frames,
-                         cross_kv=kv)
+                         both.pooled, both.time_ids, mode=mode, state=state,
+                         num_frames=num_frames, cross_kv=kv)
         eps_u, eps_c = out.chunk(2, dim=0)
-        return eps_u + cfg_scale * (eps_c - eps_u)
+        eps = eps_u + cfg_scale * (eps_c - eps_u)
+        if guidance_rescale > 0.0:
+            eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
+        return eps
 
     return eps_fn
+
+
+def _timestep(t, device):
+    return torch.tensor(float(t), dtype=torch.float32, device=device)
 
 
 def sample_euler(eps_fn, latents, table, *,
@@ -64,10 +99,23 @@ def sample_euler(eps_fn, latents, table, *,
     sigmas, timesteps = table["sigmas"], table["timesteps"]
     for i in range(len(timesteps)):
         model_in = scale_model_input(latents, sigmas[i])
-        t = torch.tensor(float(timesteps[i]), dtype=torch.float32,
-                         device=latents.device)
-        eps = eps_fn(model_in, t)
+        eps = eps_fn(model_in, _timestep(timesteps[i], latents.device))
         latents = euler_step(latents, eps, sigmas[i], sigmas[i + 1])
+        if on_step is not None:
+            on_step(i)
+    return latents
+
+
+def sample_dpm(eps_fn, latents, table, *,
+               on_step: Optional[Callable[[int], None]] = None):
+    """Run DPM-Solver++ 2M; `latents` are plain noise (the tables are
+    VP-scaled: sigma_0 ~ 1). on_step(i) is called after step i."""
+    timesteps = table["timesteps"]
+    carry = dpm_init_carry(latents.shape, latents.device)
+    for i in range(len(timesteps)):
+        eps = eps_fn(latents, _timestep(timesteps[i], latents.device))
+        x0 = to_x0(latents, eps, table["alpha"][i], table["sigma"][i])
+        latents, carry = dpm_step(latents, x0, carry, i, table)
         if on_step is not None:
             on_step(i)
     return latents
