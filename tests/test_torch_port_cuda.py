@@ -38,17 +38,42 @@ def _need_cuda():
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
                                      (torch.bfloat16, 192),
+                                     (torch.bfloat16, 256),
                                      (torch.float32, 512)])
 def test_cuda_flash_matches_plain(dtype, d):
-    # bf16 d <= 128 takes the register-resident kernel, the rest the
-    # shared-memory one; S = 1100 leaves a masked kv tail in both
+    # bf16 takes the wgmma + TMA kernel, fp32 the shared-memory one
+    # (`route`); q, k and v are strided views of one fused projection and
+    # S = 1100 leaves masked q and kv tails in both
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(2, 1100, 3 * 2 * d, device="cuda", generator=g,
                       dtype=dtype)
     q, k, v = (t.unflatten(-1, (2, d)) for t in qkv.split(2 * d, -1))
+    before = tfa.LAUNCHES
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    assert tfa.LAUNCHES == before + 1
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    _assert_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_cuda_flash_wgmma_ragged_cross_lengths(d):
+    # the wgmma route at seq_q != seq_k, neither a multiple of a tile: q
+    # a contiguous tensor, k and v strided views of one fused kv
+    # projection (B, Sk, 2*H*D)
+    _need_cuda()
+    assert tfa.route(torch.bfloat16, d) == "wgmma"
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q = torch.randn(2, 1000, 3, d, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(2, 1037, 2 * 3 * d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    k, v = (t.unflatten(-1, (3, d)) for t in kv.split(3 * d, -1))
     out, lse = tfa.flash_attention_fwd(q, k, v)
     ref, ref_lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert out.shape == (2, 1000, 3 * d) and lse.shape == (2, 3, 1000)
     _assert_close(out, ref)
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
@@ -163,6 +188,34 @@ def test_cuda_autograd_through_flash():
     before = tfa.BWD_LAUNCHES
     _grads_vs_cpu(tfa.flash_attention, [q, k, v])
     assert tfa.BWD_LAUNCHES == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_through_wgmma_flash():
+    # bf16 d = 64: the wgmma forward's out and lse are K4's residuals; the
+    # gradients through the autograd Function equal the plain backward
+    # fed the same residuals, and the forward's lse is the plain one
+    _need_cuda()
+    d = 64
+    g = torch.Generator(device="cuda").manual_seed(2)
+    qkv = torch.randn(2, 1100, 3 * 2 * d, device="cuda", generator=g,
+                      dtype=torch.bfloat16)
+    do = torch.randn(2, 1100, 2 * d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    leaf = qkv.clone().requires_grad_()
+    before = (tfa.LAUNCHES, tfa.BWD_LAUNCHES)
+    out = tfa.flash_attention_qkv(leaf, 2)
+    out.backward(do)
+    assert (tfa.LAUNCHES, tfa.BWD_LAUNCHES) == (before[0] + 1,
+                                                before[1] + 1)
+    q, k, v = (t.unflatten(-1, (2, d)) for t in qkv.split(2 * d, -1))
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    assert torch.equal(o, out.detach())
+    _, ref_lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    ref = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5)
+    for a, b in zip(leaf.grad.split(2 * d, -1), ref):
+        _assert_close_bwd(a.unflatten(-1, (2, d)), b)
 
 
 @pytest.mark.cuda

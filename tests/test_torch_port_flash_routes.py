@@ -1,0 +1,82 @@
+"""K1's two routes: which kernel each (dtype, head_dim) takes on the card,
+and the plain version (what a CPU tensor runs, and what the card's
+kernels are held against) against the JAX package's Pallas routes at
+ragged lengths, `out` and `lse` both.
+
+The JAX functions run in interpret mode on the CPU, as the other port
+tests run them; f32 at 2e-5 (both sides compute exact f32 softmax math,
+only the order of the sums differs).
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from video_style_transfer_tpu.ops import flash_attention as jfa
+from video_style_transfer_tpu_torch.ops import cuda_build
+from video_style_transfer_tpu_torch.ops import flash_attention as tfa
+
+TOL = 2e-5
+
+
+def _rand(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape) \
+        .astype(np.float32)
+
+
+@pytest.fixture
+def no_library(monkeypatch):
+    """CPU tensors must never reach the CUDA library."""
+    def refuse():
+        raise AssertionError("CPU call reached the CUDA kernel library")
+    monkeypatch.setattr(cuda_build, "library", refuse)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    *((torch.bfloat16, d, "wgmma") for d in (64, 128, 192, 256)),
+    *((torch.bfloat16, d, "smem") for d in (320, 384, 448, 512)),
+    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS),
+])
+def test_route_names_the_kernel(dtype, d, want):
+    assert tfa.route(dtype, d) == want
+
+
+@pytest.mark.parametrize("dtype,d,exc", [(torch.float16, 64, TypeError),
+                                         (torch.bfloat16, 96, ValueError),
+                                         (torch.float32, 576, ValueError)])
+def test_route_refuses_what_k1_does_not_take(dtype, d, exc):
+    with pytest.raises(exc):
+        tfa.route(dtype, d)
+
+
+@pytest.mark.parametrize("d,sq,sk", [(64, 200, 200), (64, 136, 264),
+                                     (192, 200, 200), (192, 136, 264)])
+def test_plain_matches_jax_route_out_and_lse(no_library, d, sq, sk):
+    # d = 64 packs two heads per 128 lanes (`_flash_fwd_bs_hd`, K1's TPU
+    # kernels); d = 192 cannot pack (`_flash_fwd_bhsd`, `_attn_kernel`,
+    # K6). block_k = 128 leaves a masked kv tail in the last kv block, so
+    # both take their online-softmax kernels.
+    b, h = 2, 4
+    scale = d ** -0.5
+    q = _rand(50 + d, (b, sq, h, d))
+    k, v = (_rand(51 + d + i, (b, sk, h, d)) for i in range(2))
+    if jfa._packable(h, d):
+        out, lse = jfa._flash_fwd_bs_hd(
+            *(jnp.asarray(a.reshape(a.shape[0], a.shape[1], h * d))
+              for a in (q, k, v)),
+            num_heads=h, scale=scale, block_q=sq, block_k=128)
+        want_out = np.asarray(out).reshape(b, sq, h * d)
+    else:
+        def bhsd(a):
+            return jnp.asarray(a.transpose(0, 2, 1, 3)
+                               .reshape(b * h, a.shape[1], d))
+        out, lse = jfa._flash_fwd_bhsd(bhsd(q), bhsd(k), bhsd(v),
+                                       scale=scale, block_q=sq, block_k=128)
+        want_out = np.asarray(out).reshape(b, h, sq, d) \
+            .transpose(0, 2, 1, 3).reshape(b, sq, h * d)
+    want_lse = np.asarray(lse).reshape(b, h, sq)
+    got, got_lse = tfa.flash_attention_fwd(
+        *(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == (b, sq, h * d) and got_lse.shape == (b, h, sq)
+    np.testing.assert_allclose(got.numpy(), want_out, atol=TOL, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=TOL, rtol=0)

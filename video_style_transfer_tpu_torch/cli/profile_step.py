@@ -20,8 +20,14 @@ limit. The package is the one Python finds first, so the same file times
 another checkout in the same call (``cd`` there, ``PYTHONPATH=.``, and
 run this file by its path).
 
+``--k1`` times K1's wrapper (``ops.flash_attention.flash_attention_fwd``)
+alone at the bf16 shapes the paths give it (and the other head dims of
+its bf16 route), one JSON line a shape: device ms a call (CUDA events
+around calls queued behind a device sleep) and the wrapper's host µs a
+call (no synchronise inside).
+
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image] [--num_frames N] [--resolution 1024]
+        [--train | --image | --k1] [--num_frames N] [--resolution 1024]
         [--steps N]
 """
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 
 # first match wins: cuDNN's convolutions are implicit GEMMs by name
 CATEGORIES = (
-    ("K1 flash_attention_fwd", ("flash_fwd_kernel", "flash_fwd_mma_kernel")),
+    ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_kernel",)),
+    ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
     ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq")),
@@ -109,6 +116,52 @@ def _train_phases(args, dev):
              "trainable_params": sum(t.numel() for _, t in tr.trainable)})
 
 
+# (tag, (B, S, H, D)): K1's bf16 shapes in chip_smoke.py's K1 phases
+K1_SHAPES = (("serving L2", (32, 1024, 20, 64)),
+             ("serving L1", (32, 4096, 10, 64)),
+             ("image L2", (2, 1024, 20, 64)),
+             ("train L1", (8, 4096, 10, 64)),
+             ("ragged", (2, 4032, 10, 64)),
+             ("d128", (2, 4096, 10, 128)),
+             ("K6 d192", (2, 4096, 2, 192)),
+             ("d256", (2, 4096, 5, 256)))
+
+
+def k1_calls(dev, runs: int):
+    """[{shape, device_ms, host_us}] for K1's wrapper at K1_SHAPES, each
+    the median of `runs` runs of 20 calls."""
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for tag, (b, s, h, d) in K1_SHAPES:
+        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
+                          dtype=torch.bfloat16)
+        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+        fa.flash_attention_fwd(q, k, v)
+        dev_ms, host_us = [], []
+        for _ in range(runs):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            # the calls queue behind ~25 ms of device sleep, so the events
+            # time the kernels alone even where the wrapper's host time
+            # exceeds a kernel's
+            torch.cuda._sleep(50_000_000)
+            start.record()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fa.flash_attention_fwd(q, k, v)
+            host_us.append((time.perf_counter() - t0) / 20 * 1e6)
+            end.record()
+            torch.cuda.synchronize()
+            dev_ms.append(start.elapsed_time(end) / 20)
+        out.append({"shape": f"{tag} {(b, s, h, d)}",
+                    "device_ms": sorted(dev_ms)[runs // 2],
+                    "host_us": sorted(host_us)[runs // 2]})
+        del qkv, q, k, v
+    return out
+
+
 def _host_seconds(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -177,6 +230,8 @@ def main(argv=None):
     p.add_argument("--image", action="store_true",
                    help="trace the image path's denoise call (one image, "
                         "no motion modules)")
+    p.add_argument("--k1", action="store_true",
+                   help="time K1's wrapper alone at its bf16 shapes")
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--steps", type=int, default=0,
                    help="time each phase this many times without the "
@@ -187,13 +242,19 @@ def main(argv=None):
     dev = common.resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-    phases, extra = (_train_phases if args.train else _serving_phases)(
-        args, dev)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.k1:
+        for row in k1_calls(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K1 flash_attention_fwd", **row}),
+                  flush=True)
+        return
+
+    phases, extra = (_train_phases if args.train else _serving_phases)(
+        args, dev)
     for name, fn in phases:
         if args.steps:
             result = {"card": card, "package": common.__file__,

@@ -1,4 +1,8 @@
-// K1: flash-attention forward for Hopper.
+// K1: flash-attention forward, shared-memory route: fp32 at every head dim
+// (the VAE's d = 512 mid-block attention) and bf16 at d = 320 ... 512
+// (the VAE under --vae_dtype bfloat16). bf16 at d <= 256 (every UNet
+// attention, and K6's d = 192) runs on flash_attention_sm90.cu; the C
+// entry point below sends each call to its route.
 //
 // Replaces the JAX package's Pallas kernels ops/flash_attention.py
 // `_attn_kernel_packed_single` / `_attn_kernel_packed` (launched by
@@ -9,59 +13,33 @@
 // (B, S, H, D) strided views (so the fused (B, S, 3*H*D) projection is
 // read in place) and writing out (B, S, H*D) and lse (B, H, S) in f32.
 //
-// Bound on the H100: at the UNet shapes (d = 64, S = 1024..4096) the two
-// products are ~4*S*d flops per q row against ~4*d*2 bytes of q/o
-// traffic, far above the card's ~295 flop/byte ridge: the kernel is
-// bound by tensor-core throughput (bf16) or FP32 FMA throughput (fp32,
-// the VAE's d = 512 attention).
+// Bound on the H100: at d = 512 and S = 4096..16384 the two products are
+// far above the card's ~295 flop/byte ridge: the kernel is bound by FP32
+// FMA throughput (fp32, no TF32) or tensor-core throughput (bf16).
 //
-// Design: one block of 4 warps owns 64 (or 32) query rows of one
-// (batch, head) and walks the key/value sequence in tiles held in shared
-// memory: online softmax with f32 logits, a running max and denominator
-// per row, the kv tail masked. Two kernels, chosen by dtype and d:
-//
-// - bf16, d <= 128 (every UNet attention): register-resident. Each warp
-//   keeps its 16 query rows as mma.sync m16n8k16 A fragments, computes
-//   S = Q K^T into f32 registers, runs the softmax there (a row's 4
-//   owner lanes meet through shuffles), re-packs P as the A fragments of
-//   the P.V product (the accumulator layout of one product is the
-//   operand layout of the next) and keeps O in registers. K/V tiles are
-//   double-buffered through cp.async; V is read transposed by ldmatrix.
-// - fp32 (the VAE's d = 512) and bf16 d > 128: S, P and the f32 O
-//   accumulator live in shared memory, which is what lets d = 512 fit (a
-//   32x512 f32 tile is 64 KB): large d takes smaller tiles and > 48 KB of
-//   dynamic shared memory, K and V share one buffer (V loads while the
-//   softmax runs). bf16 uses WMMA 16x16x16; fp32 register-blocked FMA
-//   loops, so fp32 stays exact (no TF32).
-//
-// WGMMA, TMA and warp specialisation are later work.
+// Design: one block of 4 warps owns 32 query rows of one (batch, head)
+// and walks the key/value sequence in tiles held in shared memory: online
+// softmax with f32 logits, a running max and denominator per row, the kv
+// tail masked. S, P and the f32 O accumulator live in shared memory,
+// which is what lets d = 512 fit (a 32x512 f32 tile is 64 KB): large d
+// takes smaller tiles and > 48 KB of dynamic shared memory, K and V share
+// one buffer (V loads while the softmax runs). bf16 uses WMMA 16x16x16;
+// fp32 register-blocked FMA loops, so fp32 stays exact (no TF32).
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 
 namespace vst {
 namespace {
 
 constexpr int kThreads = 128;
 
-struct FlashArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  float* lse;
-  int batch, seq_q, seq_k, heads;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  float scale;
-};
-
 template <typename T, int D>
 struct FlashCfg {
   static constexpr bool kBf16 = std::is_same<T, bf16>::value;
-  static constexpr int BR = kBf16 ? (D <= 256 ? 64 : 32) : (D <= 128 ? 64 : 32);
+  static constexpr int BR = (!kBf16 && D <= 128) ? 64 : 32;
   static constexpr int BC = kBf16 ? 64 : (D <= 256 ? 64 : 32);
   static constexpr int VEC = Vec<T>::N;
   static constexpr int LDQ = D + VEC;  // T elements, one 16 B pad per row
@@ -304,194 +282,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------- bf16, d <= 128: registers
-
-template <int D>
-struct MmaCfg {
-  static constexpr int BR = 64;  // 4 warps x 16 query rows
-  static constexpr int BC = 64;
-  static constexpr int LD = D + 8;  // bf16 per shared row (16 B pad)
-  static constexpr size_t TILE = sizeof(bf16) * BC * LD;
-  static constexpr size_t SMEM = sizeof(bf16) * BR * LD + 4 * TILE;
-};
-
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src,
-                                                long long row_stride, int r0,
-                                                int nrows) {
-  constexpr int VPR = D / 8;
-  constexpr int LD = D + 8;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += kThreads) {
-    const int r = i / VPR, cv = i - r * VPR;
-    const bool ok = r0 + r < nrows;
-    cp_async16(dst + r * LD + cv * 8,
-               ok ? src + (long long)(r0 + r) * row_stride + cv * 8 : src,
-               ok);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_mma_kernel(const FlashArgs a) {
-  using C = MmaCfg<D>;
-  constexpr int LD = C::LD, BC = C::BC;
-  constexpr int KD = D / 16;   // k-steps of Q K^T
-  constexpr int NS = BC / 8;   // n-blocks of S
-  constexpr int KP = BC / 16;  // k-steps of P V
-  constexpr int NO = D / 8;    // n-blocks of O
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* KV = reinterpret_cast<bf16*>(smem + sizeof(bf16) * C::BR * LD);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q0 = blockIdx.x * C::BR;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const int n_tiles = (a.seq_k + BC - 1) / BC;
-
-  load_tile_async<D, C::BR>(Qs, qb, a.q_ss, q0, a.seq_q);
-  load_tile_async<D, BC>(KV, kb, a.k_ss, 0, a.seq_k);
-  load_tile_async<D, BC>(KV + BC * LD, vb, a.v_ss, 0, a.seq_k);
-  cp_async_commit();
-
-  uint32_t qf[KD][4];
-  float o[NO][4];
-#pragma unroll
-  for (int i = 0; i < NO; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
-  const float sl2 = a.scale * kLog2e;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t & 1;
-    if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      bf16* nk = KV + (st ^ 1) * 2 * BC * LD;
-      load_tile_async<D, BC>(nk, kb, a.k_ss, (t + 1) * BC, a.seq_k);
-      load_tile_async<D, BC>(nk + BC * LD, vb, a.v_ss, (t + 1) * BC,
-                             a.seq_k);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (t == 0) {
-      const bf16* q_r0 = Qs + (warp * 16 + g) * LD + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        qf[kk][0] = ld_u32(q_r0 + kk * 16);
-        qf[kk][1] = ld_u32(q_r0 + 8 * LD + kk * 16);
-        qf[kk][2] = ld_u32(q_r0 + kk * 16 + 8);
-        qf[kk][3] = ld_u32(q_r0 + 8 * LD + kk * 16 + 8);
-      }
-    }
-    const bf16* Kt = KV + st * 2 * BC * LD;
-    const bf16* Vt = Kt + BC * LD;
-
-    float s[NS][4];
-#pragma unroll
-    for (int nb = 0; nb < NS; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-      const bf16* kr = Kt + (nb * 8 + g) * LD + tig * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const uint32_t bb[2] = {ld_u32(kr + kk * 16), ld_u32(kr + kk * 16 + 8)};
-        mma_16816(s[nb], qf[kk], bb);
-      }
-    }
-
-    // scale into log2 units, mask the kv tail, row max over the 4 lanes
-    // that share each of this thread's rows (g and g + 8)
-    const int k0 = t * BC;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < NS; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nb * 8 + tig * 2 + (e & 1);
-        const float v = col < a.seq_k ? s[nb][e] * sl2 : -INFINITY;
-        s[nb][e] = v;
-        mx[e >> 1] = fmaxf(mx[e >> 1], v);
-      }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m_i[r], mx[r]);
-      corr[r] = exp2f(m_i[r] - m_new);
-      m_i[r] = m_new;
-    }
-    // P as the A fragments of P V: S n-blocks 2j, 2j+1 = P k-step j
-    uint32_t pf[KP][4];
-#pragma unroll
-    for (int nb = 0; nb < NS; ++nb) {
-      const float p0 = exp2f(s[nb][0] - m_i[0]);
-      const float p1 = exp2f(s[nb][1] - m_i[0]);
-      const float p2 = exp2f(s[nb][2] - m_i[1]);
-      const float p3 = exp2f(s[nb][3] - m_i[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pf[nb >> 1][(nb & 1) * 2] = pack_bf16x2(p0, p1);
-      pf[nb >> 1][(nb & 1) * 2 + 1] = pack_bf16x2(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
-      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
-      l_i[r] = l_i[r] * corr[r] + rs[r];
-    }
-#pragma unroll
-    for (int nd = 0; nd < NO; ++nd) {
-      o[nd][0] *= corr[0];
-      o[nd][1] *= corr[0];
-      o[nd][2] *= corr[1];
-      o[nd][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < KP; ++kk) {
-      const bf16* vr = Vt + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int nd = 0; nd < NO; ++nd) {
-        uint32_t bb[2];
-        ldmatrix_x2_trans(bb, vr + nd * 8);
-        mma_16816(o[nd], pf[kk], bb);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next prefetch
-  }
-
-  bf16* ob = static_cast<bf16*>(a.o);
-  const long long o_ss = (long long)a.heads * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + g + r * 8;
-    if (row >= a.seq_q) continue;
-    const float l = l_i[r] == 0.f ? 1.f : l_i[r];
-    const float inv = 1.f / l;
-    bf16* orow = ob + ((long long)b * a.seq_q + row) * o_ss + h * D + tig * 2;
-#pragma unroll
-    for (int nd = 0; nd < NO; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) =
-          pack_bf16x2(o[nd][r * 2] * inv, o[nd][r * 2 + 1] * inv);
-    if (tig == 0)
-      a.lse[((long long)b * a.heads + h) * a.seq_q + row] =
-          (m_i[r] + log2f(l)) * (1.0f / kLog2e);
-  }
-}
-
-template <int D>
-int launch_mma(const FlashArgs& a, cudaStream_t stream) {
-  using C = MmaCfg<D>;
-  auto kern = flash_fwd_mma_kernel<D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.seq_q + C::BR - 1) / C::BR, a.heads, a.batch);
-  kern<<<grid, kThreads, C::SMEM, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 // --------------------------------------------------------------- launch
 
 template <typename T, int D>
@@ -506,25 +296,22 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_d(const FlashArgs& a, cudaStream_t s) {
-  if constexpr (std::is_same<T, bf16>::value && D <= 128)
-    return launch_mma<D>(a, s);
-  else
-    return launch<T, D>(a, s);
-}
-
+// fp32 at every head dim, bf16 from 320 up (below, the wgmma route)
 template <typename T>
 int dispatch_d(int d, const FlashArgs& a, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    switch (d) {
+      case 64: return launch<T, 64>(a, s);
+      case 128: return launch<T, 128>(a, s);
+      case 192: return launch<T, 192>(a, s);
+      case 256: return launch<T, 256>(a, s);
+    }
+  }
   switch (d) {
-    case 64: return launch_d<T, 64>(a, s);
-    case 128: return launch_d<T, 128>(a, s);
-    case 192: return launch_d<T, 192>(a, s);
-    case 256: return launch_d<T, 256>(a, s);
-    case 320: return launch_d<T, 320>(a, s);
-    case 384: return launch_d<T, 384>(a, s);
-    case 448: return launch_d<T, 448>(a, s);
-    case 512: return launch_d<T, 512>(a, s);
+    case 320: return launch<T, 320>(a, s);
+    case 384: return launch<T, 384>(a, s);
+    case 448: return launch<T, 448>(a, s);
+    case 512: return launch<T, 512>(a, s);
     default: return -2;
   }
 }
@@ -543,6 +330,9 @@ extern "C" int vst_flash_attention_fwd(
                    k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == vst::kFloat32) return vst::dispatch_d<float>(head_dim, a, s);
-  if (dtype == vst::kBFloat16) return vst::dispatch_d<vst::bf16>(head_dim, a, s);
+  if (dtype == vst::kBFloat16 && head_dim <= 256)
+    return vst::flash_fwd_sm90(head_dim, a, s);
+  if (dtype == vst::kBFloat16)
+    return vst::dispatch_d<vst::bf16>(head_dim, a, s);
   return -1;
 }

@@ -1,0 +1,26 @@
+// K1's launch arguments, shared by its two routes.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace vst {
+
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;
+  int batch, seq_q, seq_k, heads;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  float scale;
+};
+
+// bf16 at head_dim 64, 128, 192 or 256: the wgmma + TMA route
+// (flash_attention_sm90.cu). Returns 0, a CUDA error, or a negative code
+// for an argument it refuses.
+int flash_fwd_sm90(int head_dim, const FlashArgs& a, cudaStream_t stream);
+
+}  // namespace vst

@@ -57,7 +57,8 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 # filled by the first build in this process: seconds and nvcc's
-# register/shared-memory report (-Xptxas -v)
+# register/shared-memory report (-Xptxas -v), which a cached build reads
+# back from beside its library
 build_info = {"seconds": None, "built": False, "log": ""}
 
 
@@ -129,6 +130,9 @@ def library():
             target = BUILD_DIR / f"libvst_kernels_{source_hash()}.so"
             if not target.exists():
                 _build(target)
+            elif target.with_suffix(".log").exists():
+                # the nvcc report of the build this process reuses
+                build_info["log"] = target.with_suffix(".log").read_text()
             lib = ctypes.CDLL(str(target))
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)

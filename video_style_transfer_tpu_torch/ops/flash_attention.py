@@ -1,15 +1,17 @@
-"""K1: flash-attention forward (csrc/flash_attention.cu) and K4: its
-backward (csrc/flash_attention_bwd.cu), each beside its plain PyTorch
-version.
+"""K1: flash-attention forward and K4: its backward
+(csrc/flash_attention_bwd.cu), each beside its plain PyTorch version.
 
 K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
 `_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
 the TPU cannot pack such as d=192, `_attn_kernel`); K4 replaces
-`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. On the H100 both are
-bound by tensor-core (bf16) or FMA (fp32) throughput; see the sources for
-their designs. The TPU's head packing, MXU row-sum and block tuning have
-no counterpart: the kernels read (B, S, H, D) strided views, so the fused
-(B, S, 3*H*D) projection is consumed in place.
+`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has two routes, named
+by `route`: bf16 at d = 64, 128, 192 and 256 runs on wgmma with TMA
+loads (csrc/flash_attention_sm90.cu); fp32 (the VAE's d = 512) and bf16
+at d >= 320 on the shared-memory kernel (csrc/flash_attention.cu). On the
+H100 both are bound by tensor-core (bf16) or FMA (fp32) throughput; see
+the sources for their designs. The TPU's head packing, MXU row-sum and
+block tuning have no counterpart: the kernels read (B, S, H, D) strided
+views, so the fused (B, S, 3*H*D) projection is consumed in place.
 
 Every call goes through one ``torch.autograd.Function`` that saves q, k,
 v, the output and the lse (the JAX residuals). A CUDA tensor launches
@@ -24,14 +26,17 @@ import torch
 from video_style_transfer_tpu_torch.ops import cuda_build
 
 # launches of the CUDA kernels in this process (the plain versions and
-# refused calls do not count): LAUNCHES the forward (K1), BWD_LAUNCHES
-# the backward (K4; one per backward call, which runs its dk/dv and its
-# dq kernel)
+# refused calls do not count): LAUNCHES the forward (K1), split by route
+# in ROUTE_LAUNCHES, BWD_LAUNCHES the backward (K4; one per backward
+# call, which runs its dk/dv and its dq kernel)
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
+# bf16 head dims of the wgmma + TMA route; the rest take shared memory
+WGMMA_HEAD_DIMS = (64, 128, 192, 256)
 # every SDXL head; the VAE's d=512 attention runs under no_grad
 BWD_HEAD_DIMS = (64,)
 
@@ -46,6 +51,21 @@ def flash_attention_plain(q, k, v, scale: float):
     p = torch.exp(logits - lse[..., None])
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype).reshape(b, sq, h * d), lse
+
+
+def route(dtype, head_dim: int) -> str:
+    """The K1 kernel a CUDA call of this dtype and head dim launches:
+    "wgmma" (csrc/flash_attention_sm90.cu) or "smem"
+    (csrc/flash_attention.cu). Raises on what K1 does not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got "
+                        f"{dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash attention head_dim {head_dim} not in "
+                         f"{HEAD_DIMS}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "smem"
 
 
 def _check(q, k, v):
@@ -72,6 +92,8 @@ def _check(q, k, v):
         if any(s % vec for s in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(f"flash attention: {name} strides/pointer not "
                              f"16-byte aligned")
+    if min(sq, k.shape[1]) < 1:
+        raise ValueError("flash attention: empty sequence")
     if max(sq, k.shape[1]) >= 2 ** 31 or b > 65535 or h > 65535:
         raise ValueError("flash attention: shape beyond the launch grid")
 
@@ -99,6 +121,7 @@ def flash_attention_fwd(q, k, v, *, scale=None):
     cuda_build.check_launch("flash_attention_fwd", err)
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[route(q.dtype, d)] += 1
     return out, lse
 
 
