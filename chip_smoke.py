@@ -12,10 +12,14 @@
    only; the port never calls it): K1-K3 forward, K4-K5 backward, K1's
    d=192 instance, which stands for the JAX package's unpacked kernel
    (K6), and the one-pass LayerNorm (K7), which no model calls, at the
-   LayerNorm shapes of the serving path. K1 has two routes (`route` in
-   ops/flash_attention.py): bf16 at d <= 256 on wgmma + TMA, fp32 and
-   d >= 320 through shared memory; its phases hold out and lse and, like
-   the backward and K7 phases, refuse two faulty copies of the outputs.
+   LayerNorm shapes of the serving path. K1 has three routes (`route` in
+   ops/flash_attention.py): bf16 at d <= 256 on wgmma + TMA, fp32 at
+   d = 512 (the VAE) on FP32 FMA register tiles, bf16 at d >= 320 (the
+   VAE under --vae_dtype bfloat16) through shared memory; its phases
+   hold out and lse, the VAE's at the 512^2 and the 1024^2 paths' token
+   counts (4096 and 16384), and, like the backward and K7 phases, refuse
+   two faulty copies of the outputs. K2's yardstick is three PyTorch
+   calls (F.linear over the fused weight, the gate, the product).
 3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
    and video CLIs on a synthetic checkpoint directory with LoRA and
    motion artifacts read from files, on the card against the same on the
@@ -34,11 +38,12 @@
      DPM-Solver++ steps, mode both with distinct content and style
      prompts, the same artifact set).
    On each path K1's launches are also counted by route: every bf16 UNet
-   attention on the wgmma kernel, every fp32 VAE attention on the
-   shared-memory one.
-5. Prints one JSON line with every kernel's numbers (K1 as its two
-   kernels, with the wgmma instances' registers and spills from nvcc's
-   report), then the last line
+   attention on the wgmma kernel, every fp32 VAE attention on the FMA
+   one, none on the shared-memory one.
+5. Prints one JSON line with every kernel's numbers (K1 as its three
+   kernels, with the wgmma instances' and the FMA kernel's registers and
+   spills from nvcc's report; the FMA kernel must not spill), then the
+   last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 """
 from __future__ import annotations
@@ -173,8 +178,16 @@ def faulty_copies(outs, refs):
     return {"scale 0.97": scaled, "noise 2^-5 rms": noisy}
 
 
+def linear_gelu_mul(x, w, bias):
+    """GEGLU in three PyTorch calls (K2's library yardstick)."""
+    import torch.nn.functional as F
+    h, g = F.linear(x, w, bias).chunk(2, dim=-1)
+    return h * F.gelu(g)
+
+
 def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
-                iters, bwd=False, tol=None, own_scale=None):
+                iters, bwd=False, tol=None, own_scale=None,
+                library_name=None):
     """Compare kernel vs plain (bwd: each output against its own scale,
     with the faulty-copy controls; tol: an (atol, rtol) of its own, also
     with the controls, each fault on all outputs and on each alone;
@@ -264,8 +277,9 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
     torch.cuda.empty_cache()
     return {"phase": name, "dtype": dtype_name, "max_abs_err": err,
             **extra, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "library_ms": library_ms,
+            **({"library": library_name} if library_name else {}),
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def kernel_phases():
@@ -298,11 +312,12 @@ def kernel_phases():
     # copies): the bf16 UNet self-attention shapes of the paths (serving
     # levels 2 and 1 at 32 rows, the image path's level 2 at 2 rows, the
     # train step's level 1 at 8 rows), a ragged length (48 x 84 latents),
-    # d = 128 and d = 256 (the wgmma route's other instances), and the
-    # VAE mid-block (fp32, d=512, the shared-memory route; S=4096 rather
-    # than the 1024^2 path's 16384, where the plain version's f32 logits
-    # alone would be 1 GB per head and batch). The plain version runs in
-    # batch chunks of at most ~3 GB of logits.
+    # d = 128 and d = 256 (the wgmma route's other instances), the VAE
+    # mid-block in fp32 (d=512, the FMA route) at 512^2 (S=4096) and at
+    # the 1024^2 paths' S=16384, and in bf16 at S=16384 (the shared-memory
+    # route, --vae_dtype bfloat16). The plain version runs in batch chunks
+    # of at most ~3 GB of logits (1 GiB at S=16384).
+    phases["flash_attention_fwd_fma"] = []
     phases["flash_attention_fwd_smem"] = []
     for tag, (b, s, h, d), dt, iters in (
             ("unet_l2 (32,1024,20x64)", (32, 1024, 20, 64),
@@ -319,7 +334,11 @@ def kernel_phases():
              20),
             ("d256 (2,4096,5x256)", (2, 4096, 5, 256), torch.bfloat16, 20),
             ("vae_mid (1,4096,1x512)", (1, 4096, 1, 512), torch.float32,
-             5)):
+             5),
+            ("vae_mid (1,16384,1x512)", (1, 16384, 1, 512), torch.float32,
+             3),
+            ("vae_mid (1,16384,1x512)", (1, 16384, 1, 512), torch.bfloat16,
+             3)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -336,7 +355,7 @@ def kernel_phases():
             own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None)
         phase["kernel_route"] = route
         phases["flash_attention_fwd" if route == "wgmma"
-               else "flash_attention_fwd_smem"].append(phase)
+               else f"flash_attention_fwd_{route}"].append(phase)
         del qkv, q, k, v, qt, kt, vt
 
     # K6: the JAX package's unpacked (B*H, S, D) kernel serves head dims
@@ -359,7 +378,9 @@ def kernel_phases():
     phases["flash_attention_fwd_d192"][0]["kernel_route"] = route
     del qkv, q, k, v, qt, kt, vt
 
-    # K2: spatial level-2 FF and motion level-0 FF (bf16), level-2 fp32
+    # K2: spatial level-2 FF and motion level-0 FF (bf16), level-2 fp32;
+    # the yardstick is three PyTorch calls: F.linear over the fused weight
+    # and bias, the exact-erf gate, the product
     for tag, (m, c), dt, iters in (
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
              torch.bfloat16, 10),
@@ -377,10 +398,11 @@ def kernel_phases():
             f"K2 {tag} {str(dt)[6:]} gate {gate}",
             lambda: geglu.geglu_fwd(x, w, bias, gate),
             lambda: geglu.geglu_plain(x, w, bias, gate),
-            None,
+            lambda: linear_gelu_mul(x, w, bias),
             flops=4 * m * c * inner,
             nbytes=(m * c + 2 * inner * c + 2 * inner + m * inner) * es,
-            dtype_name=str(dt)[6:], iters=iters))
+            dtype_name=str(dt)[6:], iters=iters,
+            library_name="F.linear + F.gelu + mul (three calls)"))
         del x, w, bias
 
     # K3: motion level 0 (F=16, N=32768, 8 heads x d=40)
@@ -616,23 +638,23 @@ def reset_counters():
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
-    fa.ROUTE_LAUNCHES.update(wgmma=0, smem=0)
+    fa.ROUTE_LAUNCHES.update(wgmma=0, fma=0, smem=0)
 
 
-def check_routes(path, counts, wgmma, smem):
+def check_routes(path, counts, wgmma, fma):
     """K1's launches on a path split by route: every bf16 UNet attention
-    (d = 64) took the wgmma kernel and every fp32 VAE attention (d = 512)
-    the shared-memory one. Returns the path's counts with K1 split into
-    its two kernels."""
+    (d = 64) took the wgmma kernel, every fp32 VAE attention (d = 512) the
+    FMA one, none the shared-memory one. Returns the path's counts with K1
+    split into its three kernels."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     got = dict(fa.ROUTE_LAUNCHES)
+    want = {"wgmma": wgmma, "fma": fma, "smem": 0}
     print(f"K1 launches on the {path} path by route: {got} (expected "
-          f"wgmma {wgmma}, smem {smem})", flush=True)
-    if got != {"wgmma": wgmma, "smem": smem}:
-        fail(f"K1 routes on the {path} path: {got}, expected wgmma {wgmma}, "
-             f"smem {smem}")
+          f"{want})", flush=True)
+    if got != want:
+        fail(f"K1 routes on the {path} path: {got}, expected {want}")
     return {**counts, "flash_attention_fwd": wgmma,
-            "flash_attention_fwd_smem": smem}
+            "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0}
 
 
 def write_lora_artifacts(out_dir, unet_cfg, *, rank, seed, device,
@@ -1063,34 +1085,53 @@ def image_path(artifacts):
     return check_routes("image", counts, 70 * IMAGE_STEPS, 1)
 
 
-def sm90_ptxas(log):
-    """Registers and spills of the wgmma route's instances, by head dim,
-    from nvcc's -Xptxas -v report. ptxas gives the count a thread holds at
-    launch (384 threads, at most 168 each); setmaxnreg then moves the
-    producer warpgroup to 40 and the two consumer warpgroups to 232."""
+def ptxas_report(log, pattern):
+    """Registers and spills of the kernels whose mangled name matches
+    `pattern` (its first group names the entry), from nvcc's -Xptxas -v
+    report."""
     import re
-    out, d = {}, None
+    out, key = {}, None
     for ln in log:
-        m = re.search(r"Compiling entry function '\S*flash_fwd_sm90_kernelILi"
-                      r"(\d+)E", ln)
-        if m:
-            d = m.group(1)
-            continue
         if "Compiling entry function" in ln:
-            d = None
-        if d is None:
+            m = re.search(pattern, ln)
+            key = m.group(1) if m else None
+            continue
+        if key is None:
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
         if m:
-            out.setdefault(d, {}).update(spill_stores=int(m.group(1)),
-                                         spill_loads=int(m.group(2)))
+            out.setdefault(key, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
-            out.setdefault(d, {})["registers"] = int(m.group(1))
+            out.setdefault(key, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sm90_ptxas(log):
+    """Registers and spills of the wgmma route's instances, by head dim.
+    ptxas gives the count a thread holds at launch (384 threads, at most
+    168 each); setmaxnreg then moves the producer warpgroup to 40 and the
+    two consumer warpgroups to 232."""
+    out = ptxas_report(log, r"flash_fwd_sm90_kernelILi(\d+)E")
     if sorted(out, key=int) != ["64", "128", "192", "256"]:
         fail(f"the build log names no wgmma instances for every head dim: "
              f"{sorted(out)}")
+    return out
+
+
+def fma_ptxas(log):
+    """Registers and spills of the FMA route's kernel and its split
+    combine (256 threads, up to 255 registers each, one block an SM).
+    Fails if the kernel spills: its O tile lives in registers by design."""
+    out = ptxas_report(
+        log, r"(flash_fwd_f32_kernel|flash_combine_f32_kernel)")
+    if sorted(out) != ["flash_combine_f32_kernel", "flash_fwd_f32_kernel"]:
+        fail(f"the build log names no FMA-route kernels: {sorted(out)}")
+    main = out["flash_fwd_f32_kernel"]
+    if main.get("spill_stores", 1) or main.get("spill_loads", 1):
+        fail(f"the FMA route's kernel spills registers: {main}")
     return out
 
 
@@ -1117,8 +1158,12 @@ def main():
     cuda_build.library()
     built = cuda_build.build_info
     log = built["log"].splitlines()
-    spills = [ln.strip() for ln in log
-              if "spill" in ln and " 0 bytes spill stores" not in ln]
+    spills, entry = [], None
+    for ln in log:
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln.strip()
+        elif "spill" in ln and " 0 bytes spill stores" not in ln:
+            spills.append(f"{entry}: {ln.strip()}")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({'compiled' if built['built'] else 'cached'}; nvcc "
           f"{built['seconds'] or 0:.1f} s), "
@@ -1127,9 +1172,7 @@ def main():
     for ln in spills:
         print(f"  {ln}", flush=True)
 
-    print("kernels vs plain versions (the VAE mid-block attention is "
-          "checked at S=4096, not the path's 16384, where the plain "
-          "version's f32 logits alone would be 1 GB):", flush=True)
+    print("kernels vs plain versions:", flush=True)
     phases = kernel_phases()
     phases.update(bwd_phases())
     phases["layer_norm"], ln_launches = layer_norm_phases()
@@ -1161,10 +1204,14 @@ def main():
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
     sources = {
-        # K1's bf16 route (every UNet self-attention); its fp32 / d >= 320
-        # route (the VAE's d=512) is the shared-memory kernel
+        # K1's bf16 route (every UNet self-attention), its fp32 d = 512
+        # route (the VAE's mid-block attention) and its shared-memory
+        # route (bf16 d >= 320, the VAE under --vae_dtype bfloat16; fp32
+        # d <= 448, on no path)
         "flash_attention_fwd": ("flash_attention_sm90.cu",
                                 "flash_attention.py:253"),
+        "flash_attention_fwd_fma": ("flash_attention_f32.cu",
+                                    "flash_attention.py:160"),
         "flash_attention_fwd_smem": ("flash_attention.cu",
                                      "flash_attention.py:253"),
         "geglu_projection": ("geglu.cu", "geglu.py:100"),
@@ -1181,7 +1228,8 @@ def main():
         # those of its own phase
         "layer_norm": ("layer_norm.cu", "layer_norm.py:60"),
     }
-    sm90 = sm90_ptxas(log)
+    ptxas = {"flash_attention_sm90.cu": sm90_ptxas(log),
+             "flash_attention_f32.cu": fma_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
         first = phases[name][0]  # the path's principal shape
@@ -1195,8 +1243,8 @@ def main():
             "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"],
             "library_ms": first["library_ms"], "phases": phases[name]}
-        if src == "flash_attention_sm90.cu":
-            entry["ptxas"] = sm90
+        if src in ptxas:
+            entry["ptxas"] = ptxas[src]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

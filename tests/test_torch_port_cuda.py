@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1-K5, K7) against their plain PyTorch
-versions on the card, and gradients through their autograd wrappers
-against the CPU.
+"""The port's CUDA kernels (K1 on its three routes, K2-K5, K7) against
+their plain PyTorch versions on the card, and gradients through their
+autograd wrappers against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
 file imports no JAX, so it also runs on a machine without it:
 
@@ -39,11 +39,16 @@ def _need_cuda():
                                      (torch.bfloat16, 128),
                                      (torch.bfloat16, 192),
                                      (torch.bfloat16, 256),
+                                     (torch.bfloat16, 320),
+                                     (torch.bfloat16, 384),
+                                     (torch.bfloat16, 448),
+                                     (torch.bfloat16, 512),
                                      (torch.float32, 512)])
 def test_cuda_flash_matches_plain(dtype, d):
-    # bf16 takes the wgmma + TMA kernel, fp32 the shared-memory one
-    # (`route`); q, k and v are strided views of one fused projection and
-    # S = 1100 leaves masked q and kv tails in both
+    # bf16 d <= 256 takes the wgmma + TMA kernel, bf16 d >= 320 (the VAE
+    # under --vae_dtype bfloat16) the shared-memory one, fp32 d = 512 the
+    # FMA one (`route`); q, k and v are strided views of one fused
+    # projection and S = 1100 leaves masked q and kv tails in all
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(2, 1100, 3 * 2 * d, device="cuda", generator=g,
@@ -76,6 +81,42 @@ def test_cuda_flash_wgmma_ragged_cross_lengths(d):
     assert out.shape == (2, 1000, 3 * d) and lse.shape == (2, 3, 1000)
     _assert_close(out, ref)
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 8])
+def test_cuda_flash_fma_cross_lengths(b):
+    # the FMA route (fp32 d = 512) at seq_q != seq_k, with tails in both
+    # its 64-row query blocks (1000 = 15 * 64 + 40) and its 256-key kv
+    # tiles (1100 = 4 * 256 + 76): q a contiguous tensor, k and v strided
+    # views of one fused kv projection. At b = 2 the grid is small enough
+    # that the kv walk splits and a second kernel combines the parts; at
+    # b = 8 it does not.
+    _need_cuda()
+    d, h, sq, sk = 512, 3, 1000, 1100
+    assert tfa.route(torch.float32, d) == "fma"
+    assert sq % tfa.FMA_BLOCK_Q and sk % tfa.FMA_BLOCK_K
+    splits = tfa.fma_kv_splits(b * h * -(-sq // tfa.FMA_BLOCK_Q),
+                               -(-sk // tfa.FMA_BLOCK_K),
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+    assert (splits > 1) == (b == 2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g)
+    kv = torch.randn(b, sk, 2 * h * d, device="cuda", generator=g)
+    k, v = (t.unflatten(-1, (h, d)) for t in kv.split(h * d, -1))
+    before = tfa.ROUTE_LAUNCHES["fma"]
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    assert tfa.ROUTE_LAUNCHES["fma"] == before + 1
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    assert out.shape == (b, sq, h * d) and lse.shape == (b, h, sq)
+    _assert_close(out, ref)
+    _assert_close(lse, ref_lse)
+    # the check sees a 3 % scale fault of either output
+    with pytest.raises(AssertionError):
+        _assert_close(out * 0.97, ref)
+    with pytest.raises(AssertionError):
+        _assert_close(lse * 0.97, ref_lse)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
-"""K1's two routes: which kernel each (dtype, head_dim) takes on the card,
-and the plain version (what a CPU tensor runs, and what the card's
-kernels are held against) against the JAX package's Pallas routes at
-ragged lengths, `out` and `lse` both.
+"""K1's three routes: which kernel each (dtype, head_dim) takes on the
+card, how the FMA route splits its kv walk, and the plain version (what a
+CPU tensor runs, and what the card's kernels are held against) against
+the JAX package's Pallas routes at ragged lengths, `out` and `lse` both.
 
 The JAX functions run in interpret mode on the CPU, as the other port
 tests run them; f32 at 2e-5 (both sides compute exact f32 softmax math,
@@ -35,7 +35,8 @@ def no_library(monkeypatch):
 @pytest.mark.parametrize("dtype,d,want", [
     *((torch.bfloat16, d, "wgmma") for d in (64, 128, 192, 256)),
     *((torch.bfloat16, d, "smem") for d in (320, 384, 448, 512)),
-    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS),
+    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS if d != 512),
+    (torch.float32, 512, "fma"),
 ])
 def test_route_names_the_kernel(dtype, d, want):
     assert tfa.route(dtype, d) == want
@@ -50,13 +51,16 @@ def test_route_refuses_what_k1_does_not_take(dtype, d, exc):
 
 
 @pytest.mark.parametrize("d,sq,sk", [(64, 200, 200), (64, 136, 264),
-                                     (192, 200, 200), (192, 136, 264)])
+                                     (192, 200, 200), (192, 136, 264),
+                                     (512, 200, 200), (512, 136, 264)])
 def test_plain_matches_jax_route_out_and_lse(no_library, d, sq, sk):
     # d = 64 packs two heads per 128 lanes (`_flash_fwd_bs_hd`, K1's TPU
     # kernels); d = 192 cannot pack (`_flash_fwd_bhsd`, `_attn_kernel`,
-    # K6). block_k = 128 leaves a masked kv tail in the last kv block, so
-    # both take their online-softmax kernels.
-    b, h = 2, 4
+    # K6); d = 512 is the VAE's one head a block (`_flash_fwd_bs_hd`,
+    # `_attn_kernel_packed`, the FMA route's TPU kernel). block_k = 128
+    # leaves a masked kv tail in the last kv block, so all take their
+    # online-softmax kernels.
+    b, h = (1, 1) if d == 512 else (2, 4)
     scale = d ** -0.5
     q = _rand(50 + d, (b, sq, h, d))
     k, v = (_rand(51 + d + i, (b, sk, h, d)) for i in range(2))
@@ -80,3 +84,17 @@ def test_plain_matches_jax_route_out_and_lse(no_library, d, sq, sk):
     assert got.shape == (b, sq, h * d) and got_lse.shape == (b, h, sq)
     np.testing.assert_allclose(got.numpy(), want_out, atol=TOL, rtol=0)
     np.testing.assert_allclose(got_lse.numpy(), want_lse, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("blocks,kv_tiles,sms,want", [
+    (256, 64, 132, 1),    # (1,16384,1x512): 256 blocks fill two waves
+    (64, 16, 132, 2),     # (1,4096,1x512): 64 -> 128 blocks in one wave
+    (16, 5, 132, 5),      # at most one split a kv tile
+    (1, 1, 132, 1),
+    (150, 64, 132, 7),    # 1050 blocks fill 8 waves of 132 to 99 %
+])
+def test_fma_kv_splits_fill_the_card(blocks, kv_tiles, sms, want):
+    got = tfa.fma_kv_splits(blocks, kv_tiles, sms)
+    assert got == want
+    per = -(-kv_tiles // got)
+    assert (got - 1) * per < kv_tiles  # every split owns a kv tile

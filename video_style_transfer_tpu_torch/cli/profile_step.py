@@ -4,8 +4,10 @@ Builds the full-width SDXL + AnimateDiff-XL UNet with seeded random
 weights (as ``cli.infer_video`` and ``cli.train_animatediff`` do without a
 checkpoint) and warms each phase up once. Serving has one phase, a CFG
 denoise call on a video's frames, or with ``--image`` on one image
-(plain SDXL, no motion modules); training (``--train``) has two, the fp32 VAE encode of one
-clip and the train step (forward, backward, optimizer update). Each
+(plain SDXL, no motion modules); training (``--train``) has two, the
+fp32 VAE encode of one clip and the train step (forward, backward,
+optimizer update); ``--decode`` has one, the fp32 VAE decode of one
+frame (serving decodes a video frame by frame). Each
 phase runs once without the profiler, then once traced with
 ``torch.profiler``, and is printed as one JSON line: its host seconds
 both ways (each ending in a synchronise; their difference is the
@@ -21,14 +23,15 @@ another checkout in the same call (``cd`` there, ``PYTHONPATH=.``, and
 run this file by its path).
 
 ``--k1`` times K1's wrapper (``ops.flash_attention.flash_attention_fwd``)
-alone at the bf16 shapes the paths give it (and the other head dims of
-its bf16 route), one JSON line a shape: device ms a call (CUDA events
+alone at the shapes the paths give it (the UNet's bf16 self-attentions,
+the other head dims of the bf16 route, the VAE's fp32 mid-block attention
+at 512^2 and 1024^2), one JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
 call (no synchronise inside).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image | --k1] [--num_frames N] [--resolution 1024]
-        [--steps N]
+        [--train | --image | --decode | --k1] [--num_frames N]
+        [--resolution 1024] [--steps N]
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ import torch
 # first match wins: cuDNN's convolutions are implicit GEMMs by name
 CATEGORIES = (
     ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_kernel",)),
+    ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",
+                                      "flash_combine_f32_kernel")),
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
@@ -91,6 +96,29 @@ def _serving_phases(args, dev):
     return [("cfg_denoise", denoise)], {"cfg_rows": 2 * args.num_frames}
 
 
+def _decode_phases(args, dev):
+    """[("vae_decode", fn)]: the fp32 VAE decode of one frame's latents
+    (SDXL's decoder, seeded random weights), warmed up."""
+    from video_style_transfer_tpu_torch.cli import common
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
+    from video_style_transfer_tpu_torch.pipelines.video import decode_video
+
+    vcfg = common.model_configs(smoke=False, motion=True)[1]
+    with torch.inference_mode():
+        vae = init_vae_decoder(Init(1, dev), vcfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        lat = args.resolution // 8
+        z = torch.randn(1, lat, lat, vcfg.latent_channels, generator=gen,
+                        device=dev)
+
+    def decode():
+        with torch.inference_mode():
+            decode_video(vae, vcfg, z, chunk=1, dtype=torch.float32)
+    decode()
+    return [("vae_decode", decode)], {"frames": 1}
+
+
 def _train_phases(args, dev):
     """[("stage2_encode", fn), ("stage2_train", fn)]: the fp32 VAE encode
     of one synthetic clip and one train step on it, warmed up."""
@@ -116,15 +144,17 @@ def _train_phases(args, dev):
              "trainable_params": sum(t.numel() for _, t in tr.trainable)})
 
 
-# (tag, (B, S, H, D)): K1's bf16 shapes in chip_smoke.py's K1 phases
-K1_SHAPES = (("serving L2", (32, 1024, 20, 64)),
-             ("serving L1", (32, 4096, 10, 64)),
-             ("image L2", (2, 1024, 20, 64)),
-             ("train L1", (8, 4096, 10, 64)),
-             ("ragged", (2, 4032, 10, 64)),
-             ("d128", (2, 4096, 10, 128)),
-             ("K6 d192", (2, 4096, 2, 192)),
-             ("d256", (2, 4096, 5, 256)))
+# (tag, (B, S, H, D), dtype): K1's shapes in chip_smoke.py's K1 phases
+K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
+             ("serving L1", (32, 4096, 10, 64), torch.bfloat16),
+             ("image L2", (2, 1024, 20, 64), torch.bfloat16),
+             ("train L1", (8, 4096, 10, 64), torch.bfloat16),
+             ("ragged", (2, 4032, 10, 64), torch.bfloat16),
+             ("d128", (2, 4096, 10, 128), torch.bfloat16),
+             ("K6 d192", (2, 4096, 2, 192), torch.bfloat16),
+             ("d256", (2, 4096, 5, 256), torch.bfloat16),
+             ("VAE 512^2", (1, 4096, 1, 512), torch.float32),
+             ("VAE 1024^2", (1, 16384, 1, 512), torch.float32))
 
 
 def k1_calls(dev, runs: int):
@@ -133,9 +163,9 @@ def k1_calls(dev, runs: int):
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
-    for tag, (b, s, h, d) in K1_SHAPES:
+    for tag, (b, s, h, d), dtype in K1_SHAPES:
         qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
-                          dtype=torch.bfloat16)
+                          dtype=dtype)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         fa.flash_attention_fwd(q, k, v)
         dev_ms, host_us = [], []
@@ -155,7 +185,7 @@ def k1_calls(dev, runs: int):
             end.record()
             torch.cuda.synchronize()
             dev_ms.append(start.elapsed_time(end) / 20)
-        out.append({"shape": f"{tag} {(b, s, h, d)}",
+        out.append({"shape": f"{tag} {(b, s, h, d)} {str(dtype)[6:]}",
                     "device_ms": sorted(dev_ms)[runs // 2],
                     "host_us": sorted(host_us)[runs // 2]})
         del qkv, q, k, v
@@ -230,8 +260,10 @@ def main(argv=None):
     p.add_argument("--image", action="store_true",
                    help="trace the image path's denoise call (one image, "
                         "no motion modules)")
+    p.add_argument("--decode", action="store_true",
+                   help="trace the fp32 VAE decode of one frame")
     p.add_argument("--k1", action="store_true",
-                   help="time K1's wrapper alone at its bf16 shapes")
+                   help="time K1's wrapper alone at the paths' shapes")
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--steps", type=int, default=0,
                    help="time each phase this many times without the "
@@ -253,8 +285,9 @@ def main(argv=None):
                   flush=True)
         return
 
-    phases, extra = (_train_phases if args.train else _serving_phases)(
-        args, dev)
+    phases, extra = (_train_phases if args.train
+                     else _decode_phases if args.decode
+                     else _serving_phases)(args, dev)
     for name, fn in phases:
         if args.steps:
             result = {"card": card, "package": common.__file__,

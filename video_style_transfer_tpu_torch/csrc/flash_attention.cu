@@ -1,8 +1,9 @@
-// K1: flash-attention forward, shared-memory route: fp32 at every head dim
-// (the VAE's d = 512 mid-block attention) and bf16 at d = 320 ... 512
-// (the VAE under --vae_dtype bfloat16). bf16 at d <= 256 (every UNet
-// attention, and K6's d = 192) runs on flash_attention_sm90.cu; the C
-// entry point below sends each call to its route.
+// K1: flash-attention forward, shared-memory route: fp32 at head dims 64
+// to 448 and bf16 at d = 320 ... 512 (the VAE under --vae_dtype bfloat16).
+// fp32 at d = 512 (the VAE's mid-block attention) runs on
+// flash_attention_f32.cu and bf16 at d <= 256 (every UNet attention, and
+// K6's d = 192) on flash_attention_sm90.cu; the C entry point below sends
+// each call to its route.
 //
 // Replaces the JAX package's Pallas kernels ops/flash_attention.py
 // `_attn_kernel_packed_single` / `_attn_kernel_packed` (launched by
@@ -13,9 +14,9 @@
 // (B, S, H, D) strided views (so the fused (B, S, 3*H*D) projection is
 // read in place) and writing out (B, S, H*D) and lse (B, H, S) in f32.
 //
-// Bound on the H100: at d = 512 and S = 4096..16384 the two products are
-// far above the card's ~295 flop/byte ridge: the kernel is bound by FP32
-// FMA throughput (fp32, no TF32) or tensor-core throughput (bf16).
+// Bound on the H100: at d >= 320 and S >= 4096 the two products are far
+// above the card's ~295 flop/byte ridge: the kernel is bound by FP32 FMA
+// throughput (fp32, no TF32) or tensor-core throughput (bf16).
 //
 // Design: one block of 4 warps owns 32 query rows of one (batch, head)
 // and walks the key/value sequence in tiles held in shared memory: online
@@ -296,7 +297,8 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// fp32 at every head dim, bf16 from 320 up (below, the wgmma route)
+// fp32 up to 448 (512: the FMA route), bf16 from 320 up (below, the
+// wgmma route)
 template <typename T>
 int dispatch_d(int d, const FlashArgs& a, cudaStream_t s) {
   if constexpr (std::is_same<T, float>::value) {
@@ -305,14 +307,19 @@ int dispatch_d(int d, const FlashArgs& a, cudaStream_t s) {
       case 128: return launch<T, 128>(a, s);
       case 192: return launch<T, 192>(a, s);
       case 256: return launch<T, 256>(a, s);
+      case 320: return launch<T, 320>(a, s);
+      case 384: return launch<T, 384>(a, s);
+      case 448: return launch<T, 448>(a, s);
+      default: return -2;
     }
-  }
-  switch (d) {
-    case 320: return launch<T, 320>(a, s);
-    case 384: return launch<T, 384>(a, s);
-    case 448: return launch<T, 448>(a, s);
-    case 512: return launch<T, 512>(a, s);
-    default: return -2;
+  } else {
+    switch (d) {
+      case 320: return launch<T, 320>(a, s);
+      case 384: return launch<T, 384>(a, s);
+      case 448: return launch<T, 448>(a, s);
+      case 512: return launch<T, 512>(a, s);
+      default: return -2;
+    }
   }
 }
 
@@ -324,11 +331,14 @@ extern "C" int vst_flash_attention_fwd(
     void* o, void* lse, int batch, int seq_q, int seq_k, int heads,
     long long q_sb, long long q_ss, long long q_sh, long long k_sb,
     long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, void* stream) {
+    long long v_sh, float scale, int kv_splits, void* part, void* stream) {
   vst::FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
                    batch, seq_q, seq_k, heads, q_sb, q_ss, q_sh,
                    k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == vst::kFloat32 && head_dim == 512)
+    return vst::flash_fwd_f32(a, kv_splits, static_cast<float*>(part), s);
+  if (kv_splits != 1) return -2;  // only the FMA route splits the kv walk
   if (dtype == vst::kFloat32) return vst::dispatch_d<float>(head_dim, a, s);
   if (dtype == vst::kBFloat16 && head_dim <= 256)
     return vst::flash_fwd_sm90(head_dim, a, s);

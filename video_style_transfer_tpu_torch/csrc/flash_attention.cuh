@@ -1,4 +1,4 @@
-// K1's launch arguments, shared by its two routes.
+// K1's launch arguments, shared by its three routes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,5 +22,12 @@ struct FlashArgs {
 // (flash_attention_sm90.cu). Returns 0, a CUDA error, or a negative code
 // for an argument it refuses.
 int flash_fwd_sm90(int head_dim, const FlashArgs& a, cudaStream_t stream);
+
+// fp32 at head_dim 512: the FMA route (flash_attention_f32.cu). With
+// kv_splits > 1 each split of the kv walk writes its partial output and
+// lse to `part` ((splits, B, H, Sq, D) f32, then (splits, B, H, Sq)) and a
+// second kernel combines them. Returns as flash_fwd_sm90 does.
+int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
+                  cudaStream_t stream);
 
 }  // namespace vst

@@ -1,0 +1,443 @@
+// K1 (fp32, head_dim 512): flash-attention forward on Hopper's FP32 FMA
+// pipes, for the VAE's mid-block attention (one head, d = 512, 16384
+// tokens at 1024^2, 4096 at 512^2).
+//
+// Replaces the JAX package's Pallas kernel ops/flash_attention.py
+// `_attn_kernel_packed` (launched by `_flash_fwd_bs_hd`, one head a block
+// at d = 512) for fp32 inputs. Other fp32 head dims and bf16 d >= 320 stay
+// on flash_attention.cu's shared-memory kernel; bf16 d <= 256 runs on
+// flash_attention_sm90.cu.
+//
+// Same function: per (batch, head), out = softmax(q k^T * scale) v with
+// f32 logits, running max and sum, exact fp32 throughout (no TF32), and
+// lse in natural-log units. q, k and v are read as (B, S, H, D) strided
+// views (the fused (B, S, 3*H*D) projection in place); out is (B, Sq,
+// H*D), lse (B, H, Sq) f32; the kv tail is masked, q-tail rows are not
+// written.
+//
+// Bound on the H100: 4 * Sq * Sk * D flops against 4 * S * D * 4 bytes a
+// head, so at S >= 4096 the card's FP32 FMA rate (67 TF/s, 128 FMA a clock
+// per SM) bounds it. Two things stand in its way: every instruction that
+// is not an FMA takes a dispatch slot from one, and shared memory serves
+// 128 bytes of lane data a clock per SM (a float4 load takes 4 clocks,
+// broadcast or not), so each lane must load at most one byte per FMA. The
+// design:
+//
+// - Register micro-tiles at 4 FMAs per float a lane loads. A block of 8
+//   warps owns 64 query rows and walks the keys in tiles of BC = 256. A
+//   thread computes 8 rows x 8 keys of S = Q K^T (per d: 8 q and 8 k
+//   values, 64 FMAs) and 8 rows x 16 columns of O += P V (per kv row: 8 p
+//   and 16 v values, 128 FMAs), the same 8 rows in both. A warp is 4 row
+//   groups x 8 key (or column) groups and the 8 warps are 2 row halves x
+//   4 quarters of the keys (or columns), so every load is free of bank
+//   conflicts.
+// - O in registers (128 floats a thread) for the whole kv walk; the
+//   online-softmax correction is applied there. The row max and sum of a
+//   tile are reduced over the 8 lanes of a row group by shuffles and over
+//   the 4 quarters through shared memory. P (256 keys x 64 rows) goes to
+//   shared memory, 16-byte units swizzled so that stores and loads hit
+//   distinct banks.
+// - Q is loaded once, transposed (Qt[d][row], 128 KB), so that one float4
+//   holds 4 rows at one d. TMA streams K in chunks of 256 keys x 16 d (its
+//   64-byte swizzle lets 8 consecutive keys' float2 reads hit distinct
+//   banks) and V in chunks of 8 rows x 512, through a ring of two 16 KB
+//   stages on mbarriers: every chunk loads while the one before it is
+//   computed, so K's loads, V's loads and the softmax all overlap a
+//   product, and no thread spends a dispatch slot on a copy (TMA cannot
+//   transpose fp32, hence K's natural layout). One block-wide barrier per
+//   chunk frees its stage. Shared memory: Qt 128 KB + P 64 KB + stages 32
+//   KB + row statistics.
+// - 256 threads at up to 255 registers each: one block (8 warps) per SM.
+//   At S = 16384 the grid is 256 blocks (two waves); where a grid would
+//   leave SMs idle (S = 4096: 64 blocks) the wrapper splits the kv walk
+//   (`kv_splits`) and a second kernel combines the partial outputs by
+//   their lse.
+
+#include "common.cuh"
+#include "flash_attention.cuh"
+#include "sm90.cuh"
+
+namespace vst {
+namespace {
+
+using namespace sm90;
+
+constexpr int D = 512;
+constexpr int BR = 64;          // query rows a block
+constexpr int BC = 256;         // keys a kv tile
+constexpr int THREADS = 256;    // 8 warps
+constexpr int DK = 16;          // d columns of a K chunk
+constexpr int VR = 8;           // kv rows of a V chunk
+constexpr int NST = 2;          // stages in the ring
+constexpr int K_CHUNKS = D / DK;    // 32
+constexpr int V_CHUNKS = BC / VR;   // 32
+constexpr int CHUNKS = K_CHUNKS + V_CHUNKS;
+constexpr int STAGE = BC * DK;  // floats: a K chunk, or a V chunk
+static_assert(STAGE == VR * D, "K and V chunks share the stages");
+static_assert(DK == 16, "K boxes of 16 d (64-byte rows)");
+constexpr int V_BOX = 256;      // columns of a V box
+
+constexpr size_t OFF_Q = 0;
+constexpr size_t OFF_P = OFF_Q + sizeof(float) * D * BR;
+constexpr size_t OFF_ST = OFF_P + sizeof(float) * BC * BR;
+constexpr size_t OFF_STAT = OFF_ST + sizeof(float) * STAGE * NST;
+// row max and sum, then each quarter's partial max and sum of a tile
+constexpr size_t OFF_BAR = OFF_STAT + sizeof(float) * (2 + 2 * 4) * BR;
+constexpr size_t SMEM = OFF_BAR + sizeof(uint64_t) * NST;
+static_assert(OFF_ST % 1024 == 0 && STAGE * 4 % 1024 == 0,
+              "swizzled TMA boxes start on 1024-byte boundaries");
+static_assert(SMEM <= 232448, "fp32 flash tile exceeds shared memory");
+
+// Offset (floats) of K[key][2m..2m+1] in a K chunk: a box of 256 keys x
+// 16 d as TMA's 64-byte swizzle lays it, a row's 16-byte units permuted
+// by (key >> 1) & 3, so that 8 consecutive keys' float2 m hit distinct
+// banks.
+__device__ __forceinline__ int k_off(int key, int m) {
+  return key * DK + (((m >> 1) ^ ((key >> 1) & 3)) << 2) + ((m & 1) << 1);
+}
+
+// Offset (floats) of V[row][col] in a V chunk: boxes of VR rows x 256.
+__device__ __forceinline__ int v_off(int row, int col) {
+  return (col / V_BOX) * (VR * V_BOX) + row * V_BOX + col % V_BOX;
+}
+
+// Offset (floats) of P[key][row..row+3] (row a multiple of 4): rows of 64
+// whose 16-byte units are permuted by key & 7, so that the 8 key groups of
+// a warp's stores hit distinct banks.
+__device__ __forceinline__ int p_off(int key, int row) {
+  return key * BR + (((row >> 2) ^ (key & 7)) << 2);
+}
+
+struct F32Args {
+  FlashArgs a;
+  int kv_splits;
+  int tiles_per_split;
+  float* part;       // kv_splits > 1: (splits, B, H, Sq, D) then lse
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const F32Args args) {
+  const FlashArgs& a = args.a;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qt = reinterpret_cast<float*>(smem + OFF_Q);
+  float* Ps = reinterpret_cast<float*>(smem + OFF_P);
+  float* St = reinterpret_cast<float*>(smem + OFF_ST);
+  float* row_m = reinterpret_cast<float*>(smem + OFF_STAT);
+  float* row_l = row_m + BR;
+  float* part_m = row_l + BR;        // [quarter][row]
+  float* part_l = part_m + 4 * BR;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // this thread: rows r0..r0+7; key / column quarter qt, group kg
+  const int qt = warp & 3, kg = lane & 7;
+  const int r0 = (warp >> 2) * 32 + (lane >> 3) * 8;
+  const int q0 = blockIdx.x * BR;
+  const int split = blockIdx.y % args.kv_splits;
+  const int h = blockIdx.y / args.kv_splits;
+  const int b = blockIdx.z;
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const int kv0 = split * args.tiles_per_split * BC;
+  const int kv_end = min(a.seq_k, kv0 + args.tiles_per_split * BC);
+  const int n_tiles = (kv_end - kv0 + BC - 1) / BC;
+  const int n_chunks = n_tiles * CHUNKS;
+
+  // chunk g of the kv walk into stage g % NST, by TMA from one thread:
+  // tile g / CHUNKS, then either the K chunk of d columns [DK c, DK c +
+  // DK) or the V chunk of rows [VR c', VR c' + VR); rows past Sk arrive
+  // as zeros
+  auto load_chunk = [&](int g) {
+    float* st = St + (g % NST) * STAGE;
+    uint64_t* bar = &full[g % NST];
+    const int k0 = kv0 + (g / CHUNKS) * BC;
+    const int c = g % CHUNKS;
+    mbar_arrive_tx(bar, STAGE * sizeof(float));
+    if (c < K_CHUNKS) {
+      tma_load_4d(st, &tk, bar, c * DK, h, k0, b);
+    } else {
+#pragma unroll
+      for (int i = 0; i < D / V_BOX; ++i)
+        tma_load_4d(st + i * VR * V_BOX, &tv, bar, i * V_BOX, h,
+                    k0 + (c - K_CHUNKS) * VR, b);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < NST; ++i) mbar_init(&full[i], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int i = 0; i < NST - 1 && i < n_chunks; ++i) load_chunk(i);
+  }
+
+  // Q, transposed: lanes take 32 consecutive rows of one float4 of d
+  for (int e = tid; e < BR * (D / 4); e += THREADS) {
+    const int row = e & (BR - 1), d = (e >> 6) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + row < a.seq_q)
+      v = __ldg(reinterpret_cast<const float4*>(
+          qb + (long long)(q0 + row) * a.q_ss + d));
+    Qt[(d + 0) * BR + row] = v.x;
+    Qt[(d + 1) * BR + row] = v.y;
+    Qt[(d + 2) * BR + row] = v.z;
+    Qt[(d + 3) * BR + row] = v.w;
+  }
+  if (tid < BR) {
+    row_m[tid] = -INFINITY;
+    row_l[tid] = 0.f;
+  }
+
+  float o[8][16];  // rows r0 + r, columns 128 qt + 32 i + 4 kg + e
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) o[r][j] = 0.f;
+
+  const float sl2 = a.scale * kLog2e;
+
+  // one pipeline step: every thread is past chunk g - 1, so its stage
+  // takes chunk g + NST - 1; then chunk g is waited for
+  int g = 0;
+  auto next_stage = [&]() {
+    __syncthreads();
+    if (tid == 0 && g + NST - 1 < n_chunks) load_chunk(g + NST - 1);
+    mbar_wait(&full[g % NST], (g / NST) & 1);
+    return St + (g++ % NST) * STAGE;
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = kv0 + t * BC;
+    // S = Q K^T: rows r0 + r, keys 64 qt + kg + 8 j
+    float s[8][8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[r][j] = 0.f;
+    for (int c = 0; c < K_CHUNKS; ++c) {
+      const float* st = next_stage();
+      const float* qd = Qt + c * DK * BR + r0;
+#pragma unroll
+      for (int m = 0; m < DK / 2; ++m) {
+        float2 kv[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          kv[j] = *reinterpret_cast<const float2*>(
+              st + k_off(64 * qt + kg + 8 * j, m));
+#pragma unroll
+        for (int dd = 0; dd < 2; ++dd) {
+          const float4 qa =
+              *reinterpret_cast<const float4*>(qd + (2 * m + dd) * BR);
+          const float4 qc =
+              *reinterpret_cast<const float4*>(qd + (2 * m + dd) * BR + 4);
+          const float qv[8] = {qa.x, qa.y, qa.z, qa.w,
+                               qc.x, qc.y, qc.z, qc.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float k = dd == 0 ? kv[j].x : kv[j].y;
+#pragma unroll
+            for (int r = 0; r < 8; ++r) s[r][j] = fmaf(qv[r], k, s[r][j]);
+          }
+        }
+      }
+    }
+
+    // online softmax while the first V chunk loads: each quarter's max
+    // and sum over its 64 keys (8 lanes, shuffles), then over the four
+    // quarters through shared memory
+    float m_new[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[r][j] = k0 + 64 * qt + kg + 8 * j < kv_end ? s[r][j] * sl2
+                                                      : -INFINITY;
+        mx = fmaxf(mx, s[r][j]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      m_new[r] = mx;
+    }
+    if (kg == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) part_m[qt * BR + r0 + r] = m_new[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int row = r0 + r;
+      const float m_old = row_m[row];
+      const float mt = fmaxf(fmaxf(part_m[row], part_m[BR + row]),
+                             fmaxf(part_m[2 * BR + row], part_m[3 * BR + row]));
+      m_new[r] = fmaxf(m_old, mt);
+      const float corr = exp2f(m_old - m_new[r]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) o[r][j] *= corr;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[r][j] = exp2f(s[r][j] - m_new[r]);
+        rs += s[r][j];
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      if (kg == 0) part_l[qt * BR + row] = rs;
+    }
+    // P[key][row]: rows r0..r0+7 of keys 64 qt + kg + 8 j
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int key = 64 * qt + kg + 8 * j;
+      *reinterpret_cast<float4*>(Ps + p_off(key, r0)) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+      *reinterpret_cast<float4*>(Ps + p_off(key, r0 + 4)) =
+          make_float4(s[4][j], s[5][j], s[6][j], s[7][j]);
+    }
+    __syncthreads();  // every row_m read, every partial sum written
+    if (qt == 0 && kg == 0) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int row = r0 + r;
+        const float corr = exp2f(row_m[row] - m_new[r]);
+        row_l[row] = row_l[row] * corr + part_l[row] + part_l[BR + row] +
+                     part_l[2 * BR + row] + part_l[3 * BR + row];
+        row_m[row] = m_new[r];
+      }
+    }
+
+    // O += P V, VR kv rows a chunk: columns 128 qt + 32 i + 4 kg + (0..3)
+    for (int c = 0; c < V_CHUNKS; ++c) {
+      const float* st = next_stage();
+#pragma unroll
+      for (int jj = 0; jj < VR; ++jj) {
+        const int key = c * VR + jj;
+        const float4 pa =
+            *reinterpret_cast<const float4*>(Ps + p_off(key, r0));
+        const float4 pc =
+            *reinterpret_cast<const float4*>(Ps + p_off(key, r0 + 4));
+        const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pc.x, pc.y, pc.z, pc.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              st + v_off(jj, 128 * qt + 32 * i + 4 * kg));
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            o[r][4 * i + 0] = fmaf(pv[r], v.x, o[r][4 * i + 0]);
+            o[r][4 * i + 1] = fmaf(pv[r], v.y, o[r][4 * i + 1]);
+            o[r][4 * i + 2] = fmaf(pv[r], v.z, o[r][4 * i + 2]);
+            o[r][4 * i + 3] = fmaf(pv[r], v.w, o[r][4 * i + 3]);
+          }
+        }
+      }
+    }
+  }
+  // epilogue: O / l and the natural-log lse, straight to out and lse, or
+  // (kv split) to this split's slice of the partial buffer
+  const long long rows = (long long)a.batch * a.heads * a.seq_q;
+  float* ob;
+  long long o_ss;
+  float* lse;
+  if (args.kv_splits == 1) {
+    ob = static_cast<float*>(a.o) + (long long)b * a.seq_q * a.heads * D +
+         h * D;
+    o_ss = (long long)a.heads * D;
+    lse = a.lse + ((long long)b * a.heads + h) * a.seq_q;
+  } else {
+    ob = args.part + (split * rows + ((long long)b * a.heads + h) * a.seq_q) *
+                         D;
+    o_ss = D;
+    lse = args.part + rows * D * args.kv_splits + split * rows +
+          ((long long)b * a.heads + h) * a.seq_q;
+  }
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int q = q0 + r0 + r;
+    if (q >= a.seq_q) continue;
+    const float l = row_l[r0 + r] == 0.f ? 1.f : row_l[r0 + r];
+    const float inv = 1.f / l;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(ob + q * o_ss + 128 * qt + 32 * i +
+                                 4 * kg) =
+          make_float4(o[r][4 * i] * inv, o[r][4 * i + 1] * inv,
+                      o[r][4 * i + 2] * inv, o[r][4 * i + 3] * inv);
+    if (qt == 0 && kg == 0)
+      lse[q] = (row_m[r0 + r] + log2f(l)) * (1.0f / kLog2e);
+  }
+}
+
+// out = sum_s exp(lse_s - lse) o_s, lse = log sum_s exp(lse_s): one block
+// of D / 4 threads a (batch, head, query) row, a float4 each
+__global__ void __launch_bounds__(D / 4)
+    flash_combine_f32_kernel(const FlashArgs a, int splits,
+                             const float* part) {
+  const long long rows = (long long)a.batch * a.heads * a.seq_q;
+  const long long row = blockIdx.x;  // (b, h, q)
+  const float* plse = part + rows * D * splits + row;
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, plse[s * rows]);
+  float wsum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float w = expf(plse[s * rows] - m);
+    const float4 v = *reinterpret_cast<const float4*>(
+        part + (s * rows + row) * D + 4 * threadIdx.x);
+    wsum += w;
+    acc.x = fmaf(w, v.x, acc.x);
+    acc.y = fmaf(w, v.y, acc.y);
+    acc.z = fmaf(w, v.z, acc.z);
+    acc.w = fmaf(w, v.w, acc.w);
+  }
+  const float inv = 1.f / wsum;
+  const int q = static_cast<int>(row % a.seq_q);
+  const long long bh = row / a.seq_q;
+  const int h = static_cast<int>(bh % a.heads);
+  const long long b = bh / a.heads;
+  *reinterpret_cast<float4*>(static_cast<float*>(a.o) +
+                             (b * a.seq_q + q) * a.heads * D + h * D +
+                             4 * threadIdx.x) =
+      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
+  if (threadIdx.x == 0) a.lse[row] = m + logf(wsum);
+}
+
+}  // namespace
+
+int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
+                  cudaStream_t stream) {
+  const int n_tiles = (a.seq_k + BC - 1) / BC;
+  if (a.seq_k < 1 || kv_splits < 1 || kv_splits > n_tiles) return -2;
+  if (kv_splits > 1 && part == nullptr) return -2;
+  const int per = (n_tiles + kv_splits - 1) / kv_splits;
+  // every split must own at least one kv tile
+  if ((long long)(kv_splits - 1) * per >= n_tiles) return -2;
+  CUtensorMap tk, tv;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  int err = bshd_tensor_map(&tk, F32, 4, a.k, a.batch, a.seq_k, a.heads, D,
+                            a.k_sb, a.k_ss, a.k_sh, DK, BC,
+                            CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err == 0)
+    err = bshd_tensor_map(&tv, F32, 4, a.v, a.batch, a.seq_k, a.heads, D,
+                          a.v_sb, a.v_ss, a.v_sh, V_BOX, VR,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (err != 0) return err < 0 ? err : -1000 - err;  // a CUresult
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM);
+  if (e != cudaSuccess) return (int)e;
+  F32Args args{a, kv_splits, per, part};
+  dim3 grid((a.seq_q + BR - 1) / BR, a.heads * kv_splits, a.batch);
+  flash_fwd_f32_kernel<<<grid, THREADS, SMEM, stream>>>(tk, tv, args);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || kv_splits == 1) return (int)e;
+  const long long rows = (long long)a.batch * a.heads * a.seq_q;
+  flash_combine_f32_kernel<<<(unsigned)rows, D / 4, 0, stream>>>(
+      a, kv_splits, part);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace vst

@@ -299,14 +299,17 @@ template <int D>
 int launch(const FlashArgs& a, cudaStream_t stream) {
   using C = Sm90Cfg<D>;
   CUtensorMap tq, tk, tv;
-  int e = bshd_tensor_map(&tq, a.q, a.batch, a.seq_q, a.heads, D, a.q_sb,
-                          a.q_ss, a.q_sh, C::BR);
+  // boxes of 64 bf16 of D (one 128-byte swizzled panel) by BR or BC rows
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  int e = bshd_tensor_map(&tq, BF16, 2, a.q, a.batch, a.seq_q, a.heads, D,
+                          a.q_sb, a.q_ss, a.q_sh, 64, C::BR, SW);
   if (e == 0)
-    e = bshd_tensor_map(&tk, a.k, a.batch, a.seq_k, a.heads, D, a.k_sb,
-                        a.k_ss, a.k_sh, C::BC);
+    e = bshd_tensor_map(&tk, BF16, 2, a.k, a.batch, a.seq_k, a.heads, D,
+                        a.k_sb, a.k_ss, a.k_sh, 64, C::BC, SW);
   if (e == 0)
-    e = bshd_tensor_map(&tv, a.v, a.batch, a.seq_k, a.heads, D, a.v_sb,
-                        a.v_ss, a.v_sh, C::BC);
+    e = bshd_tensor_map(&tv, BF16, 2, a.v, a.batch, a.seq_k, a.heads, D,
+                        a.v_sb, a.v_ss, a.v_sh, 64, C::BC, SW);
   if (e != 0) return e < 0 ? e : -1000 - e;  // a CUresult from the encode
   auto kern = flash_fwd_sm90_kernel<D>;
   const cudaError_t err = cudaFuncSetAttribute(

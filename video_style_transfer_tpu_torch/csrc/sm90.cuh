@@ -417,24 +417,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 (B, S, H, D) strided view (strides in elements, D's stride 1) as
-// a 4-D tensor map (D, H, S, B) whose box is 64 values of one head's D
-// by `rows` rows of S, 128-byte swizzled: one box fills one panel. Rows
-// past S are zero-filled. Returns 0 or a CUresult.
-inline int bshd_tensor_map(CUtensorMap* map, const void* ptr, int batch,
+// A (B, S, H, D) strided view (strides in elements, D's stride 1) of
+// `type` (`elem_bytes` each) as a 4-D tensor map (D, H, S, B) whose box is
+// `box_d` values of one head's D by `rows` rows of S, laid out with
+// `swizzle`. Rows past S are zero-filled. Returns 0 or a CUresult.
+inline int bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                           int elem_bytes, const void* ptr, int batch,
                            int seq, int heads, int d, long long sb,
-                           long long ss, long long sh, int rows) {
+                           long long ss, long long sh, int box_d, int rows,
+                           CUtensorMapSwizzle swizzle) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return -3;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes),
+                                 (cuuint64_t)(ss * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_d, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                     const_cast<void*>(ptr), dims, strides, box, elem,
-                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)encode(map, type, 4, const_cast<void*>(ptr), dims, strides,
+                     box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }

@@ -38,7 +38,7 @@ SIGNATURES = {
     "vst_flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _F, _P],
+                                _F, _I, _P, _P],
     "vst_flash_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,

@@ -4,12 +4,14 @@
 K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
 `_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
 the TPU cannot pack such as d=192, `_attn_kernel`); K4 replaces
-`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has two routes, named
-by `route`: bf16 at d = 64, 128, 192 and 256 runs on wgmma with TMA
-loads (csrc/flash_attention_sm90.cu); fp32 (the VAE's d = 512) and bf16
-at d >= 320 on the shared-memory kernel (csrc/flash_attention.cu). On the
-H100 both are bound by tensor-core (bf16) or FMA (fp32) throughput; see
-the sources for their designs. The TPU's head packing, MXU row-sum and
+`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has three routes,
+named by `route`: bf16 at d = 64, 128, 192 and 256 runs on wgmma with TMA
+loads (csrc/flash_attention_sm90.cu); fp32 at d = 512 (the VAE's
+mid-block attention) on FP32 FMA register tiles fed by TMA
+(csrc/flash_attention_f32.cu); the other fp32 head dims and bf16 at d >=
+320 on the shared-memory kernel (csrc/flash_attention.cu). On the H100
+all are bound by tensor-core (bf16) or FMA (fp32) throughput; see the
+sources for their designs. The TPU's head packing, MXU row-sum and
 block tuning have no counterpart: the kernels read (B, S, H, D) strided
 views, so the fused (B, S, 3*H*D) projection is consumed in place.
 
@@ -30,13 +32,18 @@ from video_style_transfer_tpu_torch.ops import cuda_build
 # in ROUTE_LAUNCHES, BWD_LAUNCHES the backward (K4; one per backward
 # call, which runs its dk/dv and its dq kernel)
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0, "smem": 0}
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-# bf16 head dims of the wgmma + TMA route; the rest take shared memory
+# bf16 head dims of the wgmma + TMA route and fp32 head dims of the FMA
+# route; the rest take shared memory
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+FMA_HEAD_DIMS = (512,)
+# the FMA route's tiles (BR and BC in csrc/flash_attention_f32.cu): query
+# rows a block, keys a kv tile
+FMA_BLOCK_Q, FMA_BLOCK_K = 64, 256
 # every SDXL head; the VAE's d=512 attention runs under no_grad
 BWD_HEAD_DIMS = (64,)
 
@@ -55,8 +62,11 @@ def flash_attention_plain(q, k, v, scale: float):
 
 def route(dtype, head_dim: int) -> str:
     """The K1 kernel a CUDA call of this dtype and head dim launches:
-    "wgmma" (csrc/flash_attention_sm90.cu) or "smem"
-    (csrc/flash_attention.cu). Raises on what K1 does not take."""
+    "wgmma" (csrc/flash_attention_sm90.cu: bf16 d <= 256), "fma"
+    (csrc/flash_attention_f32.cu: fp32 d = 512, where the card measured
+    it faster than the shared-memory kernel; the other fp32 head dims were
+    not measured on it) or "smem" (csrc/flash_attention.cu: fp32 d <= 448,
+    bf16 d >= 320). Raises on what K1 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -65,7 +75,28 @@ def route(dtype, head_dim: int) -> str:
                          f"{HEAD_DIMS}")
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
+    if dtype == torch.float32 and head_dim in FMA_HEAD_DIMS:
+        return "fma"
     return "smem"
+
+
+def fma_kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
+    """Into how many parts the FMA route splits each kv walk, for a grid
+    of `blocks` (query block, head, batch) blocks over `kv_tiles` tiles of
+    FMA_BLOCK_K keys on a card of `sms` SMs (one block each): the count
+    whose grid fills its last wave best, the smallest on a tie, at most
+    16 and one tile a split, so that each split owns at least one tile.
+    One where the grid already fills the card's waves (S = 16384 at one
+    head: 256 blocks), two at S = 4096 (64 -> 128 blocks)."""
+    best, best_fill = 1, 0.0
+    for n in range(1, min(16, kv_tiles) + 1):
+        per = -(-kv_tiles // n)
+        n = -(-kv_tiles // per)  # splits that own a tile
+        grid = blocks * n
+        fill = grid / (-(-grid // sms) * sms)
+        if fill > best_fill + 1e-9:
+            best, best_fill = n, fill
+    return best
 
 
 def _check(q, k, v):
@@ -94,7 +125,7 @@ def _check(q, k, v):
                              f"16-byte aligned")
     if min(sq, k.shape[1]) < 1:
         raise ValueError("flash attention: empty sequence")
-    if max(sq, k.shape[1]) >= 2 ** 31 or b > 65535 or h > 65535:
+    if max(sq, k.shape[1]) >= 2 ** 31 or b > 65535 or h * 16 > 65535:
         raise ValueError("flash attention: shape beyond the launch grid")
 
 
@@ -111,17 +142,28 @@ def flash_attention_fwd(q, k, v, *, scale=None):
     sk = k.shape[1]
     out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    kernel = route(q.dtype, d)
+    splits, part = 1, None
+    if kernel == "fma":
+        splits = fma_kv_splits(
+            b * h * -(-sq // FMA_BLOCK_Q), -(-sk // FMA_BLOCK_K),
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+        if splits > 1:
+            # each split's normalised output, then its lse
+            part = torch.empty(splits * b * h * sq * (d + 1),
+                               dtype=torch.float32, device=q.device)
     lib = cuda_build.library()
     with torch.cuda.device(q.device):
         err = lib.vst_flash_attention_fwd(
             _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b, sq, sk, h,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), cuda_build.stream_of(q))
+            float(scale), splits, None if part is None else part.data_ptr(),
+            cuda_build.stream_of(q))
     cuda_build.check_launch("flash_attention_fwd", err)
     global LAUNCHES
     LAUNCHES += 1
-    ROUTE_LAUNCHES[route(q.dtype, d)] += 1
+    ROUTE_LAUNCHES[kernel] += 1
     return out, lse
 
 
