@@ -19,11 +19,16 @@
    hold out and lse, the VAE's at the 512^2 and the 1024^2 paths' token
    counts (4096 and 16384), and, like the backward and K7 phases, refuse
    two faulty copies of the outputs. K2's yardstick is three PyTorch
-   calls (F.linear over the fused weight, the gate, the product).
+   calls (F.linear over the fused weight, the gate, the product). K4 has
+   two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 through shared
+   memory; its phases (the train step's two levels, a ragged length, fp32)
+   also print the bound at the two-kernel design's 14 flops, and its
+   delta kernel is held to the torch formula.
 3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
    and video CLIs on a synthetic checkpoint directory with LoRA and
    motion artifacts read from files, on the card against the same on the
-   CPU (the plain versions).
+   CPU (the plain versions); and the first full-width stage-2 step in
+   bf16 against the same step in fp32 (2 frames at 1024^2).
 4. Drives, at full SDXL + AnimateDiff-XL width and depth with seeded
    random weights, each with every kernel's launch counters set to 0
    just before and read just after:
@@ -39,11 +44,12 @@
      prompts, the same artifact set).
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma kernel, every fp32 VAE attention on the FMA
-   one, none on the shared-memory one.
+   one, none on the shared-memory one; and K4's: every backward of the
+   trainer on the wgmma route, each with one delta launch.
 5. Prints one JSON line with every kernel's numbers (K1 as its three
-   kernels, with the wgmma instances' and the FMA kernel's registers and
-   spills from nvcc's report; the FMA kernel must not spill), then the
-   last line
+   kernels, K4's delta as a kernel of its own, with the wgmma instances',
+   the FMA kernel's and K4's registers and spills from nvcc's report; the
+   FMA and K4 kernels must not spill), then the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before that.
 """
 from __future__ import annotations
@@ -98,6 +104,22 @@ FWD_OUT_BF16 = 2 ** -8
 # output's rms.
 BWD_BF16_LIMITS = (2 ** -10, 2 ** -6)
 TOL_BWD_F32 = (1e-5, 1e-5)
+# K4's delta = rowsum(dO * O): kernel and formula both sum 64 f32
+# products, in another order: 1e-5 absolute plus 1e-5 relative
+TOL_DELTA = (1e-5, 1e-5)
+# the first stage-2 step in bf16 against fp32 on the same weights, batch
+# and draws: only a gross fault fails (a non-finite value, losses more
+# than 5 % apart, or trainable gradients normwise more than 0.25 apart:
+# zeroed gradients read 1, negated ones 2); the readings are reported.
+# The step loads the rank-64 artifact set the serving path reads. The
+# trainer's seeded fallback LoRA (rank 4, both factors drawn with std
+# 1/rank, as the reference does) makes every projection's delta several
+# times its base weight; the softmaxes saturate and the step is chaotic
+# (``cli.profile_step --precision`` on an H100: fp32 against itself with
+# its noise nudged by 2^-20 reads its gradients about 1 apart), so a
+# comparison there would measure the weights, not the precision.
+PRECISION_LIMITS = (0.05, 0.25)
+PRECISION_FRAMES = 2
 # K7 (LayerNorm): kernel and plain version both keep f32 inside and
 # round once, so in bf16 they differ by at most one output ulp where an
 # f32 difference in the last bits crosses a rounding boundary: 2^-7
@@ -449,30 +471,53 @@ def bwd_phases():
         return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
                                            retain_graph=True)
 
-    phases = {"flash_attention_bwd": [], "temporal_attention_bwd": []}
+    phases = {"flash_attention_bwd": [], "flash_attention_bwd_delta": [],
+              "temporal_attention_bwd": []}
     # K4: spatial self-attention at level 1 (S = 4096, 10 heads) and
-    # level 2 (S = 1024, 20 heads), d = 64; flops are the JAX cost
-    # estimate 10*B*H*Sq*Sk*D; bytes q, k, v, o, dO in and dq, dk, dv out
-    # plus lse and delta
+    # level 2 (S = 1024, 20 heads), d = 64, and a ragged length that
+    # leaves q and kv tails in both kernels; flops are the JAX cost
+    # estimate 10*B*H*Sq*Sk*D (the bound); the two-kernel design does 14
+    # (design_bound_ms); bytes q, k, v, o, dO in and dq, dk, dv out plus
+    # lse. The kernel time includes the delta kernel, SDPA's backward
+    # computes its own.
     for tag, (b, s, h, d), dt, iters in (
             ("unet_l1 (8,4096,10x64)", (8, 4096, 10, 64), torch.bfloat16, 5),
             ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.bfloat16,
              20),
+            ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.bfloat16, 50),
             ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.float32, 3)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         out, lse = fa.flash_attention_fwd(q, k, v)
         do = randn(b, s, h * d, dtype=dt)
         es = qkv.element_size()
-        phases["flash_attention_bwd"].append(check_phase(
-            f"K4 {tag} {str(dt)[6:]}",
+        route = fa.bwd_route(dt, d)
+        phase = check_phase(
+            f"K4 {tag} {str(dt)[6:]} ({route})",
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do),
             lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
                                                  d ** -0.5),
             sdpa_bwd(q, k, v, do, (0, 2, 1, 3)),
             flops=10 * b * h * s * s * d,
-            nbytes=8 * b * s * h * d * es + 2 * b * h * s * 4,
-            dtype_name=str(dt)[6:], iters=iters, bwd=True))
+            nbytes=8 * b * s * h * d * es + b * h * s * 4,
+            dtype_name=str(dt)[6:], iters=iters, bwd=True)
+        phase["kernel_route"] = route
+        phase["design_bound_ms"] = bound(14 * b * h * s * s * d,
+                                         8 * b * s * h * d * es
+                                         + b * h * s * 4, str(dt)[6:])[0]
+        print(f"    design bound (14 flops): {phase['design_bound_ms']:.4f} "
+              f"ms, {phase['design_bound_ms'] / phase['ms']:.0%} of it "
+              f"reached", flush=True)
+        phases["flash_attention_bwd"].append(phase)
+        # K4's delta = rowsum(dO * O) at the same shape; bound by its
+        # bytes (O and dO in, delta out); no one PyTorch call computes it
+        phases["flash_attention_bwd_delta"].append(check_phase(
+            f"K4 delta {tag} {str(dt)[6:]}",
+            lambda: fa.flash_attention_bwd_delta(out, do, h),
+            lambda: fa.flash_attention_bwd_delta_plain(out, do, h),
+            None, flops=2 * b * s * h * d,
+            nbytes=2 * b * s * h * d * es + b * h * s * 4,
+            dtype_name=str(dt)[6:], iters=iters * 10, tol=TOL_DELTA))
         del qkv, q, k, v, out, lse, do
         torch.cuda.empty_cache()
     # K5: motion level 0 (F = 8, N = 16384, 8 heads x d = 40) in bf16 and
@@ -636,25 +681,29 @@ def reset_counters():
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     from video_style_transfer_tpu_torch.ops import geglu, layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
-    fa.LAUNCHES = fa.BWD_LAUNCHES = geglu.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
     fa.ROUTE_LAUNCHES.update(wgmma=0, fma=0, smem=0)
+    fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, smem=0)
 
 
-def check_routes(path, counts, wgmma, fma):
+def check_routes(path, counts, wgmma, fma, bwd_wgmma=0):
     """K1's launches on a path split by route: every bf16 UNet attention
     (d = 64) took the wgmma kernel, every fp32 VAE attention (d = 512) the
-    FMA one, none the shared-memory one. Returns the path's counts with K1
-    split into its three kernels."""
+    FMA one, none the shared-memory one; and K4's: every bf16 backward the
+    wgmma route, none the shared-memory one. Returns the path's counts
+    with K1 split into its three kernels and K4 by route."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    got = dict(fa.ROUTE_LAUNCHES)
-    want = {"wgmma": wgmma, "fma": fma, "smem": 0}
-    print(f"K1 launches on the {path} path by route: {got} (expected "
-          f"{want})", flush=True)
+    got = {"K1": dict(fa.ROUTE_LAUNCHES), "K4": dict(fa.BWD_ROUTE_LAUNCHES)}
+    want = {"K1": {"wgmma": wgmma, "fma": fma, "smem": 0},
+            "K4": {"wgmma": bwd_wgmma, "smem": 0}}
+    print(f"K1 and K4 launches on the {path} path by route: {got} "
+          f"(expected {want})", flush=True)
     if got != want:
-        fail(f"K1 routes on the {path} path: {got}, expected {want}")
+        fail(f"K1/K4 routes on the {path} path: {got}, expected {want}")
     return {**counts, "flash_attention_fwd": wgmma,
-            "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0}
+            "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0,
+            "flash_attention_bwd_by_route": got["K4"]}
 
 
 def write_lora_artifacts(out_dir, unet_cfg, *, rank, seed, device,
@@ -850,6 +899,7 @@ def expected_train_launches(cfg, *, frames, resolution, steps):
             "geglu_projection": steps * (spatial + motion),
             "temporal_attention": steps * 2 * motion,
             "flash_attention_bwd": steps * flash,
+            "flash_attention_bwd_delta": steps * flash,
             "temporal_attention_bwd": steps * 2 * motion}
 
 
@@ -947,8 +997,49 @@ def stage2_path(tmp):
              f"e.g. {differing[:3]}")
     counts = check_routes("stage-2", counts,
                           expected["flash_attention_bwd"],
-                          TRAIN_STEPS * TRAIN_FRAMES)
+                          TRAIN_STEPS * TRAIN_FRAMES,
+                          bwd_wgmma=expected["flash_attention_bwd"])
     return counts, report["motion_checkpoint"]
+
+
+def stage2_precision(artifacts):
+    """The first stage-2 step's loss and trainable gradients in bf16 (the
+    trainer's precision, as the reference's autocast) against fp32 (the
+    JAX trainer's), at full width on the same weights, batch and draws,
+    the stage-1 LoRA from the artifact set at `artifacts`
+    (``cli.profile_step.precision_readings``). Cut: 2 frames instead of 8,
+    so that the fp32 step, which stores every activation, fits one card.
+    Fails on a gross fault (PRECISION_LIMITS); the readings, with the
+    fp32 step's sensitivity to a 2^-20 nudge of its noise, are reported."""
+    from video_style_transfer_tpu_torch.cli.profile_step import (
+        precision_readings)
+
+    r = precision_readings([
+        "--prompt", "a horse galloping through a snowy forest",
+        "--num_frames", str(PRECISION_FRAMES), "--resolution",
+        str(RESOLUTION), "--max_train_steps", "1", "--lr_warmup_steps", "1",
+        "--unziplora_name_or_path", artifacts, "--device", "cuda",
+        "--seed", "0"])
+    print(f"stage-2 precision: first step at {PRECISION_FRAMES} frames "
+          f"1024^2 with the rank-{LORA_RANK} artifact set, bf16 vs fp32 on "
+          f"the same weights and draws: loss {r['loss_bf16']:.6f} vs "
+          f"{r['loss_fp32']:.6f} (rel diff {r['loss_rel_diff']:.3e}, limit "
+          f"{PRECISION_LIMITS[0]}), trainable gradients ({r['tensors']} "
+          f"tensors, norm {r['grad_norm_bf16']:.4e} bf16 / "
+          f"{r['grad_norm_fp32']:.4e} fp32) normwise "
+          f"{r['grad_normwise_err']:.3e} (limit {PRECISION_LIMITS[1]}); "
+          f"fp32 with the noise nudged by 2^-20: loss "
+          f"{r['fp32_sensitivity_loss']:.3e}, gradients "
+          f"{r['fp32_sensitivity_grad']:.3e} apart; step "
+          f"{r['step_s_bf16']:.3f} s bf16 / {r['step_s_fp32']:.3f} s fp32, "
+          f"peak {r['peak_gib']:.2f} GiB", flush=True)
+    if not r["finite"]:
+        fail("stage-2 precision: a non-finite loss or gradient")
+    if not (r["loss_rel_diff"] <= PRECISION_LIMITS[0]
+            and r["grad_normwise_err"] <= PRECISION_LIMITS[1]):
+        fail("stage-2 precision: bf16 and fp32 steps apart beyond the "
+             "gross-fault limits")
+    return {"frames": PRECISION_FRAMES, **r}
 
 
 def serving_launches(steps, frames):
@@ -960,8 +1051,8 @@ def serving_launches(steps, frames):
     return {"flash_attention_fwd": 70 * steps + frames,
             "geglu_projection": 85 * steps,
             "temporal_attention": 30 * steps,
-            "flash_attention_bwd": 0, "temporal_attention_bwd": 0,
-            "layer_norm": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_delta": 0,
+            "temporal_attention_bwd": 0, "layer_norm": 0}
 
 
 def check_counts(path, counts, expected):
@@ -1121,6 +1212,23 @@ def sm90_ptxas(log):
     return out
 
 
+def bwd_ptxas(log):
+    """Registers and spills of K4's bf16 kernels (the wgmma dk/dv and dq
+    kernels, 384 threads, setmaxnreg as K1's; the delta kernel). Fails if
+    one spills: their accumulators live in registers by design."""
+    out = ptxas_report(log, r"(flash_bwd_dkv_sm90_kernel|"
+                            r"flash_bwd_dq_sm90_kernel|"
+                            r"flash_bwd_delta_kernelI13__nv_bfloat16)")
+    want = ["flash_bwd_delta_kernelI13__nv_bfloat16",
+            "flash_bwd_dkv_sm90_kernel", "flash_bwd_dq_sm90_kernel"]
+    if sorted(out) != want:
+        fail(f"the build log names no K4 bf16 kernels: {sorted(out)}")
+    for name, rep in out.items():
+        if rep.get("spill_stores", 1) or rep.get("spill_loads", 1):
+            fail(f"K4's {name} spills registers: {rep}")
+    return out
+
+
 def fma_ptxas(log):
     """Registers and spills of the FMA route's kernel and its split
     combine (256 threads, up to 255 registers each, one block an SM).
@@ -1193,6 +1301,8 @@ def main():
         print(f"artifacts: rank-{LORA_RANK} content/style LoRAs and mergers "
               f"of {n} projections written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        precision = stage2_precision(artifacts)
+        torch.cuda.empty_cache()
         by_path = {"serving": main_path(artifacts, motion_checkpoint),
                    "stage2": stage2_counts}
         by_path["image"] = image_path(artifacts)
@@ -1219,6 +1329,9 @@ def main():
                                "temporal_attention.py:37"),
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:596"),
+        # not a TPU kernel: JAX computes delta in XLA at this line
+        "flash_attention_bwd_delta": ("flash_attention_bwd.cu",
+                                      "flash_attention.py:657"),
         "temporal_attention_bwd": ("temporal_attention_bwd.cu",
                                    "temporal_attention.py:129"),
         # K1's d=192 instance; no path of the port has that head dim
@@ -1229,7 +1342,8 @@ def main():
         "layer_norm": ("layer_norm.cu", "layer_norm.py:60"),
     }
     ptxas = {"flash_attention_sm90.cu": sm90_ptxas(log),
-             "flash_attention_f32.cu": fma_ptxas(log)}
+             "flash_attention_f32.cu": fma_ptxas(log),
+             "flash_attention_bwd.cu": bwd_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
         first = phases[name][0]  # the path's principal shape
@@ -1245,7 +1359,17 @@ def main():
             "library_ms": first["library_ms"], "phases": phases[name]}
         if src in ptxas:
             entry["ptxas"] = ptxas[src]
+        if name == "flash_attention_bwd_delta":
+            entry["note"] = ("not a TPU kernel: the JAX package computes "
+                             "delta in XLA, in K4's launcher "
+                             "_flash_bwd_bhsd")
+        if name == "flash_attention_bwd":
+            entry["launches_by_route"] = {
+                r: sum(by_path[path]["flash_attention_bwd_by_route"][r]
+                       for path in main_paths)
+                for r in ("wgmma", "smem")}
         kernels.append(entry)
+    print(json.dumps({"stage2_precision": precision}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

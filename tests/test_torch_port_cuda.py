@@ -180,12 +180,69 @@ def test_cuda_flash_bwd_matches_plain(dtype):
     do = torch.randn(2, 1100, 2 * d, device="cuda", generator=g, dtype=dtype)
     out, lse = tfa.flash_attention_fwd(q, k, v)
     ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5)
+    route = tfa.bwd_route(dtype, d)
+    before = (tfa.BWD_ROUTE_LAUNCHES[route], tfa.DELTA_LAUNCHES)
     got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert (tfa.BWD_ROUTE_LAUNCHES[route], tfa.DELTA_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     for a, b in zip(got, ref):
         _assert_close_bwd(a, b)
         # the check sees a 3 % scale fault
         with pytest.raises(AssertionError):
             _assert_close_bwd((a.float() * 0.97).to(dtype), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1100, 700), (700, 1100), (100, 50)])
+def test_cuda_flash_bwd_wgmma_cross_lengths(sq, sk):
+    # bf16 K4 (the wgmma route) at Sq != Sk: q and kv tails in both
+    # kernels, kv tiles that end inside their first half (700 = 5 x 128 +
+    # 60, 50 < 64); q its own tensor, k and v strided views of one fused
+    # (B, Sk, 2*H*D) projection; B*H = 6
+    _need_cuda()
+    b, h, d = 2, 3, 64
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g,
+                    dtype=torch.bfloat16)
+    kv = torch.randn(b, sk, 2 * h * d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    k, v = (t.unflatten(-1, (h, d)) for t in kv.split(h * d, -1))
+    do = torch.randn(b, sq, h * d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    for a, r, want in zip(got, ref, (q, k, v)):
+        assert a.shape == want.shape and a.is_contiguous()
+        _assert_close_bwd(a, r)
+        with pytest.raises(AssertionError):
+            _assert_close_bwd((a.float() * 0.97).to(a.dtype), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bwd_delta_matches_formula(dtype):
+    # K4's delta kernel against rowsum(dO * O) in torch: f32 sums of 64
+    # products in another order, so 1e-5 of the result, normwise and at
+    # the largest entry
+    _need_cuda()
+    b, s, h, d = 2, 1100, 3, 64
+    g = torch.Generator(device="cuda").manual_seed(5)
+    o, do = (torch.randn(b, s, h * d, device="cuda", generator=g,
+                         dtype=dtype) for _ in range(2))
+    before = tfa.DELTA_LAUNCHES
+    got = tfa.flash_attention_bwd_delta(o, do, h)
+    assert tfa.DELTA_LAUNCHES == before + 1
+    want = (do.float() * o.float()).unflatten(-1, (h, d)).sum(-1) \
+        .transpose(1, 2)
+    assert got.shape == (b, h, s) and got.dtype == torch.float32
+    diff = (got - want).double()
+    assert diff.norm().item() <= 1e-5 * want.double().norm().item()
+    assert diff.abs().max().item() <= 1e-5 * want.abs().max().item()
+    with pytest.raises(AssertionError):
+        bad = got * (1 + 1e-4)
+        assert ((bad - want).double().norm().item()
+                <= 1e-5 * want.double().norm().item())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
-"""K1's three routes: which kernel each (dtype, head_dim) takes on the
-card, how the FMA route splits its kv walk, and the plain version (what a
-CPU tensor runs, and what the card's kernels are held against) against
-the JAX package's Pallas routes at ragged lengths, `out` and `lse` both.
+"""K1's three routes and K4's two: which kernel each (dtype, head_dim)
+takes on the card, how the FMA route splits its kv walk, and K1's plain
+version (what a CPU tensor runs, and what the card's kernels are held
+against) against the JAX package's Pallas routes at ragged lengths,
+`out` and `lse` both.
 
 The JAX functions run in interpret mode on the CPU, as the other port
 tests run them; f32 at 2e-5 (both sides compute exact f32 softmax math,
@@ -48,6 +49,20 @@ def test_route_names_the_kernel(dtype, d, want):
 def test_route_refuses_what_k1_does_not_take(dtype, d, exc):
     with pytest.raises(exc):
         tfa.route(dtype, d)
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "smem"),
+    (torch.bfloat16, 128, ValueError), (torch.bfloat16, 192, ValueError),
+    (torch.float32, 128, ValueError), (torch.float16, 64, TypeError)])
+def test_bwd_route_names_the_kernels(dtype, d, want):
+    # K4 takes d = 64 only: bf16 on the wgmma + TMA kernels, fp32 on the
+    # shared-memory ones; anything else raises before a launch
+    if isinstance(want, str):
+        assert tfa.bwd_route(dtype, d) == want
+    else:
+        with pytest.raises(want):
+            tfa.bwd_route(dtype, d)
 
 
 @pytest.mark.parametrize("d,sq,sk", [(64, 200, 200), (64, 136, 264),

@@ -113,21 +113,27 @@ def test_group_norm_keeps_one_pass_form_without_grad(monkeypatch):
 
 # ------------------------------------------------------------------ K4
 
-@pytest.mark.parametrize("s,block_k", [(256, None), (200, 128)])
+@pytest.mark.parametrize("s,block_k", [
+    (256, None), (200, 128),
+    pytest.param((200, 136), 128, id="200x136-128")])
 def test_flash_bwd_plain_matches_jax_vjp(no_library, s, block_k):
     # S = 256: one kv block, the fused `_dqkv_kernel`; S = 200 with
     # block_k = 128: the split `_dq_kernel` + `_dkv_kernel` with a masked
-    # kv tail
+    # kv tail; (Sq, Sk) = (200, 136): the split kernels at Sq != Sk, tails
+    # in both (block_q 128)
+    sq, sk = (s, s) if isinstance(s, int) else s
     b, h, d = 1, 2, 64
-    q, k, v = (_rand(10 + i, (b, s, h, d)) for i in range(3))
-    g = _rand(13, (b, s, h, d))
-    _, vjp = jax.vjp(lambda *a: jfa.flash_attention(*a, block_k=block_k),
-                     *map(jnp.asarray, (q, k, v)))
+    q = _rand(10, (b, sq, h, d))
+    k, v = (_rand(11 + i, (b, sk, h, d)) for i in range(2))
+    g = _rand(13, (b, sq, h, d))
+    _, vjp = jax.vjp(lambda *a: jfa.flash_attention(
+        *a, block_q=None if sq == sk else 128, block_k=block_k),
+        *map(jnp.asarray, (q, k, v)))
     want = vjp(jnp.asarray(g))
     scale = d ** -0.5
     out, lse = tfa.flash_attention_fwd(_t(q), _t(k), _t(v))
     got = tfa.flash_attention_bwd_plain(_t(q), _t(k), _t(v), out, lse,
-                                        _t(g).reshape(b, s, h * d), scale)
+                                        _t(g).reshape(b, sq, h * d), scale)
     for gt, w in zip(got, want):
         _close(gt, w, BWD_TOL)
     # the autograd route of a CPU tensor lands on the same plain backward

@@ -65,6 +65,7 @@ def kernel_launch_counts() -> dict:
             "geglu_projection": geglu.LAUNCHES,
             "temporal_attention": ta.LAUNCHES,
             "flash_attention_bwd": fa.BWD_LAUNCHES,
+            "flash_attention_bwd_delta": fa.DELTA_LAUNCHES,
             "temporal_attention_bwd": ta.BWD_LAUNCHES,
             "layer_norm": layer_norm.LAUNCHES}
 

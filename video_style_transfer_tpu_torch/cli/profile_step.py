@@ -27,11 +27,20 @@ alone at the shapes the paths give it (the UNet's bf16 self-attentions,
 the other head dims of the bf16 route, the VAE's fp32 mid-block attention
 at 512^2 and 1024^2), one JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
-call (no synchronise inside).
+call (no synchronise inside). ``--k4`` does the same for K4's wrapper
+(``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
+kernels) at the train step's bf16 shapes, a ragged length and fp32.
+
+``--precision`` holds the first stage-2 step (2 frames by default) in bf16
+against fp32 on the same weights and draws, and the fp32 step against
+itself with the noise nudged by 2^-20, on the trainer's seeded weights or
+with ``--unziplora_name_or_path DIR`` on a stage-1 artifact set; one JSON
+line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image | --decode | --k1] [--num_frames N]
-        [--resolution 1024] [--steps N]
+        [--train | --image | --decode | --k1 | --k4 | --precision]
+        [--num_frames N] [--resolution 1024] [--steps N]
+        [--unziplora_name_or_path DIR]
 """
 from __future__ import annotations
 
@@ -50,7 +59,8 @@ CATEGORIES = (
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
-    ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq")),
+    ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq",
+                                "flash_bwd_delta")),
     ("K5 temporal_attention_bwd", ("ta_bwd_kernel",)),
     ("K7 layer_norm", ("::layer_norm_kernel",)),
     ("layer_norm (library)", ("layer_norm", "layernorm")),
@@ -144,6 +154,86 @@ def _train_phases(args, dev):
              "trainable_params": sum(t.numel() for _, t in tr.trainable)})
 
 
+def _cast_tree(tree, dtype):
+    """A copy of a tree of dicts and lists with every floating tensor in
+    `dtype` (others as they are)."""
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dtype) for v in tree]
+    if hasattr(tree, "is_floating_point") and tree.is_floating_point():
+        return tree.detach().to(dtype)
+    return tree
+
+
+def precision_readings(train_argv):
+    """The first stage-2 step's loss and trainable gradients in bf16 (the
+    trainer's precision) against fp32 on the same weights (the bf16 tree
+    cast up), batch and draws; and the fp32 step's own sensitivity, the
+    same step with the noise scaled by 1 + 2^-20, which says whether the
+    weights are conditioned well enough for a precision to show. `train_argv`: the trainer's
+    arguments (``cli.train_animatediff``). Returns a dict of readings."""
+    import math
+
+    from video_style_transfer_tpu_torch.cli import train_animatediff as ta
+    from video_style_transfer_tpu_torch.lora.surgery import spatial_pairs
+    from video_style_transfer_tpu_torch.schedulers.ddpm import make_schedule
+    from video_style_transfer_tpu_torch.training import stage2
+
+    targs = ta.build_parser().parse_args(train_argv)
+    tr = ta.prepare(targs)
+    batch = ta.sample_micro_batches(tr)[0]
+    sched = make_schedule()
+    draws = stage2.draw_stage2(sched, tuple(batch["latents"].shape),
+                               cfg_dropout=targs.cfg_dropout,
+                               generator=tr.generator, device=tr.device)
+    mask = stage2.trainable_mask(tr.params)
+    cfg, params, state = tr.bundle.unet_cfg, tr.params, tr.lora_state
+    del tr  # the models and optimizer of the bf16 trainer
+
+    def step(params, state, dtype, draws):
+        trainable = stage2.split_trainable(params, mask)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = stage2.stage2_loss(
+            params, cfg, sched, batch, draws, pairs=spatial_pairs(params),
+            lambda_orth=targs.lambda_orth,
+            prediction_type=targs.prediction_type, mode="both",
+            state=state, dtype=dtype)
+        loss.backward()
+        grads = [t.grad.float() for _, t in trainable]
+        torch.cuda.synchronize()
+        for _, t in trainable:
+            t.grad = None
+        return loss.item(), grads, time.perf_counter() - t0
+
+    def norm(a):
+        return math.sqrt(sum(float(x.double().square().sum()) for x in a))
+
+    def normwise(a, b):
+        return norm([x - y for x, y in zip(a, b)]) / norm(b)
+
+    torch.cuda.reset_peak_memory_stats()
+    loss16, g16, s16 = step(params, state, torch.bfloat16, draws)
+    params, state = (_cast_tree(params, torch.float32),
+                     _cast_tree(state, torch.float32))
+    loss32, g32, s32 = step(params, state, torch.float32, draws)
+    nudged = {**draws, "noise": draws["noise"] * (1 + 2 ** -20)}
+    loss32n, g32n, _ = step(params, state, torch.float32, nudged)
+    return {
+        "loss_bf16": loss16, "loss_fp32": loss32,
+        "loss_rel_diff": abs(loss16 - loss32) / abs(loss32),
+        "grad_norm_bf16": norm(g16), "grad_norm_fp32": norm(g32),
+        "grad_normwise_err": normwise(g16, g32),
+        "fp32_sensitivity_loss": abs(loss32n - loss32) / abs(loss32),
+        "fp32_sensitivity_grad": normwise(g32n, g32),
+        "tensors": len(g32),
+        "finite": all(map(math.isfinite, (loss16, loss32))) and all(
+            bool(torch.isfinite(g).all()) for g in g16 + g32),
+        "step_s_bf16": s16, "step_s_fp32": s32,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 # (tag, (B, S, H, D), dtype): K1's shapes in chip_smoke.py's K1 phases
 K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("serving L1", (32, 4096, 10, 64), torch.bfloat16),
@@ -157,37 +247,67 @@ K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("VAE 1024^2", (1, 16384, 1, 512), torch.float32))
 
 
-def k1_calls(dev, runs: int):
-    """[{shape, device_ms, host_us}] for K1's wrapper at K1_SHAPES, each
-    the median of `runs` runs of 20 calls."""
+# (tag, (B, S, H, D), dtype): K4's shapes in chip_smoke.py's K4 phases
+K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
+             ("train L2", (8, 1024, 20, 64), torch.bfloat16),
+             ("ragged", (2, 1100, 2, 64), torch.bfloat16),
+             ("train L2", (8, 1024, 20, 64), torch.float32))
+
+
+def _time_calls(fn, runs: int):
+    """(device ms, host µs) a call of fn, each the median of `runs` runs
+    of 20 calls."""
+    fn()
+    dev_ms, host_us = [], []
+    for _ in range(runs):
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        # the calls queue behind ~25 ms of device sleep, so the events
+        # time the kernels alone even where the wrapper's host time
+        # exceeds a kernel's
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_us.append((time.perf_counter() - t0) / 20 * 1e6)
+        end.record()
+        torch.cuda.synchronize()
+        dev_ms.append(start.elapsed_time(end) / 20)
+    return sorted(dev_ms)[runs // 2], sorted(host_us)[runs // 2]
+
+
+def k1_call(q, k, v, gen):
+    """A call of K1's wrapper on (q, k, v)."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    return lambda: fa.flash_attention_fwd(q, k, v)
+
+
+def k4_call(q, k, v, gen):
+    """A call of K4's wrapper on (q, k, v), K1's out and lse and a seeded
+    dO."""
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = q.shape
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    do = torch.randn(b, s, h * d, generator=gen, device=q.device,
+                     dtype=q.dtype)
+    return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+
+def kernel_calls(dev, runs: int, shapes, make_call):
+    """[{shape, device_ms, host_us}] for the call make_call(q, k, v, gen)
+    builds at each (tag, (B, S, H, D), dtype) of `shapes`, q, k and v
+    strided views of one seeded fused projection."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
-    for tag, (b, s, h, d), dtype in K1_SHAPES:
+    for tag, (b, s, h, d), dtype in shapes:
         qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
                           dtype=dtype)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
-        fa.flash_attention_fwd(q, k, v)
-        dev_ms, host_us = [], []
-        for _ in range(runs):
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            torch.cuda.synchronize()
-            # the calls queue behind ~25 ms of device sleep, so the events
-            # time the kernels alone even where the wrapper's host time
-            # exceeds a kernel's
-            torch.cuda._sleep(50_000_000)
-            start.record()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                fa.flash_attention_fwd(q, k, v)
-            host_us.append((time.perf_counter() - t0) / 20 * 1e6)
-            end.record()
-            torch.cuda.synchronize()
-            dev_ms.append(start.elapsed_time(end) / 20)
+        dev_ms, host_us = _time_calls(make_call(q, k, v, gen), runs)
         out.append({"shape": f"{tag} {(b, s, h, d)} {str(dtype)[6:]}",
-                    "device_ms": sorted(dev_ms)[runs // 2],
-                    "host_us": sorted(host_us)[runs // 2]})
+                    "device_ms": dev_ms, "host_us": host_us})
         del qkv, q, k, v
     return out
 
@@ -264,13 +384,23 @@ def main(argv=None):
                    help="trace the fp32 VAE decode of one frame")
     p.add_argument("--k1", action="store_true",
                    help="time K1's wrapper alone at the paths' shapes")
+    p.add_argument("--k4", action="store_true",
+                   help="time K4's wrapper alone at the train step's "
+                        "shapes")
+    p.add_argument("--precision", action="store_true",
+                   help="hold the first stage-2 step in bf16 against fp32 "
+                        "(default 2 frames)")
+    p.add_argument("--unziplora_name_or_path", default=None,
+                   help="--precision: the stage-1 artifact set the "
+                        "trainer loads (default: its seeded rank-4 LoRA)")
     p.add_argument("--top", type=int, default=15)
     p.add_argument("--steps", type=int, default=0,
                    help="time each phase this many times without the "
                         "profiler instead of tracing it")
     args = p.parse_args(argv)
     if args.num_frames is None:
-        args.num_frames = 1 if args.image else 8 if args.train else 16
+        args.num_frames = (1 if args.image else 2 if args.precision
+                           else 8 if args.train else 16)
     dev = common.resolve_device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -278,11 +408,28 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    if args.k1:
-        for row in k1_calls(dev, max(args.steps, 5)):
+    if args.precision:
+        argv = ["--prompt", "a horse galloping through a snowy forest",
+                "--num_frames", str(args.num_frames), "--resolution",
+                str(args.resolution), "--max_train_steps", "1",
+                "--lr_warmup_steps", "1", "--device", str(dev),
+                "--seed", "0"]
+        if args.unziplora_name_or_path:
+            argv += ["--unziplora_name_or_path", args.unziplora_name_or_path]
+        print(json.dumps({"card": card, "package": common.__file__,
+                          "step": "stage2_precision",
+                          "num_frames": args.num_frames,
+                          "resolution": args.resolution,
+                          "unziplora": args.unziplora_name_or_path,
+                          **precision_readings(argv)}), flush=True)
+        return
+    if args.k1 or args.k4:
+        kernel, shapes, make_call = (
+            ("K4 flash_attention_bwd", K4_SHAPES, k4_call) if args.k4
+            else ("K1 flash_attention_fwd", K1_SHAPES, k1_call))
+        for row in kernel_calls(dev, max(args.steps, 5), shapes, make_call):
             print(json.dumps({"card": card, "package": common.__file__,
-                              "kernel": "K1 flash_attention_fwd", **row}),
-                  flush=True)
+                              "kernel": kernel, **row}), flush=True)
         return
 
     phases, extra = (_train_phases if args.train

@@ -193,7 +193,7 @@ def prepare(args):
     gen.manual_seed(args.seed)
     return SimpleNamespace(
         device=device, bundle=bundle, params=params, trainable=trainable,
-        optimizer=opt, generator=gen, res=res,
+        lora_state=lora_state, optimizer=opt, generator=gen, res=res,
         frames=4 if smoke else args.num_frames, batch=b,
         accum=max(args.gradient_accumulation_steps, 1),
         cond={"ctx": emb.repeat(b, 1, 1), "pooled": pooled.repeat(b, 1),

@@ -129,24 +129,9 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
       : "r"(addr));
 }
 
-// two 8x8 b16 matrices, transposed: the B fragment from a row-major
-// (k, n) tile; lanes 0-15 address the 16 k rows
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
-                                                  const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1])
-      : "r"(addr));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 }  // namespace vst

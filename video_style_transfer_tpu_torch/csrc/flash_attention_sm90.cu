@@ -70,20 +70,6 @@ struct Sm90Cfg {
   static_assert(SMEM <= 232448, "tiles exceed shared memory");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-template <int NJ>
-__device__ __forceinline__ void fence_p(uint32_t (&p)[NJ][4]) {
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[j][e])::"memory");
-}
-
 // S (64 x BC) = Q K^T over D / 16 K steps, both K-major in shared memory
 template <int D, int BC>
 __device__ __forceinline__ void qk_product(float* s, uint32_t q_addr,
@@ -251,11 +237,7 @@ __global__ void __launch_bounds__(384, 1)
         o[4 * i + 2] *= corr[1];
         o[4 * i + 3] *= corr[1];
       }
-#pragma unroll
-      for (int i = 0; i < BC / 8; ++i) {
-        p[i / 2][(i & 1) * 2] = pack_bf16x2(s[4 * i], s[4 * i + 1]);
-        p[i / 2][(i & 1) * 2 + 1] = pack_bf16x2(s[4 * i + 2], s[4 * i + 3]);
-      }
+      pack_a<BC>(p, s);
       // O += P V, then hand the stage back to the producer
       mbar_wait(&full_v[st], ph);
       fence_regs<D / 2>(o);

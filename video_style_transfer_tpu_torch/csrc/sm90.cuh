@@ -15,6 +15,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace vst {
 namespace sm90 {
 
@@ -75,6 +77,23 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// Keeps the compiler from moving writes of A-fragment registers past the
+// asynchronous products that read them.
+template <int NJ>
+__device__ __forceinline__ void fence_p(uint32_t (&p)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(p[j][e])::"memory");
+}
+
+// 2^x on the MUFU unit (approximate; flushes denormals)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Accumulator layout of m64nNk16 (f32, per thread of the warpgroup; w =
 // warp in the warpgroup, g = lane / 4, t = lane % 4): d[4i + e] holds row
 // 16w + g + 8 * (e / 2), column 8i + 2t + e % 2. The A fragment of a
@@ -82,6 +101,18 @@ __device__ __forceinline__ void fence_regs(float* r) {
 // its 16 columns: a[0] = (g, 2t..), a[1] = (g + 8, 2t..), a[2] = (g,
 // 2t + 8..), a[3] = (g + 8, 2t + 8..), so S's accumulator columns 16j ..
 // 16j + 15, packed in pairs, are P's A fragment for K step j.
+
+// A 64 x N f32 accumulator, rounded to bf16 and packed in pairs: the A
+// fragments of its N / 16 K steps (see the layout above)
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4],
+                                       const float* acc) {
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i) {
+    f[i / 2][(i & 1) * 2] = pack_bf16x2(acc[4 * i], acc[4 * i + 1]);
+    f[i / 2][(i & 1) * 2 + 1] = pack_bf16x2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
 
 // D (64 x N, f32) (+)= A (64 x 16) B (16 x N); A and B K-major in shared
 // memory; scale_d = 0 overwrites D.

@@ -11,9 +11,12 @@ mid-block attention) on FP32 FMA register tiles fed by TMA
 (csrc/flash_attention_f32.cu); the other fp32 head dims and bf16 at d >=
 320 on the shared-memory kernel (csrc/flash_attention.cu). On the H100
 all are bound by tensor-core (bf16) or FMA (fp32) throughput; see the
-sources for their designs. The TPU's head packing, MXU row-sum and
-block tuning have no counterpart: the kernels read (B, S, H, D) strided
-views, so the fused (B, S, 3*H*D) projection is consumed in place.
+sources for their designs. K4 has two routes, named by `bwd_route`:
+bf16 at d = 64 on wgmma with TMA loads, fp32 at d = 64 on shared-memory
+FMA loops; its delta = rowsum(dO * O) is a kernel of its own. The TPU's
+head packing, MXU row-sum and block tuning have no counterpart: the
+kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
+projection is consumed in place.
 
 Every call goes through one ``torch.autograd.Function`` that saves q, k,
 v, the output and the lse (the JAX residuals). A CUDA tensor launches
@@ -30,10 +33,13 @@ from video_style_transfer_tpu_torch.ops import cuda_build
 # launches of the CUDA kernels in this process (the plain versions and
 # refused calls do not count): LAUNCHES the forward (K1), split by route
 # in ROUTE_LAUNCHES, BWD_LAUNCHES the backward (K4; one per backward
-# call, which runs its dk/dv and its dq kernel)
+# call, which runs its dk/dv and its dq kernel), split by route in
+# BWD_ROUTE_LAUNCHES, DELTA_LAUNCHES K4's delta kernel
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0, "smem": 0}
 BWD_LAUNCHES = 0
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
+DELTA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
@@ -78,6 +84,20 @@ def route(dtype, head_dim: int) -> str:
     if dtype == torch.float32 and head_dim in FMA_HEAD_DIMS:
         return "fma"
     return "smem"
+
+
+def bwd_route(dtype, head_dim: int) -> str:
+    """The K4 kernels a CUDA backward of this dtype and head dim launches:
+    "wgmma" (bf16 d = 64: wgmma + TMA, warp-specialised) or "smem" (fp32
+    d = 64: shared-memory FMA loops), both in csrc/flash_attention_bwd.cu.
+    Raises on what K4 does not take."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"flash attention backward takes float32 or "
+                        f"bfloat16, got {dtype}")
+    if head_dim not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash attention backward: head_dim {head_dim} "
+                         f"not in {BWD_HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 else "smem"
 
 
 def fma_kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
@@ -167,6 +187,43 @@ def flash_attention_fwd(q, k, v, *, scale=None):
     return out, lse
 
 
+def flash_attention_bwd_delta_plain(o, do, num_heads: int):
+    """delta = rowsum(dO * O) in f32: o, do (B, Sq, H*D) -> (B, H, Sq)."""
+    b, sq, hd = o.shape
+    prod = (do.reshape(b, sq, num_heads, hd // num_heads).float()
+            * o.reshape(b, sq, num_heads, hd // num_heads).float())
+    return prod.sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_delta(o, do, num_heads: int):
+    """K4's delta = rowsum(dO * O): o, do (B, Sq, H*D) contiguous in one
+    dtype -> (B, H, Sq) f32, one kernel on the card (the plain version for
+    CPU tensors)."""
+    if not o.is_cuda:
+        return flash_attention_bwd_delta_plain(o, do, num_heads)
+    b, sq, hd = o.shape
+    d = hd // num_heads
+    if do.shape != o.shape or do.dtype != o.dtype or not do.is_cuda:
+        raise ValueError(f"flash attention delta: do {tuple(do.shape)} "
+                         f"{do.dtype}, expected {tuple(o.shape)} {o.dtype}")
+    bwd_route(o.dtype, d)
+    for name, t in (("o", o), ("do", do)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash attention delta: {name} must be "
+                             f"contiguous and 16-byte aligned")
+    delta = torch.empty((b, num_heads, sq), dtype=torch.float32,
+                        device=o.device)
+    lib = cuda_build.library()
+    with torch.cuda.device(o.device):
+        err = lib.vst_flash_attention_bwd_delta(
+            _DTYPES[o.dtype], d, o.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), b, sq, num_heads, cuda_build.stream_of(o))
+    cuda_build.check_launch("flash_attention_bwd_delta", err)
+    global DELTA_LAUNCHES
+    DELTA_LAUNCHES += 1
+    return delta
+
+
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     """The backward from the saved lse (the JAX `_recompute_p_ds` math):
     p = exp(q k^T * scale - lse), dp = dO v^T, delta = rowsum(dO * O),
@@ -179,11 +236,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     dt = q.dtype
     qf, kf, vf = q.float(), k.float(), v.float()
     dof = do.reshape(b, sq, h, d).float()
-    delta = (dof * o.reshape(b, sq, h, d).float()).sum(-1)          # (B,Sq,H)
+    delta = flash_attention_bwd_delta_plain(o, do, h)                # (B,H,Sq)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     p = torch.exp(s - lse[..., None])
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
-    ds = p * (dp - delta.transpose(1, 2)[..., None]) * scale
+    ds = p * (dp - delta[..., None]) * scale
     p = p.to(dt).float()
     ds = ds.to(dt).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
@@ -193,11 +250,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
 
 
 def _check_bwd(q, k, v, o, lse, do):
+    """Raises on what K4 does not take; returns its route."""
     _check(q, k, v)
     b, sq, h, d = q.shape
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash attention backward: head_dim {d} not in "
-                         f"{BWD_HEAD_DIMS}")
+    kernel = bwd_route(q.dtype, d)
     for name, t, shape, dtype in (("o", o, (b, sq, h * d), q.dtype),
                                   ("do", do, (b, sq, h * d), q.dtype),
                                   ("lse", lse, (b, h, sq), torch.float32)):
@@ -208,24 +264,24 @@ def _check_bwd(q, k, v, o, lse, do):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"flash attention backward: {name} must be "
                              f"contiguous and 16-byte aligned")
+    return kernel
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None):
     """Gradients of `flash_attention_fwd`: (dq, dk, dv), each (B, S, H, D)
-    contiguous in q's dtype. delta = rowsum(dO * O) is a torch op (XLA in
-    the JAX package); the kernels recompute p from the saved lse."""
+    contiguous in q's dtype. delta = rowsum(dO * O) is a kernel of its own
+    (XLA in the JAX package); the kernels recompute p from the saved
+    lse."""
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     do = do.contiguous()
-    _check_bwd(q, k, v, o, lse, do)
+    kernel = _check_bwd(q, k, v, o, lse, do)
     b, sq, h, _ = q.shape
     sk = k.shape[1]
-    delta = (do.unflatten(-1, (h, d)).float()
-             * o.unflatten(-1, (h, d)).float()).sum(-1).transpose(1, 2) \
-        .contiguous()                                             # (B,H,Sq)
+    delta = flash_attention_bwd_delta(o, do, h)                   # (B,H,Sq)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=q.dtype, device=q.device)
@@ -240,6 +296,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, scale=None):
     cuda_build.check_launch("flash_attention_bwd", err)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
+    BWD_ROUTE_LAUNCHES[kernel] += 1
     return dq, dk, dv
 
 
