@@ -47,10 +47,13 @@
    one, none on the shared-memory one; and K4's: every backward of the
    trainer on the wgmma route, each with one delta launch.
 5. Prints one JSON line with every kernel's numbers (K1 as its three
-   kernels, K4's delta as a kernel of its own, with the wgmma instances',
-   the FMA kernel's and K4's registers and spills from nvcc's report; the
-   FMA and K4 kernels must not spill), then the last line
-   {"ok": true, "device": {...}}. Any failure exits non-zero before that.
+   kernels, K4's delta as a kernel of its own, with the wgmma kernels',
+   the FMA kernel's and K4's registers, spills and wgmma serialisation
+   from nvcc's report; the FMA, K4 and K1 wgmma kernels must not spill,
+   and K1's wgmma kernels must not have their products serialised), then
+   the last line {"ok": true, "device": {...}}. Any failure exits
+   non-zero before that. Each K1 phase also prints its share of the bound
+   and its time against SDPA's.
 """
 from __future__ import annotations
 
@@ -304,6 +307,15 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def vs_bound_and_sdpa(phase):
+    """Adds and prints a K1 phase's share of its bound and its time over
+    SDPA's."""
+    phase["bound_share"] = phase["bound_ms"] / phase["ms"]
+    phase["vs_library"] = phase["ms"] / phase["library_ms"]
+    print(f"    {100 * phase['bound_share']:.1f} % of bound, "
+          f"{phase['vs_library']:.3f}x SDPA's time", flush=True)
+
+
 def kernel_phases():
     import torch
     import torch.nn.functional as F
@@ -376,6 +388,7 @@ def kernel_phases():
             dtype_name=str(dt)[6:], iters=iters, tol=TOL[str(dt)[6:]],
             own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None)
         phase["kernel_route"] = route
+        vs_bound_and_sdpa(phase)
         phases["flash_attention_fwd" if route == "wgmma"
                else f"flash_attention_fwd_{route}"].append(phase)
         del qkv, q, k, v, qt, kt, vt
@@ -398,6 +411,7 @@ def kernel_phases():
         dtype_name="bfloat16", iters=10, tol=TOL["bfloat16"],
         own_scale=FWD_OUT_BF16)]
     phases["flash_attention_fwd_d192"][0]["kernel_route"] = route
+    vs_bound_and_sdpa(phases["flash_attention_fwd_d192"][0])
     del qkv, q, k, v, qt, kt, vt
 
     # K2: spatial level-2 FF and motion level-0 FF (bf16), level-2 fp32;
@@ -1177,15 +1191,30 @@ def image_path(artifacts):
 
 
 def ptxas_report(log, pattern):
-    """Registers and spills of the kernels whose mangled name matches
-    `pattern` (its first group names the entry), from nvcc's -Xptxas -v
-    report."""
+    """Registers, spills and wgmma serialisation of the kernels whose
+    mangled name matches `pattern` (its first group names the entry), from
+    nvcc's -Xptxas -v report. ``wgmma_serialized`` is None, or the reason
+    ptxas gave for issuing the kernel's wgmma.mma_async one at a time
+    ("Potential Performance Loss: wgmma.mma_async instructions are
+    serialized due to ... in the function '...'")."""
     import re
     out, key = {}, None
     for ln in log:
         if "Compiling entry function" in ln:
             m = re.search(pattern, ln)
             key = m.group(1) if m else None
+            if key is not None:
+                out.setdefault(key, {}).setdefault("wgmma_serialized", None)
+            continue
+        if "wgmma" in ln and "serializ" in ln:
+            named = re.search(r"function '([^']+)'", ln)
+            m = re.search(pattern, named.group(1)) if named else None
+            target = m.group(1) if m else None if named else key
+            if target is not None:
+                why = re.search(r"serialized due to (.*?)(?: in the "
+                                r"function|$)", ln)
+                out.setdefault(target, {})["wgmma_serialized"] = (
+                    why.group(1).strip() if why else ln.strip())
             continue
         if key is None:
             continue
@@ -1201,14 +1230,28 @@ def ptxas_report(log, pattern):
 
 
 def sm90_ptxas(log):
-    """Registers and spills of the wgmma route's instances, by head dim.
-    ptxas gives the count a thread holds at launch (384 threads, at most
-    168 each); setmaxnreg then moves the producer warpgroup to 40 and the
-    two consumer warpgroups to 232."""
-    out = ptxas_report(log, r"flash_fwd_sm90_kernelILi(\d+)E")
+    """Registers, spills and wgmma serialisation of the wgmma route's
+    kernels, by head dim (d = 64: the persistent kernel; 128-256: the
+    template's instances). ptxas gives the count a thread holds at launch
+    (d = 64: 512 threads, at most 128 each, then setmaxnreg moves the
+    producer warpgroup to 32 and the three consumer warpgroups to 160;
+    d >= 128: 384 threads, at most 168, then 40 and 232). Fails if one
+    spills or has its products serialised: the d = 64 kernel overlaps its
+    softmax with wgmma groups in flight, which serialisation would undo."""
+    rep = ptxas_report(log, r"(flash_fwd_sm90_d64_kernel|"
+                            r"flash_fwd_sm90_kernelILi\d+E)")
+    out = {("64" if name.endswith("d64_kernel")
+            else name.rsplit("ILi", 1)[1][:-1]): r for name, r in rep.items()}
     if sorted(out, key=int) != ["64", "128", "192", "256"]:
-        fail(f"the build log names no wgmma instances for every head dim: "
+        fail(f"the build log names no wgmma kernel for every head dim: "
              f"{sorted(out)}")
+    for d, r in out.items():
+        if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+            fail(f"K1's wgmma kernel at d = {d} spills registers: {r}")
+        if r["wgmma_serialized"]:
+            fail(f"ptxas serialised the wgmma products of K1's kernel at "
+                 f"d = {d}: {r['wgmma_serialized']}")
+    print(f"K1 wgmma kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1226,6 +1269,8 @@ def bwd_ptxas(log):
     for name, rep in out.items():
         if rep.get("spill_stores", 1) or rep.get("spill_loads", 1):
             fail(f"K4's {name} spills registers: {rep}")
+    print(f"K4 bf16 kernels (ptxas; wgmma_serialized is reported, not "
+          f"held): {json.dumps(out)}", flush=True)
     return out
 
 

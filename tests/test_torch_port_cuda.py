@@ -83,6 +83,79 @@ def test_cuda_flash_wgmma_ragged_cross_lengths(d):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+def _wgmma_case(b, sq, sk, h, d, seed):
+    """q a strided view of a fused (B, Sq, 3*H*D) projection (its k and
+    v parts unused), k and v of a fused (B, Sk, 2*H*D) one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, sq, 3 * h * d, device="cuda", generator=g,
+                    dtype=torch.bfloat16)[..., :h * d].unflatten(-1, (h, d))
+    kv = torch.randn(b, sk, 2 * h * d, device="cuda", generator=g,
+                     dtype=torch.bfloat16)
+    k, v = (t.unflatten(-1, (h, d)) for t in kv.split(h * d, -1))
+    return q, k, v
+
+
+def _assert_flash_close(q, k, v):
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, q.shape[-1] ** -0.5)
+    b, sq, h, d = q.shape
+    assert out.shape == (b, sq, h * d) and lse.shape == (b, h, sq)
+    _assert_close(out, ref)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one tile", "fewer tiles than SMs",
+                                  "not a multiple of the SMs"])
+def test_cuda_flash_wgmma_persistent_tiles(case):
+    # the d = 64 kernel walks (q block, head, batch) tiles of 192 query
+    # rows (csrc/flash_attention_sm90.cu: D64Cfg::BR) at a stride of its
+    # grid (one block per SM, fewer where there are fewer tiles): a grid
+    # of one block, a grid narrower than the card, and a tile count the
+    # grid does not divide (blocks walk one or two tiles); ragged q and kv
+    # tails in each
+    _need_cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, sq, sk, h = {"one tile": (1, 100, 77, 1),
+                    "fewer tiles than SMs": (2, 1000, 1037, 3),
+                    "not a multiple of the SMs": (5, 1000, 1000, 7)}[case]
+    tiles = b * h * -(-sq // 192)
+    assert {"one tile": tiles == 1,
+            "fewer tiles than SMs": 1 < tiles < sms,
+            "not a multiple of the SMs": tiles > sms and tiles % sms}[case]
+    before = tfa.ROUTE_LAUNCHES["wgmma"]
+    _assert_flash_close(*_wgmma_case(b, sq, sk, h, 64, seed=5))
+    assert tfa.ROUTE_LAUNCHES["wgmma"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 192, 256])
+def test_cuda_flash_wgmma_kv_shorter_than_q(d):
+    # Sq > Sk, neither a multiple of a tile, at every head dim of the route
+    _need_cuda()
+    _assert_flash_close(*_wgmma_case(2, 1037, 300, 3, d, seed=6))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_wgmma_map_cache():
+    # the wrapper keeps the encoded tensor maps: a second call on the same
+    # tensors reuses them, a call on new tensors of the same shape (other
+    # data, and other addresses while the first are alive) must not
+    _need_cuda()
+    first = _wgmma_case(2, 1000, 1037, 3, 64, seed=7)
+    out1 = _assert_flash_close(*first)
+    out2 = _assert_flash_close(*first)
+    assert torch.equal(out1, out2)
+    second = _wgmma_case(2, 1000, 1037, 3, 64, seed=8)
+    out3 = _assert_flash_close(*second)
+    assert not torch.equal(out1, out3)
+    # and new tensors where the first ones were freed
+    del first, out1, out2
+    torch.cuda.synchronize()
+    _assert_flash_close(*_wgmma_case(2, 1000, 1037, 3, 64, seed=9))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [2, 8])
 def test_cuda_flash_fma_cross_lengths(b):

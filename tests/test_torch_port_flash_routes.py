@@ -113,3 +113,34 @@ def test_fma_kv_splits_fill_the_card(blocks, kv_tiles, sms, want):
     assert got == want
     per = -(-kv_tiles // got)
     assert (got - 1) * per < kv_tiles  # every split owns a kv tile
+
+
+def test_check_caches_accepted_layouts_only(monkeypatch):
+    # K1's wrapper checks a (q, k, v) layout once: a layout the full check
+    # accepted is found again by (dtype, device, shape, stride, pointer
+    # alignment), with its route and its call's packed layout; any of
+    # those changed, or a layout it refused, goes through the full check
+    # again
+    seen = []
+
+    def full_check(q, k, v):
+        seen.append((q.shape, q.stride(), q.data_ptr() % 16))
+        if q.shape[-1] == 96:
+            raise ValueError("refused")
+
+    monkeypatch.setattr(tfa, "_check_layout", full_check)
+    monkeypatch.setattr(tfa, "_ACCEPTED", {})
+    qkv = torch.zeros(2, 16, 3 * 4 * 64, dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (4, 64)) for t in qkv.split(256, -1))
+    first = tfa._check(q, k, v)
+    assert first[:2] == ("wgmma", 1)
+    assert tfa._check(q, k, v) is first
+    tfa._check(*(t.clone() for t in (q, k, v)))   # other strides
+    tfa._check(q[:, 1:], k[:, 1:], v[:, 1:])      # other shape, offset
+    assert tfa._check(q.float(), k.float(), v.float())[0] == "smem"
+    assert len(seen) == 4
+    bad = torch.zeros(2, 16, 4, 96, dtype=torch.bfloat16)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            tfa._check(bad, bad, bad)
+    assert len(seen) == 6

@@ -27,7 +27,8 @@ alone at the shapes the paths give it (the UNet's bf16 self-attentions,
 the other head dims of the bf16 route, the VAE's fp32 mid-block attention
 at 512^2 and 1024^2), one JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
-call (no synchronise inside). ``--k4`` does the same for K4's wrapper
+call (no synchronise inside), then the host µs a call of each part of
+the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
 (``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
 kernels) at the train step's bf16 shapes, a ragged length and fp32.
 
@@ -53,7 +54,7 @@ import torch
 
 # first match wins: cuDNN's convolutions are implicit GEMMs by name
 CATEGORIES = (
-    ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_kernel",)),
+    ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_",)),
     ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",
                                       "flash_combine_f32_kernel")),
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
@@ -312,6 +313,49 @@ def kernel_calls(dev, runs: int, shapes, make_call):
     return out
 
 
+def k1_host_parts(dev, runs: int):
+    """Host µs a call of each part of K1's wrapper at the image path's L2
+    shape (2,1024,20x64) bf16, each the median of `runs` runs of 100 calls
+    queued behind a device sleep: the layout check, the two output
+    allocations, entering the device context, the stream lookup and the
+    whole wrapper (the rest of which is the C call: its argument
+    marshalling, tensor maps, shared-memory attribute and launch)."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    b, s, h, d = 2, 1024, 20, 64
+    gen = torch.Generator(device=dev).manual_seed(0)
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+
+    def device_context():
+        with torch.cuda.device(q.device):
+            pass
+
+    parts = {
+        "_check": lambda: fa._check(q, k, v),
+        "torch.empty x2": lambda: (
+            torch.empty((b, s, h * d), dtype=q.dtype, device=dev),
+            torch.empty((b, h, s), dtype=torch.float32, device=dev)),
+        "torch.cuda.device": device_context,
+        "stream_of": lambda: cuda_build.stream_of(q),
+        "wrapper": lambda: fa.flash_attention_fwd(q, k, v)}
+    result = {}
+    for name, fn in parts.items():
+        fn()
+        us = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            for _ in range(100):
+                fn()
+            us.append((time.perf_counter() - t0) / 100 * 1e6)
+        result[name] = sorted(us)[runs // 2]
+    torch.cuda.synchronize()
+    return {"shape": f"image L2 {(b, s, h, d)} bfloat16", "host_us": result}
+
+
 def _host_seconds(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -430,6 +474,11 @@ def main(argv=None):
         for row in kernel_calls(dev, max(args.steps, 5), shapes, make_call):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": kernel, **row}), flush=True)
+        if args.k1:
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K1 wrapper host parts",
+                              **k1_host_parts(dev, max(args.steps, 5))}),
+                  flush=True)
         return
 
     phases, extra = (_train_phases if args.train

@@ -29,6 +29,8 @@
 
 #include <mma.h>
 
+#include <cstddef>
+
 #include "common.cuh"
 #include "flash_attention.cuh"
 
@@ -323,26 +325,38 @@ int dispatch_d(int d, const FlashArgs& a, cudaStream_t s) {
   }
 }
 
+// One K1 call on the current device, by route.
+int flash_fwd(const FwdCall& c) {
+  FlashArgs a{c.q,    c.k,    c.v,    c.o,    static_cast<float*>(c.lse),
+              c.batch, c.seq_q, c.seq_k, c.heads, c.q_sb, c.q_ss, c.q_sh,
+              c.k_sb, c.k_ss, c.k_sh, c.v_sb, c.v_ss, c.v_sh, c.scale};
+  cudaStream_t s = static_cast<cudaStream_t>(c.stream);
+  const int d = c.head_dim;
+  if (c.dtype == kFloat32 && d == 512)
+    return flash_fwd_f32(a, c.kv_splits, static_cast<float*>(c.part), s);
+  if (c.kv_splits != 1) return -2;  // only the FMA route splits the kv walk
+  if (c.dtype == kFloat32) return dispatch_d<float>(d, a, s);
+  if (c.dtype == kBFloat16 && d <= 256) return flash_fwd_sm90(d, a, s);
+  if (c.dtype == kBFloat16) return dispatch_d<bf16>(d, a, s);
+  return -1;
+}
+
 }  // namespace
 }  // namespace vst
 
-extern "C" int vst_flash_attention_fwd(
-    int dtype, int head_dim, const void* q, const void* k, const void* v,
-    void* o, void* lse, int batch, int seq_q, int seq_k, int heads,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, float scale, int kv_splits, void* part, void* stream) {
-  vst::FlashArgs a{q,    k,    v,    o,    static_cast<float*>(lse),
-                   batch, seq_q, seq_k, heads, q_sb, q_ss, q_sh,
-                   k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vst::kFloat32 && head_dim == 512)
-    return vst::flash_fwd_f32(a, kv_splits, static_cast<float*>(part), s);
-  if (kv_splits != 1) return -2;  // only the FMA route splits the kv walk
-  if (dtype == vst::kFloat32) return vst::dispatch_d<float>(head_dim, a, s);
-  if (dtype == vst::kBFloat16 && head_dim <= 256)
-    return vst::flash_fwd_sm90(head_dim, a, s);
-  if (dtype == vst::kBFloat16)
-    return vst::dispatch_d<vst::bf16>(head_dim, a, s);
-  return -1;
+static_assert(offsetof(vst::FwdCall, scale) == 160,
+              "FwdCall must match ops/flash_attention.py's packing");
+
+// One K1 call from its packed arguments: launched on the call's device,
+// made current for the launch where another one is.
+extern "C" int vst_flash_attention_fwd(const vst::FwdCall* call) {
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return (int)e;
+  if (current == call->device) return vst::flash_fwd(*call);
+  e = cudaSetDevice(call->device);
+  if (e != cudaSuccess) return (int)e;
+  const int err = vst::flash_fwd(*call);
+  e = cudaSetDevice(current);
+  return err != 0 ? err : (int)e;
 }

@@ -18,6 +18,27 @@ struct FlashArgs {
   float scale;
 };
 
+// The arguments of one K1 call as ops/flash_attention.py packs them
+// (`_FWD_POINTERS`, `_FWD_LAYOUT`, `_FWD_SCALE`: "<7Q", "<9q8i", "<f";
+// no padding before `scale`):
+// pointers and the stream, the q, k, v strides (elements; batch, seq,
+// head), the device the call is for, then the scalars. `part` is the FMA
+// route's split buffer or null.
+struct FwdCall {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* lse;
+  void* part;
+  void* stream;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  int device, dtype, head_dim, batch, seq_q, seq_k, heads, kv_splits;
+  float scale;
+};
+
 // bf16 at head_dim 64, 128, 192 or 256: the wgmma + TMA route
 // (flash_attention_sm90.cu). Returns 0, a CUDA error, or a negative code
 // for an argument it refuses.

@@ -417,22 +417,23 @@ int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
   if ((long long)(kv_splits - 1) * per >= n_tiles) return -2;
   CUtensorMap tk, tv;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
-  int err = bshd_tensor_map(&tk, F32, 4, a.k, a.batch, a.seq_k, a.heads, D,
-                            a.k_sb, a.k_ss, a.k_sh, DK, BC,
-                            CU_TENSOR_MAP_SWIZZLE_64B);
+  static std::atomic<uint64_t> smem_set{0};
+  const int dev = current_device();
+  if (dev < 0) return -dev;
+  int err = cached_bshd_tensor_map(&tk, F32, 4, a.k, a.batch, a.seq_k,
+                                   a.heads, D, a.k_sb, a.k_ss, a.k_sh, DK,
+                                   BC, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err == 0)
-    err = bshd_tensor_map(&tv, F32, 4, a.v, a.batch, a.seq_k, a.heads, D,
-                          a.v_sb, a.v_ss, a.v_sh, V_BOX, VR,
-                          CU_TENSOR_MAP_SWIZZLE_NONE);
+    err = cached_bshd_tensor_map(&tv, F32, 4, a.v, a.batch, a.seq_k,
+                                 a.heads, D, a.v_sb, a.v_ss, a.v_sh, V_BOX,
+                                 VR, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err < 0 ? err : -1000 - err;  // a CUresult
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM);
-  if (e != cudaSuccess) return (int)e;
+  err = allow_smem_once(flash_fwd_f32_kernel, (int)SMEM, dev, smem_set);
+  if (err != 0) return err;
   F32Args args{a, kv_splits, per, part};
   dim3 grid((a.seq_q + BR - 1) / BR, a.heads * kv_splits, a.batch);
   flash_fwd_f32_kernel<<<grid, THREADS, SMEM, stream>>>(tk, tv, args);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || kv_splits == 1) return (int)e;
   const long long rows = (long long)a.batch * a.heads * a.seq_q;
   flash_combine_f32_kernel<<<(unsigned)rows, D / 4, 0, stream>>>(

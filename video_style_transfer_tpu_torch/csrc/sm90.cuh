@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: warpgroup
 // matrix products (wgmma) with shared-memory matrix descriptors, mbarriers,
-// TMA tensor loads and their host-side tensor maps, and register
-// rebalancing between warpgroups (setmaxnreg).
+// named barriers, TMA tensor loads and their host-side tensor maps (with
+// a cache of encoded maps), register rebalancing between warpgroups
+// (setmaxnreg), and launch settings kept once per device.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is one "panel"; row r lives at
@@ -14,6 +15,10 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <cstring>
+#include <mutex>
 
 #include "common.cuh"
 
@@ -407,6 +412,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// --------------------------------------------------------- named barriers
+
+// Hardware barrier `id` (1-15; 0 is __syncthreads) completes once `count`
+// threads (whole warps) have arrived: sync arrives and waits, arrive only
+// arrives. With count 256, one warpgroup's arrive releases another's
+// sync: a hand-off between two warpgroups.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // -------------------------------------------------------------- registers
 
 template <int N>
@@ -470,6 +489,84 @@ inline int bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
                      box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// bshd_tensor_map through a cache of the last 32 maps, keyed by every
+// argument that goes into the map, the pointer included: a hit is the map
+// the encode would give, so a call on the same tensors, or on new ones at
+// the same address and layout, skips the encode; nothing can go stale.
+inline int cached_bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                                  int elem_bytes, const void* ptr,
+                                  int batch, int seq, int heads, int d,
+                                  long long sb, long long ss, long long sh,
+                                  int box_d, int rows,
+                                  CUtensorMapSwizzle swizzle) {
+  constexpr int kEntries = 32;
+  struct Entry {
+    long long key[13];
+    CUtensorMap map;
+  };
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  const long long key[13] = {(long long)reinterpret_cast<uintptr_t>(ptr),
+                             (long long)type, elem_bytes, batch, seq,
+                             heads, d, sb, ss, sh, box_d, rows,
+                             (long long)swizzle};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i)
+      if (std::memcmp(cache[i].key, key, sizeof key) == 0) {
+        *map = cache[i].map;
+        return 0;
+      }
+  }
+  const int e = bshd_tensor_map(map, type, elem_bytes, ptr, batch, seq,
+                                heads, d, sb, ss, sh, box_d, rows, swizzle);
+  if (e != 0) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  std::memcpy(cache[next].key, key, sizeof key);
+  cache[next].map = *map;
+  next = (next + 1) % kEntries;
+  used = used < kEntries ? used + 1 : kEntries;
+  return 0;
+}
+
+// ------------------------------------------------------- launch settings
+
+// The current device (0-63), or a negative CUDA error.
+inline int current_device() {
+  int dev = 0;
+  const cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return -(int)e;
+  return dev < 64 ? dev : -(int)cudaErrorInvalidDevice;
+}
+
+// The SM count of device `dev`, asked of the runtime once.
+inline int sm_count(int dev) {
+  static std::atomic<int> counts[64];
+  int n = counts[dev].load(std::memory_order_relaxed);
+  if (n == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+        cudaSuccess)
+      return 0;
+    counts[dev].store(n, std::memory_order_relaxed);
+  }
+  return n;
+}
+
+// Allows `kernel` `bytes` of dynamic shared memory on device `dev`, once
+// per (kernel, device): `done` is the kernel's own set of devices done.
+template <typename Kernel>
+inline int allow_smem_once(Kernel kernel, int bytes, int dev,
+                           std::atomic<uint64_t>& done) {
+  const uint64_t bit = 1ull << dev;
+  if (done.load(std::memory_order_relaxed) & bit) return 0;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done.fetch_or(bit, std::memory_order_relaxed);
+  return 0;
 }
 
 }  // namespace sm90

@@ -35,10 +35,9 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: ctypes would otherwise pass Python ints as 32-bit ints)
 SIGNATURES = {
-    "vst_flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _P,
-                                _I, _I, _I, _I,
-                                _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                _F, _I, _P, _P],
+    # K1 takes one struct of its arguments (ops/flash_attention.py packs
+    # it: _FWD_POINTERS, _FWD_LAYOUT, _FWD_SCALE)
+    "vst_flash_attention_fwd": [_P],
     "vst_flash_attention_bwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _I, _I, _I, _I,
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
@@ -125,6 +124,8 @@ def _build(target: Path):
 def library():
     """The loaded kernel library, built on first call if needed."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -152,5 +153,9 @@ def check_launch(name: str, err: int):
 
 
 def stream_of(t):
+    """The current CUDA stream of t's device, as the raw handle a launcher
+    takes (the lookup ``torch.cuda.current_stream`` wraps, without the
+    Stream object it builds)."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+

@@ -25,6 +25,7 @@ the kernels or raises; a CPU tensor takes the plain versions.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -42,6 +43,15 @@ BWD_ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
 DELTA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# one K1 call's arguments, packed for its C entry point (one argument to
+# marshal instead of 25; csrc/flash_attention.cuh: FwdCall) in three
+# parts: the q, k, v, out, lse and split-buffer pointers and the stream;
+# the layout (q's, k's and v's (batch, seq, head) strides, the device,
+# dtype, head dim, B, Sq, Sk, H and kv splits), packed once a layout;
+# the scale
+_FWD_POINTERS = struct.Struct("<7Q")
+_FWD_LAYOUT = struct.Struct("<9q8i")
+_FWD_SCALE = struct.Struct("<f")
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 # bf16 head dims of the wgmma + TMA route and fp32 head dims of the FMA
 # route; the rest take shared memory
@@ -119,7 +129,47 @@ def fma_kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
     return best
 
 
+# layouts `_check` has accepted, by the dtypes, devices, shapes, strides
+# and pointer alignment of q, k and v: (K1's route, its kv splits, the
+# packed layout part of its call)
+_ACCEPTED = {}
+
+
 def _check(q, k, v):
+    """Raises on (B, S, H, D) views that K1 and K4 do not take; returns
+    (route, kv splits, packed layout) for K1's call. A layout accepted
+    once is found again after one dict lookup."""
+    key = (q.dtype, k.dtype, v.dtype,
+           q.get_device(), k.get_device(), v.get_device(),
+           q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16)
+    entry = _ACCEPTED.get(key)
+    if entry is None:
+        _check_layout(q, k, v)
+        entry = _fwd_layout(q, k, v)
+        if len(_ACCEPTED) >= 4096:
+            _ACCEPTED.clear()
+        _ACCEPTED[key] = entry
+    return entry
+
+
+def _fwd_layout(q, k, v):
+    """K1's route, kv splits and packed layout for a checked (q, k, v)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    kernel = route(q.dtype, d)
+    splits = 1
+    if kernel == "fma":
+        splits = fma_kv_splits(
+            b * h * -(-sq // FMA_BLOCK_Q), -(-sk // FMA_BLOCK_K),
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    return kernel, splits, _FWD_LAYOUT.pack(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], q.get_device(),
+        _DTYPES[q.dtype], d, b, sq, sk, h, splits)
+
+
+def _check_layout(q, k, v):
+    """Raises on (B, S, H, D) views that K1 and K4 do not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash attention: q, k, v must all be on CUDA")
     if not (q.device == k.device == v.device):
@@ -157,29 +207,20 @@ def flash_attention_fwd(q, k, v, *, scale=None):
         scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    _check(q, k, v)
+    kernel, splits, layout = _check(q, k, v)
     b, sq, h, _ = q.shape
-    sk = k.shape[1]
-    out = torch.empty((b, sq, h * d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    kernel = route(q.dtype, d)
-    splits, part = 1, None
-    if kernel == "fma":
-        splits = fma_kv_splits(
-            b * h * -(-sq // FMA_BLOCK_Q), -(-sk // FMA_BLOCK_K),
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
-        if splits > 1:
-            # each split's normalised output, then its lse
-            part = torch.empty(splits * b * h * sq * (d + 1),
-                               dtype=torch.float32, device=q.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.vst_flash_attention_fwd(
-            _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), b, sq, sk, h,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), splits, None if part is None else part.data_ptr(),
-            cuda_build.stream_of(q))
+    out = q.new_empty((b, sq, h * d))
+    lse = q.new_empty((b, h, sq), dtype=torch.float32)
+    part = None
+    if splits > 1:
+        # the FMA route's splits: each one's normalised output, then its lse
+        part = q.new_empty(splits * b * h * sq * (d + 1))
+    err = cuda_build.library().vst_flash_attention_fwd(
+        _FWD_POINTERS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           out.data_ptr(), lse.data_ptr(),
+                           0 if part is None else part.data_ptr(),
+                           cuda_build.stream_of(q))
+        + layout + _FWD_SCALE.pack(scale))
     cuda_build.check_launch("flash_attention_fwd", err)
     global LAUNCHES
     LAUNCHES += 1
