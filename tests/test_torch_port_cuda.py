@@ -207,6 +207,85 @@ def test_cuda_geglu_matches_plain(dtype):
     _assert_close(out, ref)
 
 
+def _geglu_case(m, c, inner, dtype=torch.bfloat16, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(m, c, device="cuda", generator=g, dtype=dtype)
+    w = torch.randn(2 * inner, c, device="cuda", generator=g,
+                    dtype=dtype) * c ** -0.5
+    b = torch.randn(2 * inner, device="cuda", generator=g, dtype=dtype) * 0.1
+    return x, w, b
+
+
+def _assert_geglu_close(x, w, b, gate=None):
+    gate = gate or tgeglu._default_gate_for(x.dtype)
+    before = tgeglu.LAUNCHES
+    out = tgeglu.geglu_fwd(x, w, b, gate)
+    assert tgeglu.LAUNCHES == before + 1
+    assert out.shape == (x.shape[0], w.shape[0] // 2)
+    _assert_close(out, tgeglu.geglu_plain(x, w, b, gate))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,c,inner", [
+    (1, 320, 1280),      # one row: a tile of 1 row, fewer tiles than SMs
+    (127, 64, 64),       # one tile
+    (1000, 200, 136),    # C past a 64 slice, inner past a column tile
+    (300, 72, 200),      # both ragged, inner not a multiple of 64
+    (129, 1280, 5120),   # a second, nearly empty row of tiles
+    (16900, 320, 1280),  # 133 x 20 tiles: the grid does not divide them
+])
+def test_cuda_geglu_bf16_ragged_shapes(m, c, inner):
+    # rows past M, K past C and columns past inner (a wrong mask would read
+    # gate rows into h) against the plain version
+    _need_cuda()
+    _assert_geglu_close(*_geglu_case(m, c, inner, seed=m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["erf5", "cdf3", "poly14"])
+def test_cuda_geglu_bf16_gates(gate):
+    _need_cuda()
+    _assert_geglu_close(*_geglu_case(777, 320, 1280, seed=3), gate=gate)
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_map_cache():
+    # the wrapper keeps the encoded tensor maps and the checked layout: a
+    # second call on the same tensors reuses them, a call on new tensors
+    # of the same shape (other data, and other addresses while the first
+    # are alive) must not
+    _need_cuda()
+    first = _geglu_case(1000, 320, 1280, seed=7)
+    out1 = _assert_geglu_close(*first)
+    out2 = _assert_geglu_close(*first)
+    assert torch.equal(out1, out2)
+    second = _geglu_case(1000, 320, 1280, seed=8)
+    out3 = _assert_geglu_close(*second)
+    assert not torch.equal(out1, out3)
+    # and new tensors where the first ones were freed
+    del first, out1, out2
+    torch.cuda.synchronize()
+    _assert_geglu_close(*_geglu_case(1000, 320, 1280, seed=9))
+
+
+@pytest.mark.cuda
+def test_cuda_geglu_raises_on_what_it_does_not_take():
+    _need_cuda()
+    x, w, b = _geglu_case(64, 320, 1280)
+    before = tgeglu.LAUNCHES
+    for args in ((x[:, :316].contiguous(), w[:, :316].contiguous(),
+                  b),                                   # C % 8
+                 (x, w[:2 * 1276], b[:2 * 1276]),       # inner % 8
+                 (x.t().contiguous().t(), w, b),        # not contiguous
+                 (x, w.float(), b),                     # mixed dtypes
+                 (x.half(), w.half(), b.half()),        # fp16
+                 (x, w, b.cpu())):                      # mixed devices
+        with pytest.raises((ValueError, TypeError)):
+            tgeglu.geglu_fwd(*args, "cdf3")
+    assert tgeglu.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40),
                                      (torch.float32, 160)])

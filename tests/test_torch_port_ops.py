@@ -93,8 +93,11 @@ def test_flash_lse_matches_pallas(no_library, s, block_k):
 
 # ------------------------------------------------------------------ K2
 
-def test_geglu_matches_pallas(no_library):
-    m, c, inner = 64, 64, 256
+@pytest.mark.parametrize("m,c,inner", [
+    (64, 64, 256),
+    (200, 72, 384),   # ragged: C and M not multiples of 64, inner of 256
+])
+def test_geglu_matches_pallas(no_library, m, c, inner):
     assert m % 8 == 0 and jgeglu._pick_block_i(inner, 512) > 0  # kernel
     x = _rand(30, (2, m // 2, c))
     w = _rand(31, (c, 2 * inner), 0.1)
@@ -105,6 +108,52 @@ def test_geglu_matches_pallas(no_library):
     assert got.shape == (2, m // 2, inner)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=0)
+
+
+def test_geglu_check_caches_accepted_layouts_only(monkeypatch):
+    # K2's wrapper checks an (x, w, b) layout once: a layout the full check
+    # accepted is found again by (dtype, device, shape, stride, pointer
+    # alignment), with its call's packed layout; any of those changed, or a
+    # layout it refused, goes through the full check again
+    seen = []
+
+    def full_check(x2d, w, b):
+        seen.append((x2d.shape, w.shape, x2d.stride()))
+        if x2d.shape[1] == 12:
+            raise ValueError("refused")
+
+    monkeypatch.setattr(tgeglu, "_check_layout", full_check)
+    monkeypatch.setattr(tgeglu, "_ACCEPTED", {})
+    x = torch.zeros(40, 16, dtype=torch.bfloat16)
+    w = torch.zeros(64, 16, dtype=torch.bfloat16)
+    b = torch.zeros(64, dtype=torch.bfloat16)
+    first = tgeglu._check(x, w, b)
+    assert first == tgeglu._LAYOUT.pack(-1, 1, 40, 16, 32)
+    assert tgeglu._check(x, w, b) is first
+    assert len(seen) == 1
+    tgeglu._check(x[1:], w, b)                       # other shape, offset
+    tgeglu._check(x.float(), w.float(), b.float())  # other dtype
+    tgeglu._check(x, w[:32], b[:32])                # other inner
+    assert len(seen) == 4
+    bad = torch.zeros(40, 12, dtype=torch.bfloat16)
+    for _ in range(2):
+        with pytest.raises(ValueError):
+            tgeglu._check(bad, torch.zeros(64, 12, dtype=torch.bfloat16), b)
+    assert len(seen) == 6
+
+
+def test_geglu_call_packing_matches_c_struct():
+    # the wrapper's three packed parts make csrc/geglu.cu's GegluCall:
+    # five pointers, then six ints ending in the gate
+    import re
+    src = (cuda_build.CSRC / "geglu.cu").read_text()
+    got = re.search(r"offsetof\(vst::GegluCall, gate\) == (\d+) &&\s*"
+                    r"sizeof\(vst::GegluCall\) == (\d+)", src)
+    assert got, "geglu.cu states GegluCall's layout"
+    head = tgeglu._POINTERS.size + tgeglu._LAYOUT.size
+    assert (head, head + 4) == tuple(map(int, got.groups()))
+    assert all(len(v) == 4 for v in tgeglu._GATE.values())
+    assert set(tgeglu._GATE) == set(tgeglu._GATES)
 
 
 def test_geglu_gate_is_dtype_gated():

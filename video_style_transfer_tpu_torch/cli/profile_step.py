@@ -30,7 +30,11 @@ around calls queued behind a device sleep) and the wrapper's host µs a
 call (no synchronise inside), then the host µs a call of each part of
 the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
 (``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
-kernels) at the train step's bf16 shapes, a ragged length and fp32.
+kernels) at the train step's bf16 shapes, a ragged length and fp32;
+``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' bf16
+shapes and fp32, each bf16 row with the device ms of the three PyTorch
+calls K2 fuses (``F.linear`` over the fused weight, ``F.gelu``, the
+product) and of ``F.linear`` alone, readings of cuBLAS's rate.
 
 ``--precision`` holds the first stage-2 step (2 frames by default) in bf16
 against fp32 on the same weights and draws, and the fp32 step against
@@ -39,7 +43,7 @@ with ``--unziplora_name_or_path DIR`` on a stage-1 artifact set; one JSON
 line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image | --decode | --k1 | --k4 | --precision]
+        [--train | --image | --decode | --k1 | --k2 | --k4 | --precision]
         [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
 """
@@ -254,6 +258,15 @@ K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
              ("ragged", (2, 1100, 2, 64), torch.bfloat16),
              ("train L2", (8, 1024, 20, 64), torch.float32))
 
+# (tag, (M, C), dtype): K2's shapes in chip_smoke.py's K2 phases (inner =
+# 4 C): spatial and motion level 2 and level 1 at the serving path's 32
+# rows, motion level 0, spatial level 2 at the image path's 2 rows
+K2_SHAPES = (("spatial L2", (32768, 1280), torch.bfloat16),
+             ("L1", (131072, 640), torch.bfloat16),
+             ("motion L0", (524288, 320), torch.bfloat16),
+             ("image L2", (2048, 1280), torch.bfloat16),
+             ("spatial L2", (32768, 1280), torch.float32))
+
 
 def _time_calls(fn, runs: int):
     """(device ms, host µs) a call of fn, each the median of `runs` runs
@@ -279,37 +292,82 @@ def _time_calls(fn, runs: int):
     return sorted(dev_ms)[runs // 2], sorted(host_us)[runs // 2]
 
 
-def k1_call(q, k, v, gen):
-    """A call of K1's wrapper on (q, k, v)."""
+def _qkv(shape, dtype, gen):
+    """q, k and v (B, S, H, D): strided views of one seeded fused
+    projection."""
+    b, s, h, d = shape
+    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=gen.device,
+                      dtype=dtype)
+    return [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1)]
+
+
+def k1_call(shape, dtype, gen):
+    """A call of K1's wrapper on seeded (q, k, v) of `shape`."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    q, k, v = _qkv(shape, dtype, gen)
     return lambda: fa.flash_attention_fwd(q, k, v)
 
 
-def k4_call(q, k, v, gen):
-    """A call of K4's wrapper on (q, k, v), K1's out and lse and a seeded
-    dO."""
+def k4_call(shape, dtype, gen):
+    """A call of K4's wrapper on seeded (q, k, v) of `shape`, K1's out and
+    lse and a seeded dO."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    b, s, h, d = q.shape
+    q, k, v = _qkv(shape, dtype, gen)
+    b, s, h, d = shape
     o, lse = fa.flash_attention_fwd(q, k, v)
     do = torch.randn(b, s, h * d, generator=gen, device=q.device,
                      dtype=q.dtype)
     return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
 
 
-def kernel_calls(dev, runs: int, shapes, make_call):
-    """[{shape, device_ms, host_us}] for the call make_call(q, k, v, gen)
-    builds at each (tag, (B, S, H, D), dtype) of `shapes`, q, k and v
-    strided views of one seeded fused projection."""
+def _geglu_inputs(shape, dtype, gen):
+    """Seeded x (M, C), W (2 inner, C) and b (2 inner,), inner = 4 C."""
+    m, c = shape
+    inner = 4 * c
+
+    def randn(*size, scale=1.0):
+        return (torch.randn(*size, generator=gen, device=gen.device) *
+                scale).to(dtype)
+    return randn(m, c), randn(2 * inner, c, scale=c ** -0.5), randn(
+        2 * inner, scale=0.1)
+
+
+def k2_call(shape, dtype, gen):
+    """A call of K2's wrapper on seeded (x, W, b) of `shape`, in the gate
+    the models use at `dtype`."""
+    from video_style_transfer_tpu_torch.ops import geglu
+    x, w, b = _geglu_inputs(shape, dtype, gen)
+    gate = geglu._default_gate_for(dtype)
+    return lambda: geglu.geglu_fwd(x, w, b, gate)
+
+
+def geglu_yardsticks(shape, dtype, gen, runs: int):
+    """Device ms a call of the three PyTorch calls K2 fuses and of
+    F.linear alone (cuBLAS), on seeded inputs of `shape`."""
+    import torch.nn.functional as F
+    x, w, b = _geglu_inputs(shape, dtype, gen)
+
+    def three_calls():
+        h, g = F.linear(x, w, b).chunk(2, dim=-1)
+        return h * F.gelu(g)
+    return {"three_calls_ms": _time_calls(three_calls, runs)[0],
+            "linear_ms": _time_calls(lambda: F.linear(x, w, b), runs)[0]}
+
+
+def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
+    """[{shape, device_ms, host_us}] for the call make_call(shape, dtype,
+    gen) builds at each (tag, shape, dtype) of `shapes`, with the readings
+    of yardsticks(shape, dtype, gen, runs) for bf16 where given."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
-    for tag, (b, s, h, d), dtype in shapes:
-        qkv = torch.randn(b, s, 3 * h * d, generator=gen, device=dev,
-                          dtype=dtype)
-        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
-        dev_ms, host_us = _time_calls(make_call(q, k, v, gen), runs)
-        out.append({"shape": f"{tag} {(b, s, h, d)} {str(dtype)[6:]}",
-                    "device_ms": dev_ms, "host_us": host_us})
-        del qkv, q, k, v
+    for tag, shape, dtype in shapes:
+        dev_ms, host_us = _time_calls(make_call(shape, dtype, gen), runs)
+        row = {"shape": f"{tag} {shape} {str(dtype)[6:]}",
+               "device_ms": dev_ms, "host_us": host_us}
+        if yardsticks is not None and dtype == torch.bfloat16:
+            row.update(yardsticks(shape, dtype, gen, runs))
+        out.append(row)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -428,6 +486,8 @@ def main(argv=None):
                    help="trace the fp32 VAE decode of one frame")
     p.add_argument("--k1", action="store_true",
                    help="time K1's wrapper alone at the paths' shapes")
+    p.add_argument("--k2", action="store_true",
+                   help="time K2's wrapper alone at the paths' shapes")
     p.add_argument("--k4", action="store_true",
                    help="time K4's wrapper alone at the train step's "
                         "shapes")
@@ -467,11 +527,14 @@ def main(argv=None):
                           "unziplora": args.unziplora_name_or_path,
                           **precision_readings(argv)}), flush=True)
         return
-    if args.k1 or args.k4:
-        kernel, shapes, make_call = (
-            ("K4 flash_attention_bwd", K4_SHAPES, k4_call) if args.k4
-            else ("K1 flash_attention_fwd", K1_SHAPES, k1_call))
-        for row in kernel_calls(dev, max(args.steps, 5), shapes, make_call):
+    if args.k1 or args.k2 or args.k4:
+        kernel, shapes, make_call, yardsticks = (
+            ("K4 flash_attention_bwd", K4_SHAPES, k4_call, None) if args.k4
+            else ("K2 geglu_projection", K2_SHAPES, k2_call,
+                  geglu_yardsticks) if args.k2
+            else ("K1 flash_attention_fwd", K1_SHAPES, k1_call, None))
+        for row in kernel_calls(dev, max(args.steps, 5), shapes, make_call,
+                                yardsticks):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": kernel, **row}), flush=True)
         if args.k1:

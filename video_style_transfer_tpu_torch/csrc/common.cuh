@@ -84,51 +84,7 @@ __device__ __forceinline__ void pack16(T* p, const float* in) {
   *reinterpret_cast<uint4*>(p) = u;
 }
 
-// 16-byte asynchronous global->shared copy; when `pred` is false the
-// destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// ---- tensor-core building blocks (mma.sync m16n8k16, bf16 in, f32 acc)
-//
-// Fragment layouts, g = lane / 4, t = lane % 4:
-//   A (16x16, row-major): a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 =
-//     (g, 2t+8..), a3 = (g+8, 2t+8..)
-//   B (16x8, k x n): b0 = (k 2t..2t+1, n g), b1 = (k 2t+8.., n g)
-//   C (16x8, f32): c0,c1 = (g, 2t..2t+1), c2,c3 = (g+8, 2t..2t+1)
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
+// two floats rounded to bf16 and packed, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

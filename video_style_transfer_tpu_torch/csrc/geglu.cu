@@ -6,59 +6,129 @@
 // Computes out[m, j] = (x[m] . W[j] + b[j]) * gelu(x[m] . W[j + inner] +
 // b[j + inner]) for x (M, C) and W (2*inner, C) (PyTorch's linear
 // layout), reading the h rows [j] and the gate rows [j + inner] of W in
-// place and writing only the gated (M, inner) half. The gate is chosen by
-// the caller (erf5 / cdf3 / poly14, the JAX package's `_GATES`).
+// place and writing only the gated (M, inner) half: f32 products and
+// bias, the gate in f32, one rounding at the output. The gate is chosen
+// by the caller (erf5 / cdf3 / poly14, the JAX package's `_GATES`).
 //
 // Bound on the H100: 4*M*C*inner flops over (M*C + 2*C*inner + M*inner)
 // elements of traffic is hundreds of flops per byte at the UNet shapes
-// (C = 320..1280, M = 32768..524288): tensor-core bound in bf16, FMA
+// (C = 320..1280, M = 2048..524288): tensor-core bound in bf16, FMA
 // bound in fp32. The fusion saves the (M, 2*inner) intermediate's write
 // and re-read, which a separate matmul + gate would pay.
 //
-// Design: bf16 tiles of 128 rows x 128 output columns; each block
-// computes BOTH the h tile and the gate tile from the same x tile (8
-// warps of 64 x 32, mma.sync m16n8k16 with ldmatrix operands, f32
-// accumulators in registers), streaming 64-deep K slices through a
-// 3-stage cp.async pipeline. Rows past M, columns past inner and K past C
-// are zero-filled (C, inner need only be multiples of 8). The h and gate
-// accumulators of a tile share one fragment layout, so the epilogue adds
-// the biases in f32, applies the gate and stores bf16 pairs straight
-// from registers. fp32 takes a register-blocked FMA kernel (64 x 64
-// tiles, 4x4 per thread for each half) so fp32 stays exact.
+// bf16, `geglu_bf16_kernel`: a GEMM (N = 2 * inner) with an epilogue
+// (bias, gate, product) of about half its products' time at C = 320:
+// - wgmma from shared memory. A stage holds a 128-row x tile and, side by
+//   side, the 64 h rows and the 64 gate rows of W for one column tile, 64
+//   K values each (128-byte swizzled panels, both K-major). Per 16-deep K
+//   step two m64n128k16 products (rows 0-63 and 64-127 of x, one B
+//   descriptor over the 128 W rows) give a 128 x 64 tile's h and gate
+//   accumulators; in the accumulator layout h column j and gate column j
+//   sit in the same thread, so the gate is applied in registers.
+// - TMA loads through four tensor maps: x as (1, M, 1, C), W's h half as
+//   (1, inner, 1, C) at w, its gate half as the same at w + inner * C (so
+//   a column tile past `inner` reads zeros, never the other half), out as
+//   (1, M, 1, inner). Rows past M, K past C and columns past inner are
+//   zero-filled on load and clipped on store: C and inner need only be
+//   multiples of 8. The host keeps the encoded maps and the shared-memory
+//   attribute (sm90.cuh), so a repeated call only launches.
+// - What bounds it: the bytes each SM pulls from L2 (32 KB a stage for 1 M
+//   MACs), not the tensor cores. So blocks run in clusters of two on two
+//   row tiles of one column tile: each loads its own x tile and one half
+//   of W (h rows on rank 0, gate rows on rank 1) into both blocks by TMA
+//   multicast, 24 KB a stage from L2 instead of 32. A stage is refilled
+//   once the consuming warpgroups of both blocks have released it (they
+//   arrive on both blocks' "empty" barriers).
+// - Warp-specialised and persistent: one block an SM; the cluster pairs
+//   walk the output tiles at a stride of their count, column tile
+//   fastest, so the blocks in flight share x rows (and all of W stays in
+//   L2). A producer warpgroup (one thread) keeps a six-stage ring full on
+//   mbarriers; the ring runs on across tiles, so the next tile's loads are
+//   in flight during an epilogue.
+// - Ping-pong: two consumer warpgroups take alternate tiles and turns on
+//   named barriers; one issues its whole K loop (releasing each stage as
+//   the product after it lands) and hands the turn over, then runs its
+//   epilogue while the other's products run. setmaxnreg gives the
+//   producer 40 registers a thread and each consumer 232 (128
+//   accumulators). At C = 320 the gate still adds about a quarter to the
+//   kernel's time (PERF.md): the overlap is partial there.
+// - Epilogue: the bias is added in f32, the gate runs in f32 with its
+//   division and exp2 on MUFU (rcp.approx, ex2.approx: ulp-level, far
+//   under bf16's rounding), the bf16 tile is staged in shared memory in
+//   the 128-byte swizzle (conflict-free) and written by one TMA store,
+//   whose completion is awaited only before the next tile's staging.
+//
+// fp32, `geglu_f32_kernel`: register-blocked FMA tiles (64 x 64 a block,
+// 4x4 per thread for each half), exact division and exp2, so fp32 stays
+// within 1e-5 of the plain version.
+
+#include <cstddef>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace vst {
+
+// The arguments of one K2 call as ops/geglu.py packs them (`_POINTERS`,
+// `_LAYOUT`, `_GATE`: "<5Q", "<5i", "<i"): pointers and the stream, the
+// device the call is for, then the scalars.
+struct GegluCall {
+  const void* x;
+  const void* w;
+  const void* b;
+  void* out;
+  void* stream;
+  int device, dtype, m, c, inner, gate;
+};
+
 namespace {
+
+using namespace sm90;
 
 constexpr int kGateErf5 = 0;
 constexpr int kGateCdf3 = 1;
 constexpr int kGatePoly14 = 2;
 
+// 1/x and 2^x: on MUFU where FAST (the bf16 kernel), IEEE otherwise
+template <bool FAST>
+__device__ __forceinline__ float recip(float x) {
+  if constexpr (FAST) return rcp(x);
+  else return 1.f / x;
+}
+
+template <bool FAST>
+__device__ __forceinline__ float exp2_(float x) {
+  if constexpr (FAST) return ex2(x);
+  else return exp2f(x);
+}
+
 // Abramowitz-Stegun 7.1.26 erf (the JAX package's `_erf_as`)
+template <bool FAST>
 __device__ __forceinline__ float erf_as(float x) {
   const float sign = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
   const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.3275911f * ax);
+  const float t = recip<FAST>(1.f + 0.3275911f * ax);
   const float poly =
       t * (0.254829592f +
            t * (-0.284496736f +
                 t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  const float e = exp2f(-(ax * ax) * kLog2e);
+  const float e = exp2_<FAST>(-(ax * ax) * kLog2e);
   return sign * (1.f - poly * e);
 }
 
+template <bool FAST>
 __device__ __forceinline__ float gelu_erf5(float x) {
-  return 0.5f * x * (1.f + erf_as(x * 0.70710678118654752f));
+  return 0.5f * x * (1.f + erf_as<FAST>(x * 0.70710678118654752f));
 }
 
 // direct 3-term normal CDF (Abramowitz-Stegun 26.2.16), `_gelu_cdf3`
+template <bool FAST>
 __device__ __forceinline__ float gelu_cdf3(float x) {
   const float ax = fabsf(x);
-  const float t = 1.f / (1.f + 0.33267f * ax);
+  const float t = recip<FAST>(1.f + 0.33267f * ax);
   const float poly = t * (0.4361836f + t * (-0.1201676f + t * 0.9372980f));
   const float pdf =
-      0.3989422804014327f * exp2f(-(0.5f * kLog2e) * (ax * ax));
+      0.3989422804014327f * exp2_<FAST>(-(0.5f * kLog2e) * (ax * ax));
   const float phi_pos = 1.f - pdf * poly;
   const float phi = (x >= 0.f) ? phi_pos : 1.f - phi_pos;
   return x * phi;
@@ -82,12 +152,228 @@ __device__ __forceinline__ float gelu_poly14(float x) {
   return 0.5f * x * (1.f + xc * r);
 }
 
-template <int GATE>
+template <int GATE, bool FAST>
 __device__ __forceinline__ float gate_fn(float g) {
-  if constexpr (GATE == kGateErf5) return gelu_erf5(g);
-  else if constexpr (GATE == kGateCdf3) return gelu_cdf3(g);
+  if constexpr (GATE == kGateErf5) return gelu_erf5<FAST>(g);
+  else if constexpr (GATE == kGateCdf3) return gelu_cdf3<FAST>(g);
   else return gelu_poly14(g);
 }
+
+// ---------------------------------------------------------------- bf16
+
+// The bf16 kernel's tiles. A consumer warpgroup's tile is BM = 128 rows x
+// BN = 64 output columns: two m64n128k16 products a 16-deep K step, each
+// over BN h and BN gate columns (64 + 64 accumulators a thread). A block
+// of a cluster pair loads its x tile and one half of W (h rows: rank 0,
+// gate rows: rank 1) into both blocks. The ring holds as many stages as
+// shared memory leaves beside the two warpgroups' staging tiles.
+struct Bf16Cfg {
+  static constexpr int BM = 128, BN = 64, MH = BM / 64, CLUSTER = 2;
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr uint32_t X_BYTES = BM * 128;      // BM rows x 64 K
+  static constexpr uint32_t W_BYTES = 2 * BN * 128;  // h rows, gate rows
+  static constexpr uint32_t STAGE_BYTES = X_BYTES + W_BYTES;
+  static constexpr uint32_t OUT_BYTES = BM * BN * 2;  // a bf16 tile
+  static constexpr int NST =
+      (232448 - 2048 - 2 * OUT_BYTES) / STAGE_BYTES;  // 6
+  static constexpr size_t OFF_OUT = (size_t)NST * STAGE_BYTES;
+  static constexpr size_t OFF_BAR = OFF_OUT + 2 * OUT_BYTES;
+  // barriers: full[NST], empty[NST]; + 1024 B to align
+  static constexpr size_t SMEM = OFF_BAR + 16 * NST + 1024;
+  static_assert(BN == 64, "one 64-wide panel of output a tile");
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536,
+                "registers");
+  static_assert(SMEM <= 232448, "tiles exceed shared memory");
+};
+
+// One consumer warpgroup's hand-off of a stage: lane 0 of each of its
+// warps arrives on `bar` in this block and in its peer (which count the
+// four warps of the warpgroup that consumed the stage in each block).
+__device__ __forceinline__ void warps_arrive(uint64_t* bar, int lane,
+                                             uint32_t peer) {
+  __syncwarp();
+  if (lane == 0) {
+    mbar_arrive(bar);
+    mbar_arrive_cluster(bar, peer);
+  }
+}
+
+template <int GATE>
+__global__ void __launch_bounds__(384, 1)
+    geglu_bf16_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap th,
+                      const __grid_constant__ CUtensorMap tg,
+                      const __grid_constant__ CUtensorMap to,
+                      const bf16* __restrict__ bias, int m, int c,
+                      int inner) {
+  using C = Bf16Cfg;
+  constexpr int BM = C::BM, BN = C::BN, MH = C::MH, NST = C::NST;
+  constexpr int CL = C::CLUSTER;
+  static_assert(C::THREADS == 384, "the launch bounds");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + NST;
+
+  const int wg = threadIdx.x / 128;
+  const uint32_t rank = cluster_ctarank(), peer = rank ^ 1;
+  // a tile is a pair of row tiles (one a block) by a column tile; the
+  // clusters walk them at a stride of their count
+  const int cl = blockIdx.x / CL, n_cl = gridDim.x / CL;
+  const int n_n = (inner + BN - 1) / BN;
+  const int n_tiles =  // fits: checked on the host
+      ((m + CL * BM - 1) / (CL * BM)) * n_n;
+  const int kt_n = (c + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      // one arrival per consumer warp of the warpgroup that consumed the
+      // stage, in each block of the pair
+      mbar_init(&empty[i], 4 * CL);
+    }
+    mbar_init_fence();
+  }
+  // the peer's barriers are initialised before either block loads
+  cluster_sync();
+
+  if (wg == 0) {
+    // --------------------------------------------------------- producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K slices this block has loaded, over all its tiles
+      for (int tile = cl; tile < n_tiles; tile += n_cl) {
+        const int m0 = ((tile / n_n) * CL + rank) * BM;
+        const int n0 = (tile % n_n) * BN;
+        for (int k = 0; k < kt_n; ++k, ++it) {
+          const int st = it % NST;
+          // both blocks' consumers have released the stage
+          mbar_wait(&empty[st], ((it / NST) & 1) ^ 1);
+          unsigned char* s = smem + st * C::STAGE_BYTES;
+          // this block's x tile, and W's h rows (rank 0) or gate rows
+          // (rank 1) into both blocks
+          mbar_arrive_tx(&full[st], C::STAGE_BYTES);
+          tma_load_4d(s, &tx, &full[st], k * 64, 0, m0, 0);
+          tma_load_4d_multicast(s + C::X_BYTES + rank * BN * 128,
+                                rank == 0 ? &th : &tg, &full[st], 0x3,
+                                k * 64, 0, n0, 0);
+        }
+      }
+      // the block stays until both blocks' consumers have released every
+      // stage: no arrival from the peer is then still to come
+      for (int i = 0; i < NST; ++i, ++it)
+        mbar_wait(&empty[it % NST], ((it / NST) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const uint32_t ring = smem_u32(smem);
+  unsigned char* staging = smem + C::OFF_OUT + cw * C::OUT_BYTES;
+  // named barriers: 1 + cw is this warpgroup's turn to issue its K loop
+  // (the other arrives on it once it has issued its own), 3 + cw its
+  // epilogue's
+  const int my_turn = 1 + cw, other_turn = 2 - cw;
+  const int epilogue_bar = 3 + cw;
+
+  // each 64-row half's m64n128k16 accumulator: BN h columns, then BN gate
+  // columns
+  float acc[MH][BN];
+
+  // warpgroup 0 issues first
+  if (cw == 1) named_arrive(1, 256);
+
+  int n = cw;  // this block's tile count before this tile
+  for (int tile = cl + cw * n_cl; tile < n_tiles; tile += 2 * n_cl, n += 2) {
+    const int m0 = ((tile / n_n) * CL + rank) * BM;
+    const int n0 = (tile % n_n) * BN;
+    int it = n * kt_n;
+
+    // the K loop: each slice's products issued once its stage has landed;
+    // the stage before is released once they are in flight (its products
+    // have completed)
+    named_sync(my_turn, 256);
+    for (int k = 0; k < kt_n; ++k, ++it) {
+      const int st = it % NST;
+      mbar_wait(&full[st], (it / NST) & 1);
+      const uint32_t xa = ring + st * C::STAGE_BYTES;
+      const uint32_t wa = xa + C::X_BYTES;
+#pragma unroll
+      for (int r = 0; r < MH; ++r) fence_regs<BN>(acc[r]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t bd = desc_kmajor(wa, C::W_BYTES, kk);
+#pragma unroll
+        for (int r = 0; r < MH; ++r)
+          wgmma_ss<2 * BN>(acc[r],
+                           desc_kmajor(xa + r * 64 * 128, C::X_BYTES, kk), bd,
+                           (k | kk) != 0);
+      }
+      wgmma_commit();
+      if (k > 0) {
+        wgmma_wait<1>();
+#pragma unroll
+        for (int r = 0; r < MH; ++r) fence_regs<BN>(acc[r]);
+        warps_arrive(&empty[(it - 1) % NST], lane, peer);
+      }
+    }
+    named_arrive(other_turn, 256);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int r = 0; r < MH; ++r) fence_regs<BN>(acc[r]);
+    warps_arrive(&empty[(it - 1) % NST], lane, peer);
+
+    // epilogue: bias and gate in f32, the bf16 tile through this
+    // warpgroup's staging tile (BM rows x 128 bytes, 16-byte chunk i of row
+    // r at chunk i ^ (r % 8): conflict-free), then one TMA store, which
+    // clips rows past M and columns past inner
+    if (tid == 0) bulk_wait_read();  // the last tile's store has read it
+    named_sync(epilogue_bar, 128);
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t4;
+      float2 bh = make_float2(0.f, 0.f), bg = bh;
+      if (col < inner) {  // inner % 8 == 0: col + 1 is in range too
+        bh = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + col));
+        bg = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(bias + inner + col));
+      }
+#pragma unroll
+      for (int r = 0; r < MH; ++r)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const float* h = &acc[r][4 * i + 2 * hr];
+          const float* gv = &acc[r][4 * (i + BN / 8) + 2 * hr];
+          const int row = 64 * r + 16 * warp + g + 8 * hr;  // row % 8 == g
+          *reinterpret_cast<uint32_t*>(staging + row * 128 +
+                                       ((i ^ g) << 4) + t4 * 4) =
+              pack_bf16x2((h[0] + bh.x) * gate_fn<GATE, true>(gv[0] + bg.x),
+                          (h[1] + bh.y) * gate_fn<GATE, true>(gv[1] + bg.y));
+        }
+    }
+    fence_proxy_async();
+    named_sync(epilogue_bar, 128);
+    if (tid == 0) {
+      tma_store_4d(&to, staging, n0, 0, m0, 0);
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait();
+}
+
+// ---------------------------------------------------------------- fp32
+constexpr int FM = 64, FN = 64, FK = 16;
+constexpr int kThreadsF32 = 256;
+constexpr int LDF = FM + 4;
 
 struct GegluArgs {
   const void* x;
@@ -96,138 +382,6 @@ struct GegluArgs {
   void* out;
   int m, c, inner;
 };
-
-// ---------------------------------------------------------------- bf16
-constexpr int BM = 128, BN = 128, BK = 64, STAGES = 3;
-constexpr int kThreadsBf16 = 256;  // 8 warps: 2 (rows) x 4 (columns)
-constexpr int LDS = BK + 8;        // bf16 per staged row (16 B pad)
-constexpr size_t kXStage = sizeof(bf16) * BM * LDS;
-constexpr size_t kWStage = sizeof(bf16) * BN * LDS;  // one W half
-constexpr size_t kStage = kXStage + 2 * kWStage;
-constexpr size_t kSmemBf16 = STAGES * kStage;
-
-// x rows [m0, m0+BM) and W rows [n0, n0+BN) and [inner+n0, ...) of
-// k-slice [k0, k0+BK) into one stage; out-of-range vectors zero-filled
-__device__ __forceinline__ void load_stage(unsigned char* stage,
-                                           const GegluArgs& a, int m0,
-                                           int n0, int k0) {
-  const bf16* x = static_cast<const bf16*>(a.x);
-  const bf16* w = static_cast<const bf16*>(a.w);
-  bf16* xs = reinterpret_cast<bf16*>(stage);
-  bf16* whs = reinterpret_cast<bf16*>(stage + kXStage);
-  bf16* wgs = reinterpret_cast<bf16*>(stage + kXStage + kWStage);
-  for (int i = threadIdx.x; i < BM * (BK / 8); i += kThreadsBf16) {
-    const int r = i / (BK / 8), cv = i % (BK / 8);
-    const int gm = m0 + r, gk = k0 + cv * 8;
-    const bool ok = gm < a.m && gk < a.c;
-    cp_async16(xs + r * LDS + cv * 8, ok ? x + (long long)gm * a.c + gk : x,
-               ok);
-  }
-  for (int i = threadIdx.x; i < BN * (BK / 8); i += kThreadsBf16) {
-    const int r = i / (BK / 8), cv = i % (BK / 8);
-    const int gn = n0 + r, gk = k0 + cv * 8;
-    const bool ok = gn < a.inner && gk < a.c;
-    cp_async16(whs + r * LDS + cv * 8,
-               ok ? w + (long long)gn * a.c + gk : w, ok);
-    cp_async16(wgs + r * LDS + cv * 8,
-               ok ? w + (long long)(gn + a.inner) * a.c + gk : w, ok);
-  }
-}
-
-template <int GATE>
-__global__ void __launch_bounds__(kThreadsBf16)
-    geglu_bf16_kernel(const GegluArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: 64 rows x 32 cols
-  const int g = lane >> 2, tig = lane & 3;
-
-  // [m16 tile][n8 tile][c0..c3] for the h and the gate half
-  float acc_h[4][4][4], acc_g[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_h[i][j][e] = acc_g[i][j][e] = 0.f;
-
-  const int kt_n = (a.c + BK - 1) / BK;
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < kt_n) load_stage(smem + st * kStage, a, m0, n0, st * BK);
-    cp_async_commit();
-  }
-  // ldmatrix row addresses: A rows lane%16, k half lane/16; B (two n8
-  // tiles per x4) rows ((lane>>4)<<3) + (lane&7), k half (lane>>3)&1
-  const int a_row = wm * 64 + (lane & 15), a_col = (lane >> 4) * 8;
-  const int b_row = wn * 32 + ((lane >> 4) << 3) + (lane & 7);
-  const int b_col = ((lane >> 3) & 1) * 8;
-
-  for (int kt = 0; kt < kt_n; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; stage kt-1 is free to refill
-    if (kt + STAGES - 1 < kt_n)
-      load_stage(smem + ((kt + STAGES - 1) % STAGES) * kStage, a, m0, n0,
-                 (kt + STAGES - 1) * BK);
-    cp_async_commit();
-    const unsigned char* st = smem + (kt % STAGES) * kStage;
-    const bf16* xs = reinterpret_cast<const bf16*>(st);
-    const bf16* whs = reinterpret_cast<const bf16*>(st + kXStage);
-    const bf16* wgs = reinterpret_cast<const bf16*>(st + kXStage + kWStage);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t af[4][4], bh[2][4], bg[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4(af[mi], xs + (a_row + mi * 16) * LDS + kk * 16 + a_col);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        ldmatrix_x4(bh[np], whs + (b_row + np * 16) * LDS + kk * 16 + b_col);
-        ldmatrix_x4(bg[np], wgs + (b_row + np * 16) * LDS + kk * 16 + b_col);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          mma_16816(acc_h[mi][ni], af[mi], &bh[ni >> 1][(ni & 1) * 2]);
-          mma_16816(acc_g[mi][ni], af[mi], &bg[ni >> 1][(ni & 1) * 2]);
-        }
-    }
-  }
-
-  // epilogue straight from the accumulators: h and gate fragments of a
-  // tile share one layout, so each lane gates its own elements
-  const bf16* bias = static_cast<const bf16*>(a.b);
-  bf16* out = static_cast<bf16*>(a.out);
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int col = n0 + wn * 32 + ni * 8 + tig * 2;
-    if (col >= a.inner) continue;  // inner % 8 == 0: col + 1 is in range
-    const float bh0 = __bfloat162float(bias[col]);
-    const float bh1 = __bfloat162float(bias[col + 1]);
-    const float bg0 = __bfloat162float(bias[a.inner + col]);
-    const float bg1 = __bfloat162float(bias[a.inner + col + 1]);
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + wm * 64 + mi * 16 + g + r * 8;
-        if (row >= a.m) continue;
-        const float* h = &acc_h[mi][ni][r * 2];
-        const float* gv = &acc_g[mi][ni][r * 2];
-        *reinterpret_cast<uint32_t*>(out + (long long)row * a.inner + col) =
-            pack_bf16x2((h[0] + bh0) * gate_fn<GATE>(gv[0] + bg0),
-                        (h[1] + bh1) * gate_fn<GATE>(gv[1] + bg1));
-      }
-  }
-}
-
-// ---------------------------------------------------------------- fp32
-constexpr int FM = 64, FN = 64, FK = 16;
-constexpr int kThreadsF32 = 256;
-constexpr int LDF = FM + 4;
 
 template <int GATE>
 __global__ void __launch_bounds__(kThreadsF32)
@@ -296,23 +450,75 @@ __global__ void __launch_bounds__(kThreadsF32)
       if (gn >= a.inner) continue;
       const float hvv = ah[i][j] + bias[gn];
       const float gvv = ag[i][j] + bias[gn + a.inner];
-      out[(long long)gm * a.inner + gn] = hvv * gate_fn<GATE>(gvv);
+      out[(long long)gm * a.inner + gn] = hvv * gate_fn<GATE, false>(gvv);
     }
   }
 }
 
+// ---------------------------------------------------------------- launch
+
 template <int GATE>
-int launch(int dtype, const GegluArgs& a, cudaStream_t s) {
-  if (dtype == kBFloat16) {
-    auto kern = geglu_bf16_kernel<GATE>;
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBf16);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((a.inner + BN - 1) / BN, (a.m + BM - 1) / BM);
-    kern<<<grid, kThreadsBf16, kSmemBf16, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (dtype == kFloat32) {
+int launch_bf16(const GegluCall& call, cudaStream_t stream) {
+  using C = Bf16Cfg;
+  constexpr int CL = C::CLUSTER;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  static std::atomic<uint64_t> smem_set{0};
+  static std::atomic<int> clusters[64];
+  const long long n_tiles =
+      (long long)((call.m + CL * C::BM - 1) / (CL * C::BM)) *
+      ((call.inner + C::BN - 1) / C::BN);
+  if (n_tiles > 0x7fffffff) return -2;
+  const long long c = call.c, inner = call.inner;
+  const bf16* w = static_cast<const bf16*>(call.w);
+  // (1, rows, 1, cols) views; boxes of 64 columns (one swizzled panel)
+  CUtensorMap tx, th, tg, to;
+  int e = cached_bshd_tensor_map(&tx, BF16, 2, call.x, 1, call.m, 1, call.c,
+                                 c, c, c, 64, C::BM, SW);
+  if (e == 0)
+    e = cached_bshd_tensor_map(&th, BF16, 2, w, 1, call.inner, 1, call.c, c,
+                               c, c, 64, C::BN, SW);
+  if (e == 0)
+    e = cached_bshd_tensor_map(&tg, BF16, 2, w + inner * c, 1, call.inner, 1,
+                               call.c, c, c, c, 64, C::BN, SW);
+  if (e == 0)
+    e = cached_bshd_tensor_map(&to, BF16, 2, call.out, 1, call.m, 1,
+                               call.inner, inner, inner, inner, 64, C::BM,
+                               SW);
+  if (e != 0) return e < 0 ? e : -1000 - e;  // a CUresult from the encode
+  auto kern = geglu_bf16_kernel<GATE>;
+  e = allow_smem_once(kern, (int)C::SMEM, call.device, smem_set);
+  if (e != 0) return e;
+  // as many clusters as fit on the card at once (one block an SM)
+  const int fit = max_active_clusters(kern, CL, C::THREADS,
+                                      (int)C::SMEM, call.device, clusters);
+  if (fit < 1) return -2;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL * (n_tiles < fit ? (int)n_tiles : fit), 1, 1);
+  cfg.blockDim = dim3(C::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = (int)cudaLaunchKernelEx(&cfg, kern, tx, th, tg, to,
+                              static_cast<const bf16*>(call.b), call.m,
+                              call.c, call.inner);
+  return e != 0 ? e : (int)cudaGetLastError();
+}
+
+template <int GATE>
+int launch(const GegluCall& call) {
+  cudaStream_t s = static_cast<cudaStream_t>(call.stream);
+  if (call.m < 1 || call.device < 0 || call.device >= 64) return -2;
+  if (call.dtype == kBFloat16) return launch_bf16<GATE>(call, s);
+  if (call.dtype == kFloat32) {
+    const GegluArgs a{call.x, call.w, call.b, call.out,
+                      call.m, call.c, call.inner};
     dim3 grid((a.inner + FN - 1) / FN, (a.m + FM - 1) / FM);
     geglu_f32_kernel<GATE><<<grid, kThreadsF32, 0, s>>>(a);
     return (int)cudaGetLastError();
@@ -320,18 +526,32 @@ int launch(int dtype, const GegluArgs& a, cudaStream_t s) {
   return -1;
 }
 
+int geglu_fwd(const GegluCall& call) {
+  switch (call.gate) {
+    case kGateErf5: return launch<kGateErf5>(call);
+    case kGateCdf3: return launch<kGateCdf3>(call);
+    case kGatePoly14: return launch<kGatePoly14>(call);
+    default: return -3;
+  }
+}
+
 }  // namespace
 }  // namespace vst
 
-extern "C" int vst_geglu_fwd(int dtype, int gate, const void* x,
-                             const void* w, const void* b, void* out, int m,
-                             int c, int inner, void* stream) {
-  vst::GegluArgs a{x, w, b, out, m, c, inner};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (gate) {
-    case vst::kGateErf5: return vst::launch<vst::kGateErf5>(dtype, a, s);
-    case vst::kGateCdf3: return vst::launch<vst::kGateCdf3>(dtype, a, s);
-    case vst::kGatePoly14: return vst::launch<vst::kGatePoly14>(dtype, a, s);
-    default: return -3;
-  }
+static_assert(offsetof(vst::GegluCall, gate) == 60 &&
+                  sizeof(vst::GegluCall) == 64,
+              "GegluCall must match ops/geglu.py's packing");
+
+// One K2 call from its packed arguments: launched on the call's device,
+// made current for the launch where another one is.
+extern "C" int vst_geglu_fwd(const vst::GegluCall* call) {
+  int current = 0;
+  cudaError_t e = cudaGetDevice(&current);
+  if (e != cudaSuccess) return (int)e;
+  if (current == call->device) return vst::geglu_fwd(*call);
+  e = cudaSetDevice(call->device);
+  if (e != cudaSuccess) return (int)e;
+  const int err = vst::geglu_fwd(*call);
+  e = cudaSetDevice(current);
+  return err != 0 ? err : (int)e;
 }

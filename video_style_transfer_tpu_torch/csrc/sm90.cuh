@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels: warpgroup
 // matrix products (wgmma) with shared-memory matrix descriptors, mbarriers,
-// named barriers, TMA tensor loads and their host-side tensor maps (with
-// a cache of encoded maps), register rebalancing between warpgroups
-// (setmaxnreg), and launch settings kept once per device.
+// named barriers, TMA tensor loads and stores and their host-side tensor
+// maps (with a cache of encoded maps), register rebalancing between
+// warpgroups (setmaxnreg), and launch settings kept once per device.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is one "panel"; row r lives at
@@ -96,6 +96,14 @@ __device__ __forceinline__ void fence_p(uint32_t (&p)[NJ][4]) {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1/x on the MUFU unit (approximate, within an ulp or so; flushes
+// denormals)
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -412,6 +420,85 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Makes this thread's ordinary shared-memory writes visible to the async
+// proxy (a TMA store that reads them next).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4-D tile store (coordinates innermost first) from shared memory, in the
+// layout a load of the same map would write; elements past the tensor's
+// bounds are not written. Completes in this thread's bulk async-group
+// (bulk_commit / bulk_wait_read / bulk_wait).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's committed bulk stores have read their shared
+// memory (it may be written again).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's committed bulk stores have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// tma_load_4d into the same shared-memory offset of every block of the
+// cluster in `mask` (bit r: rank r), completing `bytes` of the barrier at
+// `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst,
+                                                      const CUtensorMap* map,
+                                                      uint64_t* bar,
+                                                      uint16_t mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives (release) and waits
+// (acquire): a __syncthreads across the cluster.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Arrives on the barrier at `bar`'s offset in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
 // --------------------------------------------------------- named barriers
 
 // Hardware barrier `id` (1-15; 0 is __syncthreads) completes once `count`
@@ -552,6 +639,33 @@ inline int sm_count(int dev) {
       return 0;
     counts[dev].store(n, std::memory_order_relaxed);
   }
+  return n;
+}
+
+// How many clusters of `cluster` blocks of `threads` threads and `smem`
+// bytes of dynamic shared memory each fit on device `dev` at once, asked of
+// the runtime once (`cache`: the kernel's own answers by device); 0 on an
+// error.
+template <typename Kernel>
+inline int max_active_clusters(Kernel kernel, int cluster, int threads,
+                               int smem, int dev,
+                               std::atomic<int> (&cache)[64]) {
+  int n = cache[dev].load(std::memory_order_relaxed);
+  if (n > 0) return n;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess)
+    return 0;
+  cache[dev].store(n, std::memory_order_relaxed);
   return n;
 }
 

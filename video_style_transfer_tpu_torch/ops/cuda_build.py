@@ -43,7 +43,8 @@ SIGNATURES = {
                                 _L, _L, _L, _L, _L, _L, _L, _L, _L,
                                 _F, _P],
     "vst_flash_attention_bwd_delta": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
-    "vst_geglu_fwd": [_I, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # K2 too (ops/geglu.py: _POINTERS, _LAYOUT, _GATE)
+    "vst_geglu_fwd": [_P],
     "vst_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P],
     "vst_temporal_attention_fwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _L, _L, _L, _L, _L, _L, _L, _L, _L,

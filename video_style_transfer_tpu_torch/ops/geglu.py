@@ -6,7 +6,9 @@ Replaces the JAX package's ops/geglu.py Pallas kernel (`_make_kernel`).
 and gate tiles of each output tile from the same x tile, reads W's rows
 ``j`` and ``j + inner`` in place and writes only the (M, inner) result.
 On the H100 it is bound by tensor-core (bf16) or FMA (fp32) throughput;
-see the source for its design.
+bf16 runs on a persistent, warp-specialised wgmma + TMA kernel in
+clusters of two blocks that share W's tiles by multicast, whose gate
+epilogue overlaps the other warpgroup's products (see the source).
 
 The gate approximations are the JAX package's, ported op for op, and the
 default is dtype-gated exactly as there: ``cdf3`` for bf16/f16 (its
@@ -23,6 +25,7 @@ plain forward.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 import torch.nn.functional as F
@@ -33,7 +36,14 @@ LAUNCHES = 0
 
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_GATE_IDS = {"erf5": 0, "cdf3": 1, "poly14": 2}
+# one K2 call's arguments, packed for its C entry point (csrc/geglu.cu:
+# GegluCall) in three parts: the x, w, b and out pointers and the stream;
+# the layout (the device, dtype, M, C and inner), packed once a layout;
+# the gate
+_POINTERS = struct.Struct("<5Q")
+_LAYOUT = struct.Struct("<5i")
+_GATE = {name: struct.pack("<i", i)
+         for i, name in enumerate(("erf5", "cdf3", "poly14"))}
 
 
 def _erf_as(x):
@@ -102,7 +112,33 @@ def geglu_plain(x2d, w, b, gate: str):
     return h * _GATES[gate](g.float()).to(h.dtype)
 
 
+# layouts `_check` has accepted, by the dtypes, devices, shapes, strides
+# and pointer alignment of x, w and b: the packed layout part of the call
+_ACCEPTED = {}
+
+
 def _check(x2d, w, b):
+    """Raises on (x, w, b) that K2 does not take; returns the packed layout
+    part of its call. A layout accepted once is found again after one dict
+    lookup."""
+    key = (x2d.dtype, w.dtype, b.dtype,
+           x2d.get_device(), w.get_device(), b.get_device(),
+           x2d.shape, w.shape, b.shape, x2d.stride(), w.stride(), b.stride(),
+           (x2d.data_ptr() | w.data_ptr() | b.data_ptr()) % 16)
+    entry = _ACCEPTED.get(key)
+    if entry is None:
+        _check_layout(x2d, w, b)
+        m, c = x2d.shape
+        entry = _LAYOUT.pack(x2d.get_device(), _DTYPES[x2d.dtype], m, c,
+                             w.shape[0] // 2)
+        if len(_ACCEPTED) >= 4096:
+            _ACCEPTED.clear()
+        _ACCEPTED[key] = entry
+    return entry
+
+
+def _check_layout(x2d, w, b):
+    """Raises on (x, w, b) that K2 does not take."""
     if not (x2d.is_cuda and w.is_cuda and b.is_cuda):
         raise ValueError("geglu: x, w, b must all be on CUDA")
     if not (x2d.device == w.device == b.device):
@@ -116,31 +152,29 @@ def _check(x2d, w, b):
         raise ValueError(f"geglu shapes: x {tuple(x2d.shape)} w "
                          f"{tuple(w.shape)} b {tuple(b.shape)}")
     inner = w.shape[0] // 2
-    if c % 8 or inner % 8:
-        raise ValueError(f"geglu needs C and inner multiples of 8, got "
-                         f"{c}, {inner}")
+    if c % 8 or inner % 8 or min(c, inner) < 8:
+        raise ValueError(f"geglu needs C and inner positive multiples of 8, "
+                         f"got {c}, {inner}")
     for name, t in (("x", x2d), ("w", w), ("b", b)):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"geglu: {name} must be contiguous and "
                              f"16-byte aligned")
-    if m >= 2 ** 31 or (m + 127) // 128 > 65535:
-        raise ValueError(f"geglu: {m} rows exceed the launch grid")
+    # the fp32 kernel's grid holds its 64-row blocks on the y axis
+    if not 1 <= m < 2 ** 31 or (x2d.dtype == torch.float32
+                                and (m + 63) // 64 > 65535):
+        raise ValueError(f"geglu: {m} rows, not within the launch grid")
 
 
 def geglu_fwd(x2d, w, b, gate: str):
     """x2d (M, C) -> (M, inner) (K2; no autograd)."""
     if not x2d.is_cuda:
         return geglu_plain(x2d, w, b, gate)
-    _check(x2d, w, b)
-    m, c = x2d.shape
-    inner = w.shape[0] // 2
-    out = torch.empty((m, inner), dtype=x2d.dtype, device=x2d.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(x2d.device):
-        err = lib.vst_geglu_fwd(_DTYPES[x2d.dtype], _GATE_IDS[gate],
-                                x2d.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), m, c, inner,
-                                cuda_build.stream_of(x2d))
+    layout = _check(x2d, w, b)
+    out = x2d.new_empty((x2d.shape[0], w.shape[0] // 2))
+    err = cuda_build.library().vst_geglu_fwd(
+        _POINTERS.pack(x2d.data_ptr(), w.data_ptr(), b.data_ptr(),
+                       out.data_ptr(), cuda_build.stream_of(x2d))
+        + layout + _GATE[gate])
     cuda_build.check_launch("geglu_projection", err)
     global LAUNCHES
     LAUNCHES += 1
