@@ -13,12 +13,14 @@
    d=192 instance, which stands for the JAX package's unpacked kernel
    (K6), and the one-pass LayerNorm (K7), which no model calls, at the
    LayerNorm shapes of the serving path. K1 has three routes (`route` in
-   ops/flash_attention.py): bf16 at d <= 256 on wgmma + TMA, fp32 at
-   d = 512 (the VAE) on FP32 FMA register tiles, bf16 at d >= 320 (the
-   VAE under --vae_dtype bfloat16) through shared memory; its phases
-   hold out and lse, the VAE's at the 512^2 and the 1024^2 paths' token
-   counts (4096 and 16384), and, like the backward and K7 phases, refuse
-   two faulty copies of the outputs. K2's bf16 kernel (wgmma + TMA,
+   ops/flash_attention.py): bf16 on wgmma + TMA (d <= 256 one kernel,
+   d >= 320 (the VAE under --vae_dtype bfloat16) the wide kernel, O split
+   across two consumer warpgroups), fp32 at d = 512 (the VAE) on FP32
+   FMA register tiles, fp32 at d <= 448 (on no path) through shared
+   memory; its phases hold out and lse, the VAE's at the 512^2 and the
+   1024^2 paths' token counts (4096 and 16384) in fp32 and in bf16, and,
+   like the backward and K7 phases, refuse two faulty copies of the
+   outputs. K2's bf16 kernel (wgmma + TMA,
    persistent, clusters of two blocks sharing W by multicast) is held at
    the FF shapes of every path the same way (bf16 normwise too) and fp32
    at spatial level 2; its yardstick is three PyTorch calls (F.linear
@@ -27,7 +29,8 @@
    two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 through shared
    memory; its phases (the train step's two levels, a ragged length, fp32)
    also print the bound at the two-kernel design's 14 flops, and its
-   delta kernel is held to the torch formula.
+   delta kernel is held to the torch formula and timed beside
+   torch.linalg.vecdot, one PyTorch call of the same function.
 3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
    and video CLIs on a synthetic checkpoint directory with LoRA and
    motion artifacts read from files, on the card against the same on the
@@ -45,12 +48,17 @@
      on disk and the motion checkpoint the trainer just wrote;
    - the image path through ``cli.infer.generate`` (1024^2, CFG 5, 3
      DPM-Solver++ steps, mode both with distinct content and style
-     prompts, the same artifact set).
+     prompts, the same artifact set);
+   - the bf16 VAE decode that ``--vae_dtype bfloat16`` gives
+     (``pipelines.video.decode_video`` on 16 seeded 128^2 latent frames,
+     the full-width SDXL decoder with seeded weights), held within mean
+     3 and p99 16 uint8 levels of the fp32 decode of the same latents.
    On each path K1's launches are also counted by route: every bf16 UNet
-   attention on the wgmma kernel, every fp32 VAE attention on the FMA
+   attention on the wgmma route's d <= 256 kernel, every bf16 VAE
+   attention on its wide kernel, every fp32 VAE attention on the FMA
    one, none on the shared-memory one; and K4's: every backward of the
    trainer on the wgmma route, each with one delta launch.
-5. Prints one JSON line with every kernel's numbers (K1 as its three
+5. Prints one JSON line with every kernel's numbers (K1 as its four
    kernels, K4's delta as a kernel of its own, with the wgmma kernels',
    the FMA kernel's, K4's and K2's registers, spills and wgmma
    serialisation from nvcc's report; the FMA, K4, K2 bf16 and K1 wgmma
@@ -356,11 +364,13 @@ def kernel_phases():
     # levels 2 and 1 at 32 rows, the image path's level 2 at 2 rows, the
     # train step's level 1 at 8 rows), a ragged length (48 x 84 latents),
     # d = 128 and d = 256 (the wgmma route's other instances), the VAE
-    # mid-block in fp32 (d=512, the FMA route) at 512^2 (S=4096) and at
-    # the 1024^2 paths' S=16384, and in bf16 at S=16384 (the shared-memory
-    # route, --vae_dtype bfloat16). The plain version runs in batch chunks
-    # of at most ~3 GB of logits (1 GiB at S=16384).
+    # mid-block in fp32 (d=512, the FMA route) and in bf16 (the wide
+    # wgmma kernel, --vae_dtype bfloat16) at 512^2 (S=4096, kv split in
+    # two) and at the 1024^2 paths' S=16384, and the shared-memory route
+    # (fp32 d <= 448, on no path) at d = 448. The plain version runs in
+    # batch chunks of at most ~3 GB of logits (1 GiB at S=16384).
     phases["flash_attention_fwd_fma"] = []
+    phases["flash_attention_fwd_wide"] = []
     phases["flash_attention_fwd_smem"] = []
     for tag, (b, s, h, d), dt, iters in (
             ("unet_l2 (32,1024,20x64)", (32, 1024, 20, 64),
@@ -381,7 +391,10 @@ def kernel_phases():
             ("vae_mid (1,16384,1x512)", (1, 16384, 1, 512), torch.float32,
              3),
             ("vae_mid (1,16384,1x512)", (1, 16384, 1, 512), torch.bfloat16,
-             3)):
+             20),
+            ("vae_mid (1,4096,1x512)", (1, 4096, 1, 512), torch.bfloat16,
+             50),
+            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 3)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -398,8 +411,9 @@ def kernel_phases():
             own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None)
         phase["kernel_route"] = route
         vs_bound_and_library(phase)
-        phases["flash_attention_fwd" if route == "wgmma"
-               else f"flash_attention_fwd_{route}"].append(phase)
+        kernel = ("_wide" if route == "wgmma" and d in fa.WIDE_HEAD_DIMS
+                  else "" if route == "wgmma" else f"_{route}")
+        phases["flash_attention_fwd" + kernel].append(phase)
         del qkv, q, k, v, qt, kt, vt
 
     # K6: the JAX package's unpacked (B*H, S, D) kernel serves head dims
@@ -548,14 +562,20 @@ def bwd_phases():
               f"reached", flush=True)
         phases["flash_attention_bwd"].append(phase)
         # K4's delta = rowsum(dO * O) at the same shape; bound by its
-        # bytes (O and dO in, delta out); no one PyTorch call computes it
+        # bytes (O and dO in, delta out); torch.linalg.vecdot over the
+        # (B, Sq, H, D) views is one PyTorch call of the same function
+        # (its (B, Sq, H) result in the input dtype)
+        o4, do4 = (t.unflatten(-1, (h, d)) for t in (out, do))
         phases["flash_attention_bwd_delta"].append(check_phase(
             f"K4 delta {tag} {str(dt)[6:]}",
             lambda: fa.flash_attention_bwd_delta(out, do, h),
             lambda: fa.flash_attention_bwd_delta_plain(out, do, h),
-            None, flops=2 * b * s * h * d,
+            lambda: torch.linalg.vecdot(do4, o4, dim=-1),
+            flops=2 * b * s * h * d,
             nbytes=2 * b * s * h * d * es + b * h * s * 4,
-            dtype_name=str(dt)[6:], iters=iters * 10, tol=TOL_DELTA))
+            dtype_name=str(dt)[6:], iters=iters * 10, tol=TOL_DELTA,
+            library_name="torch.linalg.vecdot"))
+        del o4, do4
         del qkv, q, k, v, out, lse, do
         torch.cuda.empty_cache()
     # K5: motion level 0 (F = 8, N = 16384, 8 heads x d = 40) in bf16 and
@@ -722,24 +742,29 @@ def reset_counters():
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
     fa.ROUTE_LAUNCHES.update(wgmma=0, fma=0, smem=0)
+    fa.WIDE_LAUNCHES = 0
     fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, smem=0)
 
 
-def check_routes(path, counts, wgmma, fma, bwd_wgmma=0):
+def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0):
     """K1's launches on a path split by route: every bf16 UNet attention
-    (d = 64) took the wgmma kernel, every fp32 VAE attention (d = 512) the
-    FMA one, none the shared-memory one; and K4's: every bf16 backward the
-    wgmma route, none the shared-memory one. Returns the path's counts
-    with K1 split into its three kernels and K4 by route."""
+    (d = 64) took the wgmma route's d <= 256 kernel, every bf16 VAE
+    attention (d = 512) its wide kernel (`wide` of the route's launches),
+    every fp32 VAE attention (d = 512) the FMA one, none the shared-memory
+    one; and K4's: every bf16 backward the wgmma route, none the
+    shared-memory one. Returns the path's counts with K1 split into its
+    four kernels and K4 by route."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    got = {"K1": dict(fa.ROUTE_LAUNCHES), "K4": dict(fa.BWD_ROUTE_LAUNCHES)}
-    want = {"K1": {"wgmma": wgmma, "fma": fma, "smem": 0},
-            "K4": {"wgmma": bwd_wgmma, "smem": 0}}
+    got = {"K1": dict(fa.ROUTE_LAUNCHES), "K1 wide": fa.WIDE_LAUNCHES,
+           "K4": dict(fa.BWD_ROUTE_LAUNCHES)}
+    want = {"K1": {"wgmma": wgmma + wide, "fma": fma, "smem": 0},
+            "K1 wide": wide, "K4": {"wgmma": bwd_wgmma, "smem": 0}}
     print(f"K1 and K4 launches on the {path} path by route: {got} "
           f"(expected {want})", flush=True)
     if got != want:
         fail(f"K1/K4 routes on the {path} path: {got}, expected {want}")
     return {**counts, "flash_attention_fwd": wgmma,
+            "flash_attention_fwd_wide": wide,
             "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0,
             "flash_attention_bwd_by_route": got["K4"]}
 
@@ -1214,6 +1239,73 @@ def image_path(artifacts):
     return check_routes("image", counts, 70 * IMAGE_STEPS, 1)
 
 
+def vae_bf16_decode_path():
+    """The bf16 VAE decode that ``--vae_dtype bfloat16`` gives
+    (``pipelines.video.decode_video(..., dtype=torch.bfloat16,
+    check_finite=True)``, as ``cli.infer_video`` calls it) on 16 seeded
+    latent frames at 1024^2, through the full-width SDXL decoder with
+    seeded weights: every frame's mid-block attention on the wide wgmma
+    kernel, and the frames within the limits of the JAX package's
+    ``tests/test_pipelines.py::test_decode_bf16_close_to_fp32`` (mean
+    |diff| < 3, p99 < 16 uint8 levels) of the fp32 decode of the same
+    latents. Returns the path's launch counts."""
+    import numpy as np
+    import torch
+    from video_style_transfer_tpu_torch.cli.common import model_configs
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
+    from video_style_transfer_tpu_torch.pipelines.video import decode_video
+
+    vcfg = model_configs(smoke=False, motion=True)[1]
+    lat = RESOLUTION // 8
+    with torch.inference_mode():
+        vae = init_vae_decoder(Init(1, "cuda"), vcfg)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        z = torch.randn(NUM_FRAMES, lat, lat, vcfg.latent_channels,
+                        generator=gen, device="cuda")
+        seconds = {}
+        frames = {}
+        for name, dtype in (("bf16", torch.bfloat16),
+                            ("fp32", torch.float32)):
+            if name == "bf16":
+                reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames[name] = decode_video(vae, vcfg, z, chunk=1, dtype=dtype,
+                                        check_finite=True).cpu().numpy()
+            seconds[name] = time.perf_counter() - t0
+            if name == "bf16":
+                counts = counters()
+                routes = check_routes("bf16 decode", counts, 0, 0,
+                                      wide=NUM_FRAMES)
+    check_counts("bf16 decode", counts,
+                 {**serving_launches(0, 0),
+                  "flash_attention_fwd": NUM_FRAMES})
+    diff = np.abs(frames["bf16"].astype(np.int32)
+                  - frames["fp32"].astype(np.int32))
+    mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+    shape = (NUM_FRAMES, RESOLUTION, RESOLUTION, 3)
+    print(f"bf16 decode path: {NUM_FRAMES} frames {shape[1]}x{shape[2]} "
+          f"in {seconds['bf16']:.3f} s ({seconds['bf16'] / NUM_FRAMES:.4f} "
+          f"s a frame, the VAE's cast included), fp32 "
+          f"{seconds['fp32']:.3f} s ({seconds['fp32'] / NUM_FRAMES:.4f} s a "
+          f"frame); bf16 vs fp32 pixels: mean |diff| {mean:.4f} (limit 3), "
+          f"p99 {p99:.1f} (limit 16), max {int(diff.max())}; frames mean "
+          f"{float(frames['bf16'].mean()):.2f} std "
+          f"{float(frames['bf16'].std()):.2f}", flush=True)
+    for name, video in frames.items():
+        if video.shape != shape or str(video.dtype) != "uint8":
+            fail(f"{name} decode: frames {video.shape} {video.dtype}, "
+                 f"expected {shape} uint8")
+        if float(video.std()) == 0.0:
+            fail(f"{name} decode: frames are constant")
+    if not (mean < 3.0 and p99 < 16):
+        fail(f"the bf16 decode is {mean:.3f} mean / {p99:.1f} p99 levels "
+             f"from the fp32 decode (limits 3 / 16)")
+    return {**routes, "decode_s_per_frame": {
+        k: v / NUM_FRAMES for k, v in seconds.items()}}
+
+
 def ptxas_report(log, pattern):
     """Registers, spills and wgmma serialisation of the kernels whose
     mangled name matches `pattern` (its first group names the entry), from
@@ -1256,17 +1348,20 @@ def ptxas_report(log, pattern):
 def sm90_ptxas(log):
     """Registers, spills and wgmma serialisation of the wgmma route's
     kernels, by head dim (d = 64: the persistent kernel; 128-256: the
-    template's instances). ptxas gives the count a thread holds at launch
-    (d = 64: 512 threads, at most 128 each, then setmaxnreg moves the
-    producer warpgroup to 32 and the three consumer warpgroups to 160;
-    d >= 128: 384 threads, at most 168, then 40 and 232). Fails if one
-    spills or has its products serialised: the d = 64 kernel overlaps its
-    softmax with wgmma groups in flight, which serialisation would undo."""
+    template's instances; 320-512: the wide kernel's). ptxas gives the
+    count a thread holds at launch (d = 64: 512 threads, at most 128 each,
+    then setmaxnreg moves the producer warpgroup to 32 and the three
+    consumer warpgroups to 160; d >= 128: 384 threads, at most 168, then
+    40 and 232). Fails if one spills or has its products serialised: the
+    d = 64 kernel overlaps its softmax with wgmma groups in flight, and
+    every one keeps its accumulators in registers."""
     rep = ptxas_report(log, r"(flash_fwd_sm90_d64_kernel|"
-                            r"flash_fwd_sm90_kernelILi\d+E)")
+                            r"flash_fwd_sm90_kernelILi\d+E|"
+                            r"flash_fwd_sm90_wide_kernelILi\d+E)")
     out = {("64" if name.endswith("d64_kernel")
             else name.rsplit("ILi", 1)[1][:-1]): r for name, r in rep.items()}
-    if sorted(out, key=int) != ["64", "128", "192", "256"]:
+    if sorted(out, key=int) != [str(d) for d in (64, 128, 192, 256, 320,
+                                                 384, 448, 512)]:
         fail(f"the build log names no wgmma kernel for every head dim: "
              f"{sorted(out)}")
     for d, r in out.items():
@@ -1323,12 +1418,16 @@ def geglu_ptxas(log):
 
 
 def fma_ptxas(log):
-    """Registers and spills of the FMA route's kernel and its split
-    combine (256 threads, up to 255 registers each, one block an SM).
-    Fails if the kernel spills: its O tile lives in registers by design."""
+    """Registers and spills of the FMA route's kernel (256 threads, up to
+    255 registers each, one block an SM) and of the kv-split combine it
+    shares with the wide wgmma kernel (fp32 and bf16 out). Fails if the
+    FMA kernel spills: its O tile lives in registers by design."""
     out = ptxas_report(
-        log, r"(flash_fwd_f32_kernel|flash_combine_f32_kernel)")
-    if sorted(out) != ["flash_combine_f32_kernel", "flash_fwd_f32_kernel"]:
+        log, r"(flash_fwd_f32_kernel|"
+             r"flash_combine_kernelI(?:f|13__nv_bfloat16)E)")
+    want = ["flash_combine_kernelI13__nv_bfloat16E", "flash_combine_kernelIfE",
+            "flash_fwd_f32_kernel"]
+    if sorted(out) != want:
         fail(f"the build log names no FMA-route kernels: {sorted(out)}")
     main = out["flash_fwd_f32_kernel"]
     if main.get("spill_stores", 1) or main.get("spill_loads", 1):
@@ -1399,24 +1498,29 @@ def main():
         by_path = {"serving": main_path(artifacts, motion_checkpoint),
                    "stage2": stage2_counts}
         by_path["image"] = image_path(artifacts)
+        torch.cuda.empty_cache()
+        by_path["bf16_decode"] = vae_bf16_decode_path()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
-    main_paths = ("serving", "stage2", "image")
+    main_paths = ("serving", "stage2", "image", "bf16_decode")
 
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
     sources = {
-        # K1's bf16 route (every UNet self-attention), its fp32 d = 512
-        # route (the VAE's mid-block attention) and its shared-memory
-        # route (bf16 d >= 320, the VAE under --vae_dtype bfloat16; fp32
-        # d <= 448, on no path)
+        # K1's bf16 route at d <= 256 (every UNet self-attention) and at d
+        # >= 320 (the wide kernel: the VAE under --vae_dtype bfloat16),
+        # its fp32 d = 512 route (the VAE's mid-block attention) and its
+        # shared-memory route (fp32 d <= 448, on no path; its phase at d =
+        # 448 reaches the JAX package's unpacked kernel)
         "flash_attention_fwd": ("flash_attention_sm90.cu",
                                 "flash_attention.py:253"),
+        "flash_attention_fwd_wide": ("flash_attention_wide.cu",
+                                     "flash_attention.py:160"),
         "flash_attention_fwd_fma": ("flash_attention_f32.cu",
                                     "flash_attention.py:160"),
         "flash_attention_fwd_smem": ("flash_attention.cu",
-                                     "flash_attention.py:253"),
+                                     "flash_attention.py:50"),
         "geglu_projection": ("geglu.cu", "geglu.py:100"),
         "temporal_attention": ("temporal_attention.cu",
                                "temporal_attention.py:37"),
@@ -1434,7 +1538,11 @@ def main():
         # those of its own phase
         "layer_norm": ("layer_norm.cu", "layer_norm.py:60"),
     }
-    ptxas = {"flash_attention_sm90.cu": sm90_ptxas(log),
+    wgmma_ptxas = sm90_ptxas(log)
+    ptxas = {"flash_attention_sm90.cu": {d: r for d, r in wgmma_ptxas.items()
+                                         if int(d) <= 256},
+             "flash_attention_wide.cu": {d: r for d, r in wgmma_ptxas.items()
+                                         if int(d) >= 320},
              "flash_attention_f32.cu": fma_ptxas(log),
              "flash_attention_bwd.cu": bwd_ptxas(log),
              "geglu.cu": geglu_ptxas(log)}
@@ -1463,7 +1571,10 @@ def main():
                        for path in main_paths)
                 for r in ("wgmma", "smem")}
         kernels.append(entry)
-    print(json.dumps({"stage2_precision": precision}), flush=True)
+    print(json.dumps({"stage2_precision": precision,
+                      "bf16_decode_s_per_frame":
+                          by_path["bf16_decode"]["decode_s_per_frame"]}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

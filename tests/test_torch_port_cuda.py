@@ -1,6 +1,7 @@
-"""The port's CUDA kernels (K1 on its three routes, K2-K5, K7) against
-their plain PyTorch versions on the card, and gradients through their
-autograd wrappers against the CPU.
+"""The port's CUDA kernels (K1 on its three routes, the wgmma route's
+wide kernel at d >= 320 included, K2-K5, K7) against their plain PyTorch
+versions on the card, and gradients through their autograd wrappers
+against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
 file imports no JAX, so it also runs on a machine without it:
 
@@ -46,8 +47,8 @@ def _need_cuda():
                                      (torch.float32, 512)])
 def test_cuda_flash_matches_plain(dtype, d):
     # bf16 d <= 256 takes the wgmma + TMA kernel, bf16 d >= 320 (the VAE
-    # under --vae_dtype bfloat16) the shared-memory one, fp32 d = 512 the
-    # FMA one (`route`); q, k and v are strided views of one fused
+    # under --vae_dtype bfloat16) the wide wgmma + TMA one, fp32 d = 512
+    # the FMA one (`route`); q, k and v are strided views of one fused
     # projection and S = 1100 leaves masked q and kv tails in all
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -63,10 +64,11 @@ def test_cuda_flash_matches_plain(dtype, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
 def test_cuda_flash_wgmma_ragged_cross_lengths(d):
-    # the wgmma route at seq_q != seq_k, neither a multiple of a tile: q
-    # a contiguous tensor, k and v strided views of one fused kv
+    # the wgmma route's two kernels (d >= 320: the wide one, at each of
+    # its column splits of O) at seq_q != seq_k, neither a multiple of a
+    # tile: q a contiguous tensor, k and v strided views of one fused kv
     # projection (B, Sk, 2*H*D)
     _need_cuda()
     assert tfa.route(torch.bfloat16, d) == "wgmma"
@@ -130,7 +132,7 @@ def test_cuda_flash_wgmma_persistent_tiles(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [64, 128, 192, 256, 320, 384, 448, 512])
 def test_cuda_flash_wgmma_kv_shorter_than_q(d):
     # Sq > Sk, neither a multiple of a tile, at every head dim of the route
     _need_cuda()
@@ -157,6 +159,44 @@ def test_cuda_flash_wgmma_map_cache():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(50, 77), (64, 64), (130, 1)])
+def test_cuda_flash_wide_few_q_blocks(sq, sk):
+    # one, one and three 64-row q blocks (the last two of 64 and 2 rows),
+    # kv walks of two tiles, one tile and a single key; the small grids
+    # split the kv walk where there is more than one tile
+    _need_cuda()
+    _assert_flash_close(*_wgmma_case(1, sq, sk, 1, 512, seed=13))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,d", [(1, 512), (1, 320), (8, 512)])
+def test_cuda_flash_wide_kv_split(b, d):
+    # at b = 1 the grid (16 q blocks of 64 rows at H = 1) leaves the card
+    # mostly idle, so the wrapper splits the kv walk (17 kv tiles of 64
+    # keys) and a second kernel merges the parts into bf16 out and lse;
+    # at b = 8 (128 blocks) it does not split
+    _need_cuda()
+    sq, sk, h = 1000, 1037, 1
+    splits = tfa.kv_splits(b * h * -(-sq // tfa.WIDE_BLOCK_Q),
+                           -(-sk // tfa.WIDE_BLOCK_K),
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    assert (splits > 1) == (b == 1)
+    q, k, v = _wgmma_case(b, sq, sk, h, d, seed=12)
+    out = _assert_flash_close(q, k, v)
+    # bf16 `out` is ~1/sqrt(Sk) in size, mostly below the absolute 2e-2,
+    # so it is also held to its own scale: normwise <= 2^-8 (the kernel
+    # rounds P and out to bf16, ~1.5e-3 expected), which a 3 % scale fault
+    # of the output fails
+    ref = tfa.flash_attention_plain(q, k, v, d ** -0.5)[0].float()
+
+    def normwise(o):
+        return ((o.float() - ref).norm() / ref.norm()).item()
+    assert normwise(out) <= 2 ** -8
+    assert normwise(out * 0.97) > 2 ** -8
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b", [2, 8])
 def test_cuda_flash_fma_cross_lengths(b):
     # the FMA route (fp32 d = 512) at seq_q != seq_k, with tails in both
@@ -169,10 +209,10 @@ def test_cuda_flash_fma_cross_lengths(b):
     d, h, sq, sk = 512, 3, 1000, 1100
     assert tfa.route(torch.float32, d) == "fma"
     assert sq % tfa.FMA_BLOCK_Q and sk % tfa.FMA_BLOCK_K
-    splits = tfa.fma_kv_splits(b * h * -(-sq // tfa.FMA_BLOCK_Q),
-                               -(-sk // tfa.FMA_BLOCK_K),
-                               torch.cuda.get_device_properties(0)
-                               .multi_processor_count)
+    splits = tfa.kv_splits(b * h * -(-sq // tfa.FMA_BLOCK_Q),
+                           -(-sk // tfa.FMA_BLOCK_K),
+                           torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
     assert (splits > 1) == (b == 2)
     g = torch.Generator(device="cuda").manual_seed(3)
     q = torch.randn(b, sq, h, d, device="cuda", generator=g)

@@ -1,5 +1,6 @@
 """K1's three routes and K4's two: which kernel each (dtype, head_dim)
-takes on the card, how the FMA route splits its kv walk, and K1's plain
+takes on the card, how the FMA route and the wide wgmma kernel split
+their kv walk and how the wide kernel splits O's columns, and K1's plain
 version (what a CPU tensor runs, and what the card's kernels are held
 against) against the JAX package's Pallas routes at ragged lengths,
 `out` and `lse` both.
@@ -35,7 +36,7 @@ def no_library(monkeypatch):
 
 @pytest.mark.parametrize("dtype,d,want", [
     *((torch.bfloat16, d, "wgmma") for d in (64, 128, 192, 256)),
-    *((torch.bfloat16, d, "smem") for d in (320, 384, 448, 512)),
+    *((torch.bfloat16, d, "wgmma") for d in (320, 384, 448, 512)),
     *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS if d != 512),
     (torch.float32, 512, "fma"),
 ])
@@ -67,15 +68,19 @@ def test_bwd_route_names_the_kernels(dtype, d, want):
 
 @pytest.mark.parametrize("d,sq,sk", [(64, 200, 200), (64, 136, 264),
                                      (192, 200, 200), (192, 136, 264),
+                                     (320, 200, 200), (320, 136, 264),
+                                     (448, 200, 200), (448, 136, 264),
                                      (512, 200, 200), (512, 136, 264)])
 def test_plain_matches_jax_route_out_and_lse(no_library, d, sq, sk):
     # d = 64 packs two heads per 128 lanes (`_flash_fwd_bs_hd`, K1's TPU
     # kernels); d = 192 cannot pack (`_flash_fwd_bhsd`, `_attn_kernel`,
-    # K6); d = 512 is the VAE's one head a block (`_flash_fwd_bs_hd`,
-    # `_attn_kernel_packed`, the FMA route's TPU kernel). block_k = 128
-    # leaves a masked kv tail in the last kv block, so all take their
-    # online-softmax kernels.
-    b, h = (1, 1) if d == 512 else (2, 4)
+    # K6), nor can d = 320 and 448, the wide wgmma kernel's head dims that
+    # only the BHSD route reaches; d = 512 is the VAE's one head a block
+    # (`_flash_fwd_bs_hd`, `_attn_kernel_packed`, the FMA route's and the
+    # wide kernel's TPU kernel). d >= 320 at the VAE's one head and batch
+    # one, as the bf16 decode calls it. block_k = 128 leaves a masked kv
+    # tail in the last kv block, so all take their online-softmax kernels.
+    b, h = (1, 1) if d >= 320 else (2, 4)
     scale = d ** -0.5
     q = _rand(50 + d, (b, sq, h, d))
     k, v = (_rand(51 + d + i, (b, sk, h, d)) for i in range(2))
@@ -109,10 +114,50 @@ def test_plain_matches_jax_route_out_and_lse(no_library, d, sq, sk):
     (150, 64, 132, 7),    # 1050 blocks fill 8 waves of 132 to 99 %
 ])
 def test_fma_kv_splits_fill_the_card(blocks, kv_tiles, sms, want):
-    got = tfa.fma_kv_splits(blocks, kv_tiles, sms)
+    got = tfa.kv_splits(blocks, kv_tiles, sms)
     assert got == want
     per = -(-kv_tiles // got)
     assert (got - 1) * per < kv_tiles  # every split owns a kv tile
+
+
+@pytest.mark.parametrize("d,want", [(320, (192, 128)), (384, (192, 192)),
+                                    (448, (256, 192)), (512, (256, 256))])
+def test_wide_o_split_by_head_dim(d, want):
+    # the wide kernel's two consumer warpgroups own O's columns [0, D0)
+    # and [D0, D): each part starts on a 64-wide V panel and is at most
+    # 256 wide (one wgmma, 128 f32 registers a thread)
+    got = tfa.wide_o_split(d)
+    assert got == want and sum(got) == d
+    assert all(part % 64 == 0 and 64 <= part <= 256 for part in got)
+    assert max(got) // 2 <= 128  # O floats a thread of the warpgroup
+
+
+@pytest.mark.parametrize("d", [64, 256, 576])
+def test_wide_o_split_refuses_other_head_dims(d):
+    with pytest.raises(ValueError):
+        tfa.wide_o_split(d)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 16384, 1, 512), 1),   # 256 q blocks fill 1.94 waves of 132
+    ((1, 4096, 1, 512), 2),    # 64 q blocks -> 128
+    ((1, 1000, 1, 320), 8),    # 16 q blocks over 16 kv tiles -> 128
+    ((8, 1000, 1, 512), 1),    # 128 q blocks
+    ((1, 4096, 1, 64), 1),     # d = 64: the d <= 256 kernel never splits
+])
+def test_wide_kv_splits_by_shape(monkeypatch, shape, want):
+    # the split count K1's wrapper packs for a bf16 call, from the wide
+    # kernel's 64-row q blocks and 64-key kv tiles on a 132-SM card
+    class Props:
+        multi_processor_count = 132
+    monkeypatch.setattr(tfa, "_check_layout", lambda q, k, v: None)
+    monkeypatch.setattr(tfa, "_ACCEPTED", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: Props)
+    q = torch.zeros(shape, dtype=torch.bfloat16)
+    kernel, splits, _, wide = tfa._check(q, q, q)
+    assert kernel == "wgmma" and splits == want
+    assert wide == (shape[-1] in tfa.WIDE_HEAD_DIMS)
 
 
 def test_check_caches_accepted_layouts_only(monkeypatch):

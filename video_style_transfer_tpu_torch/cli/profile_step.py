@@ -6,8 +6,9 @@ checkpoint) and warms each phase up once. Serving has one phase, a CFG
 denoise call on a video's frames, or with ``--image`` on one image
 (plain SDXL, no motion modules); training (``--train``) has two, the
 fp32 VAE encode of one clip and the train step (forward, backward,
-optimizer update); ``--decode`` has one, the fp32 VAE decode of one
-frame (serving decodes a video frame by frame). Each
+optimizer update); ``--decode`` has one, the VAE decode of one frame
+(serving decodes a video frame by frame) in fp32, or with ``--vae_dtype
+bfloat16`` in bf16 as ``--vae_dtype`` of the CLIs decodes. Each
 phase runs once without the profiler, then once traced with
 ``torch.profiler``, and is printed as one JSON line: its host seconds
 both ways (each ending in a synchronise; their difference is the
@@ -24,8 +25,8 @@ run this file by its path).
 
 ``--k1`` times K1's wrapper (``ops.flash_attention.flash_attention_fwd``)
 alone at the shapes the paths give it (the UNet's bf16 self-attentions,
-the other head dims of the bf16 route, the VAE's fp32 mid-block attention
-at 512^2 and 1024^2), one JSON line a shape: device ms a call (CUDA events
+the other head dims of the bf16 route, the VAE's mid-block attention at
+512^2 and 1024^2 in fp32 and in bf16), one JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
 call (no synchronise inside), then the host µs a call of each part of
 the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
@@ -44,7 +45,8 @@ line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
         [--train | --image | --decode | --k1 | --k2 | --k4 | --precision]
-        [--num_frames N] [--resolution 1024] [--steps N]
+        [--vae_dtype float32|bfloat16] [--num_frames N] [--resolution 1024]
+        [--steps N]
         [--unziplora_name_or_path DIR]
 """
 from __future__ import annotations
@@ -59,8 +61,8 @@ import torch
 # first match wins: cuDNN's convolutions are implicit GEMMs by name
 CATEGORIES = (
     ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_",)),
-    ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",
-                                      "flash_combine_f32_kernel")),
+    ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",)),
+    ("K1 flash_attention_fwd (kv-split combine)", ("flash_combine_kernel",)),
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
@@ -112,16 +114,19 @@ def _serving_phases(args, dev):
 
 
 def _decode_phases(args, dev):
-    """[("vae_decode", fn)]: the fp32 VAE decode of one frame's latents
-    (SDXL's decoder, seeded random weights), warmed up."""
+    """[("vae_decode", fn)]: the VAE decode of one frame's latents in
+    --vae_dtype (SDXL's decoder, seeded random weights, cast once as
+    ``pipelines.video.decode_video`` casts it), warmed up."""
     from video_style_transfer_tpu_torch.cli import common
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
     from video_style_transfer_tpu_torch.pipelines.video import decode_video
+    from video_style_transfer_tpu_torch.utils.convert import to_device
 
     vcfg = common.model_configs(smoke=False, motion=True)[1]
+    dtype = getattr(torch, args.vae_dtype)
     with torch.inference_mode():
-        vae = init_vae_decoder(Init(1, dev), vcfg)
+        vae = to_device(init_vae_decoder(Init(1, dev), vcfg), dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(0)
         lat = args.resolution // 8
         z = torch.randn(1, lat, lat, vcfg.latent_channels, generator=gen,
@@ -129,9 +134,10 @@ def _decode_phases(args, dev):
 
     def decode():
         with torch.inference_mode():
-            decode_video(vae, vcfg, z, chunk=1, dtype=torch.float32)
+            decode_video(vae, vcfg, z, chunk=1, dtype=dtype)
     decode()
-    return [("vae_decode", decode)], {"frames": 1}
+    return [("vae_decode", decode)], {"frames": 1,
+                                      "vae_dtype": args.vae_dtype}
 
 
 def _train_phases(args, dev):
@@ -249,7 +255,9 @@ K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("K6 d192", (2, 4096, 2, 192), torch.bfloat16),
              ("d256", (2, 4096, 5, 256), torch.bfloat16),
              ("VAE 512^2", (1, 4096, 1, 512), torch.float32),
-             ("VAE 1024^2", (1, 16384, 1, 512), torch.float32))
+             ("VAE 1024^2", (1, 16384, 1, 512), torch.float32),
+             ("VAE 512^2", (1, 4096, 1, 512), torch.bfloat16),
+             ("VAE 1024^2", (1, 16384, 1, 512), torch.bfloat16))
 
 
 # (tag, (B, S, H, D), dtype): K4's shapes in chip_smoke.py's K4 phases
@@ -483,7 +491,10 @@ def main(argv=None):
                    help="trace the image path's denoise call (one image, "
                         "no motion modules)")
     p.add_argument("--decode", action="store_true",
-                   help="trace the fp32 VAE decode of one frame")
+                   help="trace the VAE decode of one frame")
+    p.add_argument("--vae_dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="--decode: the VAE's dtype (the CLIs' --vae_dtype)")
     p.add_argument("--k1", action="store_true",
                    help="time K1's wrapper alone at the paths' shapes")
     p.add_argument("--k2", action="store_true",

@@ -4,9 +4,10 @@
 //
 // Replaces the JAX package's Pallas kernel ops/flash_attention.py
 // `_attn_kernel_packed` (launched by `_flash_fwd_bs_hd`, one head a block
-// at d = 512) for fp32 inputs. Other fp32 head dims and bf16 d >= 320 stay
-// on flash_attention.cu's shared-memory kernel; bf16 d <= 256 runs on
-// flash_attention_sm90.cu.
+// at d = 512) for fp32 inputs. Other fp32 head dims stay on
+// flash_attention.cu's shared-memory kernel; bf16 runs on
+// flash_attention_sm90.cu (d <= 256) and flash_attention_wide.cu (d >=
+// 320).
 //
 // Same function: per (batch, head), out = softmax(q k^T * scale) v with
 // f32 logits, running max and sum, exact fp32 throughout (no TF32), and
@@ -50,8 +51,8 @@
 // - 256 threads at up to 255 registers each: one block (8 warps) per SM.
 //   At S = 16384 the grid is 256 blocks (two waves); where a grid would
 //   leave SMs idle (S = 4096: 64 blocks) the wrapper splits the kv walk
-//   (`kv_splits`) and a second kernel combines the partial outputs by
-//   their lse.
+//   (`kv_splits`) and flash_attention.cu's combine kernel merges the
+//   partial outputs by their lse.
 
 #include "common.cuh"
 #include "flash_attention.cuh"
@@ -108,17 +109,10 @@ __device__ __forceinline__ int p_off(int key, int row) {
   return key * BR + (((row >> 2) ^ (key & 7)) << 2);
 }
 
-struct F32Args {
-  FlashArgs a;
-  int kv_splits;
-  int tiles_per_split;
-  float* part;       // kv_splits > 1: (splits, B, H, Sq, D) then lse
-};
-
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
-                         const F32Args args) {
+                         const SplitArgs args) {
   const FlashArgs& a = args.a;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qt = reinterpret_cast<float*>(smem + OFF_Q);
@@ -371,50 +365,13 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// out = sum_s exp(lse_s - lse) o_s, lse = log sum_s exp(lse_s): one block
-// of D / 4 threads a (batch, head, query) row, a float4 each
-__global__ void __launch_bounds__(D / 4)
-    flash_combine_f32_kernel(const FlashArgs a, int splits,
-                             const float* part) {
-  const long long rows = (long long)a.batch * a.heads * a.seq_q;
-  const long long row = blockIdx.x;  // (b, h, q)
-  const float* plse = part + rows * D * splits + row;
-  float m = -INFINITY;
-  for (int s = 0; s < splits; ++s) m = fmaxf(m, plse[s * rows]);
-  float wsum = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < splits; ++s) {
-    const float w = expf(plse[s * rows] - m);
-    const float4 v = *reinterpret_cast<const float4*>(
-        part + (s * rows + row) * D + 4 * threadIdx.x);
-    wsum += w;
-    acc.x = fmaf(w, v.x, acc.x);
-    acc.y = fmaf(w, v.y, acc.y);
-    acc.z = fmaf(w, v.z, acc.z);
-    acc.w = fmaf(w, v.w, acc.w);
-  }
-  const float inv = 1.f / wsum;
-  const int q = static_cast<int>(row % a.seq_q);
-  const long long bh = row / a.seq_q;
-  const int h = static_cast<int>(bh % a.heads);
-  const long long b = bh / a.heads;
-  *reinterpret_cast<float4*>(static_cast<float*>(a.o) +
-                             (b * a.seq_q + q) * a.heads * D + h * D +
-                             4 * threadIdx.x) =
-      make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv);
-  if (threadIdx.x == 0) a.lse[row] = m + logf(wsum);
-}
-
 }  // namespace
 
 int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
                   cudaStream_t stream) {
-  const int n_tiles = (a.seq_k + BC - 1) / BC;
-  if (a.seq_k < 1 || kv_splits < 1 || kv_splits > n_tiles) return -2;
-  if (kv_splits > 1 && part == nullptr) return -2;
-  const int per = (n_tiles + kv_splits - 1) / kv_splits;
-  // every split must own at least one kv tile
-  if ((long long)(kv_splits - 1) * per >= n_tiles) return -2;
+  const SplitArgs args = split_args(a, (a.seq_k + BC - 1) / BC, kv_splits,
+                                    part);
+  if (args.kv_splits < 0) return -2;
   CUtensorMap tk, tv;
   constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   static std::atomic<uint64_t> smem_set{0};
@@ -430,14 +387,8 @@ int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
   if (err != 0) return err < 0 ? err : -1000 - err;  // a CUresult
   err = allow_smem_once(flash_fwd_f32_kernel, (int)SMEM, dev, smem_set);
   if (err != 0) return err;
-  F32Args args{a, kv_splits, per, part};
   dim3 grid((a.seq_q + BR - 1) / BR, a.heads * kv_splits, a.batch);
   flash_fwd_f32_kernel<<<grid, THREADS, SMEM, stream>>>(tk, tv, args);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || kv_splits == 1) return (int)e;
-  const long long rows = (long long)a.batch * a.heads * a.seq_q;
-  flash_combine_f32_kernel<<<(unsigned)rows, D / 4, 0, stream>>>(
-      a, kv_splits, part);
   return (int)cudaGetLastError();
 }
 

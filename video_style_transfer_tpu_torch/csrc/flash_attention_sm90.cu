@@ -4,14 +4,16 @@
 // Replaces the JAX package's Pallas kernels ops/flash_attention.py
 // `_attn_kernel_packed_single` / `_attn_kernel_packed` (packed heads,
 // d = 64) and `_attn_kernel` (K6, the unpacked kernel of head dims the TPU
-// cannot pack, such as d = 192), for bf16 inputs. fp32 and bf16 d >= 320
-// stay on flash_attention.cu's shared-memory kernel.
+// cannot pack, such as d = 192), for bf16 inputs. bf16 d >= 320 runs on
+// flash_attention_wide.cu, fp32 on flash_attention_f32.cu (d = 512) and
+// flash_attention.cu (the other head dims).
 //
-// Same function as that kernel: per (batch, head), out = softmax(q k^T *
-// scale) v with f32 logits, running max and sum, P rounded to bf16 for
-// the P.V product and O once at the output; lse in natural-log units. q,
-// k and v are read as (B, S, H, D) strided views (the fused (B, S,
-// 3*H*D) projection in place); out is (B, Sq, H*D), lse (B, H, Sq) f32.
+// Same function as K1's other routes: per (batch, head), out =
+// softmax(q k^T * scale) v with f32 logits, running max and sum, P
+// rounded to bf16 for the P.V product and O once at the output; lse in
+// natural-log units. q, k and v are read as (B, S, H, D) strided views
+// (the fused (B, S, 3*H*D) projection in place); out is (B, Sq, H*D), lse
+// (B, H, Sq) f32.
 //
 // Bound on the H100: ~4 * Sq * Sk * D flops against ~4 * S * D * 2 bytes
 // a head, so at the UNet's S >= 1024 tensor-core throughput bounds it.
@@ -149,48 +151,6 @@ __device__ __forceinline__ void pv_product(float* o,
   for (int j = 0; j < BC / 16; ++j)
     wgmma_rs_vt<D>(o, p[j], desc_mnmajor(v_addr, v_panel, j),
                    j > 0 ? 1 : accumulate);
-}
-
-// Online softmax of one S tile in place: masks keys at or past seq_k,
-// updates the running max m (raw logits) and this thread's share of the
-// running sum l, leaves exp2(s * scale * log2e - max) in s and the factor
-// by which the old O and l shrink in corr.
-template <int BC>
-__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
-                                             float* corr, int k0, int seq_k,
-                                             float sl2) {
-  if (k0 + BC > seq_k) {
-#pragma unroll
-    for (int i = 0; i < BC / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * i + 2 * (threadIdx.x % 4) + (e & 1) >= seq_k)
-          s[4 * i + e] = -INFINITY;
-  }
-  float mx[2] = {m[0], m[1]};
-#pragma unroll
-  for (int i = 0; i < BC / 8; ++i) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
-  }
-  float msc[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    corr[r] = ex2((m[r] - mx[r]) * sl2);
-    m[r] = mx[r];
-    msc[r] = mx[r] * sl2;
-  }
-#pragma unroll
-  for (int i = 0; i < BC / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[4 * i + e] = ex2(fmaf(s[4 * i + e], sl2, -msc[e >> 1]));
-      rs[e >> 1] += s[4 * i + e];
-    }
-  l[0] = l[0] * corr[0] + rs[0];
-  l[1] = l[1] * corr[1] + rs[1];
 }
 
 template <int D>
@@ -572,24 +532,6 @@ __global__ void __launch_bounds__(512, 1)
   }
 }
 
-// the encoded q, k and v maps: boxes of 64 bf16 of D (one 128-byte
-// swizzled panel) by `q_rows` or `kv_rows` rows
-int qkv_maps(const FlashArgs& a, int d, int q_rows, int kv_rows,
-             CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv) {
-  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
-  int e = cached_bshd_tensor_map(tq, BF16, 2, a.q, a.batch, a.seq_q,
-                                 a.heads, d, a.q_sb, a.q_ss, a.q_sh, 64,
-                                 q_rows, SW);
-  if (e == 0)
-    e = cached_bshd_tensor_map(tk, BF16, 2, a.k, a.batch, a.seq_k, a.heads,
-                               d, a.k_sb, a.k_ss, a.k_sh, 64, kv_rows, SW);
-  if (e == 0)
-    e = cached_bshd_tensor_map(tv, BF16, 2, a.v, a.batch, a.seq_k, a.heads,
-                               d, a.v_sb, a.v_ss, a.v_sh, 64, kv_rows, SW);
-  return e == 0 ? 0 : e < 0 ? e : -1000 - e;  // a CUresult from the encode
-}
-
 int launch_d64(const FlashArgs& a, cudaStream_t stream) {
   using C = D64Cfg;
   auto kern = flash_fwd_sm90_d64_kernel;
@@ -629,6 +571,23 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 }
 
 }  // namespace
+
+int qkv_maps(const FlashArgs& a, int d, int q_rows, int kv_rows,
+             CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv) {
+  using sm90::cached_bshd_tensor_map;
+  constexpr CUtensorMapDataType BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  int e = cached_bshd_tensor_map(tq, BF16, 2, a.q, a.batch, a.seq_q,
+                                 a.heads, d, a.q_sb, a.q_ss, a.q_sh, 64,
+                                 q_rows, SW);
+  if (e == 0)
+    e = cached_bshd_tensor_map(tk, BF16, 2, a.k, a.batch, a.seq_k, a.heads,
+                               d, a.k_sb, a.k_ss, a.k_sh, 64, kv_rows, SW);
+  if (e == 0)
+    e = cached_bshd_tensor_map(tv, BF16, 2, a.v, a.batch, a.seq_k, a.heads,
+                               d, a.v_sb, a.v_ss, a.v_sh, 64, kv_rows, SW);
+  return e == 0 ? 0 : e < 0 ? e : -1000 - e;  // a CUresult from the encode
+}
 
 int flash_fwd_sm90(int head_dim, const FlashArgs& a, cudaStream_t stream) {
   if (a.seq_k < 1) return -2;

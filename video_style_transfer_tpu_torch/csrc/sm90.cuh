@@ -127,6 +127,49 @@ __device__ __forceinline__ void pack_a(uint32_t (&f)[N / 16][4],
   }
 }
 
+// Online softmax of one S tile (the accumulator of an m64nBCk16 product)
+// in place: masks keys at or past seq_k,
+// updates the running max m (raw logits) and this thread's share of the
+// running sum l, leaves exp2(s * scale * log2e - max) in s and the factor
+// by which the old O and l shrink in corr.
+template <int BC>
+__device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
+                                             float* corr, int k0, int seq_k,
+                                             float sl2) {
+  if (k0 + BC > seq_k) {
+#pragma unroll
+    for (int i = 0; i < BC / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * i + 2 * (threadIdx.x % 4) + (e & 1) >= seq_k)
+          s[4 * i + e] = -INFINITY;
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int i = 0; i < BC / 8; ++i) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * i], s[4 * i + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  float msc[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = ex2((m[r] - mx[r]) * sl2);
+    m[r] = mx[r];
+    msc[r] = mx[r] * sl2;
+  }
+#pragma unroll
+  for (int i = 0; i < BC / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * i + e] = ex2(fmaf(s[4 * i + e], sl2, -msc[e >> 1]));
+      rs[e >> 1] += s[4 * i + e];
+    }
+  l[0] = l[0] * corr[0] + rs[0];
+  l[1] = l[1] * corr[1] + rs[1];
+}
+
 // D (64 x N, f32) (+)= A (64 x 16) B (16 x N); A and B K-major in shared
 // memory; scale_d = 0 overwrites D.
 template <int N>

@@ -3,20 +3,26 @@
 
 K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
 `_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
-the TPU cannot pack such as d=192, `_attn_kernel`); K4 replaces
-`_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has three routes,
-named by `route`: bf16 at d = 64, 128, 192 and 256 runs on wgmma with TMA
-loads (csrc/flash_attention_sm90.cu); fp32 at d = 512 (the VAE's
-mid-block attention) on FP32 FMA register tiles fed by TMA
-(csrc/flash_attention_f32.cu); the other fp32 head dims and bf16 at d >=
-320 on the shared-memory kernel (csrc/flash_attention.cu). On the H100
-all are bound by tensor-core (bf16) or FMA (fp32) throughput; see the
-sources for their designs. K4 has two routes, named by `bwd_route`:
-bf16 at d = 64 on wgmma with TMA loads, fp32 at d = 64 on shared-memory
-FMA loops; its delta = rowsum(dO * O) is a kernel of its own. The TPU's
-head packing, MXU row-sum and block tuning have no counterpart: the
-kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
-projection is consumed in place.
+the TPU cannot pack such as d=192, 320 and 448, `_attn_kernel`); K4
+replaces `_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has three
+routes, named by `route`: every bf16 head dim runs on wgmma with TMA
+loads ("wgmma": csrc/flash_attention_sm90.cu at d = 64, 128, 192 and
+256; csrc/flash_attention_wide.cu at d = 320, 384, 448 and 512, the VAE's
+mid-block attention under --vae_dtype bfloat16, with O split by columns
+across two consumer warpgroups); fp32 at d = 512 (the VAE's mid-block
+attention) on FP32 FMA register tiles fed by TMA ("fma":
+csrc/flash_attention_f32.cu); the other fp32 head dims on the
+shared-memory kernel ("smem": csrc/flash_attention.cu). On the H100 all
+are bound by tensor-core (bf16) or FMA (fp32) throughput; see the
+sources for their designs. Where a grid of d >= 320 would leave the
+card's last wave emptier, the fp32 d = 512 and bf16 d >= 320 kernels
+split the kv walk (`kv_splits`) and a combine kernel merges the parts.
+K4 has two routes, named by `bwd_route`: bf16 at d = 64 on wgmma with
+TMA loads, fp32 at d = 64 on shared-memory FMA loops; its delta =
+rowsum(dO * O) is a kernel of its own. The TPU's head packing, MXU
+row-sum and block tuning have no counterpart: the kernels read (B, S, H,
+D) strided views, so the fused (B, S, 3*H*D) projection is consumed in
+place.
 
 Every call goes through one ``torch.autograd.Function`` that saves q, k,
 v, the output and the lse (the JAX residuals). A CUDA tensor launches
@@ -32,12 +38,15 @@ import torch
 from video_style_transfer_tpu_torch.ops import cuda_build
 
 # launches of the CUDA kernels in this process (the plain versions and
-# refused calls do not count): LAUNCHES the forward (K1), split by route
-# in ROUTE_LAUNCHES, BWD_LAUNCHES the backward (K4; one per backward
-# call, which runs its dk/dv and its dq kernel), split by route in
-# BWD_ROUTE_LAUNCHES, DELTA_LAUNCHES K4's delta kernel
+# refused calls do not count): LAUNCHES the forward (K1; one per call,
+# a split kv walk's combine included), split by route in ROUTE_LAUNCHES,
+# of which WIDE_LAUNCHES took the wgmma route's wide kernel (bf16 d >= 320),
+# BWD_LAUNCHES the backward (K4; one per backward call, which runs its
+# dk/dv and its dq kernel), split by route in BWD_ROUTE_LAUNCHES,
+# DELTA_LAUNCHES K4's delta kernel
 LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0, "smem": 0}
+WIDE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
 DELTA_LAUNCHES = 0
@@ -53,13 +62,16 @@ _FWD_POINTERS = struct.Struct("<7Q")
 _FWD_LAYOUT = struct.Struct("<9q8i")
 _FWD_SCALE = struct.Struct("<f")
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-# bf16 head dims of the wgmma + TMA route and fp32 head dims of the FMA
-# route; the rest take shared memory
-WGMMA_HEAD_DIMS = (64, 128, 192, 256)
+# fp32 head dims of the FMA route; the other fp32 ones take shared
+# memory, every bf16 one the wgmma route
 FMA_HEAD_DIMS = (512,)
-# the FMA route's tiles (BR and BC in csrc/flash_attention_f32.cu): query
-# rows a block, keys a kv tile
+# bf16 head dims of the wgmma route's wide kernel (csrc/
+# flash_attention_wide.cu: O split across two consumer warpgroups)
+WIDE_HEAD_DIMS = (320, 384, 448, 512)
+# the FMA route's tiles (BR and BC in csrc/flash_attention_f32.cu) and the
+# wide kernel's (WideCfg): query rows a block, keys a kv tile
 FMA_BLOCK_Q, FMA_BLOCK_K = 64, 256
+WIDE_BLOCK_Q, WIDE_BLOCK_K = 64, 64
 # every SDXL head; the VAE's d=512 attention runs under no_grad
 BWD_HEAD_DIMS = (64,)
 
@@ -78,22 +90,37 @@ def flash_attention_plain(q, k, v, scale: float):
 
 def route(dtype, head_dim: int) -> str:
     """The K1 kernel a CUDA call of this dtype and head dim launches:
-    "wgmma" (csrc/flash_attention_sm90.cu: bf16 d <= 256), "fma"
+    "wgmma" (every bf16 head dim: csrc/flash_attention_sm90.cu at d <=
+    256, csrc/flash_attention_wide.cu at d >= 320), "fma"
     (csrc/flash_attention_f32.cu: fp32 d = 512, where the card measured
     it faster than the shared-memory kernel; the other fp32 head dims were
-    not measured on it) or "smem" (csrc/flash_attention.cu: fp32 d <= 448,
-    bf16 d >= 320). Raises on what K1 does not take."""
+    not measured on it) or "smem" (csrc/flash_attention.cu: fp32 d <=
+    448). Raises on what K1 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash attention head_dim {head_dim} not in "
                          f"{HEAD_DIMS}")
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+    if dtype == torch.bfloat16:
         return "wgmma"
-    if dtype == torch.float32 and head_dim in FMA_HEAD_DIMS:
+    if head_dim in FMA_HEAD_DIMS:
         return "fma"
     return "smem"
+
+
+def wide_o_split(head_dim: int) -> tuple:
+    """The columns of O that the wide kernel's two consumer warpgroups
+    own at a bf16 head dim of WIDE_HEAD_DIMS: (D0, D - D0), D0 = 64 *
+    ceil(D / 128), each part a multiple of 64 (one 128-byte-swizzled V
+    panel, where a wgmma's N must start) and at most 256 (the widest
+    wgmma, 128 f32 registers a thread). csrc/flash_attention_wide.cu's
+    WideCfg makes the same split and static_asserts these bounds."""
+    if head_dim not in WIDE_HEAD_DIMS:
+        raise ValueError(f"the wide kernel takes head_dim in "
+                         f"{WIDE_HEAD_DIMS}, got {head_dim}")
+    d0 = 64 * -(-head_dim // 128)
+    return d0, head_dim - d0
 
 
 def bwd_route(dtype, head_dim: int) -> str:
@@ -110,14 +137,14 @@ def bwd_route(dtype, head_dim: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "smem"
 
 
-def fma_kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
-    """Into how many parts the FMA route splits each kv walk, for a grid
-    of `blocks` (query block, head, batch) blocks over `kv_tiles` tiles of
-    FMA_BLOCK_K keys on a card of `sms` SMs (one block each): the count
-    whose grid fills its last wave best, the smallest on a tie, at most
-    16 and one tile a split, so that each split owns at least one tile.
-    One where the grid already fills the card's waves (S = 16384 at one
-    head: 256 blocks), two at S = 4096 (64 -> 128 blocks)."""
+def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
+    """Into how many parts the FMA route and the wide wgmma kernel split
+    each kv walk, for a grid of `blocks` (query block, head, batch) blocks
+    over `kv_tiles` kv tiles on a card of `sms` SMs (one block each): the
+    count whose grid fills its last wave best, the smallest on a tie, at
+    most 16 and one tile a split, so that each split owns at least one
+    tile. One where the grid already fills the card's waves (S = 16384 at
+    one head: 256 blocks), two at S = 4096 (64 -> 128 blocks)."""
     best, best_fill = 1, 0.0
     for n in range(1, min(16, kv_tiles) + 1):
         per = -(-kv_tiles // n)
@@ -131,13 +158,13 @@ def fma_kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
 
 # layouts `_check` has accepted, by the dtypes, devices, shapes, strides
 # and pointer alignment of q, k and v: (K1's route, its kv splits, the
-# packed layout part of its call)
+# packed layout part of its call, whether it takes the wide kernel)
 _ACCEPTED = {}
 
 
 def _check(q, k, v):
     """Raises on (B, S, H, D) views that K1 and K4 do not take; returns
-    (route, kv splits, packed layout) for K1's call. A layout accepted
+    (route, kv splits, packed layout, wide kernel or not) for K1's call. A layout accepted
     once is found again after one dict lookup."""
     key = (q.dtype, k.dtype, v.dtype,
            q.get_device(), k.get_device(), v.get_device(),
@@ -154,18 +181,22 @@ def _check(q, k, v):
 
 
 def _fwd_layout(q, k, v):
-    """K1's route, kv splits and packed layout for a checked (q, k, v)."""
+    """K1's route, kv splits, packed layout and whether it takes the wide
+    kernel, for a checked (q, k, v)."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     kernel = route(q.dtype, d)
+    wide = kernel == "wgmma" and d in WIDE_HEAD_DIMS
     splits = 1
-    if kernel == "fma":
-        splits = fma_kv_splits(
-            b * h * -(-sq // FMA_BLOCK_Q), -(-sk // FMA_BLOCK_K),
+    if kernel == "fma" or wide:
+        bq, bk = ((FMA_BLOCK_Q, FMA_BLOCK_K) if kernel == "fma"
+                  else (WIDE_BLOCK_Q, WIDE_BLOCK_K))
+        splits = kv_splits(
+            b * h * -(-sq // bq), -(-sk // bk),
             torch.cuda.get_device_properties(q.device).multi_processor_count)
     return kernel, splits, _FWD_LAYOUT.pack(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], q.get_device(),
-        _DTYPES[q.dtype], d, b, sq, sk, h, splits)
+        _DTYPES[q.dtype], d, b, sq, sk, h, splits), wide
 
 
 def _check_layout(q, k, v):
@@ -207,14 +238,15 @@ def flash_attention_fwd(q, k, v, *, scale=None):
         scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, scale)
-    kernel, splits, layout = _check(q, k, v)
+    kernel, splits, layout, wide = _check(q, k, v)
     b, sq, h, _ = q.shape
     out = q.new_empty((b, sq, h * d))
     lse = q.new_empty((b, h, sq), dtype=torch.float32)
     part = None
     if splits > 1:
-        # the FMA route's splits: each one's normalised output, then its lse
-        part = q.new_empty(splits * b * h * sq * (d + 1))
+        # each split's normalised output, then its lse, in f32
+        part = torch.empty(splits * b * h * sq * (d + 1),
+                           dtype=torch.float32, device=q.device)
     err = cuda_build.library().vst_flash_attention_fwd(
         _FWD_POINTERS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), lse.data_ptr(),
@@ -222,9 +254,10 @@ def flash_attention_fwd(q, k, v, *, scale=None):
                            cuda_build.stream_of(q))
         + layout + _FWD_SCALE.pack(scale))
     cuda_build.check_launch("flash_attention_fwd", err)
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     LAUNCHES += 1
     ROUTE_LAUNCHES[kernel] += 1
+    WIDE_LAUNCHES += wide
     return out, lse
 
 
