@@ -12,30 +12,36 @@
    only; the port never calls it): K1-K3 forward, K4-K5 backward, K1's
    d=192 instance, which stands for the JAX package's unpacked kernel
    (K6), and the one-pass LayerNorm (K7), which no model calls, at the
-   LayerNorm shapes of the serving path. K1 has three routes (`route` in
+   LayerNorm shapes of the serving path. K1 has four routes (`route` in
    ops/flash_attention.py): bf16 on wgmma + TMA (d <= 256 one kernel,
    d >= 320 (the VAE under --vae_dtype bfloat16) the wide kernel, O split
-   across two consumer warpgroups), fp32 at d = 512 (the VAE) on FP32
-   FMA register tiles, fp32 at d <= 448 (on no path) through shared
-   memory; its phases hold out and lse, the VAE's at the 512^2 and the
-   1024^2 paths' token counts (4096 and 16384) in fp32 and in bf16, and,
-   like the backward and K7 phases, refuse two faulty copies of the
-   outputs. K2's bf16 kernel (wgmma + TMA,
+   across two consumer warpgroups), fp32 at d = 64 (the UNet under
+   --mixed_precision no) on mma.sync at 3xTF32, fp32 at d = 512 (the VAE)
+   on FP32 FMA register tiles, fp32 at d from 128 to 448 (on no path)
+   through shared memory; its phases hold out and lse, the VAE's at the
+   512^2 and the 1024^2 paths' token counts (4096 and 16384) in fp32 and
+   in bf16, and, like the backward and K7 phases, refuse two faulty
+   copies of the outputs; the 3xTF32 phases also print both bounds (3
+   TF32 products a product on the tensor cores, and the FMA rate). K2's bf16 kernel (wgmma + TMA,
    persistent, clusters of two blocks sharing W by multicast) is held at
    the FF shapes of every path the same way (bf16 normwise too) and fp32
    at spatial level 2; its yardstick is three PyTorch calls (F.linear
    over the fused weight, the gate, the product), and F.linear alone is
-   timed as a reading of cuBLAS's rate. K4 has
-   two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 through shared
-   memory; its phases (the train step's two levels, a ragged length, fp32)
-   also print the bound at the two-kernel design's 14 flops, and its
-   delta kernel is held to the torch formula and timed beside
-   torch.linalg.vecdot, one PyTorch call of the same function.
+   timed as a reading of cuBLAS's rate. K3 is held at the serving
+   path's three motion levels and at 32-frame clips (fp32 and bf16, d =
+   160). K4 has two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 on
+   mma.sync at 3xTF32; its phases (the train step's two levels and a
+   ragged length, each in bf16 and fp32) also print the bound at the
+   two-kernel design's 14 flops, and its delta kernel is held to the torch
+   formula and timed beside torch.linalg.vecdot, one PyTorch call of the
+   same function.
 3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
    and video CLIs on a synthetic checkpoint directory with LoRA and
    motion artifacts read from files, on the card against the same on the
    CPU (the plain versions); and the first full-width stage-2 step in
-   bf16 against the same step in fp32 (2 frames at 1024^2).
+   bf16 against the same step in fp32 (2 frames at 1024^2), whose fp32
+   steps are the training path of --mixed_precision no: every spatial
+   self-attention on K1's and K4's 3xTF32 route, counted by route.
 4. Drives, at full SDXL + AnimateDiff-XL width and depth with seeded
    random weights, each with every kernel's launch counters set to 0
    just before and read just after:
@@ -58,12 +64,14 @@
    attention on its wide kernel, every fp32 VAE attention on the FMA
    one, none on the shared-memory one; and K4's: every backward of the
    trainer on the wgmma route, each with one delta launch.
-5. Prints one JSON line with every kernel's numbers (K1 as its four
-   kernels, K4's delta as a kernel of its own, with the wgmma kernels',
-   the FMA kernel's, K4's and K2's registers, spills and wgmma
-   serialisation from nvcc's report; the FMA, K4, K2 bf16 and K1 wgmma
-   kernels must not spill, and K1's and K2's wgmma kernels must not have
-   their products serialised), then the last line {"ok": true, "device":
+5. Prints one JSON line with every kernel's numbers (K1 as its five
+   kernels, K4 as its two routes, K4's delta as a kernel of its own, with
+   the wgmma kernels', the FMA kernel's, the 3xTF32 kernels', K4's and
+   K2's registers, spills and wgmma serialisation from nvcc's report; the
+   FMA, 3xTF32, K4, K2 bf16 and K1 wgmma kernels must not spill, and K1's
+   and K2's wgmma kernels must not have their products serialised; the
+   stage-2 precision check's launches count as a path of their own,
+   "stage2_fp32"), then the last line {"ok": true, "device":
    {...}}. Any failure exits non-zero before that. Each K1 and K2 bf16
    phase also prints its share of the bound and its time against SDPA's
    or the three calls'.
@@ -82,9 +90,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 outside the
-# tensor cores (the fp32 kernels run with TF32 off), HBM bandwidth
+# tensor cores (the fp32 kernels run with TF32 off), HBM bandwidth; and
+# TF32 in the tensor cores, which the 3xTF32 route (K1 and K4 in fp32 at
+# d = 64) takes three times a product
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
+PEAK_TF32 = 494.7e12
 
 # tolerances against the plain version, |kernel - plain| <= atol +
 # rtol*|plain|, inputs of unit variance. bf16: 2e-2 absolute plus 2^-6
@@ -189,6 +200,22 @@ def bound(flops, nbytes, dtype_name):
     t_mem = nbytes / PEAK_BYTES
     return (max(t_ops, t_mem) * 1e3,
             "operations" if t_ops >= t_mem else "bytes")
+
+
+def tf32x3_bound(phase, flops, nbytes):
+    """A 3xTF32 kernel's phase: its bound becomes the larger of its bytes
+    over the HBM rate and its three TF32 products a product over the
+    tensor cores' TF32 rate; the FMA bound check_phase computed is kept
+    as ``fma_bound_ms`` (an exact fp32 kernel's bound, which the tensor
+    cores can beat)."""
+    phase["fma_bound_ms"] = phase["bound_ms"]
+    t_ops, t_mem = 3 * flops / PEAK_TF32, nbytes / PEAK_BYTES
+    phase["bound_ms"] = max(t_ops, t_mem) * 1e3
+    phase["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
+    print(f"    bounds: 3xTF32 {phase['bound_ms']:.4f} ms ({phase['bound_by']}"
+          f"), FMA {phase['fma_bound_ms']:.4f} ms; plain "
+          f"{phase['plain_ms']:.4f} ms, SDPA {phase['library_ms']:.4f} ms",
+          flush=True)
 
 
 def bwd_check(outs, refs, dtype_name):
@@ -366,9 +393,12 @@ def kernel_phases():
     # d = 128 and d = 256 (the wgmma route's other instances), the VAE
     # mid-block in fp32 (d=512, the FMA route) and in bf16 (the wide
     # wgmma kernel, --vae_dtype bfloat16) at 512^2 (S=4096, kv split in
-    # two) and at the 1024^2 paths' S=16384, and the shared-memory route
-    # (fp32 d <= 448, on no path) at d = 448. The plain version runs in
-    # batch chunks of at most ~3 GB of logits (1 GiB at S=16384).
+    # two) and at the 1024^2 paths' S=16384, the shared-memory route (fp32
+    # d from 128 to 448, on no path) at d = 448, and the 3xTF32 route (fp32
+    # d = 64: every UNet self-attention under --mixed_precision no) at the
+    # serving path's levels 2 and 1. The plain version runs in batch
+    # chunks of at most ~3 GB of logits (1 GiB at S=16384).
+    phases["flash_attention_fwd_tf32x3"] = []
     phases["flash_attention_fwd_fma"] = []
     phases["flash_attention_fwd_wide"] = []
     phases["flash_attention_fwd_smem"] = []
@@ -394,7 +424,11 @@ def kernel_phases():
              20),
             ("vae_mid (1,4096,1x512)", (1, 4096, 1, 512), torch.bfloat16,
              50),
-            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 3)):
+            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 3),
+            ("unet_l2 (32,1024,20x64)", (32, 1024, 20, 64), torch.float32,
+             5),
+            ("unet_l1 (32,4096,10x64)", (32, 4096, 10, 64), torch.float32,
+             2)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -410,6 +444,9 @@ def kernel_phases():
             dtype_name=str(dt)[6:], iters=iters, tol=TOL[str(dt)[6:]],
             own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None)
         phase["kernel_route"] = route
+        if route == "tf32x3":
+            tf32x3_bound(phase, 4 * b * h * s * s * d,
+                         4 * b * s * h * d * es + b * h * s * 4)
         vs_bound_and_library(phase)
         kernel = ("_wide" if route == "wgmma" and d in fa.WIDE_HEAD_DIMS
                   else "" if route == "wgmma" else f"_{route}")
@@ -479,21 +516,32 @@ def kernel_phases():
         phases["geglu_projection"].append(phase)
         del x, w, bias
 
-    # K3: motion level 0 (F=16, N=32768, 8 heads x d=40)
-    for dt, iters in ((torch.bfloat16, 20), (torch.float32, 10)):
-        f, n, h, d = 16, 32768, 8, 40
+    # K3: motion level 0 (F=16, N=32768, 8 heads x d=40), the serving
+    # path's motion levels 1 and 2 (d = 80 and 160), and 32-frame clips at
+    # level 2 (--num_frames 32), whose fp32 (pixel, head) pair of 60 KB
+    # takes a block of its own above 48 KB of shared memory; the last four
+    # also refuse the two faulty copies
+    for (f, n, h, d), dt, iters, controls in (
+            ((16, 32768, 8, 40), torch.bfloat16, 20, False),
+            ((16, 32768, 8, 40), torch.float32, 10, False),
+            ((16, 4096, 8, 80), torch.bfloat16, 20, True),
+            ((16, 1024, 8, 160), torch.bfloat16, 20, True),
+            ((32, 1024, 8, 160), torch.bfloat16, 20, True),
+            ((32, 1024, 8, 160), torch.float32, 10, True)):
         qkv = randn(f, n, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.permute(1, 2, 0, 3) for t in (q, k, v))  # (N,H,F,d)
         es = qkv.element_size()
+        level = {40: "motion_l0", 80: "motion_l1", 160: "motion_l2"}[d]
         phases["temporal_attention"].append(check_phase(
-            f"K3 motion_l0 (16,32768,8x40) {str(dt)[6:]}",
+            f"K3 {level} ({f},{n},{h}x{d}) {str(dt)[6:]}",
             lambda: ta.temporal_attention_fwd(q, k, v),
             lambda: ta.temporal_attention_plain(q, k, v, d ** -0.5),
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
             flops=4 * f * f * n * h * d,
             nbytes=4 * f * n * h * d * es,
-            dtype_name=str(dt)[6:], iters=iters))
+            dtype_name=str(dt)[6:], iters=iters,
+            tol=TOL[str(dt)[6:]] if controls else None))
         del qkv, q, k, v, qt, kt, vt
     return phases
 
@@ -523,12 +571,13 @@ def bwd_phases():
         return lambda: torch.autograd.grad(o, (qt, kt, vt), go,
                                            retain_graph=True)
 
-    phases = {"flash_attention_bwd": [], "flash_attention_bwd_delta": [],
-              "temporal_attention_bwd": []}
+    phases = {"flash_attention_bwd": [], "flash_attention_bwd_tf32x3": [],
+              "flash_attention_bwd_delta": [], "temporal_attention_bwd": []}
     # K4: spatial self-attention at level 1 (S = 4096, 10 heads) and
     # level 2 (S = 1024, 20 heads), d = 64, and a ragged length that
-    # leaves q and kv tails in both kernels; flops are the JAX cost
-    # estimate 10*B*H*Sq*Sk*D (the bound); the two-kernel design does 14
+    # leaves q and kv tails in both kernels, in bf16 (the wgmma route) and
+    # fp32 (the 3xTF32 route); flops are the JAX cost estimate
+    # 10*B*H*Sq*Sk*D (the bound); the two-kernel design does 14
     # (design_bound_ms); bytes q, k, v, o, dO in and dq, dk, dv out plus
     # lse. The kernel time includes the delta kernel, SDPA's backward
     # computes its own.
@@ -537,7 +586,9 @@ def bwd_phases():
             ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.bfloat16,
              20),
             ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.bfloat16, 50),
-            ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.float32, 3)):
+            ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.float32, 5),
+            ("unet_l1 (8,4096,10x64)", (8, 4096, 10, 64), torch.float32, 2),
+            ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.float32, 50)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         out, lse = fa.flash_attention_fwd(q, k, v)
@@ -554,13 +605,22 @@ def bwd_phases():
             nbytes=8 * b * s * h * d * es + b * h * s * 4,
             dtype_name=str(dt)[6:], iters=iters, bwd=True)
         phase["kernel_route"] = route
-        phase["design_bound_ms"] = bound(14 * b * h * s * s * d,
-                                         8 * b * s * h * d * es
-                                         + b * h * s * 4, str(dt)[6:])[0]
+        nbytes = 8 * b * s * h * d * es + b * h * s * 4
+        phase["design_bound_ms"] = bound(14 * b * h * s * s * d, nbytes,
+                                         str(dt)[6:])[0]
+        if route == "tf32x3":
+            tf32x3_bound(phase, 10 * b * h * s * s * d, nbytes)
+            phase["fma_design_bound_ms"] = phase["design_bound_ms"]
+            phase["design_bound_ms"] = max(
+                3 * 14 * b * h * s * s * d / PEAK_TF32,
+                nbytes / PEAK_BYTES) * 1e3
         print(f"    design bound (14 flops): {phase['design_bound_ms']:.4f} "
               f"ms, {phase['design_bound_ms'] / phase['ms']:.0%} of it "
-              f"reached", flush=True)
-        phases["flash_attention_bwd"].append(phase)
+              f"reached; SDPA's backward {phase['library_ms']:.4f} ms "
+              f"({phase['ms'] / phase['library_ms']:.3f}x its time)",
+              flush=True)
+        phases["flash_attention_bwd" + ("_tf32x3" if route == "tf32x3"
+                                        else "")].append(phase)
         # K4's delta = rowsum(dO * O) at the same shape; bound by its
         # bytes (O and dO in, delta out); torch.linalg.vecdot over the
         # (B, Sq, H, D) views is one PyTorch call of the same function
@@ -741,31 +801,38 @@ def reset_counters():
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
-    fa.ROUTE_LAUNCHES.update(wgmma=0, fma=0, smem=0)
+    fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0, smem=0)
     fa.WIDE_LAUNCHES = 0
-    fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, smem=0)
+    fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
 
 
-def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0):
+def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0, tf32x3=0,
+                 bwd_tf32x3=0):
     """K1's launches on a path split by route: every bf16 UNet attention
-    (d = 64) took the wgmma route's d <= 256 kernel, every bf16 VAE
-    attention (d = 512) its wide kernel (`wide` of the route's launches),
-    every fp32 VAE attention (d = 512) the FMA one, none the shared-memory
-    one; and K4's: every bf16 backward the wgmma route, none the
-    shared-memory one. Returns the path's counts with K1 split into its
-    four kernels and K4 by route."""
+    (d = 64) took the wgmma route's d <= 256 kernel, every fp32 one the
+    3xTF32 route, every bf16 VAE attention (d = 512) the wgmma route's
+    wide kernel (`wide` of the route's launches), every fp32 VAE
+    attention (d = 512) the FMA one, none the shared-memory one; and K4's:
+    every bf16 backward the wgmma route, every fp32 one the 3xTF32 route.
+    Returns the path's counts with K1 split into its five kernels and K4
+    into its two routes."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     got = {"K1": dict(fa.ROUTE_LAUNCHES), "K1 wide": fa.WIDE_LAUNCHES,
            "K4": dict(fa.BWD_ROUTE_LAUNCHES)}
-    want = {"K1": {"wgmma": wgmma + wide, "fma": fma, "smem": 0},
-            "K1 wide": wide, "K4": {"wgmma": bwd_wgmma, "smem": 0}}
+    want = {"K1": {"wgmma": wgmma + wide, "tf32x3": tf32x3, "fma": fma,
+                   "smem": 0},
+            "K1 wide": wide,
+            "K4": {"wgmma": bwd_wgmma, "tf32x3": bwd_tf32x3}}
     print(f"K1 and K4 launches on the {path} path by route: {got} "
           f"(expected {want})", flush=True)
     if got != want:
         fail(f"K1/K4 routes on the {path} path: {got}, expected {want}")
     return {**counts, "flash_attention_fwd": wgmma,
             "flash_attention_fwd_wide": wide,
+            "flash_attention_fwd_tf32x3": tf32x3,
             "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0,
+            "flash_attention_bwd": bwd_wgmma,
+            "flash_attention_bwd_tf32x3": bwd_tf32x3,
             "flash_attention_bwd_by_route": got["K4"]}
 
 
@@ -1073,10 +1140,16 @@ def stage2_precision(artifacts):
     (``cli.profile_step.precision_readings``). Cut: 2 frames instead of 8,
     so that the fp32 step, which stores every activation, fits one card.
     Fails on a gross fault (PRECISION_LIMITS); the readings, with the
-    fp32 step's sensitivity to a 2^-20 nudge of its noise, are reported."""
+    fp32 step's sensitivity to a 2^-20 nudge of its noise, are reported.
+    This is also the path of --mixed_precision no in training: each fp32
+    step's 70 spatial self-attentions take K1's and K4's 3xTF32 route,
+    which the launch counts by route show. Returns (readings, launch
+    counts)."""
+    from video_style_transfer_tpu_torch.cli.common import model_configs
     from video_style_transfer_tpu_torch.cli.profile_step import (
         precision_readings)
 
+    reset_counters()
     r = precision_readings([
         "--prompt", "a horse galloping through a snowy forest",
         "--num_frames", str(PRECISION_FRAMES), "--resolution",
@@ -1102,7 +1175,15 @@ def stage2_precision(artifacts):
             and r["grad_normwise_err"] <= PRECISION_LIMITS[1]):
         fail("stage-2 precision: bf16 and fp32 steps apart beyond the "
              "gross-fault limits")
-    return {"frames": PRECISION_FRAMES, **r}
+    # the clip's fp32 encode (one VAE attention a frame, the FMA route),
+    # one bf16 step and two fp32 steps (the plain one and the nudged one)
+    flash = expected_train_launches(
+        model_configs(smoke=False, motion=True)[0], frames=PRECISION_FRAMES,
+        resolution=RESOLUTION, steps=1)["flash_attention_bwd"]
+    counts = check_routes("stage-2 precision", counters(), flash,
+                          PRECISION_FRAMES, bwd_wgmma=flash,
+                          tf32x3=2 * flash, bwd_tf32x3=2 * flash)
+    return {"frames": PRECISION_FRAMES, **r}, counts
 
 
 def serving_launches(steps, frames):
@@ -1417,6 +1498,26 @@ def geglu_ptxas(log):
     return out
 
 
+def tf32_ptxas(log):
+    """Registers and spills of the 3xTF32 route's kernels (K1's fp32 d =
+    64 forward, K4's fp32 dk/dv and dq; 128 threads, two blocks an SM, so
+    at most 255 registers each). Fails if one spills or the build log
+    names none of them: their accumulators and S, P, dP, dS live in
+    registers by design."""
+    out = ptxas_report(log, r"(flash_fwd_tf32_kernel|"
+                            r"flash_bwd_dkv_tf32_kernel|"
+                            r"flash_bwd_dq_tf32_kernel)")
+    want = ["flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+            "flash_fwd_tf32_kernel"]
+    if sorted(out) != want:
+        fail(f"the build log names no 3xTF32 kernels: {sorted(out)}")
+    for name, rep in out.items():
+        if rep.get("spill_stores", 1) or rep.get("spill_loads", 1):
+            fail(f"the 3xTF32 route's {name} spills registers: {rep}")
+    print(f"3xTF32 kernels (ptxas): {json.dumps(out)}", flush=True)
+    return out
+
+
 def fma_ptxas(log):
     """Registers and spills of the FMA route's kernel (256 threads, up to
     255 registers each, one block an SM) and of the kv-split combine it
@@ -1493,17 +1594,18 @@ def main():
         print(f"artifacts: rank-{LORA_RANK} content/style LoRAs and mergers "
               f"of {n} projections written in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        precision = stage2_precision(artifacts)
+        precision, precision_counts = stage2_precision(artifacts)
         torch.cuda.empty_cache()
         by_path = {"serving": main_path(artifacts, motion_checkpoint),
-                   "stage2": stage2_counts}
+                   "stage2": stage2_counts,
+                   "stage2_fp32": precision_counts}
         by_path["image"] = image_path(artifacts)
         torch.cuda.empty_cache()
         by_path["bf16_decode"] = vae_bf16_decode_path()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
-    main_paths = ("serving", "stage2", "image", "bf16_decode")
+    main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32")
 
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
@@ -1519,6 +1621,12 @@ def main():
                                      "flash_attention.py:160"),
         "flash_attention_fwd_fma": ("flash_attention_f32.cu",
                                     "flash_attention.py:160"),
+        # K1 and K4 in fp32 at d = 64 (every UNet self-attention under
+        # --mixed_precision no; the stage-2 precision check's fp32 steps)
+        "flash_attention_fwd_tf32x3": ("flash_attention_tf32.cu",
+                                       "flash_attention.py:253"),
+        "flash_attention_bwd_tf32x3": ("flash_attention_tf32.cu",
+                                       "flash_attention.py:596"),
         "flash_attention_fwd_smem": ("flash_attention.cu",
                                      "flash_attention.py:50"),
         "geglu_projection": ("geglu.cu", "geglu.py:100"),
@@ -1545,6 +1653,7 @@ def main():
                                          if int(d) >= 320},
              "flash_attention_f32.cu": fma_ptxas(log),
              "flash_attention_bwd.cu": bwd_ptxas(log),
+             "flash_attention_tf32.cu": tf32_ptxas(log),
              "geglu.cu": geglu_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -1569,7 +1678,7 @@ def main():
             entry["launches_by_route"] = {
                 r: sum(by_path[path]["flash_attention_bwd_by_route"][r]
                        for path in main_paths)
-                for r in ("wgmma", "smem")}
+                for r in ("wgmma", "tf32x3")}
         kernels.append(entry)
     print(json.dumps({"stage2_precision": precision,
                       "bf16_decode_s_per_frame":

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (K1 on its three routes, the wgmma route's
-wide kernel at d >= 320 included, K2-K5, K7) against their plain PyTorch
-versions on the card, and gradients through their autograd wrappers
-against the CPU.
+"""The port's CUDA kernels (K1 on its four routes, the wgmma route's
+wide kernel at d >= 320 included, K2-K5 with K4 on both its routes, K7)
+against their plain PyTorch versions on the card, and gradients through
+their autograd wrappers against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
 file imports no JAX, so it also runs on a machine without it:
 
@@ -44,12 +44,14 @@ def _need_cuda():
                                      (torch.bfloat16, 384),
                                      (torch.bfloat16, 448),
                                      (torch.bfloat16, 512),
+                                     (torch.float32, 64),
                                      (torch.float32, 512)])
 def test_cuda_flash_matches_plain(dtype, d):
     # bf16 d <= 256 takes the wgmma + TMA kernel, bf16 d >= 320 (the VAE
-    # under --vae_dtype bfloat16) the wide wgmma + TMA one, fp32 d = 512
-    # the FMA one (`route`); q, k and v are strided views of one fused
-    # projection and S = 1100 leaves masked q and kv tails in all
+    # under --vae_dtype bfloat16) the wide wgmma + TMA one, fp32 d = 64 the
+    # 3xTF32 one, fp32 d = 512 the FMA one (`route`); q, k and v are
+    # strided views of one fused projection and S = 1100 leaves masked q
+    # and kv tails in all
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     qkv = torch.randn(2, 1100, 3 * 2 * d, device="cuda", generator=g,
@@ -327,17 +329,29 @@ def test_cuda_geglu_raises_on_what_it_does_not_take():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 40),
-                                     (torch.float32, 160)])
-def test_cuda_temporal_attention_matches_plain(dtype, d):
+@pytest.mark.parametrize("dtype,f,d", [(torch.bfloat16, 16, 40),
+                                       (torch.float32, 16, 160),
+                                       (torch.bfloat16, 16, 80),
+                                       (torch.bfloat16, 16, 160),
+                                       (torch.bfloat16, 32, 160),
+                                       (torch.float32, 32, 160)])
+def test_cuda_temporal_attention_matches_plain(dtype, f, d):
+    # the serving path's motion levels (d = 40, 80, 160 at 16 frames) and
+    # 32-frame clips at level 2, whose fp32 (pixel, head) pair (60 KB)
+    # takes a block of its own above 48 KB of shared memory
     _need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn(16, 300, 3 * 8 * d, device="cuda", generator=g,
+    qkv = torch.randn(f, 300, 3 * 8 * d, device="cuda", generator=g,
                       dtype=dtype)
     q, k, v = (t.unflatten(-1, (8, d)) for t in qkv.split(8 * d, -1))
+    before = tta.LAUNCHES
     out = tta.temporal_attention(q, k, v)
+    assert tta.LAUNCHES == before + 1
     ref = tta.temporal_attention_plain(q, k, v, d ** -0.5)
     _assert_close(out, ref)
+    # the check sees a 3 % scale fault
+    with pytest.raises(AssertionError):
+        _assert_close((out.float() * 0.97).to(dtype), ref)
 
 
 def _assert_close_bwd(out, ref):
@@ -409,6 +423,37 @@ def test_cuda_flash_bwd_wgmma_cross_lengths(sq, sk):
         _assert_close_bwd(a, r)
         with pytest.raises(AssertionError):
             _assert_close_bwd((a.float() * 0.97).to(a.dtype), r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,sk", [(1100, 700), (700, 1100), (100, 50)])
+def test_cuda_flash_tf32x3_cross_lengths(sq, sk):
+    # fp32 K1 and K4 at d = 64 (the 3xTF32 route) at Sq != Sk: q and kv
+    # tails in the forward and both backward kernels, and tiles that end
+    # inside their first half (700 = 10 x 64 + 60, 50 < 64); q its own
+    # tensor, k and v strided views of one fused projection; B*H = 6
+    _need_cuda()
+    b, h, d = 2, 3, 64
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn(b, sq, h, d, device="cuda", generator=g)
+    kv = torch.randn(b, sk, 2 * h * d, device="cuda", generator=g)
+    k, v = (t.unflatten(-1, (h, d)) for t in kv.split(h * d, -1))
+    do = torch.randn(b, sq, h * d, device="cuda", generator=g)
+    before = (tfa.ROUTE_LAUNCHES["tf32x3"], tfa.BWD_ROUTE_LAUNCHES["tf32x3"])
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref_out, ref_lse = tfa.flash_attention_plain(q, k, v, d ** -0.5)
+    _assert_close(out, ref_out)
+    _assert_close(lse, ref_lse)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert (tfa.ROUTE_LAUNCHES["tf32x3"],
+            tfa.BWD_ROUTE_LAUNCHES["tf32x3"]) == (before[0] + 1,
+                                                  before[1] + 1)
+    for a, r, want in zip(got, ref, (q, k, v)):
+        assert a.shape == want.shape and a.is_contiguous()
+        _assert_close_bwd(a, r)
+        with pytest.raises(AssertionError):
+            _assert_close_bwd(a * 0.97, r)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""K1's three routes and K4's two: which kernel each (dtype, head_dim)
+"""K1's four routes and K4's two: which kernel each (dtype, head_dim)
 takes on the card, how the FMA route and the wide wgmma kernel split
 their kv walk and how the wide kernel splits O's columns, and K1's plain
 version (what a CPU tensor runs, and what the card's kernels are held
@@ -37,7 +37,9 @@ def no_library(monkeypatch):
 @pytest.mark.parametrize("dtype,d,want", [
     *((torch.bfloat16, d, "wgmma") for d in (64, 128, 192, 256)),
     *((torch.bfloat16, d, "wgmma") for d in (320, 384, 448, 512)),
-    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS if d != 512),
+    (torch.float32, 64, "tf32x3"),
+    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS if d not in (64,
+                                                                   512)),
     (torch.float32, 512, "fma"),
 ])
 def test_route_names_the_kernel(dtype, d, want):
@@ -53,12 +55,12 @@ def test_route_refuses_what_k1_does_not_take(dtype, d, exc):
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "smem"),
+    (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "tf32x3"),
     (torch.bfloat16, 128, ValueError), (torch.bfloat16, 192, ValueError),
     (torch.float32, 128, ValueError), (torch.float16, 64, TypeError)])
 def test_bwd_route_names_the_kernels(dtype, d, want):
     # K4 takes d = 64 only: bf16 on the wgmma + TMA kernels, fp32 on the
-    # shared-memory ones; anything else raises before a launch
+    # 3xTF32 ones; anything else raises before a launch
     if isinstance(want, str):
         assert tfa.bwd_route(dtype, d) == want
     else:
@@ -182,7 +184,7 @@ def test_check_caches_accepted_layouts_only(monkeypatch):
     assert tfa._check(q, k, v) is first
     tfa._check(*(t.clone() for t in (q, k, v)))   # other strides
     tfa._check(q[:, 1:], k[:, 1:], v[:, 1:])      # other shape, offset
-    assert tfa._check(q.float(), k.float(), v.float())[0] == "smem"
+    assert tfa._check(q.float(), k.float(), v.float())[0] == "tf32x3"
     assert len(seen) == 4
     bad = torch.zeros(2, 16, 4, 96, dtype=torch.bfloat16)
     for _ in range(2):

@@ -26,12 +26,16 @@ run this file by its path).
 ``--k1`` times K1's wrapper (``ops.flash_attention.flash_attention_fwd``)
 alone at the shapes the paths give it (the UNet's bf16 self-attentions,
 the other head dims of the bf16 route, the VAE's mid-block attention at
-512^2 and 1024^2 in fp32 and in bf16), one JSON line a shape: device ms a call (CUDA events
+512^2 and 1024^2 in fp32 and in bf16, the UNet's fp32 self-attentions of
+--mixed_precision no), one JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
 call (no synchronise inside), then the host µs a call of each part of
 the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
 (``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
-kernels) at the train step's bf16 shapes, a ragged length and fp32;
+kernels) at the train step's bf16 shapes, a ragged length and fp32 at
+both levels. Each fp32 d = 64 row also holds the device ms of
+``scaled_dot_product_attention`` (K1: its forward, K4: its backward) and,
+the first time in a process, the names of its kernels;
 ``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' bf16
 shapes and fp32, each bf16 row with the device ms of the three PyTorch
 calls K2 fuses (``F.linear`` over the fused weight, ``F.gelu``, the
@@ -52,6 +56,7 @@ line of readings (``precision_readings``).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -63,6 +68,7 @@ CATEGORIES = (
     ("K1 flash_attention_fwd (wgmma)", ("flash_fwd_sm90_",)),
     ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",)),
     ("K1 flash_attention_fwd (kv-split combine)", ("flash_combine_kernel",)),
+    ("K1 flash_attention_fwd (tf32x3)", ("flash_fwd_tf32_kernel",)),
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
     ("K3 temporal_attention", ("ta_fwd_kernel",)),
@@ -257,14 +263,18 @@ K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("VAE 512^2", (1, 4096, 1, 512), torch.float32),
              ("VAE 1024^2", (1, 16384, 1, 512), torch.float32),
              ("VAE 512^2", (1, 4096, 1, 512), torch.bfloat16),
-             ("VAE 1024^2", (1, 16384, 1, 512), torch.bfloat16))
+             ("VAE 1024^2", (1, 16384, 1, 512), torch.bfloat16),
+             ("serving L2", (32, 1024, 20, 64), torch.float32),
+             ("serving L1", (32, 4096, 10, 64), torch.float32),
+             ("train L1", (8, 4096, 10, 64), torch.float32))
 
 
 # (tag, (B, S, H, D), dtype): K4's shapes in chip_smoke.py's K4 phases
 K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
              ("train L2", (8, 1024, 20, 64), torch.bfloat16),
              ("ragged", (2, 1100, 2, 64), torch.bfloat16),
-             ("train L2", (8, 1024, 20, 64), torch.float32))
+             ("train L2", (8, 1024, 20, 64), torch.float32),
+             ("train L1", (8, 4096, 10, 64), torch.float32))
 
 # (tag, (M, C), dtype): K2's shapes in chip_smoke.py's K2 phases (inner =
 # 4 C): spatial and motion level 2 and level 1 at the serving path's 32
@@ -351,8 +361,11 @@ def k2_call(shape, dtype, gen):
 
 def geglu_yardsticks(shape, dtype, gen, runs: int):
     """Device ms a call of the three PyTorch calls K2 fuses and of
-    F.linear alone (cuBLAS), on seeded inputs of `shape`."""
+    F.linear alone (cuBLAS), on seeded bf16 inputs of `shape` (none for
+    fp32)."""
     import torch.nn.functional as F
+    if dtype != torch.bfloat16:
+        return {}
     x, w, b = _geglu_inputs(shape, dtype, gen)
 
     def three_calls():
@@ -362,17 +375,47 @@ def geglu_yardsticks(shape, dtype, gen, runs: int):
             "linear_ms": _time_calls(lambda: F.linear(x, w, b), runs)[0]}
 
 
+def sdpa_yardstick(shape, dtype, gen, runs: int, backward: bool = False):
+    """Device ms a call of scaled_dot_product_attention (its backward
+    alone with `backward`) on seeded fp32 (q, k, v) of `shape` at d = 64,
+    and the names of the kernels one call runs (torch.profiler; only a
+    process's first profile lists them): the library's fp32 arithmetic,
+    read from its kernels' names. None elsewhere."""
+    import torch.nn.functional as F
+    if dtype != torch.float32 or shape[3] != 64:
+        return {}
+    q, k, v = (t.transpose(1, 2) for t in _qkv(shape, dtype, gen))
+    if backward:
+        q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(q, k, v)
+        go = torch.randn(o.shape, generator=gen, device=o.device)
+
+        def fn():
+            return torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
+    else:
+        def fn():
+            return F.scaled_dot_product_attention(q, k, v)
+    ms = _time_calls(fn, runs)[0]
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    return {"sdpa_ms": ms, "sdpa_kernels": names}
+
+
 def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
     """[{shape, device_ms, host_us}] for the call make_call(shape, dtype,
     gen) builds at each (tag, shape, dtype) of `shapes`, with the readings
-    of yardsticks(shape, dtype, gen, runs) for bf16 where given."""
+    of yardsticks(shape, dtype, gen, runs) where given."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = []
     for tag, shape, dtype in shapes:
         dev_ms, host_us = _time_calls(make_call(shape, dtype, gen), runs)
         row = {"shape": f"{tag} {shape} {str(dtype)[6:]}",
                "device_ms": dev_ms, "host_us": host_us}
-        if yardsticks is not None and dtype == torch.bfloat16:
+        if yardsticks is not None:
             row.update(yardsticks(shape, dtype, gen, runs))
         out.append(row)
         torch.cuda.empty_cache()
@@ -540,10 +583,12 @@ def main(argv=None):
         return
     if args.k1 or args.k2 or args.k4:
         kernel, shapes, make_call, yardsticks = (
-            ("K4 flash_attention_bwd", K4_SHAPES, k4_call, None) if args.k4
+            ("K4 flash_attention_bwd", K4_SHAPES, k4_call,
+             functools.partial(sdpa_yardstick, backward=True)) if args.k4
             else ("K2 geglu_projection", K2_SHAPES, k2_call,
                   geglu_yardsticks) if args.k2
-            else ("K1 flash_attention_fwd", K1_SHAPES, k1_call, None))
+            else ("K1 flash_attention_fwd", K1_SHAPES, k1_call,
+                  sdpa_yardstick))
         for row in kernel_calls(dev, max(args.steps, 5), shapes, make_call,
                                 yardsticks):
             print(json.dumps({"card": card, "package": common.__file__,

@@ -1,11 +1,12 @@
-// K1: flash-attention forward, shared-memory route: fp32 at head dims 64
-// to 448, on no path of the port (the UNet runs bf16, the VAE's fp32
-// attention is d = 512). fp32 at d = 512 (the VAE's mid-block attention)
-// runs on flash_attention_f32.cu and every bf16 head dim on the wgmma
-// routes (flash_attention_sm90.cu: d <= 256, flash_attention_wide.cu: d
-// >= 320). This file also holds the kv-split combine that the FMA and the
-// wide wgmma routes share, and the C entry point, which sends each call to
-// its route.
+// K1: flash-attention forward, shared-memory route: fp32 at head dims
+// 128 to 448, on no path of the port (the UNet's d = 64 attention runs
+// bf16 on the wgmma route and fp32 on the 3xTF32 route of
+// flash_attention_tf32.cu; the VAE's fp32 attention is d = 512, on
+// flash_attention_f32.cu). bf16 runs on the wgmma routes
+// (flash_attention_sm90.cu: d <= 256, flash_attention_wide.cu: d >= 320).
+// This file also holds the kv-split combine that the FMA and the wide
+// wgmma routes share, and the C entry point, which sends each call to its
+// route.
 //
 // Replaces the JAX package's Pallas kernels ops/flash_attention.py
 // `_attn_kernel_packed_single` / `_attn_kernel_packed` (launched by
@@ -17,9 +18,9 @@
 // (B, S, H, D) strided views (so the fused (B, S, 3*H*D) projection is
 // read in place) and writing out (B, S, H*D) and lse (B, H, S) in f32.
 //
-// Bound on the H100: at d >= 64 and S >= 4096 the two products are far
+// Bound on the H100: at d >= 128 and S >= 4096 the two products are far
 // above the card's ~295 flop/byte ridge: the kernel is bound by FP32 FMA
-// throughput (fp32, no TF32).
+// throughput (exact fp32, no TF32).
 //
 // Design: one block of 4 warps owns 32 or 64 query rows of one (batch,
 // head) and walks the key/value sequence in tiles held in shared memory:
@@ -294,10 +295,10 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// fp32 up to 448 (512: the FMA route)
+// fp32 from 128 to 448 (64: the 3xTF32 route; 512: the FMA route)
 int dispatch_f32(int d, const FlashArgs& a, cudaStream_t s) {
   switch (d) {
-    case 64: return launch<64>(a, s);
+    case 64: return flash_fwd_tf32(a, s);
     case 128: return launch<128>(a, s);
     case 192: return launch<192>(a, s);
     case 256: return launch<256>(a, s);

@@ -1,5 +1,5 @@
-// K1's launch arguments, shared by its three routes, and the pieces its
-// sources share.
+// K1's launch arguments, shared by its four routes, K4's, and the pieces
+// their sources share.
 #pragma once
 
 #include <cuda.h>
@@ -13,6 +13,26 @@ struct FlashArgs {
   const void* v;
   void* o;
   float* lse;
+  int batch, seq_q, seq_k, heads;
+  long long q_sb, q_ss, q_sh;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  float scale;
+};
+
+// K4's launch arguments: q, k, v (B, S, H, D) strided views (strides in
+// elements), dO (B, Sq, H*D) contiguous, the saved lse and delta (B, H,
+// Sq) f32, dq, dk, dv written (B, S, H, D) contiguous.
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;
+  const float* delta;
+  void* dq;
+  void* dk;
+  void* dv;
   int batch, seq_q, seq_k, heads;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -83,6 +103,15 @@ int flash_fwd_sm90_wide(int head_dim, const FlashArgs& a, int kv_splits,
 // flash_fwd_sm90_wide's. Returns as flash_fwd_sm90 does.
 int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
                   cudaStream_t stream);
+
+// fp32 at head_dim 64: the 3xTF32 tensor-core route
+// (flash_attention_tf32.cu). Returns as flash_fwd_sm90 does.
+int flash_fwd_tf32(const FlashArgs& a, cudaStream_t stream);
+
+// K4's fp32 dk/dv and dq kernels at head_dim 64, on the same route
+// (flash_attention_tf32.cu), from the delta that flash_attention_bwd.cu's
+// kernel wrote. Returns as flash_fwd_sm90 does.
+int flash_bwd_tf32(const BwdArgs& a, cudaStream_t stream);
 
 // Merges the kv splits' partial outputs and lse in `part` by their lse
 // into out (in `dtype`) and lse (flash_attention.cu).

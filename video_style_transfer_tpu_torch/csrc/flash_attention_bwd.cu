@@ -18,7 +18,8 @@
 // Bound on the H100: ~10 * Sq * Sk * D flops per (batch, head) (the JAX
 // cost estimate) against ~8 * S * D elements of traffic is far above the
 // card's ~295 flop/byte ridge at the UNet shapes: the kernels are bound by
-// tensor-core (bf16) or FP32 FMA (fp32) throughput.
+// tensor-core throughput (bf16, and TF32 at three products a product for
+// fp32).
 //
 // Design: the two-kernel form. The TPU's fused `nk == 1` kernel leans on
 // one kv block covering the whole sequence in VMEM; here a block holds at
@@ -33,282 +34,20 @@
 // ops/flash_attention.py):
 //  - bf16 (every K4 call of the training paths): wgmma + TMA,
 //    warp-specialised, as K1's bf16 route (below, `_sm90_`);
-//  - fp32 (the card-vs-CPU reference step): every tile and product in
-//    shared memory, register-blocked FMA loops (exact fp32, no TF32).
-// The kv and q tails are zero-filled and masked.
+//  - fp32 (--mixed_precision no, and the card-vs-CPU reference step):
+//    mma.sync at 3xTF32 with cp.async tiles, in flash_attention_tf32.cu
+//    beside K1's fp32 d = 64 forward.
+// This file also holds the delta kernel both routes take, and the C entry
+// point. The kv and q tails are zero-filled and masked.
 
 #include "common.cuh"
+#include "flash_attention.cuh"
 #include "sm90.cuh"
 
 namespace vst {
 namespace {
 
 using namespace sm90;
-
-constexpr int kThreads = 128;
-
-struct BwdArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
-  const float* lse;
-  const float* delta;
-  void* dq;
-  void* dk;
-  void* dv;
-  int batch, seq_q, seq_k, heads;
-  long long q_sb, q_ss, q_sh;
-  long long k_sb, k_ss, k_sh;
-  long long v_sb, v_ss, v_sh;
-  float scale;
-};
-
-// the shared-memory kernels (fp32)
-template <typename T, int D>
-struct BwdCfg {
-  static_assert(std::is_same<T, float>::value, "fp32 only");
-  static constexpr int BT = 64;  // square tiles
-  static constexpr int VEC = Vec<T>::N;
-  static constexpr int LDT = D + VEC;   // T per row of the Q/dO/K/V tiles
-  static constexpr int LDS = BT + 4;    // floats per row of S, dP
-  static constexpr int LDP = BT + VEC;  // T per row of P, dS
-  static constexpr int LDA = D + 4;     // floats per row of an accumulator
-  static constexpr size_t TILE = sizeof(T) * BT * LDT;
-  static constexpr size_t OFF_Q = 0;
-  static constexpr size_t OFF_DO = align128(OFF_Q + TILE);
-  static constexpr size_t OFF_K = align128(OFF_DO + TILE);
-  static constexpr size_t OFF_V = align128(OFF_K + TILE);
-  static constexpr size_t OFF_S = align128(OFF_V + TILE);
-  static constexpr size_t OFF_DP = align128(OFF_S + sizeof(float) * BT * LDS);
-  static constexpr size_t OFF_DS = align128(OFF_DP + sizeof(float) * BT * LDS);
-  static constexpr size_t OFF_A1 = align128(OFF_DS + sizeof(T) * BT * LDP);
-  static constexpr size_t OFF_ROW = align128(OFF_A1 + sizeof(float) * BT * LDA);
-  // the dq kernel stops here; the dk/dv kernel also needs P and a second
-  // accumulator
-  static constexpr size_t SMEM_DQ = align128(OFF_ROW + sizeof(float) * 2 * BT);
-  static constexpr size_t OFF_P = SMEM_DQ;
-  static constexpr size_t OFF_A2 = align128(OFF_P + sizeof(T) * BT * LDP);
-  static constexpr size_t SMEM_DKV = align128(OFF_A2 + sizeof(float) * BT * LDA);
-  static_assert(SMEM_DKV <= 232448, "backward tiles exceed shared memory");
-  static_assert(BT % 16 == 0 && D % 16 == 0, "tile shape");
-};
-
-// rows [r0, r0+ROWS) of a (rows, D) strided matrix -> shared (ROWS, LD);
-// rows at or past `nrows` are zero-filled
-template <typename T, int D, int ROWS, int LD>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long row_stride, int r0,
-                                          int nrows) {
-  constexpr int VEC = Vec<T>::N;
-  constexpr int VPR = D / VEC;
-  for (int i = threadIdx.x; i < ROWS * VPR; i += kThreads) {
-    const int r = i / VPR;
-    const int cv = i - r * VPR;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows) {
-      val = __ldg(reinterpret_cast<const uint4*>(
-          src + (long long)(r0 + r) * row_stride + cv * VEC));
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + cv * VEC) = val;
-  }
-}
-
-// C (M x N, f32, row stride ldc) = [C +] op(A) op(B), op(A) M x K,
-// op(B) K x N, all f32 in shared memory; each thread 4 x 4 outputs per
-// step.
-//   A_T: A is stored (K x M) row-major and op(A) = A^T; else (M x K).
-//   B_T: B is stored (N x K) row-major and op(B) = B^T; else (K x N).
-template <int M, int N, int K, bool A_T, bool B_T, bool ACC>
-__device__ __forceinline__ void mm(const float* A, int lda, const float* B,
-                                   int ldb, float* C, int ldc) {
-  constexpr int NQ = N / 4;
-  for (int idx = threadIdx.x; idx < (M / 4) * NQ; idx += kThreads) {
-    const int r0 = (idx / NQ) * 4, c0 = (idx % NQ) * 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        acc[i][j] = ACC ? C[(r0 + i) * ldc + c0 + j] : 0.f;
-    for (int k = 0; k < K; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        av[i] = A_T ? A[k * lda + r0 + i] : A[(r0 + i) * lda + k];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        bv[j] = B_T ? B[(c0 + j) * ldb + k] : B[k * ldb + c0 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) C[(r0 + i) * ldc + c0 + j] = acc[i][j];
-  }
-}
-
-// lse (in log2 units) and delta of q rows [q0, q0+BT); zero past the end
-template <int BT>
-__device__ __forceinline__ void load_rows(float* row, const float* lse,
-                                          const float* delta, int q0,
-                                          int seq_q) {
-  for (int r = threadIdx.x; r < BT; r += kThreads) {
-    const bool ok = q0 + r < seq_q;
-    row[r] = ok ? lse[q0 + r] * kLog2e : 0.f;
-    row[BT + r] = ok ? delta[q0 + r] : 0.f;
-  }
-}
-
-// p and ds of the (q tile q0, kv tile k0) pair from S and dP; masked
-// entries are exactly 0
-template <typename T, int D, bool WITH_P>
-__device__ __forceinline__ void softmax_grad(const float* S, const float* DP,
-                                             const float* row, T* P, T* DS,
-                                             int q0, int k0, int seq_q,
-                                             int seq_k, float sl2,
-                                             float scale) {
-  using C = BwdCfg<T, D>;
-  constexpr int BT = C::BT;
-  for (int i = threadIdx.x; i < BT * BT; i += kThreads) {
-    const int r = i / BT, c = i - (i / BT) * BT;
-    const bool ok = (q0 + r < seq_q) && (k0 + c < seq_k);
-    const float p = ok ? exp2f(S[r * C::LDS + c] * sl2 - row[r]) : 0.f;
-    const float ds = p * (DP[r * C::LDS + c] - row[BT + r]) * scale;
-    if (WITH_P) P[r * C::LDP + c] = from_f<T>(p);
-    DS[r * C::LDP + c] = from_f<T>(ds);
-  }
-}
-
-// rows [r0, r0+BT) of an f32 (BT, LDA) accumulator -> a contiguous
-// (B, S, H, D) output at (b, h)
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, const float* acc, int b,
-                                           int h, int r0, int seq,
-                                           int heads) {
-  using C = BwdCfg<T, D>;
-  constexpr int VEC = C::VEC, VPR = D / VEC;
-  for (int i = threadIdx.x; i < C::BT * VPR; i += kThreads) {
-    const int r = i / VPR, cv = i - (i / VPR) * VPR;
-    if (r0 + r >= seq) continue;
-    float vals[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) vals[e] = acc[r * C::LDA + cv * VEC + e];
-    pack16<T>(out + (((long long)b * seq + r0 + r) * heads + h) * D + cv * VEC,
-              vals);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const BwdArgs a) {
-  using C = BwdCfg<T, D>;
-  constexpr int BT = C::BT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + C::OFF_Q);
-  T* DOs = reinterpret_cast<T*>(smem + C::OFF_DO);
-  T* Ks = reinterpret_cast<T*>(smem + C::OFF_K);
-  T* Vs = reinterpret_cast<T*>(smem + C::OFF_V);
-  float* S = reinterpret_cast<float*>(smem + C::OFF_S);
-  float* DP = reinterpret_cast<float*>(smem + C::OFF_DP);
-  T* DSs = reinterpret_cast<T*>(smem + C::OFF_DS);
-  float* dK = reinterpret_cast<float*>(smem + C::OFF_A1);
-  float* row = reinterpret_cast<float*>(smem + C::OFF_ROW);
-  T* Ps = reinterpret_cast<T*>(smem + C::OFF_P);
-  float* dV = reinterpret_cast<float*>(smem + C::OFF_A2);
-
-  const int k0 = blockIdx.x * BT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long o_ss = (long long)a.heads * D;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dob = static_cast<const T*>(a.dout) + (long long)b * a.seq_q * o_ss + h * D;
-  const float* lse = a.lse + ((long long)b * a.heads + h) * a.seq_q;
-  const float* delta = a.delta + ((long long)b * a.heads + h) * a.seq_q;
-
-  load_tile<T, D, BT, C::LDT>(Ks, kb, a.k_ss, k0, a.seq_k);
-  load_tile<T, D, BT, C::LDT>(Vs, vb, a.v_ss, k0, a.seq_k);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads) {
-    dK[(i / D) * C::LDA + i % D] = 0.f;
-    dV[(i / D) * C::LDA + i % D] = 0.f;
-  }
-  const float sl2 = a.scale * kLog2e;
-  const int nq = (a.seq_q + BT - 1) / BT;
-  for (int t = 0; t < nq; ++t) {
-    const int q0 = t * BT;
-    __syncthreads();  // the previous tile's products are done
-    load_tile<T, D, BT, C::LDT>(Qs, qb, a.q_ss, q0, a.seq_q);
-    load_tile<T, D, BT, C::LDT>(DOs, dob, o_ss, q0, a.seq_q);
-    load_rows<BT>(row, lse, delta, q0, a.seq_q);
-    __syncthreads();
-    mm<BT, BT, D, false, true, false>(Qs, C::LDT, Ks, C::LDT, S, C::LDS);
-    mm<BT, BT, D, false, true, false>(DOs, C::LDT, Vs, C::LDT, DP, C::LDS);
-    __syncthreads();
-    softmax_grad<T, D, true>(S, DP, row, Ps, DSs, q0, k0, a.seq_q, a.seq_k,
-                             sl2, a.scale);
-    __syncthreads();
-    mm<BT, D, BT, true, false, true>(Ps, C::LDP, DOs, C::LDT, dV, C::LDA);
-    mm<BT, D, BT, true, false, true>(DSs, C::LDP, Qs, C::LDT, dK, C::LDA);
-  }
-  __syncthreads();
-  store_rows<T, D>(static_cast<T*>(a.dk), dK, b, h, k0, a.seq_k, a.heads);
-  store_rows<T, D>(static_cast<T*>(a.dv), dV, b, h, k0, a.seq_k, a.heads);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const BwdArgs a) {
-  using C = BwdCfg<T, D>;
-  constexpr int BT = C::BT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + C::OFF_Q);
-  T* DOs = reinterpret_cast<T*>(smem + C::OFF_DO);
-  T* Ks = reinterpret_cast<T*>(smem + C::OFF_K);
-  T* Vs = reinterpret_cast<T*>(smem + C::OFF_V);
-  float* S = reinterpret_cast<float*>(smem + C::OFF_S);
-  float* DP = reinterpret_cast<float*>(smem + C::OFF_DP);
-  T* DSs = reinterpret_cast<T*>(smem + C::OFF_DS);
-  float* dQ = reinterpret_cast<float*>(smem + C::OFF_A1);
-  float* row = reinterpret_cast<float*>(smem + C::OFF_ROW);
-
-  const int q0 = blockIdx.x * BT;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long o_ss = (long long)a.heads * D;
-  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const T* dob = static_cast<const T*>(a.dout) + (long long)b * a.seq_q * o_ss + h * D;
-  const float* lse = a.lse + ((long long)b * a.heads + h) * a.seq_q;
-  const float* delta = a.delta + ((long long)b * a.heads + h) * a.seq_q;
-
-  load_tile<T, D, BT, C::LDT>(Qs, qb, a.q_ss, q0, a.seq_q);
-  load_tile<T, D, BT, C::LDT>(DOs, dob, o_ss, q0, a.seq_q);
-  load_rows<BT>(row, lse, delta, q0, a.seq_q);
-  for (int i = threadIdx.x; i < BT * D; i += kThreads)
-    dQ[(i / D) * C::LDA + i % D] = 0.f;
-  const float sl2 = a.scale * kLog2e;
-  const int nk = (a.seq_k + BT - 1) / BT;
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * BT;
-    __syncthreads();  // the previous tile's products are done
-    load_tile<T, D, BT, C::LDT>(Ks, kb, a.k_ss, k0, a.seq_k);
-    load_tile<T, D, BT, C::LDT>(Vs, vb, a.v_ss, k0, a.seq_k);
-    __syncthreads();
-    mm<BT, BT, D, false, true, false>(Qs, C::LDT, Ks, C::LDT, S, C::LDS);
-    mm<BT, BT, D, false, true, false>(DOs, C::LDT, Vs, C::LDT, DP, C::LDS);
-    __syncthreads();
-    softmax_grad<T, D, false>(S, DP, row, nullptr, DSs, q0, k0, a.seq_q,
-                              a.seq_k, sl2, a.scale);
-    __syncthreads();
-    mm<BT, D, BT, false, false, true>(DSs, C::LDP, Ks, C::LDT, dQ, C::LDA);
-  }
-  __syncthreads();
-  store_rows<T, D>(static_cast<T*>(a.dq), dQ, b, h, q0, a.seq_q, a.heads);
-}
 
 // ------------------------------------------------ bf16: wgmma + TMA
 //
@@ -803,26 +542,6 @@ int launch_delta(const void* o, const void* dout, float* delta, int batch,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch(const BwdArgs& a, cudaStream_t stream) {
-  using C = BwdCfg<T, D>;
-  auto kdkv = flash_bwd_dkv_kernel<T, D>;
-  auto kdq = flash_bwd_dq_kernel<T, D>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kdkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM_DKV);
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)C::SMEM_DQ);
-  if (e != cudaSuccess) return (int)e;
-  dim3 gkv((a.seq_k + C::BT - 1) / C::BT, a.heads, a.batch);
-  kdkv<<<gkv, kThreads, C::SMEM_DKV, stream>>>(a);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  dim3 gq((a.seq_q + C::BT - 1) / C::BT, a.heads, a.batch);
-  kdq<<<gq, kThreads, C::SMEM_DQ, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 }  // namespace vst
 
@@ -839,7 +558,7 @@ extern "C" int vst_flash_attention_bwd(
                  v_ss,  v_sh,  scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim != 64 || seq_q < 1 || seq_k < 1) return -2;
-  if (dtype == vst::kFloat32) return vst::launch<float, 64>(a, s);
+  if (dtype == vst::kFloat32) return vst::flash_bwd_tf32(a, s);
   if (dtype == vst::kBFloat16) return vst::launch_sm90(a, s);
   return -1;
 }

@@ -15,7 +15,8 @@
 // below the ridge: the kernel is bound by device-memory bandwidth. The
 // design reads each q/k/v element once and writes each output once.
 //
-// Design: a block takes PAIRS (pixel, head) pairs; each pair's F x d
+// Design: a block takes PAIRS (pixel, head) pairs (up to 8 in 48 KB; one
+// above that, up to a block's 227 KB); each pair's F x d
 // q, k and v land in shared memory through 16-byte loads (d = 40, 80,
 // 160 on the serving path are not powers of two, so d is walked in
 // 8-element vectors, never padded). DS = 4 threads share one (pair,
@@ -167,20 +168,32 @@ __global__ void ta_fwd_kernel(const TAArgs a) {
   }
 }
 
+// shared memory one block may take on Hopper (227 KB of the SM's 256)
+constexpr size_t kMaxBlockSmem = 232448;
+
 template <typename T, int MAXF>
 int launch(TAArgs a, cudaStream_t stream) {
   // as many (pixel, head) pairs per block as fit 48 KB of shared memory,
-  // at most 8 (F * DS * 8 <= 1024 threads)
+  // at most 8 (F * DS * 8 <= 1024 threads); a pair above 48 KB (fp32 clips
+  // of 26 or more frames at d = 160) takes a block of its own, with the
+  // dynamic shared-memory ceiling raised as far as a block's limit
+  // (ops/temporal_attention.py's `pair_fits` makes the same test)
   const size_t per_pair = 3 * (size_t)a.frames * a.head_dim * sizeof(T);
+  if (per_pair > kMaxBlockSmem) return -4;
   int pairs = (int)((48 * 1024) / per_pair);
   pairs = pairs < 1 ? 1 : (pairs > 8 ? 8 : pairs);
-  if (per_pair * pairs > 48 * 1024) return -4;
   a.pairs = pairs;
+  const size_t smem = per_pair * pairs;
+  auto kern = ta_fwd_kernel<T, MAXF>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int threads = (pairs * a.frames * DS + 31) / 32 * 32;
   const long long total = (long long)a.n * a.heads;
   const long long blocks = (total + pairs - 1) / pairs;
-  ta_fwd_kernel<T, MAXF>
-      <<<(unsigned)blocks, threads, per_pair * pairs, stream>>>(a);
+  kern<<<(unsigned)blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

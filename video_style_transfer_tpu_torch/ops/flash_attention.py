@@ -4,25 +4,28 @@
 K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
 `_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
 the TPU cannot pack such as d=192, 320 and 448, `_attn_kernel`); K4
-replaces `_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has three
+replaces `_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has four
 routes, named by `route`: every bf16 head dim runs on wgmma with TMA
 loads ("wgmma": csrc/flash_attention_sm90.cu at d = 64, 128, 192 and
 256; csrc/flash_attention_wide.cu at d = 320, 384, 448 and 512, the VAE's
 mid-block attention under --vae_dtype bfloat16, with O split by columns
-across two consumer warpgroups); fp32 at d = 512 (the VAE's mid-block
-attention) on FP32 FMA register tiles fed by TMA ("fma":
-csrc/flash_attention_f32.cu); the other fp32 head dims on the
-shared-memory kernel ("smem": csrc/flash_attention.cu). On the H100 all
-are bound by tensor-core (bf16) or FMA (fp32) throughput; see the
-sources for their designs. Where a grid of d >= 320 would leave the
-card's last wave emptier, the fp32 d = 512 and bf16 d >= 320 kernels
-split the kv walk (`kv_splits`) and a combine kernel merges the parts.
-K4 has two routes, named by `bwd_route`: bf16 at d = 64 on wgmma with
-TMA loads, fp32 at d = 64 on shared-memory FMA loops; its delta =
-rowsum(dO * O) is a kernel of its own. The TPU's head packing, MXU
-row-sum and block tuning have no counterpart: the kernels read (B, S, H,
-D) strided views, so the fused (B, S, 3*H*D) projection is consumed in
-place.
+across two consumer warpgroups); fp32 at d = 64 (every UNet
+self-attention under --mixed_precision no) on the tensor cores at
+3xTF32 ("tf32x3": csrc/flash_attention_tf32.cu, mma.sync with each
+operand split into two TF32 halves, three products a product); fp32 at
+d = 512 (the VAE's mid-block attention) on FP32 FMA register tiles fed by
+TMA ("fma": csrc/flash_attention_f32.cu); the other fp32 head dims, on
+no path, on the shared-memory kernel ("smem": csrc/flash_attention.cu).
+On the H100 all are bound by tensor-core (bf16, TF32) or FMA (fp32)
+throughput; see the sources for their designs. Where a grid of d >= 320
+would leave the card's last wave emptier, the fp32 d = 512 and bf16 d >=
+320 kernels split the kv walk (`kv_splits`) and a combine kernel merges
+the parts. K4 has two routes, named by `bwd_route`: bf16 at d = 64 on
+wgmma with TMA loads, fp32 at d = 64 on the 3xTF32 route's dk/dv and dq
+kernels; its delta = rowsum(dO * O) is a kernel of its own. The TPU's
+head packing, MXU row-sum and block tuning have no counterpart: the
+kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
+projection is consumed in place.
 
 Every call goes through one ``torch.autograd.Function`` that saves q, k,
 v, the output and the lse (the JAX residuals). A CUDA tensor launches
@@ -45,10 +48,10 @@ from video_style_transfer_tpu_torch.ops import cuda_build
 # dk/dv and its dq kernel), split by route in BWD_ROUTE_LAUNCHES,
 # DELTA_LAUNCHES K4's delta kernel
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "fma": 0, "smem": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "fma": 0, "smem": 0}
 WIDE_LAUNCHES = 0
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"wgmma": 0, "smem": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
 DELTA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -62,8 +65,9 @@ _FWD_POINTERS = struct.Struct("<7Q")
 _FWD_LAYOUT = struct.Struct("<9q8i")
 _FWD_SCALE = struct.Struct("<f")
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
-# fp32 head dims of the FMA route; the other fp32 ones take shared
-# memory, every bf16 one the wgmma route
+# fp32 head dims of the 3xTF32 route (K1 and K4) and of the FMA route;
+# the other fp32 ones take shared memory, every bf16 one the wgmma route
+TF32X3_HEAD_DIMS = (64,)
 FMA_HEAD_DIMS = (512,)
 # bf16 head dims of the wgmma route's wide kernel (csrc/
 # flash_attention_wide.cu: O split across two consumer warpgroups)
@@ -91,11 +95,12 @@ def flash_attention_plain(q, k, v, scale: float):
 def route(dtype, head_dim: int) -> str:
     """The K1 kernel a CUDA call of this dtype and head dim launches:
     "wgmma" (every bf16 head dim: csrc/flash_attention_sm90.cu at d <=
-    256, csrc/flash_attention_wide.cu at d >= 320), "fma"
-    (csrc/flash_attention_f32.cu: fp32 d = 512, where the card measured
-    it faster than the shared-memory kernel; the other fp32 head dims were
-    not measured on it) or "smem" (csrc/flash_attention.cu: fp32 d <=
-    448). Raises on what K1 does not take."""
+    256, csrc/flash_attention_wide.cu at d >= 320), "tf32x3"
+    (csrc/flash_attention_tf32.cu: fp32 d = 64, 3xTF32 on the tensor
+    cores), "fma" (csrc/flash_attention_f32.cu: fp32 d = 512, where the
+    card measured it faster than the shared-memory kernel; the other fp32
+    head dims were not measured on it) or "smem" (csrc/flash_attention.cu:
+    fp32 d from 128 to 448). Raises on what K1 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -104,6 +109,8 @@ def route(dtype, head_dim: int) -> str:
                          f"{HEAD_DIMS}")
     if dtype == torch.bfloat16:
         return "wgmma"
+    if head_dim in TF32X3_HEAD_DIMS:
+        return "tf32x3"
     if head_dim in FMA_HEAD_DIMS:
         return "fma"
     return "smem"
@@ -125,16 +132,17 @@ def wide_o_split(head_dim: int) -> tuple:
 
 def bwd_route(dtype, head_dim: int) -> str:
     """The K4 kernels a CUDA backward of this dtype and head dim launches:
-    "wgmma" (bf16 d = 64: wgmma + TMA, warp-specialised) or "smem" (fp32
-    d = 64: shared-memory FMA loops), both in csrc/flash_attention_bwd.cu.
-    Raises on what K4 does not take."""
+    "wgmma" (bf16 d = 64: wgmma + TMA, warp-specialised, in
+    csrc/flash_attention_bwd.cu) or "tf32x3" (fp32 d = 64: mma.sync at
+    3xTF32, in csrc/flash_attention_tf32.cu beside K1's fp32 d = 64
+    forward). Raises on what K4 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention backward takes float32 or "
                         f"bfloat16, got {dtype}")
     if head_dim not in BWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward: head_dim {head_dim} "
                          f"not in {BWD_HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 else "smem"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:

@@ -29,6 +29,17 @@ BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FRAMES = 32
+# shared memory one block may take on Hopper (227 KB of the SM's 256)
+MAX_BLOCK_SMEM = 232448
+
+
+def pair_fits(frames: int, head_dim: int, itemsize: int) -> bool:
+    """Whether K3 takes clips of `frames` frames at `head_dim`: one
+    (pixel, head) pair's F x d q, k and v tiles (`itemsize` bytes each)
+    share one block's shared memory. csrc/temporal_attention.cu's launch
+    makes the same test and raises its ceiling past 48 KB where a pair
+    needs it (fp32 at d = 160 from 26 frames on)."""
+    return 3 * frames * head_dim * itemsize <= MAX_BLOCK_SMEM
 
 
 def temporal_attention_plain(q, k, v, scale: float):
@@ -80,9 +91,9 @@ def _check(q, k, v):
     if d % 8:
         raise ValueError(f"temporal attention: head_dim {d} is not a "
                          f"multiple of 8")
-    if 3 * f * d * q.element_size() > 48 * 1024:
+    if not pair_fits(f, d, q.element_size()):
         raise ValueError("temporal attention: one (pixel, head) pair "
-                         "exceeds the kernel's shared-memory tile")
+                         "exceeds a block's shared memory")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"temporal attention: {name} needs unit "
