@@ -27,9 +27,11 @@
    the FF shapes of every path the same way (bf16 normwise too) and fp32
    at spatial level 2; its yardstick is three PyTorch calls (F.linear
    over the fused weight, the gate, the product), and F.linear alone is
-   timed as a reading of cuBLAS's rate. K3 is held at the serving
-   path's three motion levels and at 32-frame clips (fp32 and bf16, d =
-   160). K4 has two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 on
+   timed as a reading of cuBLAS's rate. K3 (mma.sync on the tensor
+   cores, fp32 at 3xTF32, fed by TMA) is held the same way (bf16 normwise
+   too) at the serving path's three motion levels in bf16 and fp32, stage
+   2's at 8 frames and 32-frame clips at level 2 in both, each phase with
+   its share of the bound and its time against SDPA's. K4 has two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 on
    mma.sync at 3xTF32; its phases (the train step's two levels and a
    ragged length, each in bf16 and fp32) also print the bound at the
    two-kernel design's 14 flops, and its delta kernel is held to the torch
@@ -67,14 +69,15 @@
 5. Prints one JSON line with every kernel's numbers (K1 as its five
    kernels, K4 as its two routes, K4's delta as a kernel of its own, with
    the wgmma kernels', the FMA kernel's, the 3xTF32 kernels', K4's and
-   K2's registers, spills and wgmma serialisation from nvcc's report; the
-   FMA, 3xTF32, K4, K2 bf16 and K1 wgmma kernels must not spill, and K1's
+   K2's and K3's registers, spills and wgmma serialisation from nvcc's
+   report; the FMA, 3xTF32, K3, K4, K2 bf16 and K1 wgmma kernels must not
+   spill, and K1's
    and K2's wgmma kernels must not have their products serialised; the
    stage-2 precision check's launches count as a path of their own,
    "stage2_fp32"), then the last line {"ok": true, "device":
    {...}}. Any failure exits non-zero before that. Each K1 and K2 bf16
-   phase also prints its share of the bound and its time against SDPA's
-   or the three calls'.
+   phase and each K3 phase also prints its share of the bound and its
+   time against SDPA's or the three calls'.
 """
 from __future__ import annotations
 
@@ -516,32 +519,39 @@ def kernel_phases():
         phases["geglu_projection"].append(phase)
         del x, w, bias
 
-    # K3: motion level 0 (F=16, N=32768, 8 heads x d=40), the serving
-    # path's motion levels 1 and 2 (d = 80 and 160), and 32-frame clips at
-    # level 2 (--num_frames 32), whose fp32 (pixel, head) pair of 60 KB
-    # takes a block of its own above 48 KB of shared memory; the last four
-    # also refuse the two faulty copies
-    for (f, n, h, d), dt, iters, controls in (
-            ((16, 32768, 8, 40), torch.bfloat16, 20, False),
-            ((16, 32768, 8, 40), torch.float32, 10, False),
-            ((16, 4096, 8, 80), torch.bfloat16, 20, True),
-            ((16, 1024, 8, 160), torch.bfloat16, 20, True),
-            ((32, 1024, 8, 160), torch.bfloat16, 20, True),
-            ((32, 1024, 8, 160), torch.float32, 10, True)):
+    # K3 (tensor-core forward: mma.sync, fp32 at 3xTF32; under TOL, bf16
+    # also normwise under FWD_OUT_BF16, each phase refusing the two faulty
+    # copies): the serving path's motion levels 0-2 (F=16, N=32768, 4096,
+    # 1024, 8 heads x d = 40, 80, 160) in bf16 and in fp32 (--mixed_precision
+    # no), stage 2's three levels at 8 frames, and level 2 at 32 frames
+    # (--num_frames 32) in both dtypes
+    for tag, (f, n, h, d), dt, iters in (
+            ("serving_l0", (16, 32768, 8, 40), torch.bfloat16, 20),
+            ("serving_l0", (16, 32768, 8, 40), torch.float32, 10),
+            ("serving_l1", (16, 4096, 8, 80), torch.bfloat16, 20),
+            ("serving_l1", (16, 4096, 8, 80), torch.float32, 20),
+            ("serving_l2", (16, 1024, 8, 160), torch.bfloat16, 20),
+            ("serving_l2", (16, 1024, 8, 160), torch.float32, 20),
+            ("stage2_l0", (8, 16384, 8, 40), torch.bfloat16, 20),
+            ("stage2_l1", (8, 4096, 8, 80), torch.bfloat16, 20),
+            ("stage2_l2", (8, 1024, 8, 160), torch.bfloat16, 20),
+            ("clip32_l2", (32, 1024, 8, 160), torch.bfloat16, 20),
+            ("clip32_l2", (32, 1024, 8, 160), torch.float32, 10)):
         qkv = randn(f, n, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.permute(1, 2, 0, 3) for t in (q, k, v))  # (N,H,F,d)
         es = qkv.element_size()
-        level = {40: "motion_l0", 80: "motion_l1", 160: "motion_l2"}[d]
-        phases["temporal_attention"].append(check_phase(
-            f"K3 {level} ({f},{n},{h}x{d}) {str(dt)[6:]}",
+        phase = check_phase(
+            f"K3 {tag} ({f},{n},{h}x{d}) {str(dt)[6:]}",
             lambda: ta.temporal_attention_fwd(q, k, v),
             lambda: ta.temporal_attention_plain(q, k, v, d ** -0.5),
             lambda: F.scaled_dot_product_attention(qt, kt, vt),
             flops=4 * f * f * n * h * d,
             nbytes=4 * f * n * h * d * es,
-            dtype_name=str(dt)[6:], iters=iters,
-            tol=TOL[str(dt)[6:]] if controls else None))
+            dtype_name=str(dt)[6:], iters=iters, tol=TOL[str(dt)[6:]],
+            own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None)
+        vs_bound_and_library(phase)
+        phases["temporal_attention"].append(phase)
         del qkv, q, k, v, qt, kt, vt
     return phases
 
@@ -1518,6 +1528,28 @@ def tf32_ptxas(log):
     return out
 
 
+def ta_ptxas(log):
+    """Registers and spills of K3's tensor-core forward, by dtype and
+    frame count (8 F / 8 frames at most: its n tiles of S; 288 threads,
+    one block an SM, so at most 224 registers each). Fails if one spills
+    or the build log names fewer than the eight: S, P and O's column
+    chunk live in registers by design."""
+    rep = ptxas_report(log,
+                       r"(ta_fwd_mma_kernelI(?:f|13__nv_bfloat16)Li\dE)")
+    out = {}
+    for name, r in rep.items():
+        dt = "float32" if "kernelIf" in name else "bfloat16"
+        out[f"{dt} F<={8 * int(name[-2])}"] = r
+    if len(out) != 8:
+        fail(f"the build log names no K3 kernel for every dtype and frame "
+             f"count: {sorted(out)}")
+    for key, r in out.items():
+        if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+            fail(f"K3's {key} kernel spills registers: {r}")
+    print(f"K3 kernels (ptxas): {json.dumps(out)}", flush=True)
+    return out
+
+
 def fma_ptxas(log):
     """Registers and spills of the FMA route's kernel (256 threads, up to
     255 registers each, one block an SM) and of the kv-split combine it
@@ -1654,6 +1686,7 @@ def main():
              "flash_attention_f32.cu": fma_ptxas(log),
              "flash_attention_bwd.cu": bwd_ptxas(log),
              "flash_attention_tf32.cu": tf32_ptxas(log),
+             "temporal_attention.cu": ta_ptxas(log),
              "geglu.cu": geglu_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -1670,6 +1703,8 @@ def main():
             "library_ms": first["library_ms"], "phases": phases[name]}
         if src in ptxas:
             entry["ptxas"] = ptxas[src]
+        if name == "temporal_attention":
+            entry["kernel"] = "ta_fwd_mma_kernel"
         if name == "flash_attention_bwd_delta":
             entry["note"] = ("not a TPU kernel: the JAX package computes "
                              "delta in XLA, in K4's launcher "

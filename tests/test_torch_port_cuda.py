@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1 on its four routes, the wgmma route's
-wide kernel at d >= 320 included, K2-K5 with K4 on both its routes, K7)
+wide kernel at d >= 320 included, K2-K5 with K4 on both its routes, K3's
+tensor-core forward at every frame count, K7)
 against their plain PyTorch versions on the card, and gradients through
 their autograd wrappers against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
@@ -328,30 +329,93 @@ def test_cuda_geglu_raises_on_what_it_does_not_take():
     assert tgeglu.LAUNCHES == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,f,d", [(torch.bfloat16, 16, 40),
-                                       (torch.float32, 16, 160),
-                                       (torch.bfloat16, 16, 80),
-                                       (torch.bfloat16, 16, 160),
-                                       (torch.bfloat16, 32, 160),
-                                       (torch.float32, 32, 160)])
-def test_cuda_temporal_attention_matches_plain(dtype, f, d):
-    # the serving path's motion levels (d = 40, 80, 160 at 16 frames) and
-    # 32-frame clips at level 2, whose fp32 (pixel, head) pair (60 KB)
-    # takes a block of its own above 48 KB of shared memory
-    _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn(f, 300, 3 * 8 * d, device="cuda", generator=g,
-                      dtype=dtype)
-    q, k, v = (t.unflatten(-1, (8, d)) for t in qkv.split(8 * d, -1))
+def _ta_case(f, n, h, d, dtype, layout="fused", seed=0):
+    """Seeded q, k, v (F, N, H, d): views of one fused (F, N, 3 H d)
+    projection, or ("separate") three tensors with strides of their own:
+    q contiguous, k stored pixel-major (N, F, H, d), v with 8 elements of
+    padding after each head."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda", generator=g, dtype=dtype)
+    if layout == "fused":
+        qkv = randn(f, n, 3 * h * d)
+        return [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1)]
+    return [randn(f, n, h, d), randn(n, f, h, d).transpose(0, 1),
+            randn(f, n, h, d + 8)[..., :d]]
+
+
+def _assert_ta_close(q, k, v):
+    """K3 on (q, k, v): one launch, within `_assert_close` of the plain
+    version, and a 3 % scale fault of its output refused."""
     before = tta.LAUNCHES
     out = tta.temporal_attention(q, k, v)
     assert tta.LAUNCHES == before + 1
-    ref = tta.temporal_attention_plain(q, k, v, d ** -0.5)
+    ref = tta.temporal_attention_plain(q, k, v, q.shape[-1] ** -0.5)
     _assert_close(out, ref)
-    # the check sees a 3 % scale fault
     with pytest.raises(AssertionError):
-        _assert_close((out.float() * 0.97).to(dtype), ref)
+        _assert_close((out.float() * 0.97).to(out.dtype), ref)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,f,d,n,h,layout", [
+    # the serving path's motion levels (d = 40, 80, 160 at 16 frames) and
+    # 32-frame clips at level 2 (two row tiles a pair)
+    (torch.bfloat16, 16, 40, 300, 8, "fused"),
+    (torch.float32, 16, 160, 300, 8, "fused"),
+    (torch.bfloat16, 16, 80, 300, 8, "fused"),
+    (torch.bfloat16, 16, 160, 300, 8, "fused"),
+    (torch.bfloat16, 32, 160, 300, 8, "fused"),
+    (torch.float32, 32, 160, 300, 8, "fused"),
+    # every frame count's n-tile count and row tiles: F = 1, 8 (stage 2),
+    # 13, 24 and 32 frames past the last whole tile
+    *[(dt, f, 40, 300, 8, "fused") for dt in (torch.bfloat16, torch.float32)
+      for f in (1, 8, 13, 24, 32)],
+    # head dims: d = 16 (the tiny config), 40 and 80 in fp32, d = 512 in
+    # fp32 at 8 frames and d = 264 in bf16 (wider than a TMA box: rows
+    # copied one by one)
+    (torch.bfloat16, 16, 16, 300, 8, "fused"),
+    (torch.float32, 16, 16, 300, 8, "fused"),
+    (torch.float32, 16, 40, 300, 8, "fused"),
+    (torch.float32, 16, 80, 300, 8, "fused"),
+    (torch.float32, 8, 512, 37, 3, "fused"),
+    (torch.bfloat16, 13, 264, 37, 3, "fused"),
+    # pairs that do not fill the persistent grid, stages whose pixels run
+    # past N (stage 2's 8-frame L0 takes two pixels a stage) or whose heads
+    # are 3 or 5
+    (torch.bfloat16, 16, 40, 5, 8, "fused"),
+    (torch.bfloat16, 8, 40, 301, 8, "fused"),
+    (torch.bfloat16, 16, 80, 7, 3, "fused"),
+    (torch.float32, 24, 40, 11, 5, "fused"),
+    # three tensors with their own strides
+    (torch.bfloat16, 16, 40, 300, 8, "separate"),
+    (torch.float32, 32, 160, 40, 8, "separate"),
+    (torch.bfloat16, 8, 264, 20, 2, "separate"),
+])
+def test_cuda_temporal_attention_matches_plain(dtype, f, d, n, h, layout):
+    _need_cuda()
+    _assert_ta_close(*_ta_case(f, n, h, d, dtype, layout))
+
+
+@pytest.mark.cuda
+def test_cuda_temporal_attention_map_cache():
+    # the wrapper keeps the checked layout and the C side the encoded
+    # tensor maps: a second call on the same tensors reuses them, a call on
+    # new tensors of the same shape (other data, and other addresses while
+    # the first are alive) must not
+    _need_cuda()
+    first = _ta_case(16, 300, 8, 40, torch.bfloat16, seed=7)
+    out1 = _assert_ta_close(*first)
+    out2 = _assert_ta_close(*first)
+    assert torch.equal(out1, out2)
+    second = _ta_case(16, 300, 8, 40, torch.bfloat16, seed=8)
+    out3 = _assert_ta_close(*second)
+    assert not torch.equal(out1, out3)
+    # and new tensors where the first ones were freed
+    del first, out1, out2
+    torch.cuda.synchronize()
+    _assert_ta_close(*_ta_case(16, 300, 8, 40, torch.bfloat16, seed=9))
 
 
 def _assert_close_bwd(out, ref):

@@ -39,7 +39,16 @@ the first time in a process, the names of its kernels;
 ``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' bf16
 shapes and fp32, each bf16 row with the device ms of the three PyTorch
 calls K2 fuses (``F.linear`` over the fused weight, ``F.gelu``, the
-product) and of ``F.linear`` alone, readings of cuBLAS's rate.
+product) and of ``F.linear`` alone, readings of cuBLAS's rate;
+``--k3`` for K3's wrapper (``ops.temporal_attention.temporal_attention_fwd``)
+at every shape the paths give it (the serving path's motion levels at 16
+frames in bf16 and fp32, stage 2's at 8, level 2 at 32 frames in both),
+each row with its bandwidth bound and the device ms and kernel names of
+``scaled_dot_product_attention`` on the same (N, H, F, d) views;
+``--k3_cutouts`` times K3's wrapper at the same shapes against three
+copies of ``csrc/temporal_attention.cu`` built apart (``k3_cut_source``):
+as it is, with its loads and stores alone, and with its compute on data
+that stays in L2; the same call times an older checkout's K3.
 
 ``--precision`` holds the first stage-2 step (2 frames by default) in bf16
 against fp32 on the same weights and draws, and the fp32 step against
@@ -48,7 +57,8 @@ with ``--unziplora_name_or_path DIR`` on a stage-1 artifact set; one JSON
 line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image | --decode | --k1 | --k2 | --k4 | --precision]
+        [--train | --image | --decode | --k1 | --k2 | --k3 | --k3_cutouts |
+         --k4 | --precision]
         [--vae_dtype float32|bfloat16] [--num_frames N] [--resolution 1024]
         [--steps N]
         [--unziplora_name_or_path DIR]
@@ -56,10 +66,12 @@ line of readings (``precision_readings``).
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import json
 import subprocess
 import time
+import types
 
 import torch
 
@@ -71,7 +83,7 @@ CATEGORIES = (
     ("K1 flash_attention_fwd (tf32x3)", ("flash_fwd_tf32_kernel",)),
     ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
-    ("K3 temporal_attention", ("ta_fwd_kernel",)),
+    ("K3 temporal_attention", ("ta_fwd_mma_kernel",)),
     ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq",
                                 "flash_bwd_delta")),
     ("K5 temporal_attention_bwd", ("ta_bwd_kernel",)),
@@ -276,6 +288,22 @@ K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
              ("train L2", (8, 1024, 20, 64), torch.float32),
              ("train L1", (8, 4096, 10, 64), torch.float32))
 
+# (tag, (F, N, H, d), dtype): K3's shapes, every one a path launches:
+# the serving path's three motion levels at 16 frames (bf16, and fp32
+# under --mixed_precision no), stage 2's at 8 frames, and level 2 at 32
+# frames (--num_frames 32)
+K3_SHAPES = (("serving L0", (16, 32768, 8, 40), torch.bfloat16),
+             ("serving L1", (16, 4096, 8, 80), torch.bfloat16),
+             ("serving L2", (16, 1024, 8, 160), torch.bfloat16),
+             ("serving L0", (16, 32768, 8, 40), torch.float32),
+             ("serving L1", (16, 4096, 8, 80), torch.float32),
+             ("serving L2", (16, 1024, 8, 160), torch.float32),
+             ("stage-2 L0", (8, 16384, 8, 40), torch.bfloat16),
+             ("stage-2 L1", (8, 4096, 8, 80), torch.bfloat16),
+             ("stage-2 L2", (8, 1024, 8, 160), torch.bfloat16),
+             ("32-frame L2", (32, 1024, 8, 160), torch.bfloat16),
+             ("32-frame L2", (32, 1024, 8, 160), torch.float32))
+
 # (tag, (M, C), dtype): K2's shapes in chip_smoke.py's K2 phases (inner =
 # 4 C): spatial and motion level 2 and level 1 at the serving path's 32
 # rows, motion level 0, spatial level 2 at the image path's 2 rows
@@ -336,6 +364,120 @@ def k4_call(shape, dtype, gen):
     do = torch.randn(b, s, h * d, generator=gen, device=q.device,
                      dtype=q.dtype)
     return lambda: fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+
+def _ta_qkv(shape, dtype, gen):
+    """q, k and v (F, N, H, d): strided views of one seeded fused (F, N,
+    3 H d) projection, as the motion module makes them."""
+    f, n, h, d = shape
+    qkv = torch.randn(f, n, 3 * h * d, generator=gen, device=gen.device,
+                      dtype=dtype)
+    return [t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1)]
+
+
+def k3_call(shape, dtype, gen):
+    """A call of K3's wrapper on seeded (q, k, v) of `shape`."""
+    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+    q, k, v = _ta_qkv(shape, dtype, gen)
+    return lambda: ta.temporal_attention_fwd(q, k, v)
+
+
+def k3_yardsticks(shape, dtype, gen, runs: int):
+    """K3's bound (its q, k, v read once and its output written once at
+    3.35 TB/s; its flops are far below the ridge) and the device ms of
+    scaled_dot_product_attention on the same (N, H, F, d) views, with the
+    names of the kernels one call runs (a process's first profile lists
+    them)."""
+    import torch.nn.functional as F
+    f, n, h, d = shape
+    q, k, v = (t.permute(1, 2, 0, 3) for t in _ta_qkv(shape, dtype, gen))
+
+    def fn():
+        return F.scaled_dot_product_attention(q, k, v)
+    ms = _time_calls(fn, runs)[0]
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    es = torch.tensor([], dtype=dtype).element_size()
+    return {"bound_ms": 4 * f * n * h * d * es / 3.35e12 * 1e3,
+            "sdpa_ms": ms, "sdpa_kernels": names}
+
+
+# K3's cut-out copies: the kernel takes the cuts from its macro
+# VST_TA_CUTOUT; the shared-memory kernel it replaced (ta_fwd_kernel, a
+# few pairs a block, no such macro) is cut by text at its phase
+# boundaries: its compute runs between its two block barriers, and each
+# block finds its pairs from pair0
+K3_CUTS = ("whole", "load+store", "resident")
+_OLD_COMPUTE = ("  // thread -> (pair pl, frame f, share s)",
+                "  __syncthreads();\n\n  T* o = static_cast<T*>(a.o);")
+_OLD_PAIR = "const long long gp = pair0 + p;"
+
+
+def k3_cut_source(src: str, cut: str) -> str:
+    """The K3 source `src` with `cut` applied: "load+store" keeps its loads
+    and stores alone, "resident" keeps its data in L2 (each block on one
+    tile of its own; in the replaced kernel, block b on the pairs of block
+    b mod 132, one block an SM of an H100)."""
+    if cut == "whole":
+        return src
+    if "VST_TA_CUTOUT" in src:
+        return f"#define VST_TA_CUTOUT {K3_CUTS.index(cut)}\n" + src
+    if cut == "load+store":
+        start = src.index(_OLD_COMPUTE[0])
+        return src[:start] + src[src.index(_OLD_COMPUTE[1], start):]
+    if src.count(_OLD_PAIR) != 2:
+        raise ValueError("the K3 source has neither VST_TA_CUTOUT nor the "
+                         "replaced kernel's phase boundaries")
+    return src.replace(_OLD_PAIR, "const long long gp = (long long)"
+                                  "(blockIdx.x % 132) * pairs + p;")
+
+
+def k3_cut_entries():
+    """{cut: K3's C entry point in a throwaway library built from the cut
+    csrc/temporal_attention.cu of the package Python finds first}."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "temporal_attention.cu").read_text()
+    work = cuda_build.BUILD_DIR / "k3_cutouts"
+    work.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for cut in K3_CUTS:
+        path = work / f"{cut.replace('+', '_')}.cu"
+        path.write_text(k3_cut_source(src, cut))
+        so = path.with_suffix(".so")
+        procs[cut] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             str(cuda_build.CSRC), "-shared", "-o", str(so), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for cut, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for K3's {cut} copy\n{out}")
+        fn = ctypes.CDLL(str(so)).vst_temporal_attention_fwd
+        fn.argtypes = cuda_build.SIGNATURES["vst_temporal_attention_fwd"]
+        fn.restype = ctypes.c_int
+        entries[cut] = fn
+    return entries
+
+
+def k3_cutouts(dev, runs: int):
+    """Yields {cut, shape, device_ms}: K3's wrapper timed at each of
+    K3_SHAPES against each cut copy (the wrapper finds the copy's entry
+    point as the library's)."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    try:
+        for cut, fn in k3_cut_entries().items():
+            cuda_build._lib = types.SimpleNamespace(
+                vst_temporal_attention_fwd=fn)
+            for row in kernel_calls(dev, runs, K3_SHAPES, k3_call):
+                yield {"cut": cut, "shape": row["shape"],
+                       "device_ms": row["device_ms"]}
+    finally:
+        cuda_build._lib = None
 
 
 def _geglu_inputs(shape, dtype, gen):
@@ -406,20 +548,19 @@ def sdpa_yardstick(shape, dtype, gen, runs: int, backward: bool = False):
 
 
 def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
-    """[{shape, device_ms, host_us}] for the call make_call(shape, dtype,
-    gen) builds at each (tag, shape, dtype) of `shapes`, with the readings
-    of yardsticks(shape, dtype, gen, runs) where given."""
+    """Yields {shape, device_ms, host_us} for the call make_call(shape,
+    dtype, gen) builds at each (tag, shape, dtype) of `shapes`, with the
+    readings of yardsticks(shape, dtype, gen, runs) where given, each as
+    soon as it is measured."""
     gen = torch.Generator(device=dev).manual_seed(0)
-    out = []
     for tag, shape, dtype in shapes:
         dev_ms, host_us = _time_calls(make_call(shape, dtype, gen), runs)
         row = {"shape": f"{tag} {shape} {str(dtype)[6:]}",
                "device_ms": dev_ms, "host_us": host_us}
         if yardsticks is not None:
             row.update(yardsticks(shape, dtype, gen, runs))
-        out.append(row)
+        yield row
         torch.cuda.empty_cache()
-    return out
 
 
 def k1_host_parts(dev, runs: int):
@@ -542,6 +683,11 @@ def main(argv=None):
                    help="time K1's wrapper alone at the paths' shapes")
     p.add_argument("--k2", action="store_true",
                    help="time K2's wrapper alone at the paths' shapes")
+    p.add_argument("--k3", action="store_true",
+                   help="time K3's wrapper alone at the paths' shapes")
+    p.add_argument("--k3_cutouts", action="store_true",
+                   help="time K3 whole, with its loads and stores alone and "
+                        "with its compute on resident data")
     p.add_argument("--k4", action="store_true",
                    help="time K4's wrapper alone at the train step's "
                         "shapes")
@@ -581,10 +727,18 @@ def main(argv=None):
                           "unziplora": args.unziplora_name_or_path,
                           **precision_readings(argv)}), flush=True)
         return
-    if args.k1 or args.k2 or args.k4:
+    if args.k3_cutouts:
+        for row in k3_cutouts(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K3 temporal_attention", **row}),
+                  flush=True)
+        return
+    if args.k1 or args.k2 or args.k3 or args.k4:
         kernel, shapes, make_call, yardsticks = (
             ("K4 flash_attention_bwd", K4_SHAPES, k4_call,
              functools.partial(sdpa_yardstick, backward=True)) if args.k4
+            else ("K3 temporal_attention", K3_SHAPES, k3_call,
+                  k3_yardsticks) if args.k3
             else ("K2 geglu_projection", K2_SHAPES, k2_call,
                   geglu_yardsticks) if args.k2
             else ("K1 flash_attention_fwd", K1_SHAPES, k1_call,

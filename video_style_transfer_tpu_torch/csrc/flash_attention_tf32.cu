@@ -84,6 +84,7 @@
 
 #include "common.cuh"
 #include "flash_attention.cuh"
+#include "mma_sync.cuh"
 #include "sm90.cuh"
 
 namespace vst {
@@ -114,52 +115,6 @@ static_assert((LD * sizeof(float)) % 16 == 0, "16-byte cp.async rows");
 
 // ---------------------------------------------------------------- 3xTF32
 
-struct FragA {  // m16n8k8 A (16 x 8): rows g, g + 8; k slots t, t + 4
-  uint32_t hi[4], lo[4];
-};
-struct FragB {  // m16n8k8 B (8 x 8): k slots t, t + 4; column g
-  uint32_t hi[2], lo[2];
-};
-
-// fp32 bits rounded to TF32, to nearest with ties away from zero: the
-// magnitude bits plus half of the 13 dropped bits, then those bits
-// cleared. This is cvt.rna.tf32.f32 on finite values (and on
-// infinities); the instruction itself compiles to a NaN-guarded sequence
-// of four or five.
-__device__ __forceinline__ uint32_t rna_tf32(uint32_t bits) {
-  return (bits + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = rna_tf32(__float_as_uint(x));
-  lo = rna_tf32(__float_as_uint(x - __uint_as_float(hi)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a b at 3xTF32: a.lo b.hi, a.hi b.lo, a.hi b.hi. SWAPPED takes the
-// two small terms the other way round, so that a product with A and B
-// exchanged (S^T = K Q^T against S = Q K^T) adds the same terms in the
-// same order.
-template <bool SWAPPED>
-__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
-                                     const FragB& b) {
-  if (SWAPPED) {
-    mma(c, a.hi, b.lo);
-    mma(c, a.lo, b.hi);
-  } else {
-    mma(c, a.lo, b.hi);
-    mma(c, a.hi, b.lo);
-  }
-  mma(c, a.hi, b.hi);
-}
-
 // A = X[r0 .. r0 + 16)[k0 .. k0 + 8) of a shared tile, k slot j = column
 // k0 + j
 __device__ __forceinline__ void load_a(FragA& f, const float* X, int r0,
@@ -188,22 +143,6 @@ __device__ __forceinline__ void load_b(FragB& f, const float* Y, int k0,
   const float* p = Y + (k0 + 2 * t) * LD + n0 + g;
   split(p[0], f.hi[0], f.lo[0]);
   split(p[LD], f.hi[1], f.lo[1]);
-}
-
-// One 8-column n tile of an m16n8 accumulator (c[0], c[1]: row g, columns
-// 2t, 2t + 1; c[2], c[3]: row g + 8) as the A fragment of the k step over
-// those 8 columns, in load_b's k order
-__device__ __forceinline__ void acc_to_a(FragA& f, const float (&c)[4]) {
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
-}
-
-// A from four values already in registers (a0 .. a3 in load_a's order)
-__device__ __forceinline__ void split_a(FragA& f, const float (&x)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) split(x[i], f.hi[i], f.lo[i]);
 }
 
 template <int N>

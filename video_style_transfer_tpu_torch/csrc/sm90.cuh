@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's kernels: warpgroup
 // matrix products (wgmma) with shared-memory matrix descriptors, mbarriers,
-// named barriers, TMA tensor loads and stores and their host-side tensor
-// maps (with a cache of encoded maps), register rebalancing between
-// warpgroups (setmaxnreg), and launch settings kept once per device.
+// named barriers, TMA tensor loads and stores and 1-D bulk copies, their
+// host-side tensor maps (with caches of encoded maps), register
+// rebalancing between warpgroups (setmaxnreg), and launch settings kept
+// once per device.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is one "panel"; row r lives at
@@ -463,6 +464,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completing `bytes` of `bar`'s
+// transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from shared into global memory, in this thread's bulk
+// async-group (bulk_commit / bulk_wait_read / bulk_wait).
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 // Makes this thread's ordinary shared-memory writes visible to the async
 // proxy (a TMA store that reads them next).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -653,6 +678,63 @@ inline int cached_bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
   }
   const int e = bshd_tensor_map(map, type, elem_bytes, ptr, batch, seq,
                                 heads, d, sb, ss, sh, box_d, rows, swizzle);
+  if (e != 0) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  std::memcpy(cache[next].key, key, sizeof key);
+  cache[next].map = *map;
+  next = (next + 1) % kEntries;
+  used = used < kEntries ? used + 1 : kEntries;
+  return 0;
+}
+
+// Any 4-D strided view (`dims` innermost first, the innermost of stride
+// 1; `strides` of the other three in elements, in any order of size) of
+// `type` as a tensor map with box `box`, no swizzle, out-of-bounds
+// elements zero-filled, through a cache of the last 32 maps keyed by
+// every argument, as cached_bshd_tensor_map. Returns 0 or a CUresult.
+inline int cached_tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type,
+                                int elem_bytes, const void* ptr,
+                                const long long (&dims)[4],
+                                const long long (&strides)[3],
+                                const int (&box)[4]) {
+  constexpr int kEntries = 32;
+  struct Entry {
+    long long key[14];
+    CUtensorMap map;
+  };
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  static std::mutex mu;
+  const long long key[14] = {(long long)reinterpret_cast<uintptr_t>(ptr),
+                             (long long)type, elem_bytes,
+                             dims[0], dims[1], dims[2], dims[3],
+                             strides[0], strides[1], strides[2],
+                             box[0], box[1], box[2], box[3]};
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i)
+      if (std::memcmp(cache[i].key, key, sizeof key) == 0) {
+        *map = cache[i].map;
+        return 0;
+      }
+  }
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return -3;
+  cuuint64_t gdims[4], gstrides[3];
+  cuuint32_t gbox[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    gdims[i] = (cuuint64_t)dims[i];
+    gbox[i] = (cuuint32_t)box[i];
+  }
+  for (int i = 0; i < 3; ++i)
+    gstrides[i] = (cuuint64_t)(strides[i] * elem_bytes);
+  const int e = (int)encode(map, type, 4, const_cast<void*>(ptr), gdims,
+                            gstrides, gbox, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (e != 0) return e;
   std::lock_guard<std::mutex> lock(mu);
   std::memcpy(cache[next].key, key, sizeof key);

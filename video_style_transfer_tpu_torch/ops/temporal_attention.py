@@ -7,8 +7,10 @@ K3 replaces the JAX package's ops/temporal_attention.py Pallas kernel
 out of one (C, 3P) projection as (F, N, 3P) and reach the kernel as
 (F, N, H, d) strided views; the output is (F, N, P). The JAX package's
 per-frame (P, N) lists are a TPU lane-layout choice with no counterpart
-here. On the H100 both kernels are bound by device-memory bandwidth;
-see the sources for their designs.
+here. On the H100 both kernels are bound by device-memory bandwidth; K3
+runs each (pixel, head) pair's two products on the tensor cores
+(mma.sync; fp32 at 3xTF32), fed by TMA (see the sources for their
+designs).
 
 Every call goes through one ``torch.autograd.Function`` (residuals q, k,
 v, as in JAX). A CUDA tensor launches the kernels or raises; a CPU
@@ -17,6 +19,7 @@ tensor takes the plain versions.
 from __future__ import annotations
 
 import math
+import struct
 
 import torch
 
@@ -28,6 +31,14 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# one K3 call's arguments, packed for its C entry point
+# (csrc/temporal_attention.cu: TACall) in three parts: the q, k, v and out
+# pointers and the stream; the layout (q's, k's and v's (frame, pixel,
+# head) strides, the device, dtype, F, N, H and d), packed once a layout;
+# the scale
+_POINTERS = struct.Struct("<5Q")
+_LAYOUT = struct.Struct("<9q6i")
+_SCALE = struct.Struct("<f4x")
 MAX_FRAMES = 32
 # shared memory one block may take on Hopper (227 KB of the SM's 256)
 MAX_BLOCK_SMEM = 232448
@@ -36,9 +47,10 @@ MAX_BLOCK_SMEM = 232448
 def pair_fits(frames: int, head_dim: int, itemsize: int) -> bool:
     """Whether K3 takes clips of `frames` frames at `head_dim`: one
     (pixel, head) pair's F x d q, k and v tiles (`itemsize` bytes each)
-    share one block's shared memory. csrc/temporal_attention.cu's launch
-    makes the same test and raises its ceiling past 48 KB where a pair
-    needs it (fp32 at d = 160 from 26 frames on)."""
+    share one block's shared memory. csrc/temporal_attention.cu takes
+    every such pair: its shared memory holds the stages (at least one
+    pair) and 32 bytes of barriers and zero row, which the pairs' sizes (a
+    multiple of 48 bytes) always leave free."""
     return 3 * frames * head_dim * itemsize <= MAX_BLOCK_SMEM
 
 
@@ -73,7 +85,33 @@ def temporal_attention_bwd_plain(q, k, v, do, scale: float):
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
+# layouts `_check` has accepted, by the dtypes, devices, shapes, strides
+# and pointer alignment of q, k and v: the packed layout part of K3's call
+_ACCEPTED = {}
+
+
 def _check(q, k, v):
+    """Raises on (F, N, H, d) views that K3 does not take; returns the
+    packed layout part of its call. A layout accepted once is found again
+    after one dict lookup."""
+    key = (q.dtype, k.dtype, v.dtype,
+           q.get_device(), k.get_device(), v.get_device(),
+           q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16)
+    entry = _ACCEPTED.get(key)
+    if entry is None:
+        _check_layout(q, k, v)
+        entry = _LAYOUT.pack(*q.stride()[:3], *k.stride()[:3],
+                             *v.stride()[:3], q.get_device(),
+                             _DTYPES[q.dtype], *q.shape)
+        if len(_ACCEPTED) >= 4096:
+            _ACCEPTED.clear()
+        _ACCEPTED[key] = entry
+    return entry
+
+
+def _check_layout(q, k, v):
+    """Raises on (F, N, H, d) views that K3 and K5 do not take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("temporal attention: q, k, v must all be on CUDA")
     if not (q.device == k.device == v.device):
@@ -112,14 +150,12 @@ def temporal_attention_fwd(q, k, v, *, scale=None):
         scale = 1.0 / math.sqrt(d)
     if not q.is_cuda:
         return temporal_attention_plain(q, k, v, scale)
-    _check(q, k, v)
-    out = torch.empty((f, n, h * d), dtype=q.dtype, device=q.device)
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.vst_temporal_attention_fwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), f, n, h, d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], float(scale), cuda_build.stream_of(q))
+    layout = _check(q, k, v)
+    out = q.new_empty((f, n, h * d))
+    err = cuda_build.library().vst_temporal_attention_fwd(
+        _POINTERS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), cuda_build.stream_of(q))
+        + layout + _SCALE.pack(scale))
     cuda_build.check_launch("temporal_attention", err)
     global LAUNCHES
     LAUNCHES += 1
@@ -135,7 +171,7 @@ def temporal_attention_bwd(q, k, v, do, *, scale=None):
     if not q.is_cuda:
         return temporal_attention_bwd_plain(q, k, v, do, scale)
     do = do.contiguous()
-    _check(q, k, v)
+    _check_layout(q, k, v)
     if (tuple(do.shape) != (f, n, h * d) or do.dtype != q.dtype
             or not do.is_cuda or do.data_ptr() % 16):
         raise ValueError(f"temporal attention backward: do "
