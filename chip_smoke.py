@@ -12,22 +12,26 @@
    only; the port never calls it): K1-K3 forward, K4-K5 backward, K1's
    d=192 instance, which stands for the JAX package's unpacked kernel
    (K6), and the one-pass LayerNorm (K7), which no model calls, at the
-   LayerNorm shapes of the serving path. K1 has four routes (`route` in
+   LayerNorm shapes of the serving path. K1 has three routes (`route` in
    ops/flash_attention.py): bf16 on wgmma + TMA (d <= 256 one kernel,
    d >= 320 (the VAE under --vae_dtype bfloat16) the wide kernel, O split
    across two consumer warpgroups), fp32 at d = 64 (the UNet under
-   --mixed_precision no) on mma.sync at 3xTF32, fp32 at d = 512 (the VAE)
-   on FP32 FMA register tiles, fp32 at d from 128 to 448 (on no path)
-   through shared memory; its phases hold out and lse, the VAE's at the
-   512^2 and the 1024^2 paths' token counts (4096 and 16384) in fp32 and
-   in bf16, and, like the backward and K7 phases, refuse two faulty
-   copies of the outputs; the 3xTF32 phases also print both bounds (3
-   TF32 products a product on the tensor cores, and the FMA rate). K2's bf16 kernel (wgmma + TMA,
-   persistent, clusters of two blocks sharing W by multicast) is held at
-   the FF shapes of every path the same way (bf16 normwise too) and fp32
-   at spatial level 2; its yardstick is three PyTorch calls (F.linear
-   over the fused weight, the gate, the product), and F.linear alone is
-   timed as a reading of cuBLAS's rate. K3 (mma.sync on the tensor
+   --mixed_precision no) on mma.sync at 3xTF32, every other fp32 head dim
+   (d = 512: the VAE; 128-448 on no path) on FP32 FMA register tiles, one
+   template on d; its phases hold out and lse, the VAE's at the 512^2 and
+   the 1024^2 paths' token counts (4096 and 16384) in fp32 and in bf16,
+   the FMA route at every head dim, and, like the backward and K7
+   phases, refuse two faulty copies of the outputs; the 3xTF32 phases
+   also print both bounds (3 TF32 products a product on the tensor cores,
+   and the FMA rate). K2 has two routes (`route` in ops/geglu.py): bf16
+   on wgmma + TMA (persistent, clusters of two blocks sharing W by
+   multicast), fp32 on TF32 wgmma at 3xTF32; both are held at the FF
+   shapes of the paths the same way (bf16 normwise too; fp32 against the
+   plain version on float64 copies of the inputs, its distance from the
+   fp32 plain version reported beside) with both bounds printed for
+   fp32; its yardstick is three PyTorch calls (F.linear over the fused
+   weight, the gate, the product), and F.linear alone is timed as a
+   reading of cuBLAS's rate. K3 (mma.sync on the tensor
    cores, fp32 at 3xTF32, fed by TMA) is held the same way (bf16 normwise
    too) at the serving path's three motion levels in bf16 and fp32, stage
    2's at 8 frames and 32-frame clips at level 2 in both, each phase with
@@ -43,7 +47,8 @@
    CPU (the plain versions); and the first full-width stage-2 step in
    bf16 against the same step in fp32 (2 frames at 1024^2), whose fp32
    steps are the training path of --mixed_precision no: every spatial
-   self-attention on K1's and K4's 3xTF32 route, counted by route.
+   self-attention on K1's and K4's 3xTF32 route and every feed-forward on
+   K2's, counted by route.
 4. Drives, at full SDXL + AnimateDiff-XL width and depth with seeded
    random weights, each with every kernel's launch counters set to 0
    just before and read just after:
@@ -64,15 +69,17 @@
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma route's d <= 256 kernel, every bf16 VAE
    attention on its wide kernel, every fp32 VAE attention on the FMA
-   one, none on the shared-memory one; and K4's: every backward of the
-   trainer on the wgmma route, each with one delta launch.
+   one; K4's: every backward of the trainer on the wgmma route, each with
+   one delta launch; and K2's: every bf16 feed-forward on its wgmma
+   route, every fp32 one on its 3xTF32 route.
 5. Prints one JSON line with every kernel's numbers (K1 as its five
-   kernels, K4 as its two routes, K4's delta as a kernel of its own, with
-   the wgmma kernels', the FMA kernel's, the 3xTF32 kernels', K4's and
-   K2's and K3's registers, spills and wgmma serialisation from nvcc's
-   report; the FMA, 3xTF32, K3, K4, K2 bf16 and K1 wgmma kernels must not
-   spill, and K1's
-   and K2's wgmma kernels must not have their products serialised; the
+   kernels, the FMA route's d = 448 instance standing for the JAX
+   package's unpacked kernel, K4 as its two routes, K4's delta as a
+   kernel of its own, K2 as its two routes, with the wgmma kernels', the
+   FMA kernels', the 3xTF32 kernels', K4's and K2's and K3's registers,
+   spills and wgmma serialisation from nvcc's report; the FMA, 3xTF32,
+   K3, K4, K2 and K1 wgmma kernels must not spill, and K1's and K2's
+   wgmma kernels must not have their products serialised; the
    stage-2 precision check's launches count as a path of their own,
    "stage2_fp32"), then the last line {"ok": true, "device":
    {...}}. Any failure exits non-zero before that. Each K1 and K2 bf16
@@ -205,7 +212,7 @@ def bound(flops, nbytes, dtype_name):
             "operations" if t_ops >= t_mem else "bytes")
 
 
-def tf32x3_bound(phase, flops, nbytes):
+def tf32x3_bound(phase, flops, nbytes, library="SDPA"):
     """A 3xTF32 kernel's phase: its bound becomes the larger of its bytes
     over the HBM rate and its three TF32 products a product over the
     tensor cores' TF32 rate; the FMA bound check_phase computed is kept
@@ -217,8 +224,8 @@ def tf32x3_bound(phase, flops, nbytes):
     phase["bound_by"] = "operations" if t_ops >= t_mem else "bytes"
     print(f"    bounds: 3xTF32 {phase['bound_ms']:.4f} ms ({phase['bound_by']}"
           f"), FMA {phase['fma_bound_ms']:.4f} ms; plain "
-          f"{phase['plain_ms']:.4f} ms, SDPA {phase['library_ms']:.4f} ms",
-          flush=True)
+          f"{phase['plain_ms']:.4f} ms, {library} "
+          f"{phase['library_ms']:.4f} ms", flush=True)
 
 
 def bwd_check(outs, refs, dtype_name):
@@ -259,23 +266,43 @@ def linear_gelu_mul(x, w, bias):
 
 def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
                 iters, bwd=False, tol=None, own_scale=None,
-                library_name=None):
+                library_name=None, exact=None):
     """Compare kernel vs plain (bwd: each output against its own scale,
     with the faulty-copy controls; tol: an (atol, rtol) of its own, also
     with the controls, each fault on all outputs and on each alone;
-    own_scale: the first output's normwise error is also held to this),
-    time all three; returns the phase
-    dict."""
+    own_scale: the first output's normwise error is also held to this;
+    exact: the plain version on float64 copies of the inputs, which the
+    kernel is then held to instead, the fp32 plain version's own distance
+    reported beside), time all three; returns the phase dict."""
     import torch
     out = kernel()
     ref = plain()
     torch.cuda.synchronize()
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
-    err = max((o.float() - r.float()).abs().max().item()
+    extra = {}
+    if exact is not None:
+        ref64 = exact()
+        refs64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+        extra["err_vs_fp32_plain"] = max(
+            (o.float() - r.float()).abs().max().item()
+            for o, r in zip(outs, refs))
+        extra["fp32_plain_vs_exact"] = max(
+            (r.double() - r64).abs().max().item()
+            for r, r64 in zip(refs, refs64))
+        print(f"    against the plain version in fp32: kernel "
+              f"{extra['err_vs_fp32_plain']:.3e} apart; the fp32 plain "
+              f"version {extra['fp32_plain_vs_exact']:.3e} from its "
+              f"float64 evaluation", flush=True)
+        refs = refs64
+        del ref, ref64, refs64
+        ref = None
+    # differences in float64 where the reference is (not rounded to fp32
+    # first), else in fp32
+    prec = torch.float32 if exact is None else torch.float64
+    err = max((o.to(prec) - r.to(prec)).abs().max().item()
               for o, r in zip(outs, refs))
     finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
-    extra = {}
     if bwd:
         ok, nrm, mx = bwd_check(outs, refs, dtype_name)
         controls = {c: bwd_check(f, refs, dtype_name)
@@ -289,21 +316,22 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
                        f"{c}: {'passed' if c_ok else 'refused'} "
                        f"(normwise {c_nrm:.3e})"
                        for c, (c_ok, c_nrm, _) in controls.items()))
-        extra = {"normwise_err": nrm, "largest_err_share": mx,
-                 "controls": {c: {"refused": not v[0], "normwise_err": v[1]}
-                              for c, v in controls.items()}}
+        extra.update(normwise_err=nrm, largest_err_share=mx,
+                     controls={c: {"refused": not v[0],
+                                   "normwise_err": v[1]}
+                               for c, v in controls.items()})
         del controls
     else:
         atol, rtol = tol or TOL[dtype_name]
 
         def excess_of(cand):
-            return max(((o.float() - r.float()).abs()
-                        - rtol * r.float().abs()).max().item()
+            return max(((o.to(prec) - r.to(prec)).abs()
+                        - rtol * r.to(prec).abs()).max().item()
                        for o, r in zip(cand, refs))
 
         def own_of(cand):  # the first output's normwise error
-            return ((cand[0].float() - refs[0].float()).norm().item()
-                    / refs[0].float().norm().item())
+            return ((cand[0].to(prec) - refs[0].to(prec)).norm().item()
+                    / refs[0].to(prec).norm().item())
 
         def refused(cand):
             return excess_of(cand) > atol or (own_scale is not None
@@ -312,7 +340,7 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
         ok = not refused(outs)
         reading = (f"limit {atol:g} + {rtol:g}*|plain|, excess "
                    f"{excess:.3e}")
-        extra = {"atol": atol, "rtol": rtol}
+        extra.update(atol=atol, rtol=rtol)
         if own_scale is not None:
             reading += (f"; first output normwise {own_of(outs):.3e}, "
                         f"limit {own_scale:g}")
@@ -396,15 +424,16 @@ def kernel_phases():
     # d = 128 and d = 256 (the wgmma route's other instances), the VAE
     # mid-block in fp32 (d=512, the FMA route) and in bf16 (the wide
     # wgmma kernel, --vae_dtype bfloat16) at 512^2 (S=4096, kv split in
-    # two) and at the 1024^2 paths' S=16384, the shared-memory route (fp32
-    # d from 128 to 448, on no path) at d = 448, and the 3xTF32 route (fp32
-    # d = 64: every UNet self-attention under --mixed_precision no) at the
-    # serving path's levels 2 and 1. The plain version runs in batch
-    # chunks of at most ~3 GB of logits (1 GiB at S=16384).
+    # two) and at the 1024^2 paths' S=16384, the 3xTF32 route (fp32 d =
+    # 64: every UNet self-attention under --mixed_precision no) at the
+    # serving path's levels 2 and 1, and the FMA route's other head dims
+    # (fp32 d from 128 to 448, on no path; d = 448 is one of the JAX
+    # package's unpacked kernel's). The plain version runs in batch chunks
+    # of at most ~3 GB of logits (1 GiB at S=16384).
     phases["flash_attention_fwd_tf32x3"] = []
     phases["flash_attention_fwd_fma"] = []
     phases["flash_attention_fwd_wide"] = []
-    phases["flash_attention_fwd_smem"] = []
+    phases["flash_attention_fwd_fma_d448"] = []
     for tag, (b, s, h, d), dt, iters in (
             ("unet_l2 (32,1024,20x64)", (32, 1024, 20, 64),
              torch.bfloat16, 20),
@@ -427,11 +456,16 @@ def kernel_phases():
              20),
             ("vae_mid (1,4096,1x512)", (1, 4096, 1, 512), torch.bfloat16,
              50),
-            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 3),
             ("unet_l2 (32,1024,20x64)", (32, 1024, 20, 64), torch.float32,
              5),
             ("unet_l1 (32,4096,10x64)", (32, 4096, 10, 64), torch.float32,
-             2)):
+             2),
+            ("d128 (2,4096,10x128)", (2, 4096, 10, 128), torch.float32, 3),
+            ("d192 (2,4096,2x192)", (2, 4096, 2, 192), torch.float32, 5),
+            ("d256 (2,4096,5x256)", (2, 4096, 5, 256), torch.float32, 3),
+            ("d320 (1,4096,1x320)", (1, 4096, 1, 320), torch.float32, 5),
+            ("d384 (1,4096,1x384)", (1, 4096, 1, 384), torch.float32, 5),
+            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 5)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -453,6 +487,8 @@ def kernel_phases():
         vs_bound_and_library(phase)
         kernel = ("_wide" if route == "wgmma" and d in fa.WIDE_HEAD_DIMS
                   else "" if route == "wgmma" else f"_{route}")
+        if route == "fma" and d == 448:
+            kernel = "_fma_d448"  # the kernels line's entry for `:50`
         phases["flash_attention_fwd" + kernel].append(phase)
         del qkv, q, k, v, qt, kt, vt
 
@@ -480,10 +516,19 @@ def kernel_phases():
     # K2 (under TOL; bf16 also normwise under FWD_OUT_BF16, each phase
     # refusing the two faulty copies): the FF shapes of the paths, spatial
     # and motion level 2 and level 1 at the serving path's 32 rows, motion
-    # level 0, spatial level 2 at the image path's 2 rows, and level 2 in
-    # fp32. The yardstick is three PyTorch calls: F.linear over the fused
-    # weight and bias, the exact-erf gate, the product; F.linear alone is
-    # also timed, a reading of cuBLAS's rate for the same products.
+    # level 0, spatial level 2 at the image path's 2 rows, and the first
+    # three in fp32 (the 3xTF32 route: every feed-forward under
+    # --mixed_precision no). The yardstick is three PyTorch calls:
+    # F.linear over the fused weight and bias, the exact-erf gate, the
+    # product; F.linear alone is also timed, a reading of cuBLAS's rate
+    # for the same products. fp32 is held to TOL against the plain version
+    # on float64 copies of the inputs (`exact`): the plain version in fp32
+    # (cuBLAS's fp32 GEMM) is itself ~3e-5 from it at these shapes (sums
+    # over 320-1280 channels of outputs up to ~11), while an exact-fp32
+    # kernel that summed in cuBLAS's order would agree with it more
+    # closely than either with the exact value; its distance from the
+    # fp32 plain version is reported beside.
+    phases["geglu_projection_tf32x3"] = []
     for tag, (m, c), dt, iters in (
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
              torch.bfloat16, 10),
@@ -493,6 +538,9 @@ def kernel_phases():
             ("image_l2 (2048,1280->5120)", (2048, 1280), torch.bfloat16,
              50),
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
+             torch.float32, 3),
+            ("l1 (131072,640->2560)", (131072, 640), torch.float32, 3),
+            ("motion_l0 (524288,320->1280)", (524288, 320),
              torch.float32, 3)):
         inner = 4 * c
         x = randn(m, c, dtype=dt)
@@ -500,23 +548,28 @@ def kernel_phases():
         bias = randn(2 * inner, dtype=dt, scale=0.1)
         gate = geglu._default_gate_for(dt)
         es = x.element_size()
+        route = geglu.route(dt)
+        flops = 4 * m * c * inner
+        nbytes = (m * c + 2 * inner * c + 2 * inner + m * inner) * es
         phase = check_phase(
-            f"K2 {tag} {str(dt)[6:]} gate {gate}",
+            f"K2 {tag} {str(dt)[6:]} gate {gate} ({route})",
             lambda: geglu.geglu_fwd(x, w, bias, gate),
             lambda: geglu.geglu_plain(x, w, bias, gate),
             lambda: linear_gelu_mul(x, w, bias),
-            flops=4 * m * c * inner,
-            nbytes=(m * c + 2 * inner * c + 2 * inner + m * inner) * es,
+            flops=flops, nbytes=nbytes,
             dtype_name=str(dt)[6:], iters=iters, tol=TOL[str(dt)[6:]],
             own_scale=FWD_OUT_BF16 if dt == torch.bfloat16 else None,
-            library_name="F.linear + F.gelu + mul (three calls)")
-        if dt == torch.bfloat16:
-            vs_bound_and_library(phase, "the three calls")
-            phase["linear_ms"] = time_ms(lambda: F.linear(x, w, bias),
-                                         iters)
-            print(f"    F.linear alone {phase['linear_ms']:.4f} ms",
-                  flush=True)
-        phases["geglu_projection"].append(phase)
+            library_name="F.linear + F.gelu + mul (three calls)",
+            exact=None if dt == torch.bfloat16 else lambda: geglu.geglu_plain(
+                x.double(), w.double(), bias.double(), gate))
+        phase["kernel_route"] = route
+        if route == "tf32x3":
+            tf32x3_bound(phase, flops, nbytes, "the three calls")
+        vs_bound_and_library(phase, "the three calls")
+        phase["linear_ms"] = time_ms(lambda: F.linear(x, w, bias), iters)
+        print(f"    F.linear alone {phase['linear_ms']:.4f} ms", flush=True)
+        phases["geglu_projection" + ("_tf32x3" if route == "tf32x3"
+                                     else "")].append(phase)
         del x, w, bias
 
     # K3 (tensor-core forward: mma.sync, fp32 at 3xTF32; under TOL, bf16
@@ -811,39 +864,46 @@ def reset_counters():
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
-    fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0, smem=0)
+    fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0)
     fa.WIDE_LAUNCHES = 0
     fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
+    geglu.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
 
 
 def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0, tf32x3=0,
-                 bwd_tf32x3=0):
+                 bwd_tf32x3=0, geglu_tf32x3=0):
     """K1's launches on a path split by route: every bf16 UNet attention
     (d = 64) took the wgmma route's d <= 256 kernel, every fp32 one the
     3xTF32 route, every bf16 VAE attention (d = 512) the wgmma route's
     wide kernel (`wide` of the route's launches), every fp32 VAE
-    attention (d = 512) the FMA one, none the shared-memory one; and K4's:
-    every bf16 backward the wgmma route, every fp32 one the 3xTF32 route.
-    Returns the path's counts with K1 split into its five kernels and K4
-    into its two routes."""
+    attention (d = 512) the FMA one; K4's: every bf16 backward the wgmma
+    route, every fp32 one the 3xTF32 route; and K2's: every fp32
+    feed-forward (`geglu_tf32x3`) the 3xTF32 route, every other one the
+    bf16 wgmma route. Returns the path's counts with K1 split into its
+    four kernels, K4 into its two routes and K2 into its two."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import geglu
+    k2 = counts["geglu_projection"]
     got = {"K1": dict(fa.ROUTE_LAUNCHES), "K1 wide": fa.WIDE_LAUNCHES,
-           "K4": dict(fa.BWD_ROUTE_LAUNCHES)}
-    want = {"K1": {"wgmma": wgmma + wide, "tf32x3": tf32x3, "fma": fma,
-                   "smem": 0},
+           "K4": dict(fa.BWD_ROUTE_LAUNCHES),
+           "K2": dict(geglu.ROUTE_LAUNCHES)}
+    want = {"K1": {"wgmma": wgmma + wide, "tf32x3": tf32x3, "fma": fma},
             "K1 wide": wide,
-            "K4": {"wgmma": bwd_wgmma, "tf32x3": bwd_tf32x3}}
-    print(f"K1 and K4 launches on the {path} path by route: {got} "
+            "K4": {"wgmma": bwd_wgmma, "tf32x3": bwd_tf32x3},
+            "K2": {"wgmma": k2 - geglu_tf32x3, "tf32x3": geglu_tf32x3}}
+    print(f"K1, K4 and K2 launches on the {path} path by route: {got} "
           f"(expected {want})", flush=True)
     if got != want:
-        fail(f"K1/K4 routes on the {path} path: {got}, expected {want}")
+        fail(f"K1/K4/K2 routes on the {path} path: {got}, expected {want}")
     return {**counts, "flash_attention_fwd": wgmma,
             "flash_attention_fwd_wide": wide,
             "flash_attention_fwd_tf32x3": tf32x3,
-            "flash_attention_fwd_fma": fma, "flash_attention_fwd_smem": 0,
+            "flash_attention_fwd_fma": fma,
             "flash_attention_bwd": bwd_wgmma,
             "flash_attention_bwd_tf32x3": bwd_tf32x3,
-            "flash_attention_bwd_by_route": got["K4"]}
+            "flash_attention_bwd_by_route": got["K4"],
+            "geglu_projection": k2 - geglu_tf32x3,
+            "geglu_projection_tf32x3": geglu_tf32x3}
 
 
 def write_lora_artifacts(out_dir, unet_cfg, *, rank, seed, device,
@@ -1152,9 +1212,9 @@ def stage2_precision(artifacts):
     Fails on a gross fault (PRECISION_LIMITS); the readings, with the
     fp32 step's sensitivity to a 2^-20 nudge of its noise, are reported.
     This is also the path of --mixed_precision no in training: each fp32
-    step's 70 spatial self-attentions take K1's and K4's 3xTF32 route,
-    which the launch counts by route show. Returns (readings, launch
-    counts)."""
+    step's 70 spatial self-attentions take K1's and K4's 3xTF32 route and
+    its 85 feed-forwards K2's, which the launch counts by route show.
+    Returns (readings, launch counts)."""
     from video_style_transfer_tpu_torch.cli.common import model_configs
     from video_style_transfer_tpu_torch.cli.profile_step import (
         precision_readings)
@@ -1187,12 +1247,18 @@ def stage2_precision(artifacts):
              "gross-fault limits")
     # the clip's fp32 encode (one VAE attention a frame, the FMA route),
     # one bf16 step and two fp32 steps (the plain one and the nudged one)
-    flash = expected_train_launches(
+    step = expected_train_launches(
         model_configs(smoke=False, motion=True)[0], frames=PRECISION_FRAMES,
-        resolution=RESOLUTION, steps=1)["flash_attention_bwd"]
-    counts = check_routes("stage-2 precision", counters(), flash,
+        resolution=RESOLUTION, steps=1)
+    flash = step["flash_attention_bwd"]
+    counts = counters()
+    if counts["geglu_projection"] != 3 * step["geglu_projection"]:
+        fail(f"stage-2 precision: {counts['geglu_projection']} K2 launches, "
+             f"expected {3 * step['geglu_projection']}")
+    counts = check_routes("stage-2 precision", counts, flash,
                           PRECISION_FRAMES, bwd_wgmma=flash,
-                          tf32x3=2 * flash, bwd_tf32x3=2 * flash)
+                          tf32x3=2 * flash, bwd_tf32x3=2 * flash,
+                          geglu_tf32x3=2 * step["geglu_projection"])
     return {"frames": PRECISION_FRAMES, **r}, counts
 
 
@@ -1485,26 +1551,35 @@ def bwd_ptxas(log):
 
 
 def geglu_ptxas(log):
-    """Registers, spills and wgmma serialisation of K2's bf16 kernel, by
-    gate (384 threads, at most 168 registers each at launch, then
+    """Registers, spills and wgmma serialisation of K2's kernels, by dtype
+    and gate (384 threads, at most 168 registers each at launch, then
     setmaxnreg moves the producer warpgroup to 40 and the two consumer
-    warpgroups to 232). Fails if one spills or has its products
-    serialised: each consumer keeps a K slice's products in flight while
-    it waits for the next stage, which serialisation would undo."""
-    rep = ptxas_report(log, r"(geglu_bf16_kernelILi\d+E)")
+    warpgroups to 232), and of the fp32 route's W split. Fails if one
+    spills or has its products serialised: each bf16 consumer keeps a K
+    slice's products in flight while it waits for the next stage, each
+    fp32 one a restart's six, which serialisation would undo."""
+    rep = ptxas_report(log, r"(geglu_(?:bf16|f32)_kernelILi\d+E|"
+                            r"geglu_split_w_kernel)")
     gates = {"0": "erf5", "1": "cdf3", "2": "poly14"}
-    out = {gates[name.rsplit("ILi", 1)[1][:-1]]: r
-           for name, r in rep.items()}
-    if sorted(out) != sorted(gates.values()):
-        fail(f"the build log names no K2 bf16 kernel for every gate: "
+    out = {}
+    for name, r in rep.items():
+        if name == "geglu_split_w_kernel":
+            out["fp32 W split"] = r
+        else:
+            dt = "bf16" if "bf16" in name else "fp32"
+            out[f"{dt} {gates[name.rsplit('ILi', 1)[1][:-1]]}"] = r
+    want = sorted([f"{dt} {g}" for dt in ("bf16", "fp32")
+                   for g in gates.values()] + ["fp32 W split"])
+    if sorted(out) != want:
+        fail(f"the build log names no K2 kernel for every dtype and gate: "
              f"{sorted(out)}")
-    for gate, r in out.items():
+    for key, r in out.items():
         if r.get("spill_stores", 1) or r.get("spill_loads", 1):
-            fail(f"K2's bf16 kernel (gate {gate}) spills registers: {r}")
+            fail(f"K2's {key} kernel spills registers: {r}")
         if r["wgmma_serialized"]:
-            fail(f"ptxas serialised the wgmma products of K2's bf16 kernel "
-                 f"(gate {gate}): {r['wgmma_serialized']}")
-    print(f"K2 bf16 kernels (ptxas): {json.dumps(out)}", flush=True)
+            fail(f"ptxas serialised the wgmma products of K2's {key} "
+                 f"kernel: {r['wgmma_serialized']}")
+    print(f"K2 kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1551,20 +1626,29 @@ def ta_ptxas(log):
 
 
 def fma_ptxas(log):
-    """Registers and spills of the FMA route's kernel (256 threads, up to
-    255 registers each, one block an SM) and of the kv-split combine it
-    shares with the wide wgmma kernel (fp32 and bf16 out). Fails if the
-    FMA kernel spills: its O tile lives in registers by design."""
-    out = ptxas_report(
-        log, r"(flash_fwd_f32_kernel|"
+    """Registers and spills of the FMA route's kernel at each head dim
+    (256 threads, up to 255 registers each, one block an SM) and of the
+    kv-split combine it shares with the wide wgmma kernel (fp32 and bf16
+    out). Fails if an FMA instance spills: its O tile lives in registers
+    by design."""
+    rep = ptxas_report(
+        log, r"(flash_fwd_f32_kernelILi\d+E|"
              r"flash_combine_kernelI(?:f|13__nv_bfloat16)E)")
-    want = ["flash_combine_kernelI13__nv_bfloat16E", "flash_combine_kernelIfE",
-            "flash_fwd_f32_kernel"]
+    out = {}
+    for name, r in rep.items():
+        out[f"d{name.rsplit('ILi', 1)[1][:-1]}" if "f32_kernel" in name
+            else name] = r
+    want = sorted(["flash_combine_kernelI13__nv_bfloat16E",
+                   "flash_combine_kernelIfE",
+                   *(f"d{d}" for d in (128, 192, 256, 320, 384, 448, 512))])
     if sorted(out) != want:
-        fail(f"the build log names no FMA-route kernels: {sorted(out)}")
-    main = out["flash_fwd_f32_kernel"]
-    if main.get("spill_stores", 1) or main.get("spill_loads", 1):
-        fail(f"the FMA route's kernel spills registers: {main}")
+        fail(f"the build log names no FMA-route kernel for every head dim: "
+             f"{sorted(out)}")
+    for key, r in out.items():
+        if key.startswith("d") and (r.get("spill_stores", 1)
+                                    or r.get("spill_loads", 1)):
+            fail(f"the FMA route's kernel at {key} spills registers: {r}")
+    print(f"FMA-route kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -1644,9 +1728,9 @@ def main():
     sources = {
         # K1's bf16 route at d <= 256 (every UNet self-attention) and at d
         # >= 320 (the wide kernel: the VAE under --vae_dtype bfloat16),
-        # its fp32 d = 512 route (the VAE's mid-block attention) and its
-        # shared-memory route (fp32 d <= 448, on no path; its phase at d =
-        # 448 reaches the JAX package's unpacked kernel)
+        # its FMA route at fp32 d = 512 (the VAE's mid-block attention)
+        # and at d from 128 to 448 (on no path; its phase at d = 448
+        # reaches the JAX package's unpacked kernel)
         "flash_attention_fwd": ("flash_attention_sm90.cu",
                                 "flash_attention.py:253"),
         "flash_attention_fwd_wide": ("flash_attention_wide.cu",
@@ -1659,9 +1743,13 @@ def main():
                                        "flash_attention.py:253"),
         "flash_attention_bwd_tf32x3": ("flash_attention_tf32.cu",
                                        "flash_attention.py:596"),
-        "flash_attention_fwd_smem": ("flash_attention.cu",
-                                     "flash_attention.py:50"),
+        "flash_attention_fwd_fma_d448": ("flash_attention_f32.cu",
+                                         "flash_attention.py:50"),
+        # K2's bf16 route (every feed-forward of the bf16 paths) and its
+        # fp32 route (every feed-forward under --mixed_precision no; the
+        # stage-2 precision check's fp32 steps)
         "geglu_projection": ("geglu.cu", "geglu.py:100"),
+        "geglu_projection_tf32x3": ("geglu.cu", "geglu.py:100"),
         "temporal_attention": ("temporal_attention.cu",
                                "temporal_attention.py:37"),
         "flash_attention_bwd": ("flash_attention_bwd.cu",

@@ -1,6 +1,7 @@
-"""K1's four routes and K4's two: which kernel each (dtype, head_dim)
+"""K1's three routes and K4's two: which kernel each (dtype, head_dim)
 takes on the card, how the FMA route and the wide wgmma kernel split
-their kv walk and how the wide kernel splits O's columns, and K1's plain
+their kv walk, how the wide kernel splits O's columns and how the FMA
+template tiles each head dim, and K1's plain
 version (what a CPU tensor runs, and what the card's kernels are held
 against) against the JAX package's Pallas routes at ragged lengths,
 `out` and `lse` both.
@@ -38,8 +39,8 @@ def no_library(monkeypatch):
     *((torch.bfloat16, d, "wgmma") for d in (64, 128, 192, 256)),
     *((torch.bfloat16, d, "wgmma") for d in (320, 384, 448, 512)),
     (torch.float32, 64, "tf32x3"),
-    *((torch.float32, d, "smem") for d in tfa.HEAD_DIMS if d not in (64,
-                                                                   512)),
+    *((torch.float32, d, "fma") for d in tfa.HEAD_DIMS if d not in (64,
+                                                                  512)),
     (torch.float32, 512, "fma"),
 ])
 def test_route_names_the_kernel(dtype, d, want):
@@ -138,6 +139,35 @@ def test_wide_o_split_by_head_dim(d, want):
 def test_wide_o_split_refuses_other_head_dims(d):
     with pytest.raises(ValueError):
         tfa.wide_o_split(d)
+
+
+@pytest.mark.parametrize("d,want", [
+    (128, (32, 128, 4, 4)), (192, (16, 192, 2, 6)), (256, (16, 256, 4, 8)),
+    (320, (8, 160, 2, 10)), (384, (8, 192, 4, 12)), (448, (8, 224, 2, 14)),
+    (512, (8, 256, 4, 16))])
+def test_fma_tiles_by_head_dim(d, want):
+    # the FMA template's per-d choices (csrc/flash_attention_f32.cu's
+    # FmaCfg): V chunks of as many rows (a power of two) as fit a K
+    # chunk's 256 x 16 floats, V boxes of at most 256 columns holding
+    # whole column quarters, float4 loads of O's columns where each
+    # quarter splits into 8 lanes' float4s, else float2
+    got = tfa.fma_tiles(d)
+    assert (got["v_rows"], got["v_box"], got["vector"], got["o_cols"]) \
+        == want
+    stage = tfa.FMA_BLOCK_K * 16
+    assert got["v_rows"] * d <= stage < 2 * got["v_rows"] * d or \
+        got["v_rows"] == 32
+    assert tfa.FMA_BLOCK_K % got["v_rows"] == 0
+    assert got["v_box"] <= 256 and got["v_box"] % (d // 4) == 0
+    # a thread's O columns: 8 lanes of a quarter share d / 4 columns in
+    # whole vectors
+    assert 8 * got["o_cols"] == d // 4 and got["o_cols"] % got["vector"] == 0
+
+
+@pytest.mark.parametrize("d", [64, 96, 576])
+def test_fma_tiles_refuse_other_head_dims(d):
+    with pytest.raises(ValueError):
+        tfa.fma_tiles(d)
 
 
 @pytest.mark.parametrize("shape,want", [

@@ -3,7 +3,8 @@
 Builds the full-width SDXL + AnimateDiff-XL UNet with seeded random
 weights (as ``cli.infer_video`` and ``cli.train_animatediff`` do without a
 checkpoint) and warms each phase up once. Serving has one phase, a CFG
-denoise call on a video's frames, or with ``--image`` on one image
+denoise call on a video's frames (bf16, or fp32 with ``--mixed_precision
+no`` as ``cli.infer_video`` builds it), or with ``--image`` on one image
 (plain SDXL, no motion modules); training (``--train``) has two, the
 fp32 VAE encode of one clip and the train step (forward, backward,
 optimizer update); ``--decode`` has one, the VAE decode of one frame
@@ -27,19 +28,26 @@ run this file by its path).
 alone at the shapes the paths give it (the UNet's bf16 self-attentions,
 the other head dims of the bf16 route, the VAE's mid-block attention at
 512^2 and 1024^2 in fp32 and in bf16, the UNet's fp32 self-attentions of
---mixed_precision no), one JSON line a shape: device ms a call (CUDA events
+--mixed_precision no, the FMA route's other head dims, 128-448), one
+JSON line a shape: device ms a call (CUDA events
 around calls queued behind a device sleep) and the wrapper's host µs a
 call (no synchronise inside), then the host µs a call of each part of
 the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
 (``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
 kernels) at the train step's bf16 shapes, a ragged length and fp32 at
-both levels. Each fp32 d = 64 row also holds the device ms of
+both levels. Each fp32 row also holds the device ms of
 ``scaled_dot_product_attention`` (K1: its forward, K4: its backward) and,
 the first time in a process, the names of its kernels;
-``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' bf16
-shapes and fp32, each bf16 row with the device ms of the three PyTorch
+``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' shapes
+in bf16 and fp32, each row with the device ms of the three PyTorch
 calls K2 fuses (``F.linear`` over the fused weight, ``F.gelu``, the
 product) and of ``F.linear`` alone, readings of cuBLAS's rate;
+``--k2_restarts`` builds copies of ``csrc/geglu.cu`` whose fp32 kernel
+restarts its tensor-core sums every 8, 16 or 32 K values and reads each
+copy's time and its largest distance from the plain version in fp32 and
+in float64 at the fp32 path shapes; ``--k7`` times K7's wrapper
+(``ops.layer_norm.layer_norm_fwd``) at the serving step's LayerNorm
+shapes, each row with ``F.layer_norm``'s device ms;
 ``--k3`` for K3's wrapper (``ops.temporal_attention.temporal_attention_fwd``)
 at every shape the paths give it (the serving path's motion levels at 16
 frames in bf16 and fp32, stage 2's at 8, level 2 at 32 frames in both),
@@ -57,10 +65,10 @@ with ``--unziplora_name_or_path DIR`` on a stage-1 artifact set; one JSON
 line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
-        [--train | --image | --decode | --k1 | --k2 | --k3 | --k3_cutouts |
-         --k4 | --precision]
-        [--vae_dtype float32|bfloat16] [--num_frames N] [--resolution 1024]
-        [--steps N]
+        [--train | --image | --decode | --k1 | --k2 | --k2_restarts | --k3 |
+         --k3_cutouts | --k4 | --k7 | --precision]
+        [--mixed_precision bf16|no] [--vae_dtype float32|bfloat16]
+        [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
 """
 from __future__ import annotations
@@ -81,8 +89,8 @@ CATEGORIES = (
     ("K1 flash_attention_fwd (fma)", ("flash_fwd_f32_kernel",)),
     ("K1 flash_attention_fwd (kv-split combine)", ("flash_combine_kernel",)),
     ("K1 flash_attention_fwd (tf32x3)", ("flash_fwd_tf32_kernel",)),
-    ("K1 flash_attention_fwd (smem)", ("flash_fwd_kernel",)),
-    ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel")),
+    ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel",
+                             "geglu_split_w_kernel")),
     ("K3 temporal_attention", ("ta_fwd_mma_kernel",)),
     ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq",
                                 "flash_bwd_delta")),
@@ -108,9 +116,11 @@ def _serving_phases(args, dev):
     from video_style_transfer_tpu_torch.pipelines.sampling import (
         make_cfg_denoiser)
 
+    # the UNet's dtype as cli.infer_video picks it
+    dtype = torch.float32 if args.mixed_precision == "no" else torch.bfloat16
     with torch.inference_mode():
         bundle = common.load_models(None, motion=not args.image,
-                                    dtype=torch.bfloat16, device=dev)
+                                    dtype=dtype, device=dev)
         res, f = args.resolution, args.num_frames
         uncond = common.negative_conditioning(
             bundle, common.DEFAULT_NEGATIVE_PROMPT, height=res, width=res)
@@ -118,17 +128,18 @@ def _serving_phases(args, dev):
                                         width=res)
         eps_fn = make_cfg_denoiser(bundle.unet, bundle.unet_cfg, uncond,
                                    cond, cfg_scale=7.5, num_frames=f,
-                                   dtype=torch.bfloat16)
+                                   dtype=dtype)
         gen = torch.Generator(device=dev).manual_seed(0)
         x = torch.randn(f, res // 8, res // 8, 4, generator=gen, device=dev,
-                        dtype=torch.float32).to(torch.bfloat16)
+                        dtype=torch.float32).to(dtype)
         t = torch.tensor(958.0, device=dev)
 
     def denoise():
         with torch.inference_mode():
             eps_fn(x, t)
     denoise()
-    return [("cfg_denoise", denoise)], {"cfg_rows": 2 * args.num_frames}
+    return [("cfg_denoise", denoise)], {"cfg_rows": 2 * args.num_frames,
+                                        "unet_dtype": str(dtype)[6:]}
 
 
 def _decode_phases(args, dev):
@@ -278,7 +289,13 @@ K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("VAE 1024^2", (1, 16384, 1, 512), torch.bfloat16),
              ("serving L2", (32, 1024, 20, 64), torch.float32),
              ("serving L1", (32, 4096, 10, 64), torch.float32),
-             ("train L1", (8, 4096, 10, 64), torch.float32))
+             ("train L1", (8, 4096, 10, 64), torch.float32),
+             ("d128", (2, 4096, 10, 128), torch.float32),
+             ("d192", (2, 4096, 2, 192), torch.float32),
+             ("d256", (2, 4096, 5, 256), torch.float32),
+             ("d320", (1, 4096, 1, 320), torch.float32),
+             ("d384", (1, 4096, 1, 384), torch.float32),
+             ("d448", (1, 4096, 1, 448), torch.float32))
 
 
 # (tag, (B, S, H, D), dtype): K4's shapes in chip_smoke.py's K4 phases
@@ -306,12 +323,24 @@ K3_SHAPES = (("serving L0", (16, 32768, 8, 40), torch.bfloat16),
 
 # (tag, (M, C), dtype): K2's shapes in chip_smoke.py's K2 phases (inner =
 # 4 C): spatial and motion level 2 and level 1 at the serving path's 32
-# rows, motion level 0, spatial level 2 at the image path's 2 rows
+# rows, motion level 0, spatial level 2 at the image path's 2 rows; the
+# first three in fp32 too (--mixed_precision no)
 K2_SHAPES = (("spatial L2", (32768, 1280), torch.bfloat16),
              ("L1", (131072, 640), torch.bfloat16),
              ("motion L0", (524288, 320), torch.bfloat16),
              ("image L2", (2048, 1280), torch.bfloat16),
-             ("spatial L2", (32768, 1280), torch.float32))
+             ("spatial L2", (32768, 1280), torch.float32),
+             ("L1", (131072, 640), torch.float32),
+             ("motion L0", (524288, 320), torch.float32))
+
+# (tag, (M, C), dtype): K7's shapes in chip_smoke.py's K7 phases: the
+# serving step's LayerNorms at UNet levels 2 and 1 and motion level 0,
+# the CLIP bigG encoder's (two prompts of 77 tokens), level 2 in fp32
+K7_SHAPES = (("UNet L2", (32768, 1280), torch.bfloat16),
+             ("UNet L1", (131072, 640), torch.bfloat16),
+             ("motion L0", (524288, 320), torch.bfloat16),
+             ("CLIP bigG", (154, 1280), torch.bfloat16),
+             ("UNet L2", (32768, 1280), torch.float32))
 
 
 def _time_calls(fn, runs: int):
@@ -436,32 +465,42 @@ def k3_cut_source(src: str, cut: str) -> str:
                                   "(blockIdx.x % 132) * pairs + p;")
 
 
+def variant_entries(entry: str, sources: dict, work_name: str) -> dict:
+    """{key: the C entry point `entry` of a throwaway library built from
+    the CUDA source text sources[key]}, every nvcc started together, in
+    _build/`work_name` (headers from the package Python finds first)."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    work = cuda_build.BUILD_DIR / work_name
+    work.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for key, text in sources.items():
+        path = work / f"{str(key).replace('+', '_')}.cu"
+        path.write_text(text)
+        so = path.with_suffix(".so")
+        procs[key] = (so, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
+             str(cuda_build.CSRC), "-shared", "-o", str(so), str(path)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    for key, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {key} copy\n{out}")
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = cuda_build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+        entries[key] = fn
+    return entries
+
+
 def k3_cut_entries():
     """{cut: K3's C entry point in a throwaway library built from the cut
     csrc/temporal_attention.cu of the package Python finds first}."""
     from video_style_transfer_tpu_torch.ops import cuda_build
     src = (cuda_build.CSRC / "temporal_attention.cu").read_text()
-    work = cuda_build.BUILD_DIR / "k3_cutouts"
-    work.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for cut in K3_CUTS:
-        path = work / f"{cut.replace('+', '_')}.cu"
-        path.write_text(k3_cut_source(src, cut))
-        so = path.with_suffix(".so")
-        procs[cut] = (so, subprocess.Popen(
-            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-             str(cuda_build.CSRC), "-shared", "-o", str(so), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for cut, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for K3's {cut} copy\n{out}")
-        fn = ctypes.CDLL(str(so)).vst_temporal_attention_fwd
-        fn.argtypes = cuda_build.SIGNATURES["vst_temporal_attention_fwd"]
-        fn.restype = ctypes.c_int
-        entries[cut] = fn
-    return entries
+    return variant_entries(
+        "vst_temporal_attention_fwd",
+        {cut: k3_cut_source(src, cut) for cut in K3_CUTS}, "k3_cutouts")
 
 
 def k3_cutouts(dev, runs: int):
@@ -503,11 +542,9 @@ def k2_call(shape, dtype, gen):
 
 def geglu_yardsticks(shape, dtype, gen, runs: int):
     """Device ms a call of the three PyTorch calls K2 fuses and of
-    F.linear alone (cuBLAS), on seeded bf16 inputs of `shape` (none for
-    fp32)."""
+    F.linear alone (cuBLAS; fp32 with TF32 off), on seeded inputs of
+    `shape`."""
     import torch.nn.functional as F
-    if dtype != torch.bfloat16:
-        return {}
     x, w, b = _geglu_inputs(shape, dtype, gen)
 
     def three_calls():
@@ -519,12 +556,12 @@ def geglu_yardsticks(shape, dtype, gen, runs: int):
 
 def sdpa_yardstick(shape, dtype, gen, runs: int, backward: bool = False):
     """Device ms a call of scaled_dot_product_attention (its backward
-    alone with `backward`) on seeded fp32 (q, k, v) of `shape` at d = 64,
-    and the names of the kernels one call runs (torch.profiler; only a
-    process's first profile lists them): the library's fp32 arithmetic,
-    read from its kernels' names. None elsewhere."""
+    alone with `backward`) on seeded fp32 (q, k, v) of `shape`, and the
+    names of the kernels one call runs (torch.profiler; only a process's
+    first profile lists them): the library's fp32 arithmetic, read from
+    its kernels' names. None for bf16."""
     import torch.nn.functional as F
-    if dtype != torch.float32 or shape[3] != 64:
+    if dtype != torch.float32:
         return {}
     q, k, v = (t.transpose(1, 2) for t in _qkv(shape, dtype, gen))
     if backward:
@@ -545,6 +582,91 @@ def sdpa_yardstick(shape, dtype, gen, runs: int, backward: bool = False):
     names = sorted({e.name for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA})
     return {"sdpa_ms": ms, "sdpa_kernels": names}
+
+
+# K2's fp32 restart lengths (K values whose tensor-core products are
+# summed from zero before an f32 add) that --k2_restarts builds
+K2_RESTARTS = (8, 16, 32)
+
+
+def k2_restart_entries():
+    """{restart: K2's C entry point in a throwaway library built from
+    csrc/geglu.cu of the package Python finds first, with its fp32
+    kernel's RESTART set to restart / 8 K steps}."""
+    import re
+
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "geglu.cu").read_text()
+    pattern = r"static constexpr int RESTART = \d+;"
+    if len(re.findall(pattern, src)) != 1:
+        raise ValueError("csrc/geglu.cu states no fp32 restart length")
+    return variant_entries(
+        "vst_geglu_fwd",
+        {restart: re.sub(pattern, f"static constexpr int RESTART = "
+                                  f"{restart // 8};", src)
+         for restart in K2_RESTARTS}, "k2_restarts")
+
+
+def k2_restarts(dev, runs: int):
+    """Yields {restart, shape, device_ms, vs_fp32_plain, vs_float64}: K2's
+    wrapper at each fp32 shape of K2_SHAPES against each restart copy,
+    with its largest distance from the plain version in fp32 (cuBLAS's
+    fp32 GEMM, TF32 off) and on float64 copies of the same inputs."""
+    from video_style_transfer_tpu_torch.ops import cuda_build, geglu
+    gen = torch.Generator(device=dev).manual_seed(0)
+    entries = k2_restart_entries()
+    try:
+        for tag, shape, dtype in K2_SHAPES:
+            if dtype != torch.float32:
+                continue
+            x, w, b = _geglu_inputs(shape, dtype, gen)
+            ref = geglu.geglu_plain(x, w, b, "erf5")
+            ref64 = geglu.geglu_plain(x.double(), w.double(), b.double(),
+                                      "erf5")
+            yield {"restart": None, "shape": f"{tag} {shape} float32",
+                   "fp32_plain_vs_float64":
+                       (ref.double() - ref64).abs().max().item()}
+            for restart, fn in entries.items():
+                cuda_build._lib = types.SimpleNamespace(vst_geglu_fwd=fn)
+                out = geglu.geglu_fwd(x, w, b, "erf5")
+                row = {"restart": restart, "shape": f"{tag} {shape} float32",
+                       "vs_fp32_plain": (out - ref).abs().max().item(),
+                       "vs_float64":
+                           (out.double() - ref64).abs().max().item()}
+                del out
+                row["device_ms"] = _time_calls(
+                    lambda: geglu.geglu_fwd(x, w, b, "erf5"), runs)[0]
+                yield row
+            del x, w, b, ref, ref64
+            torch.cuda.empty_cache()
+    finally:
+        cuda_build._lib = None
+
+
+def k7_call(shape, dtype, gen):
+    """A call of K7's wrapper on seeded (x, w, b) of `shape` (the scales
+    of chip_smoke.py's K7 phases)."""
+    from video_style_transfer_tpu_torch.ops import layer_norm as ln
+    x, w, b = _ln_inputs(shape, dtype, gen)
+    return lambda: ln.layer_norm_fwd(x, w, b)
+
+
+def _ln_inputs(shape, dtype, gen):
+    m, c = shape
+
+    def randn(*size, scale=1.0, shift=0.0):
+        return (torch.randn(*size, generator=gen, device=gen.device) *
+                scale + shift).to(dtype)
+    return (randn(m, c, scale=1.5, shift=0.3),
+            randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1))
+
+
+def layer_norm_yardstick(shape, dtype, gen, runs: int):
+    """Device ms a call of F.layer_norm on seeded inputs of `shape`."""
+    import torch.nn.functional as F
+    x, w, b = _ln_inputs(shape, dtype, gen)
+    return {"layer_norm_ms": _time_calls(
+        lambda: F.layer_norm(x, (shape[1],), w, b, 1e-5), runs)[0]}
 
 
 def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
@@ -683,6 +805,9 @@ def main(argv=None):
                    help="time K1's wrapper alone at the paths' shapes")
     p.add_argument("--k2", action="store_true",
                    help="time K2's wrapper alone at the paths' shapes")
+    p.add_argument("--k2_restarts", action="store_true",
+                   help="time K2's fp32 kernel at each restart length, with "
+                        "its distance from the plain version")
     p.add_argument("--k3", action="store_true",
                    help="time K3's wrapper alone at the paths' shapes")
     p.add_argument("--k3_cutouts", action="store_true",
@@ -691,6 +816,13 @@ def main(argv=None):
     p.add_argument("--k4", action="store_true",
                    help="time K4's wrapper alone at the train step's "
                         "shapes")
+    p.add_argument("--k7", action="store_true",
+                   help="time K7's wrapper alone at the serving step's "
+                        "LayerNorm shapes")
+    p.add_argument("--mixed_precision", default="bf16",
+                   choices=["bf16", "no"],
+                   help="the serving phase's UNet dtype (no: fp32, as "
+                        "cli.infer_video --mixed_precision no)")
     p.add_argument("--precision", action="store_true",
                    help="hold the first stage-2 step in bf16 against fp32 "
                         "(default 2 frames)")
@@ -727,16 +859,24 @@ def main(argv=None):
                           "unziplora": args.unziplora_name_or_path,
                           **precision_readings(argv)}), flush=True)
         return
+    if args.k2_restarts:
+        for row in k2_restarts(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K2 geglu_projection fp32", **row}),
+                  flush=True)
+        return
     if args.k3_cutouts:
         for row in k3_cutouts(dev, max(args.steps, 5)):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": "K3 temporal_attention", **row}),
                   flush=True)
         return
-    if args.k1 or args.k2 or args.k3 or args.k4:
+    if args.k1 or args.k2 or args.k3 or args.k4 or args.k7:
         kernel, shapes, make_call, yardsticks = (
-            ("K4 flash_attention_bwd", K4_SHAPES, k4_call,
-             functools.partial(sdpa_yardstick, backward=True)) if args.k4
+            ("K7 layer_norm", K7_SHAPES, k7_call, layer_norm_yardstick)
+            if args.k7
+            else ("K4 flash_attention_bwd", K4_SHAPES, k4_call,
+                  functools.partial(sdpa_yardstick, backward=True)) if args.k4
             else ("K3 temporal_attention", K3_SHAPES, k3_call,
                   k3_yardsticks) if args.k3
             else ("K2 geglu_projection", K2_SHAPES, k2_call,

@@ -61,7 +61,7 @@ struct FwdCall {
   float scale;
 };
 
-// The launch arguments of a route that splits its kv walk (fp32 d = 512,
+// The launch arguments of a route that splits its kv walk (fp32 d >= 128,
 // bf16 d >= 320) into `kv_splits` parts of `tiles_per_split` kv tiles;
 // with kv_splits > 1 each split writes its normalised output and lse to
 // `part` ((splits, B, H, Sq, D) f32, then (splits, B, H, Sq)).
@@ -99,10 +99,11 @@ int flash_fwd_sm90(int head_dim, const FlashArgs& a, cudaStream_t stream);
 int flash_fwd_sm90_wide(int head_dim, const FlashArgs& a, int kv_splits,
                         float* part, cudaStream_t stream);
 
-// fp32 at head_dim 512: the FMA route (flash_attention_f32.cu); `part` as
-// flash_fwd_sm90_wide's. Returns as flash_fwd_sm90 does.
-int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
-                  cudaStream_t stream);
+// fp32 at head_dim 128, 192, 256, 320, 384, 448 or 512: the FMA route
+// (flash_attention_f32.cu); `part` as flash_fwd_sm90_wide's. Returns as
+// flash_fwd_sm90 does.
+int flash_fwd_f32(int head_dim, const FlashArgs& a, int kv_splits,
+                  float* part, cudaStream_t stream);
 
 // fp32 at head_dim 64: the 3xTF32 tensor-core route
 // (flash_attention_tf32.cu). Returns as flash_fwd_sm90 does.

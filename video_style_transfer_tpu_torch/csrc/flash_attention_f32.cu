@@ -1,13 +1,15 @@
-// K1 (fp32, head_dim 512): flash-attention forward on Hopper's FP32 FMA
-// pipes, for the VAE's mid-block attention (one head, d = 512, 16384
-// tokens at 1024^2, 4096 at 512^2).
+// K1 (fp32, head_dim 128 to 512): flash-attention forward on Hopper's
+// FP32 FMA pipes: the VAE's mid-block attention (one head, d = 512, 16384
+// tokens at 1024^2, 4096 at 512^2) and every other fp32 head dim but 64
+// (128, 192, 256, 320, 384, 448: on no path of the port; JAX takes them).
 //
-// Replaces the JAX package's Pallas kernel ops/flash_attention.py
+// Replaces the JAX package's Pallas kernels ops/flash_attention.py
 // `_attn_kernel_packed` (launched by `_flash_fwd_bs_hd`, one head a block
-// at d = 512) for fp32 inputs. Other fp32 head dims stay on
-// flash_attention.cu's shared-memory kernel; bf16 runs on
-// flash_attention_sm90.cu (d <= 256) and flash_attention_wide.cu (d >=
-// 320).
+// at d = 512), `_attn_kernel_packed_single` and, at head dims the TPU
+// cannot pack (192, 320, 448), `_attn_kernel` (`_flash_fwd_bhsd`) for fp32
+// inputs. fp32 d = 64 runs on flash_attention_tf32.cu's 3xTF32 route;
+// bf16 on flash_attention_sm90.cu (d <= 256) and flash_attention_wide.cu
+// (d >= 320).
 //
 // Same function: per (batch, head), out = softmax(q k^T * scale) v with
 // f32 logits, running max and sum, exact fp32 throughout (no TF32), and
@@ -22,37 +24,44 @@
 // is not an FMA takes a dispatch slot from one, and shared memory serves
 // 128 bytes of lane data a clock per SM (a float4 load takes 4 clocks,
 // broadcast or not), so each lane must load at most one byte per FMA. The
-// design:
+// design, one template on D (`FmaCfg`; ops/flash_attention.py:fma_tiles
+// mirrors its choices):
 //
-// - Register micro-tiles at 4 FMAs per float a lane loads. A block of 8
-//   warps owns 64 query rows and walks the keys in tiles of BC = 256. A
-//   thread computes 8 rows x 8 keys of S = Q K^T (per d: 8 q and 8 k
-//   values, 64 FMAs) and 8 rows x 16 columns of O += P V (per kv row: 8 p
-//   and 16 v values, 128 FMAs), the same 8 rows in both. A warp is 4 row
-//   groups x 8 key (or column) groups and the 8 warps are 2 row halves x
-//   4 quarters of the keys (or columns), so every load is free of bank
-//   conflicts.
-// - O in registers (128 floats a thread) for the whole kv walk; the
+// - Register micro-tiles. A block of 8 warps owns 64 query rows and walks
+//   the keys in tiles of BC = 256. A thread computes 8 rows x 8 keys of S
+//   = Q K^T (per d: 8 q and 8 k values, 64 FMAs: 4 FMAs a float, whatever
+//   D) and 8 rows x D/32 columns of O += P V (per kv row: 8 p and D/32 v
+//   values), the same 8 rows in both. A warp is 4 row groups x 8 key (or
+//   column) groups and the 8 warps are 2 row halves x 4 quarters of the
+//   keys (or columns); a thread's O columns in a quarter are float4s
+//   where a quarter holds 8 lanes' float4s evenly (D % 128 == 0), else
+//   float2s, so every load is free of bank conflicts. P V reaches 4 FMAs a
+//   float from D = 256 up; below that its loads, not its FMAs, bound it
+//   (8 p values for 4 or 6 columns), which no layout of 64 rows over 256
+//   threads avoids.
+// - O in registers (8 x D/32 floats a thread) for the whole kv walk; the
 //   online-softmax correction is applied there. The row max and sum of a
 //   tile are reduced over the 8 lanes of a row group by shuffles and over
 //   the 4 quarters through shared memory. P (256 keys x 64 rows) goes to
 //   shared memory, 16-byte units swizzled so that stores and loads hit
 //   distinct banks.
-// - Q is loaded once, transposed (Qt[d][row], 128 KB), so that one float4
-//   holds 4 rows at one d. TMA streams K in chunks of 256 keys x 16 d (its
-//   64-byte swizzle lets 8 consecutive keys' float2 reads hit distinct
-//   banks) and V in chunks of 8 rows x 512, through a ring of two 16 KB
-//   stages on mbarriers: every chunk loads while the one before it is
-//   computed, so K's loads, V's loads and the softmax all overlap a
-//   product, and no thread spends a dispatch slot on a copy (TMA cannot
-//   transpose fp32, hence K's natural layout). One block-wide barrier per
-//   chunk frees its stage. Shared memory: Qt 128 KB + P 64 KB + stages 32
-//   KB + row statistics.
+// - Q is loaded once, transposed (Qt[d][row], D x 64 floats), so that one
+//   float4 holds 4 rows at one d. TMA streams K in chunks of 256 keys x 16
+//   d (its 64-byte swizzle lets 8 consecutive keys' float2 reads hit
+//   distinct banks) and V in chunks of VR rows x D (the most rows, a power
+//   of two, whose D columns fit a K chunk's 16 KB: 32 at d = 128, 16 at
+//   192 and 256, 8 from 320 up; one box of D columns up to 256, two of D/2
+//   above), through a ring of two 16 KB stages on mbarriers: every chunk
+//   loads while the one before it is computed, so K's loads, V's loads
+//   and the softmax all overlap a product, and no thread spends a dispatch
+//   slot on a copy (TMA cannot transpose fp32, hence K's natural layout).
+//   One block-wide barrier per chunk frees its stage. Shared memory: Qt (D
+//   x 256 bytes) + P 64 KB + stages 32 KB + row statistics; 227 KB at d =
+//   512.
 // - 256 threads at up to 255 registers each: one block (8 warps) per SM.
-//   At S = 16384 the grid is 256 blocks (two waves); where a grid would
-//   leave SMs idle (S = 4096: 64 blocks) the wrapper splits the kv walk
-//   (`kv_splits`) and flash_attention.cu's combine kernel merges the
-//   partial outputs by their lse.
+//   Where a grid would leave SMs idle (one head at S = 4096: 64 blocks)
+//   the wrapper splits the kv walk (`kv_splits`) and flash_attention.cu's
+//   combine kernel merges the partial outputs by their lse.
 
 #include "common.cuh"
 #include "flash_attention.cuh"
@@ -63,31 +72,44 @@ namespace {
 
 using namespace sm90;
 
-constexpr int D = 512;
 constexpr int BR = 64;          // query rows a block
 constexpr int BC = 256;         // keys a kv tile
 constexpr int THREADS = 256;    // 8 warps
 constexpr int DK = 16;          // d columns of a K chunk
-constexpr int VR = 8;           // kv rows of a V chunk
 constexpr int NST = 2;          // stages in the ring
-constexpr int K_CHUNKS = D / DK;    // 32
-constexpr int V_CHUNKS = BC / VR;   // 32
-constexpr int CHUNKS = K_CHUNKS + V_CHUNKS;
-constexpr int STAGE = BC * DK;  // floats: a K chunk, or a V chunk
-static_assert(STAGE == VR * D, "K and V chunks share the stages");
+constexpr int STAGE = BC * DK;  // floats: a K chunk; a V chunk fits in it
 static_assert(DK == 16, "K boxes of 16 d (64-byte rows)");
-constexpr int V_BOX = 256;      // columns of a V box
 
-constexpr size_t OFF_Q = 0;
-constexpr size_t OFF_P = OFF_Q + sizeof(float) * D * BR;
-constexpr size_t OFF_ST = OFF_P + sizeof(float) * BC * BR;
-constexpr size_t OFF_STAT = OFF_ST + sizeof(float) * STAGE * NST;
-// row max and sum, then each quarter's partial max and sum of a tile
-constexpr size_t OFF_BAR = OFF_STAT + sizeof(float) * (2 + 2 * 4) * BR;
-constexpr size_t SMEM = OFF_BAR + sizeof(uint64_t) * NST;
-static_assert(OFF_ST % 1024 == 0 && STAGE * 4 % 1024 == 0,
-              "swizzled TMA boxes start on 1024-byte boundaries");
-static_assert(SMEM <= 232448, "fp32 flash tile exceeds shared memory");
+template <int D>
+struct FmaCfg {
+  // kv rows of a V chunk, columns of a V box, O columns a thread updates
+  // from one load (a float4 or a float2), O columns a thread
+  static constexpr int VR = D <= 128 ? 32 : D <= 256 ? 16 : 8;
+  static constexpr int V_BOX = D <= 256 ? D : D / 2;
+  static constexpr int VW = D % 128 == 0 ? 4 : 2;
+  static constexpr int OC = D / 32;
+  static constexpr int K_CHUNKS = D / DK;
+  static constexpr int V_CHUNKS = BC / VR;
+  static constexpr int CHUNKS = K_CHUNKS + V_CHUNKS;
+  static constexpr size_t OFF_Q = 0;
+  static constexpr size_t OFF_P = OFF_Q + sizeof(float) * D * BR;
+  static constexpr size_t OFF_ST = OFF_P + sizeof(float) * BC * BR;
+  static constexpr size_t OFF_STAT = OFF_ST + sizeof(float) * STAGE * NST;
+  // row max and sum, then each quarter's partial max and sum of a tile
+  static constexpr size_t OFF_BAR =
+      OFF_STAT + sizeof(float) * (2 + 2 * 4) * BR;
+  static constexpr size_t SMEM = OFF_BAR + sizeof(uint64_t) * NST;
+  static_assert(D % 64 == 0 && D >= 128 && D <= 512, "head dims 128-512");
+  static_assert(VR * D <= STAGE && BC % VR == 0, "a V chunk fits a stage");
+  static_assert(V_BOX <= 256 && V_BOX % (D / 4) == 0,
+                "V boxes of at most 256 columns, each quarter in one box");
+  static_assert(OC % VW == 0, "whole vectors of O columns");
+  static_assert(OFF_ST % 1024 == 0 && STAGE * 4 % 1024 == 0 &&
+                    VR * V_BOX * 4 % 128 == 0,
+                "TMA boxes start on 1024-byte (K) and 128-byte (V) "
+                "boundaries");
+  static_assert(SMEM <= 232448, "fp32 flash tile exceeds shared memory");
+};
 
 // Offset (floats) of K[key][2m..2m+1] in a K chunk: a box of 256 keys x
 // 16 d as TMA's 64-byte swizzle lays it, a row's 16-byte units permuted
@@ -97,9 +119,12 @@ __device__ __forceinline__ int k_off(int key, int m) {
   return key * DK + (((m >> 1) ^ ((key >> 1) & 3)) << 2) + ((m & 1) << 1);
 }
 
-// Offset (floats) of V[row][col] in a V chunk: boxes of VR rows x 256.
+// Offset (floats) of V[row][col] in a V chunk: boxes of VR rows x V_BOX.
+template <int D>
 __device__ __forceinline__ int v_off(int row, int col) {
-  return (col / V_BOX) * (VR * V_BOX) + row * V_BOX + col % V_BOX;
+  using C = FmaCfg<D>;
+  return (col / C::V_BOX) * (C::VR * C::V_BOX) + row * C::V_BOX +
+         col % C::V_BOX;
 }
 
 // Offset (floats) of P[key][row..row+3] (row a multiple of 4): rows of 64
@@ -109,20 +134,37 @@ __device__ __forceinline__ int p_off(int key, int row) {
   return key * BR + (((row >> 2) ^ (key & 7)) << 2);
 }
 
+// VW floats of shared memory at p into v
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x, v[1] = t.y;
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const SplitArgs args) {
+  using C = FmaCfg<D>;
+  constexpr int VR = C::VR, VW = C::VW, OC = C::OC;
+  constexpr int K_CHUNKS = C::K_CHUNKS, V_CHUNKS = C::V_CHUNKS;
+  constexpr int CHUNKS = C::CHUNKS;
   const FlashArgs& a = args.a;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qt = reinterpret_cast<float*>(smem + OFF_Q);
-  float* Ps = reinterpret_cast<float*>(smem + OFF_P);
-  float* St = reinterpret_cast<float*>(smem + OFF_ST);
-  float* row_m = reinterpret_cast<float*>(smem + OFF_STAT);
+  float* Qt = reinterpret_cast<float*>(smem + C::OFF_Q);
+  float* Ps = reinterpret_cast<float*>(smem + C::OFF_P);
+  float* St = reinterpret_cast<float*>(smem + C::OFF_ST);
+  float* row_m = reinterpret_cast<float*>(smem + C::OFF_STAT);
   float* row_l = row_m + BR;
   float* part_m = row_l + BR;        // [quarter][row]
   float* part_l = part_m + 4 * BR;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -148,13 +190,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     uint64_t* bar = &full[g % NST];
     const int k0 = kv0 + (g / CHUNKS) * BC;
     const int c = g % CHUNKS;
-    mbar_arrive_tx(bar, STAGE * sizeof(float));
     if (c < K_CHUNKS) {
+      mbar_arrive_tx(bar, STAGE * sizeof(float));
       tma_load_4d(st, &tk, bar, c * DK, h, k0, b);
     } else {
+      mbar_arrive_tx(bar, VR * D * sizeof(float));
 #pragma unroll
-      for (int i = 0; i < D / V_BOX; ++i)
-        tma_load_4d(st + i * VR * V_BOX, &tv, bar, i * V_BOX, h,
+      for (int i = 0; i < D / C::V_BOX; ++i)
+        tma_load_4d(st + i * VR * C::V_BOX, &tv, bar, i * C::V_BOX, h,
                     k0 + (c - K_CHUNKS) * VR, b);
     }
   };
@@ -185,11 +228,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     row_l[tid] = 0.f;
   }
 
-  float o[8][16];  // rows r0 + r, columns 128 qt + 32 i + 4 kg + e
+  // rows r0 + r, columns qt D/4 + 8 VW i + VW kg + e (VW j = VW i + e)
+  float o[8][OC];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int j = 0; j < 16; ++j) o[r][j] = 0.f;
+    for (int j = 0; j < OC; ++j) o[r][j] = 0.f;
 
   const float sl2 = a.scale * kLog2e;
 
@@ -271,7 +315,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       m_new[r] = fmaxf(m_old, mt);
       const float corr = exp2f(m_old - m_new[r]);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) o[r][j] *= corr;
+      for (int j = 0; j < OC; ++j) o[r][j] *= corr;
       float rs = 0.f;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -304,7 +348,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
 
-    // O += P V, VR kv rows a chunk: columns 128 qt + 32 i + 4 kg + (0..3)
+    // O += P V, VR kv rows a chunk: columns qt D/4 + 8 VW i + VW kg + e
     for (int c = 0; c < V_CHUNKS; ++c) {
       const float* st = next_stage();
 #pragma unroll
@@ -316,16 +360,15 @@ __global__ void __launch_bounds__(THREADS, 1)
             *reinterpret_cast<const float4*>(Ps + p_off(key, r0 + 4));
         const float pv[8] = {pa.x, pa.y, pa.z, pa.w, pc.x, pc.y, pc.z, pc.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float4 v = *reinterpret_cast<const float4*>(
-              st + v_off(jj, 128 * qt + 32 * i + 4 * kg));
+        for (int i = 0; i < OC / VW; ++i) {
+          float v[VW];
+          load_vec<VW>(st + v_off<D>(jj, qt * (D / 4) + 8 * VW * i + VW * kg),
+                       v);
 #pragma unroll
-          for (int r = 0; r < 8; ++r) {
-            o[r][4 * i + 0] = fmaf(pv[r], v.x, o[r][4 * i + 0]);
-            o[r][4 * i + 1] = fmaf(pv[r], v.y, o[r][4 * i + 1]);
-            o[r][4 * i + 2] = fmaf(pv[r], v.z, o[r][4 * i + 2]);
-            o[r][4 * i + 3] = fmaf(pv[r], v.w, o[r][4 * i + 3]);
-          }
+          for (int r = 0; r < 8; ++r)
+#pragma unroll
+            for (int e = 0; e < VW; ++e)
+              o[r][VW * i + e] = fmaf(pv[r], v[e], o[r][VW * i + e]);
         }
       }
     }
@@ -355,20 +398,25 @@ __global__ void __launch_bounds__(THREADS, 1)
     const float l = row_l[r0 + r] == 0.f ? 1.f : row_l[r0 + r];
     const float inv = 1.f / l;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(ob + q * o_ss + 128 * qt + 32 * i +
-                                 4 * kg) =
-          make_float4(o[r][4 * i] * inv, o[r][4 * i + 1] * inv,
-                      o[r][4 * i + 2] * inv, o[r][4 * i + 3] * inv);
+    for (int i = 0; i < OC / VW; ++i) {
+      float* dst = ob + q * o_ss + qt * (D / 4) + 8 * VW * i + VW * kg;
+      if constexpr (VW == 4)
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(o[r][4 * i] * inv, o[r][4 * i + 1] * inv,
+                        o[r][4 * i + 2] * inv, o[r][4 * i + 3] * inv);
+      else
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(o[r][2 * i] * inv, o[r][2 * i + 1] * inv);
+    }
     if (qt == 0 && kg == 0)
       lse[q] = (row_m[r0 + r] + log2f(l)) * (1.0f / kLog2e);
   }
 }
 
-}  // namespace
-
-int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
-                  cudaStream_t stream) {
+template <int D>
+int launch(const FlashArgs& a, int kv_splits, float* part,
+           cudaStream_t stream) {
+  using C = FmaCfg<D>;
   const SplitArgs args = split_args(a, (a.seq_k + BC - 1) / BC, kv_splits,
                                     part);
   if (args.kv_splits < 0) return -2;
@@ -382,14 +430,31 @@ int flash_fwd_f32(const FlashArgs& a, int kv_splits, float* part,
                                    BC, CU_TENSOR_MAP_SWIZZLE_64B);
   if (err == 0)
     err = cached_bshd_tensor_map(&tv, F32, 4, a.v, a.batch, a.seq_k,
-                                 a.heads, D, a.v_sb, a.v_ss, a.v_sh, V_BOX,
-                                 VR, CU_TENSOR_MAP_SWIZZLE_NONE);
+                                 a.heads, D, a.v_sb, a.v_ss, a.v_sh,
+                                 C::V_BOX, C::VR, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err != 0) return err < 0 ? err : -1000 - err;  // a CUresult
-  err = allow_smem_once(flash_fwd_f32_kernel, (int)SMEM, dev, smem_set);
+  auto kern = flash_fwd_f32_kernel<D>;
+  err = allow_smem_once(kern, (int)C::SMEM, dev, smem_set);
   if (err != 0) return err;
   dim3 grid((a.seq_q + BR - 1) / BR, a.heads * kv_splits, a.batch);
-  flash_fwd_f32_kernel<<<grid, THREADS, SMEM, stream>>>(tk, tv, args);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(tk, tv, args);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+int flash_fwd_f32(int head_dim, const FlashArgs& a, int kv_splits,
+                  float* part, cudaStream_t stream) {
+  switch (head_dim) {
+    case 128: return launch<128>(a, kv_splits, part, stream);
+    case 192: return launch<192>(a, kv_splits, part, stream);
+    case 256: return launch<256>(a, kv_splits, part, stream);
+    case 320: return launch<320>(a, kv_splits, part, stream);
+    case 384: return launch<384>(a, kv_splits, part, stream);
+    case 448: return launch<448>(a, kv_splits, part, stream);
+    case 512: return launch<512>(a, kv_splits, part, stream);
+    default: return -2;
+  }
 }
 
 }  // namespace vst

@@ -12,9 +12,10 @@
 //
 // Bound on the H100: 4*M*C*inner flops over (M*C + 2*C*inner + M*inner)
 // elements of traffic is hundreds of flops per byte at the UNet shapes
-// (C = 320..1280, M = 2048..524288): tensor-core bound in bf16, FMA
-// bound in fp32. The fusion saves the (M, 2*inner) intermediate's write
-// and re-read, which a separate matmul + gate would pay.
+// (C = 320..1280, M = 2048..524288): tensor-core bound in both dtypes
+// (fp32 at three TF32 products a product, below). The fusion saves the
+// (M, 2*inner) intermediate's write and re-read, which a separate matmul
+// + gate would pay.
 //
 // bf16, `geglu_bf16_kernel`: a GEMM (N = 2 * inner) with an epilogue
 // (bias, gate, product) of about half its products' time at C = 320:
@@ -58,25 +59,58 @@
 //   the 128-byte swizzle (conflict-free) and written by one TMA store,
 //   whose completion is awaited only before the next tile's staging.
 //
-// fp32, `geglu_f32_kernel`: register-blocked FMA tiles (64 x 64 a block,
-// 4x4 per thread for each half), exact division and exp2, so fp32 stays
-// within 1e-5 of the plain version.
+// fp32, `geglu_f32_kernel`: the same products on the TF32 tensor cores at
+// 3xTF32, within 1e-5 of the plain version. An exact-fp32 kernel on the
+// FMA pipes (67 TF/s) would need over 71 % of their peak to match cuBLAS's
+// fp32 GEMM; the TF32 wgmma (495 TF/s) at three products a product bounds
+// the call at 3 * 4*M*C*inner / 494.7e12 s (5.21 ms at each UNet shape).
+// - The split: every operand a is hi = rna_tf32(a) plus lo = rna_tf32(a -
+//   hi), and a product a b is a.lo b.hi + a.hi b.lo + a.hi b.hi.
+//   geglu_split_w_kernel writes W.hi and W.lo into the caller's scratch
+//   once a call (4 inner C floats: 157 MB of traffic at spatial level 2,
+//   against the kernel's 859 GF);
+//   x is split in registers: TF32 wgmma takes A from registers, and both
+//   operands are K-major, the only layout TF32 takes in shared memory.
+// - Tensor-core sums truncate (each product at the size of the sum it
+//   adds into), so each stage's products (32 K values, twelve products)
+//   are summed from zero, its eight small ones (x.lo W.hi, x.hi W.lo)
+//   before its four x.hi W.hi, and added to the tile's total by FADD: two
+//   accumulator sets of 64 floats a thread, which is why a consumer
+//   warpgroup owns 64 rows (one m64n128k8) and not 128. On an H100 at
+//   spatial level 2 (`cli/profile_step.py --k2_restarts`: distance from
+//   the float64 evaluation of the plain version, whose fp32 evaluation,
+//   cuBLAS's fp32 GEMM, reads 2.8e-5), restarts of 32 K values read
+//   7.1e-6 in this order against 1.02e-5 with each K step's three
+//   products in turn; restarts of 16 or 8 were less exact (more rounded
+//   adds) and 22-24 % slower (a wait each).
+// - Persistent, warp-specialised like the bf16 kernel: a producer warp
+//   keeps a four-stage TMA ring full (48 KB a stage: the 128-row x tile,
+//   W.hi and W.lo's 64 h and 64 gate rows), both consumer warpgroups take
+//   rows 0-63 and 64-127 of the same tile from it (one W tile for 128
+//   rows: 32 bytes from L2 a tensor-core clock). The tiles are walked in
+//   groups of 16 row tiles, so that the W columns in flight stay in L2.
+// - Epilogue: bias and gate in f32 with IEEE division and exp2, written
+//   from registers (8 bytes a row and column pair, whole sectors).
+// Rows past M, K past C and columns past inner are zero-filled by TMA, as
+// in the bf16 kernel (C and inner multiples of 8).
 
 #include <cstddef>
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 #include "sm90.cuh"
 
 namespace vst {
 
 // The arguments of one K2 call as ops/geglu.py packs them (`_POINTERS`,
-// `_LAYOUT`, `_GATE`: "<5Q", "<5i", "<i"): pointers and the stream, the
+// `_LAYOUT`, `_GATE`: "<6Q", "<5i", "<i"): pointers and the stream, the
 // device the call is for, then the scalars.
 struct GegluCall {
   const void* x;
   const void* w;
   const void* b;
   void* out;
+  void* wsplit;  // fp32: scratch of 4 inner C floats for W.hi, W.lo
   void* stream;
   int device, dtype, m, c, inner, gate;
 };
@@ -371,86 +405,226 @@ __global__ void __launch_bounds__(384, 1)
 }
 
 // ---------------------------------------------------------------- fp32
-constexpr int FM = 64, FN = 64, FK = 16;
-constexpr int kThreadsF32 = 256;
-constexpr int LDF = FM + 4;
 
-struct GegluArgs {
-  const void* x;
-  const void* w;
-  const void* b;
-  void* out;
-  int m, c, inner;
+// The fp32 kernel's tiles. A block's tile is BM = 128 rows x BN = 64
+// output columns, 64 rows a consumer warpgroup: per 8-deep K step three
+// m64n128k8 TF32 products a warpgroup (x.lo W.hi, x.hi W.lo, x.hi W.hi)
+// over W's BN h rows and BN gate rows side by side (h column j and gate
+// column j in one thread's accumulators, as in the bf16 kernel). A stage
+// is one KS = 32 wide K slice (one 128-byte swizzled panel of fp32): the
+// x tile, split into hi and lo in registers as the A fragments are read,
+// and W's hi and lo tiles, which geglu_split_w_kernel wrote before the
+// call. Both consumer warpgroups read every stage (one W tile for 128
+// rows), so the ring is released by the eight consumer warps.
+struct F32Cfg {
+  static constexpr int BM = 128, BN = 64, KS = 32;
+  // K steps (8 values each) whose products a restart sums from zero: a
+  // stage's 32 K values, twelve products (see the note at the top)
+  static constexpr int RESTART = 4;
+  static constexpr int THREADS = 384;
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  static constexpr uint32_t X_BYTES = BM * KS * 4;          // 16 KB
+  static constexpr uint32_t W_BYTES = 2 * 2 * BN * KS * 4;  // hi, lo: 32 KB
+  static constexpr uint32_t STAGE_BYTES = X_BYTES + W_BYTES;
+  static constexpr int NST = 4;
+  static constexpr size_t OFF_BAR = (size_t)NST * STAGE_BYTES;
+  // barriers: full[NST], empty[NST]; + 1024 B to align
+  static constexpr size_t SMEM = OFF_BAR + 16 * NST + 1024;
+  // row tiles a raster group: the blocks in flight share GROUP row tiles
+  // of x and a few column tiles of W (W's hi and lo, 105 MB at spatial
+  // level 2, exceed the L2 cache; a group's share is ~11 MB)
+  static constexpr int GROUP = 16;
+  static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536,
+                "registers");
+  static_assert(STAGE_BYTES % 1024 == 0 && SMEM <= 232448,
+                "stages start on 1024-byte boundaries and fit");
+  static_assert(KS == 32 && 4 % RESTART == 0, "restarts inside a stage");
 };
 
-template <int GATE>
-__global__ void __launch_bounds__(kThreadsF32)
-    geglu_f32_kernel(const GegluArgs a) {
-  __shared__ __align__(16) float xs[FK][LDF];
-  __shared__ __align__(16) float whs[FK][LDF];
-  __shared__ __align__(16) float wgs[FK][LDF];
-  const float* x = static_cast<const float*>(a.x);
-  const float* w = static_cast<const float*>(a.w);
-  const int n0 = blockIdx.x * FN;
-  const int m0 = blockIdx.y * FM;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  float ah[4][4], ag[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) ah[i][j] = ag[i][j] = 0.f;
+// The origin of output tile `tile` in the grouped raster: GROUP row tiles
+// at a time, column tile after column tile, the rows fastest.
+__device__ __forceinline__ void f32_tile_origin(int tile, int n_m, int n_n,
+                                                int& m0, int& n0) {
+  constexpr int G = F32Cfg::GROUP;
+  const int group = tile / (G * n_n);
+  const int first = group * G;
+  const int rows = min(G, n_m - first);
+  const int local = tile - group * G * n_n;
+  m0 = (first + local % rows) * F32Cfg::BM;
+  n0 = (local / rows) * F32Cfg::BN;
+}
 
-  // one float4 of each tile per thread: row tid/4, k-vector tid%4
-  const int lr = tid / 4, lk = (tid % 4) * 4;
-  for (int k0 = 0; k0 < a.c; k0 += FK) {
-    const int gk = k0 + lk;
-    float4 xv = make_float4(0.f, 0.f, 0.f, 0.f), hv = xv, gv = xv;
-    if (m0 + lr < a.m && gk < a.c)
-      xv = *reinterpret_cast<const float4*>(x + (long long)(m0 + lr) * a.c + gk);
-    if (n0 + lr < a.inner && gk < a.c) {
-      hv = *reinterpret_cast<const float4*>(w + (long long)(n0 + lr) * a.c + gk);
-      gv = *reinterpret_cast<const float4*>(
-          w + (long long)(n0 + lr + a.inner) * a.c + gk);
-    }
-    xs[lk + 0][lr] = xv.x; xs[lk + 1][lr] = xv.y;
-    xs[lk + 2][lr] = xv.z; xs[lk + 3][lr] = xv.w;
-    whs[lk + 0][lr] = hv.x; whs[lk + 1][lr] = hv.y;
-    whs[lk + 2][lr] = hv.z; whs[lk + 3][lr] = hv.w;
-    wgs[lk + 0][lr] = gv.x; wgs[lk + 1][lr] = gv.y;
-    wgs[lk + 2][lr] = gv.z; wgs[lk + 3][lr] = gv.w;
-    __syncthreads();
+// W (2 inner, C) fp32 -> W.hi then W.lo, each (2 inner, C) TF32 values
+// (hi = rna_tf32(w), lo = rna_tf32(w - hi)), every 8-wide K group
+// permuted so that slot s < 4 holds column 2s and slot s + 4 column 2s +
+// 1: the A fragment's k slots t and t + 4 are then x's columns 2t and 2t +
+// 1, one float2 in shared memory. One thread an 8-wide group.
+__global__ void __launch_bounds__(256)
+    geglu_split_w_kernel(const float4* __restrict__ w,
+                         float4* __restrict__ ws, long long groups) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= groups) return;
+  const float4 a = w[2 * i], b = w[2 * i + 1];
+  const float v[8] = {a.x, a.z, b.x, b.z, a.y, a.w, b.y, b.w};
+  float hi[8], lo[8];
 #pragma unroll
-    for (int k = 0; k < FK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&xs[k][ty * 4]);
-      const float4 bh = *reinterpret_cast<const float4*>(&whs[k][tx * 4]);
-      const float4 bg = *reinterpret_cast<const float4*>(&wgs[k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float hr[4] = {bh.x, bh.y, bh.z, bh.w};
-      const float gr[4] = {bg.x, bg.y, bg.z, bg.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          ah[i][j] = fmaf(ar[i], hr[j], ah[i][j]);
-          ag[i][j] = fmaf(ar[i], gr[j], ag[i][j]);
-        }
-    }
-    __syncthreads();
+  for (int j = 0; j < 8; ++j) {
+    uint32_t h, l;
+    split(v[j], h, l);
+    hi[j] = __uint_as_float(h);
+    lo[j] = __uint_as_float(l);
   }
-  const float* bias = static_cast<const float*>(a.b);
-  float* out = static_cast<float*>(a.out);
+  ws[2 * i] = make_float4(hi[0], hi[1], hi[2], hi[3]);
+  ws[2 * i + 1] = make_float4(hi[4], hi[5], hi[6], hi[7]);
+  ws[2 * (groups + i)] = make_float4(lo[0], lo[1], lo[2], lo[3]);
+  ws[2 * (groups + i) + 1] = make_float4(lo[4], lo[5], lo[6], lo[7]);
+}
+
+template <int GATE>
+__global__ void __launch_bounds__(384, 1)
+    geglu_f32_kernel(const __grid_constant__ CUtensorMap tx,
+                     const __grid_constant__ CUtensorMap tw,
+                     const float* __restrict__ bias, float* __restrict__ out,
+                     int m, int c, int inner) {
+  using C = F32Cfg;
+  constexpr int BN = C::BN, KS = C::KS, NST = C::NST;
+  static_assert(C::THREADS == 384, "the launch bounds");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* empty = full + NST;
+
+  const int wg = threadIdx.x / 128;
+  const int n_m = (m + C::BM - 1) / C::BM, n_n = (inner + BN - 1) / BN;
+  const int n_tiles = n_m * n_n;  // fits: checked on the host
+  const int kt_n = (c + KS - 1) / KS;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // the eight consumer warps
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // --------------------------------------------------------- producer
+    setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // K slices this block has loaded, over all its tiles
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int m0, n0;
+        f32_tile_origin(tile, n_m, n_n, m0, n0);
+        for (int k = 0; k < kt_n; ++k, ++it) {
+          const int st = it % NST;
+          mbar_wait(&empty[st], ((it / NST) & 1) ^ 1);
+          unsigned char* s = smem + st * C::STAGE_BYTES;
+          // the x tile (BM rows), then W's hi and lo tiles (h rows, gate
+          // rows of each: one box of (KS, BN, 2, 2))
+          mbar_arrive_tx(&full[st], C::STAGE_BYTES);
+          tma_load_4d(s, &tx, &full[st], k * KS, 0, m0, 0);
+          tma_load_4d(s + C::X_BYTES, &tw, &full[st], k * KS, n0, 0, 0);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---------------------------------------------------------- consumers
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  // this thread's x rows in the tile: g and g + 8 of its warp's 16 in its
+  // warpgroup's 64 (both at g modulo the swizzle's 8)
+  const int xr = 64 * (wg - 1) + 16 * warp + g;
+  const uint32_t ring = smem_u32(smem);
+
+  // m64n128k8 accumulators, BN h columns then BN gate columns: `part` sums
+  // one stage's products from zero in the tensor cores (whose sums
+  // truncate), `total` adds the stages up in f32
+  float total[BN], part[BN];  // m64n(2 BN): 2 BN * 64 / 128 a thread
+
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int m0, n0;
+    f32_tile_origin(tile, n_m, n_n, m0, n0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty * 4 + i;
-    if (gm >= a.m) continue;
+    for (int i = 0; i < BN; ++i) total[i] = 0.f;
+    for (int k = 0; k < kt_n; ++k, ++it) {
+      const int st = it % NST;
+      mbar_wait(&full[st], (it / NST) & 1);
+      const unsigned char* xs = smem + st * C::STAGE_BYTES;
+      const uint32_t wa = ring + st * C::STAGE_BYTES + C::X_BYTES;
+      // A fragments of the slice's four K steps: slot t4 (a[0], a[1]) and
+      // slot t4 + 4 (a[2], a[3]) of K step kk are x's columns 8kk + 2t4
+      // and 8kk + 2t4 + 1 (W.hi and W.lo carry the same permutation), one
+      // float2 of a 128-byte swizzled row, split into hi and lo
+      uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx * 4 + j;
-      if (gn >= a.inner) continue;
-      const float hvv = ah[i][j] + bias[gn];
-      const float gvv = ag[i][j] + bias[gn + a.inner];
-      out[(long long)gm * a.inner + gn] = hvv * gate_fn<GATE, false>(gvv);
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = xr + 8 * hr;
+          const float2 v = *reinterpret_cast<const float2*>(
+              xs + row * 128 + (((2 * kk + (t4 >> 1)) ^ g) << 4) +
+              (t4 & 1) * 8);
+          split(v.x, ahi[kk][hr], alo[kk][hr]);
+          split(v.y, ahi[kk][2 + hr], alo[kk][2 + hr]);
+        }
+      // each restart's products from zero: its small ones (x.lo W.hi, x.hi
+      // W.lo) first, its x.hi W.hi last, so that only those add into a
+      // sum of the restart's full size (each product truncates at the
+      // size of the sum it adds into)
+      constexpr int R = C::RESTART;
+#pragma unroll
+      for (int r0 = 0; r0 < 4; r0 += R) {
+        fence_regs<BN>(part);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = r0; kk < r0 + R; ++kk) {
+          const uint64_t bhi = desc_kmajor(wa, 0, kk);
+          const uint64_t blo = desc_kmajor(wa + 2 * BN * 128, 0, kk);
+          wgmma_tf32_rs128(part, alo[kk], bhi, kk != r0);
+          wgmma_tf32_rs128(part, ahi[kk], blo, 1);
+        }
+#pragma unroll
+        for (int kk = r0; kk < r0 + R; ++kk)
+          wgmma_tf32_rs128(part, ahi[kk], desc_kmajor(wa, 0, kk), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BN>(part);
+        if (r0 + R == 4) {
+          // the stage is read (x into registers, W by the products)
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[st]);
+        }
+#pragma unroll
+        for (int i = 0; i < BN; ++i) total[i] += part[i];
+      }
+    }
+
+    // epilogue: bias and gate in f32 (IEEE division and exp2), out
+    // written from registers: each row's 8 bytes at columns 2t4, 2t4 + 1
+    // of every 8, full 32-byte sectors
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i) {
+      const int col = n0 + 8 * i + 2 * t4;
+      if (col >= inner) continue;  // inner % 8 == 0: col + 1 is in range
+      const float2 bh = *reinterpret_cast<const float2*>(bias + col);
+      const float2 bg = *reinterpret_cast<const float2*>(bias + inner + col);
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int row = m0 + xr + 8 * hr;
+        if (row >= m) continue;
+        const float* h = &total[4 * i + 2 * hr];
+        const float* gv = &total[4 * (i + BN / 8) + 2 * hr];
+        *reinterpret_cast<float2*>(out + (long long)row * inner + col) =
+            make_float2((h[0] + bh.x) * gate_fn<GATE, false>(gv[0] + bg.x),
+                        (h[1] + bh.y) * gate_fn<GATE, false>(gv[1] + bg.y));
+      }
     }
   }
 }
@@ -512,17 +686,55 @@ int launch_bf16(const GegluCall& call, cudaStream_t stream) {
 }
 
 template <int GATE>
+int launch_f32(const GegluCall& call, cudaStream_t stream) {
+  using C = F32Cfg;
+  constexpr CUtensorMapDataType F32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  constexpr CUtensorMapSwizzle SW = CU_TENSOR_MAP_SWIZZLE_128B;
+  static std::atomic<uint64_t> smem_set{0};
+  const long long n_tiles = (long long)((call.m + C::BM - 1) / C::BM) *
+                            ((call.inner + C::BN - 1) / C::BN);
+  if (n_tiles > 0x7fffffff || call.wsplit == nullptr) return -2;
+  const long long c = call.c, inner = call.inner;
+  // W.hi and W.lo into the caller's scratch (4 inner C floats)
+  const long long groups = 2 * inner * c / 8;
+  geglu_split_w_kernel<<<(unsigned)((groups + 255) / 256), 256, 0,
+                         stream>>>(static_cast<const float4*>(call.w),
+                                   static_cast<float4*>(call.wsplit),
+                                   groups);
+  int e = (int)cudaGetLastError();
+  if (e != 0) return e;
+  // x as (1, M, 1, C), boxes of KS columns (one swizzled panel) by BM
+  // rows; the split W as (C, inner, 2 [h, gate], 2 [hi, lo]), boxes of KS
+  // columns by BN rows of both halves of both
+  CUtensorMap tx, tw;
+  e = cached_bshd_tensor_map(&tx, F32, 4, call.x, 1, call.m, 1, call.c, c,
+                             c, c, C::KS, C::BM, SW);
+  if (e == 0) {
+    const long long dims[4] = {c, inner, 2, 2};
+    const long long strides[3] = {c, inner * c, 2 * inner * c};
+    const int box[4] = {C::KS, C::BN, 2, 2};
+    e = cached_tensor_map_4d(&tw, F32, 4, call.wsplit, dims, strides, box,
+                             SW);
+  }
+  if (e != 0) return e < 0 ? e : -1000 - e;  // a CUresult from the encode
+  auto kern = geglu_f32_kernel<GATE>;
+  e = allow_smem_once(kern, (int)C::SMEM, call.device, smem_set);
+  if (e != 0) return e;
+  const int sms = sm_count(call.device);
+  if (sms < 1) return -2;
+  const int grid = n_tiles < sms ? (int)n_tiles : sms;
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      tx, tw, static_cast<const float*>(call.b),
+      static_cast<float*>(call.out), call.m, call.c, call.inner);
+  return (int)cudaGetLastError();
+}
+
+template <int GATE>
 int launch(const GegluCall& call) {
   cudaStream_t s = static_cast<cudaStream_t>(call.stream);
   if (call.m < 1 || call.device < 0 || call.device >= 64) return -2;
   if (call.dtype == kBFloat16) return launch_bf16<GATE>(call, s);
-  if (call.dtype == kFloat32) {
-    const GegluArgs a{call.x, call.w, call.b, call.out,
-                      call.m, call.c, call.inner};
-    dim3 grid((a.inner + FN - 1) / FN, (a.m + FM - 1) / FM);
-    geglu_f32_kernel<GATE><<<grid, kThreadsF32, 0, s>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (call.dtype == kFloat32) return launch_f32<GATE>(call, s);
   return -1;
 }
 
@@ -538,8 +750,8 @@ int geglu_fwd(const GegluCall& call) {
 }  // namespace
 }  // namespace vst
 
-static_assert(offsetof(vst::GegluCall, gate) == 60 &&
-                  sizeof(vst::GegluCall) == 64,
+static_assert(offsetof(vst::GegluCall, gate) == 68 &&
+                  sizeof(vst::GegluCall) == 72,
               "GegluCall must match ops/geglu.py's packing");
 
 // One K2 call from its packed arguments: launched on the call's device,

@@ -399,6 +399,45 @@ __device__ __forceinline__ void wgmma_rs_vt<256>(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
+// D (64 x 128, f32) (+)= A (64 x 8, TF32 registers) B (8 x 128, TF32);
+// B K-major in shared memory (the only layout TF32 takes). A's fragment
+// (w = warp in the warpgroup, g = lane / 4, t = lane % 4): a[0] = (16w + g,
+// k t), a[1] = (16w + g + 8, k t), a[2] = (16w + g, k t + 4), a[3] = (16w +
+// g + 8, k t + 4), each a TF32 value in an f32 register (the low 13 bits
+// are not read); D in the accumulator layout above.
+__device__ __forceinline__ void wgmma_tf32_rs128(float* d,
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
 
 // --------------------------------------------------------------- mbarrier
 
@@ -689,27 +728,29 @@ inline int cached_bshd_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
 
 // Any 4-D strided view (`dims` innermost first, the innermost of stride
 // 1; `strides` of the other three in elements, in any order of size) of
-// `type` as a tensor map with box `box`, no swizzle, out-of-bounds
-// elements zero-filled, through a cache of the last 32 maps keyed by
-// every argument, as cached_bshd_tensor_map. Returns 0 or a CUresult.
-inline int cached_tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type,
-                                int elem_bytes, const void* ptr,
-                                const long long (&dims)[4],
-                                const long long (&strides)[3],
-                                const int (&box)[4]) {
+// `type` as a tensor map with box `box`, laid out with `swizzle` (none by
+// default), out-of-bounds elements zero-filled, through a cache of the
+// last 32 maps keyed by every argument, as cached_bshd_tensor_map.
+// Returns 0 or a CUresult.
+inline int cached_tensor_map_4d(
+    CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+    const void* ptr, const long long (&dims)[4],
+    const long long (&strides)[3], const int (&box)[4],
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   constexpr int kEntries = 32;
   struct Entry {
-    long long key[14];
+    long long key[15];
     CUtensorMap map;
   };
   static Entry cache[kEntries];
   static int used = 0, next = 0;
   static std::mutex mu;
-  const long long key[14] = {(long long)reinterpret_cast<uintptr_t>(ptr),
+  const long long key[15] = {(long long)reinterpret_cast<uintptr_t>(ptr),
                              (long long)type, elem_bytes,
                              dims[0], dims[1], dims[2], dims[3],
                              strides[0], strides[1], strides[2],
-                             box[0], box[1], box[2], box[3]};
+                             box[0], box[1], box[2], box[3],
+                             (long long)swizzle};
   {
     std::lock_guard<std::mutex> lock(mu);
     for (int i = 0; i < used; ++i)
@@ -731,8 +772,7 @@ inline int cached_tensor_map_4d(CUtensorMap* map, CUtensorMapDataType type,
     gstrides[i] = (cuuint64_t)(strides[i] * elem_bytes);
   const int e = (int)encode(map, type, 4, const_cast<void*>(ptr), gdims,
                             gstrides, gbox, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (e != 0) return e;

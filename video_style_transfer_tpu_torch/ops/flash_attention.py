@@ -4,7 +4,7 @@
 K1 replaces the JAX package's ops/flash_attention.py Pallas kernels
 `_attn_kernel_packed_single` / `_attn_kernel_packed` (and, at head dims
 the TPU cannot pack such as d=192, 320 and 448, `_attn_kernel`); K4
-replaces `_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has four
+replaces `_dqkv_kernel` / `_dq_kernel` + `_dkv_kernel`. K1 has three
 routes, named by `route`: every bf16 head dim runs on wgmma with TMA
 loads ("wgmma": csrc/flash_attention_sm90.cu at d = 64, 128, 192 and
 256; csrc/flash_attention_wide.cu at d = 320, 384, 448 and 512, the VAE's
@@ -12,19 +12,19 @@ mid-block attention under --vae_dtype bfloat16, with O split by columns
 across two consumer warpgroups); fp32 at d = 64 (every UNet
 self-attention under --mixed_precision no) on the tensor cores at
 3xTF32 ("tf32x3": csrc/flash_attention_tf32.cu, mma.sync with each
-operand split into two TF32 halves, three products a product); fp32 at
-d = 512 (the VAE's mid-block attention) on FP32 FMA register tiles fed by
-TMA ("fma": csrc/flash_attention_f32.cu); the other fp32 head dims, on
-no path, on the shared-memory kernel ("smem": csrc/flash_attention.cu).
-On the H100 all are bound by tensor-core (bf16, TF32) or FMA (fp32)
-throughput; see the sources for their designs. Where a grid of d >= 320
-would leave the card's last wave emptier, the fp32 d = 512 and bf16 d >=
-320 kernels split the kv walk (`kv_splits`) and a combine kernel merges
-the parts. K4 has two routes, named by `bwd_route`: bf16 at d = 64 on
-wgmma with TMA loads, fp32 at d = 64 on the 3xTF32 route's dk/dv and dq
-kernels; its delta = rowsum(dO * O) is a kernel of its own. The TPU's
-head packing, MXU row-sum and block tuning have no counterpart: the
-kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
+operand split into two TF32 halves, three products a product); every
+other fp32 head dim (d = 512: the VAE's mid-block attention; 128-448 on
+no path) on FP32 FMA register tiles fed by TMA, one kernel template on
+d ("fma": csrc/flash_attention_f32.cu; `fma_tiles` mirrors its per-d
+choices). On the H100 all are bound by tensor-core (bf16, TF32) or FMA
+(fp32) throughput; see the sources for their designs. Where a grid of
+the FMA route or of the wide kernel would leave the card's last wave
+emptier, they split the kv walk (`kv_splits`) and a combine kernel
+merges the parts. K4 has two routes, named by `bwd_route`: bf16 at d =
+64 on wgmma with TMA loads, fp32 at d = 64 on the 3xTF32 route's dk/dv
+and dq kernels; its delta = rowsum(dO * O) is a kernel of its own. The
+TPU's head packing, MXU row-sum and block tuning have no counterpart:
+the kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
 projection is consumed in place.
 
 Every call goes through one ``torch.autograd.Function`` that saves q, k,
@@ -48,7 +48,7 @@ from video_style_transfer_tpu_torch.ops import cuda_build
 # dk/dv and its dq kernel), split by route in BWD_ROUTE_LAUNCHES,
 # DELTA_LAUNCHES K4's delta kernel
 LAUNCHES = 0
-ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "fma": 0, "smem": 0}
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 WIDE_LAUNCHES = 0
 BWD_LAUNCHES = 0
 BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
@@ -66,9 +66,9 @@ _FWD_LAYOUT = struct.Struct("<9q8i")
 _FWD_SCALE = struct.Struct("<f")
 HEAD_DIMS = (64, 128, 192, 256, 320, 384, 448, 512)
 # fp32 head dims of the 3xTF32 route (K1 and K4) and of the FMA route;
-# the other fp32 ones take shared memory, every bf16 one the wgmma route
+# every bf16 one takes the wgmma route
 TF32X3_HEAD_DIMS = (64,)
-FMA_HEAD_DIMS = (512,)
+FMA_HEAD_DIMS = (128, 192, 256, 320, 384, 448, 512)
 # bf16 head dims of the wgmma route's wide kernel (csrc/
 # flash_attention_wide.cu: O split across two consumer warpgroups)
 WIDE_HEAD_DIMS = (320, 384, 448, 512)
@@ -97,10 +97,8 @@ def route(dtype, head_dim: int) -> str:
     "wgmma" (every bf16 head dim: csrc/flash_attention_sm90.cu at d <=
     256, csrc/flash_attention_wide.cu at d >= 320), "tf32x3"
     (csrc/flash_attention_tf32.cu: fp32 d = 64, 3xTF32 on the tensor
-    cores), "fma" (csrc/flash_attention_f32.cu: fp32 d = 512, where the
-    card measured it faster than the shared-memory kernel; the other fp32
-    head dims were not measured on it) or "smem" (csrc/flash_attention.cu:
-    fp32 d from 128 to 448). Raises on what K1 does not take."""
+    cores) or "fma" (csrc/flash_attention_f32.cu: every other fp32 head
+    dim, exact fp32 on the FMA pipes). Raises on what K1 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -111,9 +109,30 @@ def route(dtype, head_dim: int) -> str:
         return "wgmma"
     if head_dim in TF32X3_HEAD_DIMS:
         return "tf32x3"
-    if head_dim in FMA_HEAD_DIMS:
-        return "fma"
-    return "smem"
+    return "fma"
+
+
+def fma_tiles(head_dim: int) -> dict:
+    """The FMA route's per-head-dim choices (csrc/flash_attention_f32.cu's
+    FmaCfg makes the same and static_asserts their bounds): kv rows of a
+    V chunk (`v_rows`: the most, a power of two dividing the 256-key tile,
+    whose d columns fit the 16 KB of a K chunk of 256 keys x 16 d), the
+    columns of a V box (`v_box`: d up to 256 in one TMA box, two halves
+    above, at most 256 a box), the O columns a thread updates from one
+    shared-memory load (`vector`: a float4 where each column quarter of d
+    holds 8 lanes' float4s evenly, d % 128 == 0, else a float2) and the O
+    columns a thread holds (`o_cols`: d / 32, 8 rows each)."""
+    if head_dim not in FMA_HEAD_DIMS:
+        raise ValueError(f"the FMA route takes head_dim in "
+                         f"{FMA_HEAD_DIMS}, got {head_dim}")
+    stage = FMA_BLOCK_K * 16
+    v_rows = 32
+    while v_rows * head_dim > stage:
+        v_rows //= 2
+    return {"v_rows": v_rows,
+            "v_box": head_dim if head_dim <= 256 else head_dim // 2,
+            "vector": 4 if head_dim % 128 == 0 else 2,
+            "o_cols": head_dim // 32}
 
 
 def wide_o_split(head_dim: int) -> tuple:

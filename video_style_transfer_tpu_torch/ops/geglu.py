@@ -5,10 +5,14 @@ Replaces the JAX package's ops/geglu.py Pallas kernel (`_make_kernel`).
 ``h * gelu(g)`` with ``[h | g] = x @ W^T + b``: the kernel computes the h
 and gate tiles of each output tile from the same x tile, reads W's rows
 ``j`` and ``j + inner`` in place and writes only the (M, inner) result.
-On the H100 it is bound by tensor-core (bf16) or FMA (fp32) throughput;
-bf16 runs on a persistent, warp-specialised wgmma + TMA kernel in
-clusters of two blocks that share W's tiles by multicast, whose gate
-epilogue overlaps the other warpgroup's products (see the source).
+On the H100 it is bound by tensor-core throughput in both dtypes. It has
+two routes, named by `route`: bf16 ("wgmma") runs on a persistent,
+warp-specialised wgmma + TMA kernel in clusters of two blocks that share
+W's tiles by multicast, whose gate epilogue overlaps the other
+warpgroup's products; fp32 ("tf32x3") runs the same products on the
+TF32 tensor cores at 3xTF32 (each operand split into two TF32 halves,
+three products a product), W split into its halves by a small kernel
+into a scratch buffer each call (see the source).
 
 The gate approximations are the JAX package's, ported op for op, and the
 default is dtype-gated exactly as there: ``cdf3`` for bf16/f16 (its
@@ -32,15 +36,20 @@ import torch.nn.functional as F
 
 from video_style_transfer_tpu_torch.ops import cuda_build
 
+# launches of the CUDA kernel in this process (the plain version and
+# refused calls do not count), split by route in ROUTE_LAUNCHES
 LAUNCHES = 0
+ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
+_ROUTES = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # one K2 call's arguments, packed for its C entry point (csrc/geglu.cu:
-# GegluCall) in three parts: the x, w, b and out pointers and the stream;
-# the layout (the device, dtype, M, C and inner), packed once a layout;
-# the gate
-_POINTERS = struct.Struct("<5Q")
+# GegluCall) in three parts: the x, w, b and out pointers, the fp32
+# route's scratch for W's TF32 halves (0 in bf16) and the stream; the
+# layout (the device, dtype, M, C and inner), packed once a layout; the
+# gate
+_POINTERS = struct.Struct("<6Q")
 _LAYOUT = struct.Struct("<5i")
 _GATE = {name: struct.pack("<i", i)
          for i, name in enumerate(("erf5", "cdf3", "poly14"))}
@@ -96,6 +105,16 @@ def _gelu_poly14(x):
 
 
 _GATES = {"erf5": _gelu_exact, "cdf3": _gelu_cdf3, "poly14": _gelu_poly14}
+
+
+def route(dtype) -> str:
+    """The K2 kernel a CUDA call of this dtype launches: "wgmma" (bf16:
+    wgmma + TMA, clusters of two sharing W by multicast) or "tf32x3"
+    (fp32: TF32 wgmma at three products a product), both in
+    csrc/geglu.cu. Raises on what K2 does not take."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"geglu takes float32 or bfloat16, got {dtype}")
+    return _ROUTES[dtype]
 
 
 def _default_gate_for(dtype) -> str:
@@ -159,9 +178,8 @@ def _check_layout(x2d, w, b):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"geglu: {name} must be contiguous and "
                              f"16-byte aligned")
-    # the fp32 kernel's grid holds its 64-row blocks on the y axis
-    if not 1 <= m < 2 ** 31 or (x2d.dtype == torch.float32
-                                and (m + 63) // 64 > 65535):
+    # both kernels are persistent: one block an SM walks the tiles
+    if not 1 <= m < 2 ** 31:
         raise ValueError(f"geglu: {m} rows, not within the launch grid")
 
 
@@ -171,13 +189,18 @@ def geglu_fwd(x2d, w, b, gate: str):
         return geglu_plain(x2d, w, b, gate)
     layout = _check(x2d, w, b)
     out = x2d.new_empty((x2d.shape[0], w.shape[0] // 2))
+    kernel = _ROUTES[x2d.dtype]
+    # the fp32 route's W.hi and W.lo (2 x (2 inner, C) floats)
+    split = w.new_empty((2, *w.shape)) if kernel == "tf32x3" else None
     err = cuda_build.library().vst_geglu_fwd(
         _POINTERS.pack(x2d.data_ptr(), w.data_ptr(), b.data_ptr(),
-                       out.data_ptr(), cuda_build.stream_of(x2d))
+                       out.data_ptr(), 0 if split is None
+                       else split.data_ptr(), cuda_build.stream_of(x2d))
         + layout + _GATE[gate])
     cuda_build.check_launch("geglu_projection", err)
     global LAUNCHES
     LAUNCHES += 1
+    ROUTE_LAUNCHES[kernel] += 1
     return out
 
 
