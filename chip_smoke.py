@@ -35,7 +35,13 @@
    cores, fp32 at 3xTF32, fed by TMA) is held the same way (bf16 normwise
    too) at the serving path's three motion levels in bf16 and fp32, stage
    2's at 8 frames and 32-frame clips at level 2 in both, each phase with
-   its share of the bound and its time against SDPA's. K4 has two routes (`bwd_route`): bf16 on wgmma + TMA, fp32 on
+   its share of the bound and its time against SDPA's; K5 (its backward,
+   the same design: mma.sync, fp32 at 3xTF32, TMA in and out) at stage
+   2's three levels, level 0 in fp32 at 8 and at 2 frames (the
+   stage2_fp32 path), and 32-frame clips at the widest head each dtype's
+   K3 takes (taken in column chunks), against SDPA's backward; the build
+   report fails if a K3 or K5 kernel spills. K4 has two routes
+   (`bwd_route`): bf16 on wgmma + TMA, fp32 on
    mma.sync at 3xTF32; its phases (the train step's two levels and a
    ragged length, each in bf16 and fp32) also print the bound at the
    two-kernel design's 14 flops, and its delta kernel is held to the torch
@@ -701,9 +707,12 @@ def bwd_phases():
         del o4, do4
         del qkv, q, k, v, out, lse, do
         torch.cuda.empty_cache()
-    # K5: motion level 0 (F = 8, N = 16384, 8 heads x d = 40) in bf16 and
-    # fp32, levels 1 and 2 in bf16; flops 11*F*F*N*P and bytes
-    # 7*F*N*P*itemsize are the JAX cost estimates
+    # K5 (tensor-core backward: mma.sync, fp32 at 3xTF32): motion level 0
+    # (F = 8, N = 16384, 8 heads x d = 40) in bf16 and fp32, levels 1 and
+    # 2 in bf16, level 0 at the stage2_fp32 path's 2 frames in fp32, and
+    # 32 frames at the widest heads K3 takes (pair_fits: fp32 d = 600,
+    # bf16 d = 1208; K5 takes them in column chunks); flops 11*F*F*N*P and
+    # bytes 7*F*N*P*itemsize are the JAX cost estimates
     for tag, (f, n, h, d), dt, iters in (
             ("motion_l0 (8,16384,8x40)", (8, 16384, 8, 40), torch.bfloat16,
              20),
@@ -711,18 +720,27 @@ def bwd_phases():
              10),
             ("motion_l1 (8,4096,8x80)", (8, 4096, 8, 80), torch.bfloat16, 20),
             ("motion_l2 (8,1024,8x160)", (8, 1024, 8, 160), torch.bfloat16,
-             20)):
+             20),
+            ("stage2_fp32_l0 (2,16384,8x40)", (2, 16384, 8, 40),
+             torch.float32, 20),
+            ("clip32_widest (32,1024,2x600)", (32, 1024, 2, 600),
+             torch.float32, 5),
+            ("clip32_widest (32,1024,2x1208)", (32, 1024, 2, 1208),
+             torch.bfloat16, 5)):
         qkv = randn(f, n, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         do = randn(f, n, h * d, dtype=dt)
         es = qkv.element_size()
-        phases["temporal_attention_bwd"].append(check_phase(
+        phase = check_phase(
             f"K5 {tag} {str(dt)[6:]}",
             lambda: ta.temporal_attention_bwd(q, k, v, do),
             lambda: ta.temporal_attention_bwd_plain(q, k, v, do, d ** -0.5),
             sdpa_bwd(q, k, v, do, (1, 2, 0, 3)),
             flops=11 * f * f * n * h * d, nbytes=7 * f * n * h * d * es,
-            dtype_name=str(dt)[6:], iters=iters, bwd=True))
+            dtype_name=str(dt)[6:], iters=iters, bwd=True)
+        phase["chunks"] = ta.bwd_plan(f, d, es, h, n)[2]
+        vs_bound_and_library(phase, "SDPA's backward")
+        phases["temporal_attention_bwd"].append(phase)
         del qkv, q, k, v, do
         torch.cuda.empty_cache()
     return phases
@@ -1603,26 +1621,44 @@ def tf32_ptxas(log):
     return out
 
 
-def ta_ptxas(log):
-    """Registers and spills of K3's tensor-core forward, by dtype and
-    frame count (8 F / 8 frames at most: its n tiles of S; 288 threads,
-    one block an SM, so at most 224 registers each). Fails if one spills
-    or the build log names fewer than the eight: S, P and O's column
-    chunk live in registers by design."""
+def _ta_ptxas(log, kernel, label, frame_bounds):
+    """Registers and spills of a temporal attention kernel's instances
+    (`kernel`: K3's or K5's), by dtype and frame bound (8 F / 8 frames at
+    most, F its n tiles of S). Fails if one spills or the build log names
+    one short of every dtype at `frame_bounds`."""
     rep = ptxas_report(log,
-                       r"(ta_fwd_mma_kernelI(?:f|13__nv_bfloat16)Li\dE)")
+                       rf"({kernel}I(?:f|13__nv_bfloat16)Li\dE)")
     out = {}
     for name, r in rep.items():
         dt = "float32" if "kernelIf" in name else "bfloat16"
         out[f"{dt} F<={8 * int(name[-2])}"] = r
-    if len(out) != 8:
-        fail(f"the build log names no K3 kernel for every dtype and frame "
-             f"count: {sorted(out)}")
+    want = sorted(f"{dt} F<={f}" for dt in ("bfloat16", "float32")
+                  for f in frame_bounds)
+    if sorted(out) != want:
+        fail(f"the build log names no {label} kernel for every dtype and "
+             f"frame count: {sorted(out)}")
     for key, r in out.items():
         if r.get("spill_stores", 1) or r.get("spill_loads", 1):
-            fail(f"K3's {key} kernel spills registers: {r}")
-    print(f"K3 kernels (ptxas): {json.dumps(out)}", flush=True)
+            fail(f"{label}'s {key} kernel spills registers: {r}")
+    print(f"{label} kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
+
+
+def ta_ptxas(log):
+    """K3's tensor-core forward (288 threads, one block an SM, so at most
+    168 registers each: three of its nine warps share one of the SM's
+    four register files): S, P and O's column chunk live in registers by
+    design."""
+    return _ta_ptxas(log, "ta_fwd_mma_kernel", "K3", (8, 16, 24, 32))
+
+
+def ta_bwd_ptxas(log):
+    """K5's tensor-core backward (two n tiles of S at least, since clips
+    of F <= 8 frames pack 16 / F pairs into one 16-row tile; one block an
+    SM, of sixteen warps up to 16 frames, so at most 128 registers each,
+    and of eight past 16, at most 255): S, dP, w, ds and an output's
+    column chunk live in registers by design."""
+    return _ta_ptxas(log, "ta_bwd_mma_kernel", "K5", (16, 24, 32))
 
 
 def fma_ptxas(log):
@@ -1775,6 +1811,7 @@ def main():
              "flash_attention_bwd.cu": bwd_ptxas(log),
              "flash_attention_tf32.cu": tf32_ptxas(log),
              "temporal_attention.cu": ta_ptxas(log),
+             "temporal_attention_bwd.cu": ta_bwd_ptxas(log),
              "geglu.cu": geglu_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -1793,6 +1830,8 @@ def main():
             entry["ptxas"] = ptxas[src]
         if name == "temporal_attention":
             entry["kernel"] = "ta_fwd_mma_kernel"
+        if name == "temporal_attention_bwd":
+            entry["kernel"] = "ta_bwd_mma_kernel"
         if name == "flash_attention_bwd_delta":
             entry["note"] = ("not a TPU kernel: the JAX package computes "
                              "delta in XLA, in K4's launcher "

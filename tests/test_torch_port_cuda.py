@@ -598,15 +598,57 @@ def test_cuda_flash_bwd_delta_matches_formula(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,f,d", [(torch.bfloat16, 8, 40),
                                        (torch.float32, 16, 160),
-                                       (torch.bfloat16, 32, 80)])
+                                       (torch.bfloat16, 32, 80),
+                                       (torch.float32, 2, 40),
+                                       (torch.bfloat16, 4, 16),
+                                       (torch.bfloat16, 12, 32),
+                                       (torch.float32, 32, 600),
+                                       (torch.bfloat16, 32, 1208)])
 def test_cuda_temporal_attention_bwd_matches_plain(dtype, f, d):
+    # K5 against its plain version: stages of whole pairs at 4001 pixels
+    # (every block's ring of stages wraps; F = 2 fp32, the stage2_fp32
+    # path's clip, and F = 4 bf16 take 3 and 6 pixels a stage, so the last
+    # stage is partial; F <= 8 packs 16 / F pairs into a row tile, F = 12
+    # leaves rows of its tile past the clip) and, at the widest heads K3
+    # takes at 32 frames
+    # (pair_fits), column chunks of one pair a stage at 601 pixels x 2
+    # heads (blocks take one or two groups of a pair a warp, the last
+    # group partial)
     _need_cuda()
+    n, h = (601, 2) if d > 256 else (4001, 8)
+    assert tta.pair_fits(f, d, torch.tensor([], dtype=dtype).element_size())
     g = torch.Generator(device="cuda").manual_seed(0)
-    qkv = torch.randn(f, 300, 3 * 8 * d, device="cuda", generator=g,
+    qkv = torch.randn(f, n, 3 * h * d, device="cuda", generator=g,
                       dtype=dtype)
-    q, k, v = (t.unflatten(-1, (8, d)) for t in qkv.split(8 * d, -1))
-    do = torch.randn(f, 300, 8 * d, device="cuda", generator=g, dtype=dtype)
+    q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    do = torch.randn(f, n, h * d, device="cuda", generator=g, dtype=dtype)
+    before = tta.BWD_LAUNCHES
     got = tta.temporal_attention_bwd(q, k, v, do)
+    assert tta.BWD_LAUNCHES == before + 1
+    ref = tta.temporal_attention_bwd_plain(q, k, v, do, d ** -0.5)
+    for a, b in zip(got, ref):
+        assert a.shape == (f, n, h, d) and a.is_contiguous()
+        _assert_close_bwd(a, b)
+        with pytest.raises(AssertionError):
+            _assert_close_bwd((a.float() * 0.97).to(dtype), b)
+
+
+@pytest.mark.cuda
+def test_cuda_temporal_attention_bwd_separate_and_expanded_views():
+    # K5 on q of its own strides and k, v expanded over the pixels (a zero
+    # stride, which no TMA map takes: the wrapper copies such a view to a
+    # dense one first), as K3 takes them
+    _need_cuda()
+    f, n, h, d = 8, 301, 4, 40
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(f, n, h, 2 * d, device="cuda", generator=g)[..., :d]
+    k, v = (torch.randn(f, 1, h, d, device="cuda", generator=g)
+            .expand(f, n, h, d) for _ in range(2))
+    assert k.stride(1) == 0
+    do = torch.randn(f, n, h * d, device="cuda", generator=g)
+    before = tta.BWD_LAUNCHES
+    got = tta.temporal_attention_bwd(q, k, v, do)
+    assert tta.BWD_LAUNCHES == before + 1
     ref = tta.temporal_attention_bwd_plain(q, k, v, do, d ** -0.5)
     for a, b in zip(got, ref):
         _assert_close_bwd(a, b)

@@ -157,15 +157,21 @@ def test_flash_d192_matches_jax_bhsd_route(no_library):
 
 # ------------------------------------------------------------------ K5
 
-def test_temporal_bwd_plain_matches_jax_vjp(no_library):
-    # d = 8 takes the Pallas route (`_bwd_kernel` in interpret mode)
-    f, n, h, d = 4, 128, 2, 8
+@pytest.mark.parametrize("f,n", [(4, 128), (2, 128), (32, 16)])
+def test_temporal_bwd_plain_matches_jax_vjp(no_library, f, n):
+    # d = 8 takes the Pallas route (`_bwd_kernel` in interpret mode) at 2
+    # and 4 frames; at 32 frames, the most K3 and K5 take, its 1024
+    # unrolled steps take minutes to interpret, so the JAX side is the vjp
+    # of its XLA reference (`impl="xla"`), the same function
+    h, d = 2, 8
     p = h * d
     q, k, v = (_rand(30 + i, (f, n, p)) for i in range(3))
     g = _rand(33, (f, n, p))
     frames = lambda a: [jnp.asarray(a[i].T) for i in range(f)]  # noqa
+    impl = "xla" if f == 32 else "auto"
     _, vjp = jax.vjp(
-        lambda *a: list(jta.temporal_attention_frames(*a, num_heads=h)),
+        lambda *a: list(jta.temporal_attention_frames(*a, num_heads=h,
+                                                      impl=impl)),
         frames(q), frames(k), frames(v))
     want = [np.stack([np.asarray(x).T for x in dx])
             for dx in vjp(frames(g))]                    # (F, N, P) each

@@ -57,6 +57,14 @@ each row with its bandwidth bound and the device ms and kernel names of
 copies of ``csrc/temporal_attention.cu`` built apart (``k3_cut_source``):
 as it is, with its loads and stores alone, and with its compute on data
 that stays in L2; the same call times an older checkout's K3.
+``--k5`` for K5's wrapper (``ops.temporal_attention.temporal_attention_bwd``)
+at the stage-2 path's shapes (8 frames, each motion level in bf16, level
+0 in fp32, and at the precision check's 2 frames) and at 32 frames at
+each dtype's widest head, each row with its bound and the device ms and
+kernel names of ``scaled_dot_product_attention``'s backward (a shape the
+wrapper refuses reads ``refused``); ``--k5_cutouts`` times its cut-out
+copies as ``--k3_cutouts`` does K3's (``k5_cut_source``, the macro
+``VST_K5_CUTOUT``).
 
 ``--precision`` holds the first stage-2 step (2 frames by default) in bf16
 against fp32 on the same weights and draws, and the fp32 step against
@@ -66,7 +74,7 @@ line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
         [--train | --image | --decode | --k1 | --k2 | --k2_restarts | --k3 |
-         --k3_cutouts | --k4 | --k7 | --precision]
+         --k3_cutouts | --k4 | --k5 | --k5_cutouts | --k7 | --precision]
         [--mixed_precision bf16|no] [--vae_dtype float32|bfloat16]
         [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
@@ -94,7 +102,7 @@ CATEGORIES = (
     ("K3 temporal_attention", ("ta_fwd_mma_kernel",)),
     ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq",
                                 "flash_bwd_delta")),
-    ("K5 temporal_attention_bwd", ("ta_bwd_kernel",)),
+    ("K5 temporal_attention_bwd", ("ta_bwd_mma_kernel",)),
     ("K7 layer_norm", ("::layer_norm_kernel",)),
     ("layer_norm (library)", ("layer_norm", "layernorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd")),
@@ -321,6 +329,19 @@ K3_SHAPES = (("serving L0", (16, 32768, 8, 40), torch.bfloat16),
              ("32-frame L2", (32, 1024, 8, 160), torch.bfloat16),
              ("32-frame L2", (32, 1024, 8, 160), torch.float32))
 
+# (tag, (F, N, H, d), dtype): K5's shapes: the stage-2 path's three
+# motion levels at 8 frames in bf16 (level 0 in fp32 too, as under
+# --mixed_precision no), level 0 at the precision check's 2 frames in
+# fp32, and 32 frames at the widest head each dtype's K3 takes
+# (temporal_attention.pair_fits)
+K5_SHAPES = (("stage-2 L0", (8, 16384, 8, 40), torch.bfloat16),
+             ("stage-2 L0", (8, 16384, 8, 40), torch.float32),
+             ("stage-2 L1", (8, 4096, 8, 80), torch.bfloat16),
+             ("stage-2 L2", (8, 1024, 8, 160), torch.bfloat16),
+             ("stage2_fp32 L0", (2, 16384, 8, 40), torch.float32),
+             ("32-frame widest", (32, 1024, 2, 600), torch.float32),
+             ("32-frame widest", (32, 1024, 2, 1208), torch.bfloat16))
+
 # (tag, (M, C), dtype): K2's shapes in chip_smoke.py's K2 phases (inner =
 # 4 C): spatial and motion level 2 and level 1 at the serving path's 32
 # rows, motion level 0, spatial level 2 at the image path's 2 rows; the
@@ -519,6 +540,112 @@ def k3_cutouts(dev, runs: int):
         cuda_build._lib = None
 
 
+def k5_call(shape, dtype, gen):
+    """A call of K5's wrapper on seeded (q, k, v) of `shape` and a seeded
+    dO; None where the wrapper refuses the shape (a kernel that does not
+    take it)."""
+    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
+    q, k, v = _ta_qkv(shape, dtype, gen)
+    f, n, h, d = shape
+    do = torch.randn(f, n, h * d, generator=gen, device=q.device,
+                     dtype=dtype)
+    try:
+        ta.temporal_attention_bwd(q, k, v, do)
+    except (RuntimeError, ValueError):
+        return None
+    return lambda: ta.temporal_attention_bwd(q, k, v, do)
+
+
+def k5_yardsticks(shape, dtype, gen, runs: int):
+    """K5's bound (the larger of its q, k, v, dO read once and dq, dk, dv
+    written once at 3.35 TB/s, and the JAX cost estimate of 11 F^2 d
+    flops a (pixel, head) pair at 989 TF/s bf16 or 67 TF/s fp32) and the
+    device ms of scaled_dot_product_attention's backward on the same (N,
+    H, F, d) data (its forward taken once through autograd), with the
+    names of its kernels."""
+    import torch.nn.functional as F
+    f, n, h, d = shape
+    es = torch.tensor([], dtype=dtype).element_size()
+    peak = 989e12 if dtype == torch.bfloat16 else 67e12
+    row = {"bound_ms": max(7 * f * n * h * d * es / 3.35e12,
+                           11 * f * f * n * h * d / peak) * 1e3}
+    q, k, v = (t.permute(1, 2, 0, 3).contiguous().requires_grad_()
+               for t in _ta_qkv(shape, dtype, gen))
+    try:
+        o = F.scaled_dot_product_attention(q, k, v)
+    except RuntimeError as e:
+        return {**row, "sdpa_bwd_error": str(e).splitlines()[0]}
+    go = torch.randn(o.shape, generator=gen, device=o.device, dtype=dtype)
+
+    def fn():
+        return torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
+    row["sdpa_bwd_ms"] = _time_calls(fn, runs)[0]
+    cuda = torch.profiler.ProfilerActivity.CUDA
+    with torch.profiler.profile(activities=[cuda]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    row["sdpa_bwd_kernels"] = sorted(
+        {e.name for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA})
+    return row
+
+
+# K5's cut-out copies: the kernel takes the cuts from its macro
+# VST_K5_CUTOUT; the CUDA-core kernel it replaced (ta_bwd_kernel, a few
+# pairs a block, no such macro) is cut by text: its compute runs between
+# its load and store loops, and each block finds its pairs from pair0
+K5_CUTS = ("whole", "load+store", "resident")
+_OLD_K5_COMPUTE = ("  // thread -> (pair pl, frame row r, share s)",
+                   "  __syncthreads();\n\n  T* dq = static_cast<T*>(a.dq);")
+_OLD_K5_PAIR = "const long long pair0 = (long long)blockIdx.x * pairs;"
+
+
+def k5_cut_source(src: str, cut: str) -> str:
+    """The K5 source `src` with `cut` applied: "load+store" keeps its loads
+    and stores alone (what it stores is not the gradients), "resident"
+    keeps its data in L2 (each block on one tile of its own; in the
+    replaced kernel, block b on the pairs of block b mod 132, one block an
+    SM of an H100)."""
+    if cut == "whole":
+        return src
+    if "VST_K5_CUTOUT" in src:
+        return f"#define VST_K5_CUTOUT {K5_CUTS.index(cut)}\n" + src
+    if cut == "load+store":
+        start = src.index(_OLD_K5_COMPUTE[0])
+        return src[:start] + src[src.index(_OLD_K5_COMPUTE[1], start):]
+    if src.count(_OLD_K5_PAIR) != 1:
+        raise ValueError("the K5 source has neither VST_K5_CUTOUT nor the "
+                         "replaced kernel's pair origin")
+    return src.replace(_OLD_K5_PAIR, "const long long pair0 = (long long)"
+                                     "(blockIdx.x % 132) * pairs;")
+
+
+def k5_cut_entries():
+    """{cut: K5's C entry point in a throwaway library built from the cut
+    csrc/temporal_attention_bwd.cu of the package Python finds first}."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    src = (cuda_build.CSRC / "temporal_attention_bwd.cu").read_text()
+    return variant_entries(
+        "vst_temporal_attention_bwd",
+        {cut: k5_cut_source(src, cut) for cut in K5_CUTS}, "k5_cutouts")
+
+
+def k5_cutouts(dev, runs: int):
+    """Yields {cut, shape, device_ms}: K5's wrapper timed at each of
+    K5_SHAPES against each cut copy (the wrapper finds the copy's entry
+    point as the library's; None where the copy refuses the shape)."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    try:
+        for cut, fn in k5_cut_entries().items():
+            cuda_build._lib = types.SimpleNamespace(
+                vst_temporal_attention_bwd=fn)
+            for row in kernel_calls(dev, runs, K5_SHAPES, k5_call):
+                yield {"cut": cut, "shape": row["shape"],
+                       "device_ms": row["device_ms"]}
+    finally:
+        cuda_build._lib = None
+
+
 def _geglu_inputs(shape, dtype, gen):
     """Seeded x (M, C), W (2 inner, C) and b (2 inner,), inner = 4 C."""
     m, c = shape
@@ -671,14 +798,18 @@ def layer_norm_yardstick(shape, dtype, gen, runs: int):
 
 def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
     """Yields {shape, device_ms, host_us} for the call make_call(shape,
-    dtype, gen) builds at each (tag, shape, dtype) of `shapes`, with the
-    readings of yardsticks(shape, dtype, gen, runs) where given, each as
-    soon as it is measured."""
+    dtype, gen) builds at each (tag, shape, dtype) of `shapes` (None where
+    it builds none: the wrapper refuses the shape), with the readings of
+    yardsticks(shape, dtype, gen, runs) where given, each as soon as it is
+    measured."""
     gen = torch.Generator(device=dev).manual_seed(0)
     for tag, shape, dtype in shapes:
-        dev_ms, host_us = _time_calls(make_call(shape, dtype, gen), runs)
-        row = {"shape": f"{tag} {shape} {str(dtype)[6:]}",
-               "device_ms": dev_ms, "host_us": host_us}
+        call = make_call(shape, dtype, gen)
+        row = {"shape": f"{tag} {shape} {str(dtype)[6:]}"}
+        if call is None:
+            row.update(device_ms=None, host_us=None, refused=True)
+        else:
+            row["device_ms"], row["host_us"] = _time_calls(call, runs)
         if yardsticks is not None:
             row.update(yardsticks(shape, dtype, gen, runs))
         yield row
@@ -813,6 +944,12 @@ def main(argv=None):
     p.add_argument("--k3_cutouts", action="store_true",
                    help="time K3 whole, with its loads and stores alone and "
                         "with its compute on resident data")
+    p.add_argument("--k5", action="store_true",
+                   help="time K5's wrapper alone at the stage-2 shapes and "
+                        "32 frames at the widest head")
+    p.add_argument("--k5_cutouts", action="store_true",
+                   help="time K5 whole, with its loads and stores alone and "
+                        "with its compute on resident data")
     p.add_argument("--k4", action="store_true",
                    help="time K4's wrapper alone at the train step's "
                         "shapes")
@@ -871,10 +1008,18 @@ def main(argv=None):
                               "kernel": "K3 temporal_attention", **row}),
                   flush=True)
         return
-    if args.k1 or args.k2 or args.k3 or args.k4 or args.k7:
+    if args.k5_cutouts:
+        for row in k5_cutouts(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K5 temporal_attention_bwd", **row}),
+                  flush=True)
+        return
+    if args.k1 or args.k2 or args.k3 or args.k4 or args.k5 or args.k7:
         kernel, shapes, make_call, yardsticks = (
             ("K7 layer_norm", K7_SHAPES, k7_call, layer_norm_yardstick)
             if args.k7
+            else ("K5 temporal_attention_bwd", K5_SHAPES, k5_call,
+                  k5_yardsticks) if args.k5
             else ("K4 flash_attention_bwd", K4_SHAPES, k4_call,
                   functools.partial(sdpa_yardstick, backward=True)) if args.k4
             else ("K3 temporal_attention", K3_SHAPES, k3_call,

@@ -1,7 +1,8 @@
 // mma.sync building blocks shared by the port's warp-level tensor-core
 // kernels: the 3xTF32 arithmetic of K1's and K4's fp32 route
-// (flash_attention_tf32.cu) and of K3's fp32 forward, the bf16 m16n8k16
-// and m16n8k8 products of K3's bf16 forward, and ldmatrix.
+// (flash_attention_tf32.cu) and of K3's and K5's fp32 kernels, the bf16
+// m16n8k16 and m16n8k8 products of K3's and K5's bf16 kernels, ldmatrix
+// and movmatrix.
 //
 // Fragment layouts (g = lane / 4, t = lane % 4): an m16n8 f32 accumulator
 // c[0], c[1] holds row g, columns 2t, 2t + 1, c[2], c[3] row g + 8. A bf16
@@ -132,6 +133,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
+}
+
+// An 8 x 8 matrix of 16-bit elements transposed across the warp: lane (g,
+// t) gives row g, elements 2t, 2t + 1 (the low half first) and gets row
+// g, elements 2t, 2t + 1 of the transpose
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
 }
 
 }  // namespace vst

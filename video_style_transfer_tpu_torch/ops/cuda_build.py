@@ -46,12 +46,10 @@ SIGNATURES = {
     # K2 too (ops/geglu.py: _POINTERS, _LAYOUT, _GATE)
     "vst_geglu_fwd": [_P],
     "vst_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P],
-    # K3 too (ops/temporal_attention.py: _POINTERS, _LAYOUT, _SCALE)
+    # K3 and K5 too (ops/temporal_attention.py: _POINTERS, _LAYOUT,
+    # _SCALE; _BWD_POINTERS, _LAYOUT, _BWD_PLAN, _SCALE)
     "vst_temporal_attention_fwd": [_P],
-    "vst_temporal_attention_bwd": [_I, _P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I,
-                                   _L, _L, _L, _L, _L, _L, _L, _L, _L,
-                                   _F, _P],
+    "vst_temporal_attention_bwd": [_P],
 }
 
 _lock = threading.Lock()

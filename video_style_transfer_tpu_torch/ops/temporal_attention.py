@@ -7,10 +7,11 @@ K3 replaces the JAX package's ops/temporal_attention.py Pallas kernel
 out of one (C, 3P) projection as (F, N, 3P) and reach the kernel as
 (F, N, H, d) strided views; the output is (F, N, P). The JAX package's
 per-frame (P, N) lists are a TPU lane-layout choice with no counterpart
-here. On the H100 both kernels are bound by device-memory bandwidth; K3
-runs each (pixel, head) pair's two products on the tensor cores
-(mma.sync; fp32 at 3xTF32), fed by TMA (see the sources for their
-designs).
+here. On the H100 both kernels are bound by device-memory bandwidth; each
+runs a (pixel, head) pair's products on the tensor cores (mma.sync; fp32
+at 3xTF32), fed and drained by TMA (see the sources for their designs).
+Both take every clip that `pair_fits`; K5's stages are planned here
+(`bwd_plan`) and passed in its call.
 
 Every call goes through one ``torch.autograd.Function`` (residuals q, k,
 v, as in JAX). A CUDA tensor launches the kernels or raises; a CPU
@@ -39,19 +40,64 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POINTERS = struct.Struct("<5Q")
 _LAYOUT = struct.Struct("<9q6i")
 _SCALE = struct.Struct("<f4x")
+# one K5 call's arguments (csrc/temporal_attention_bwd.cu: TABwdCall): the
+# q, k, v, dO, dq, dk and dv pointers and the stream, K3's layout part,
+# the plan (`bwd_plan`), the scale
+_BWD_POINTERS = struct.Struct("<8Q")
+_BWD_PLAN = struct.Struct("<6i")
 MAX_FRAMES = 32
 # shared memory one block may take on Hopper (227 KB of the SM's 256)
 MAX_BLOCK_SMEM = 232448
+# elements one dimension of a TMA box may span
+MAX_BOX = 256
+# K5's ring: bytes a stage of q, k, v and dO aims at, and its stages
+BWD_STAGE_TARGET = 36 * 1024
+BWD_MAX_STAGES = 8
 
 
 def pair_fits(frames: int, head_dim: int, itemsize: int) -> bool:
-    """Whether K3 takes clips of `frames` frames at `head_dim`: one
+    """Whether K3 and K5 take clips of `frames` frames at `head_dim`: one
     (pixel, head) pair's F x d q, k and v tiles (`itemsize` bytes each)
     share one block's shared memory. csrc/temporal_attention.cu takes
     every such pair: its shared memory holds the stages (at least one
     pair) and 32 bytes of barriers and zero row, which the pairs' sizes (a
-    multiple of 48 bytes) always leave free."""
+    multiple of 48 bytes) always leave free. K5 needs four tiles of a pair
+    at once, so where they do not fit it takes the pair in column chunks
+    (`bwd_plan`): the one rule holds for both."""
     return 3 * frames * head_dim * itemsize <= MAX_BLOCK_SMEM
+
+
+def bwd_plan(frames: int, head_dim: int, itemsize: int, heads: int,
+             n: int):
+    """K5's stages for (F, N, H, d) clips of `itemsize`-byte elements:
+    (ldp, cols, chunks, hb, tn, stages).
+
+    Where a pair's row fits one TMA box, a stage holds whole pairs: hb
+    heads (the most that divide H and fit BWD_STAGE_TARGET) x tn pixels of
+    q, k, v and dO, rows ldp apart, ldp = d or d plus one 16-byte chunk (an
+    odd count of chunks keeps ldmatrix free of bank conflicts, as K3);
+    cols = d, chunks = 1. Otherwise a stage holds one column chunk of one
+    pair, cols = ldp columns (bf16: an odd count of chunks), `chunks` of
+    them to a row. `stages` fill the block's shared memory (at most
+    BWD_MAX_STAGES), beside 16 bytes of barriers a stage and a zero row."""
+    f, d, es = frames, head_dim, itemsize
+    vec = 16 // es
+    ldp = d + vec if (d // vec) % 2 == 0 else d
+    if ldp <= MAX_BOX:
+        pair = 4 * f * ldp * es
+        hb = next((x for x in range(min(heads, MAX_BOX), 0, -1)
+                   if heads % x == 0 and x * pair <= BWD_STAGE_TARGET), 1)
+        tn = max(1, min(BWD_STAGE_TARGET // (hb * pair), MAX_BOX, n))
+        cols, chunks = d, 1
+    else:
+        cols = BWD_STAGE_TARGET // (4 * f * es) // 8 * 8
+        cols = min(MAX_BOX, max(8, cols))
+        if es == 2 and cols // 8 % 2 == 0:
+            cols -= 8
+        ldp, chunks, hb, tn = cols, -(-d // cols), 1, 1
+    stage = 4 * (-(-hb * tn * f * ldp * es // 128) * 128)
+    stages = min(BWD_MAX_STAGES, (MAX_BLOCK_SMEM - 16) // (stage + 16))
+    return ldp, cols, chunks, hb, tn, stages
 
 
 def temporal_attention_plain(q, k, v, scale: float):
@@ -86,14 +132,15 @@ def temporal_attention_bwd_plain(q, k, v, do, scale: float):
 
 
 # layouts `_check` has accepted, by the dtypes, devices, shapes, strides
-# and pointer alignment of q, k and v: the packed layout part of K3's call
+# and pointer alignment of q, k and v: the packed layout part of K3's and
+# K5's calls
 _ACCEPTED = {}
 
 
 def _check(q, k, v):
-    """Raises on (F, N, H, d) views that K3 does not take; returns the
-    packed layout part of its call. A layout accepted once is found again
-    after one dict lookup."""
+    """Raises on (F, N, H, d) views that K3 and K5 do not take; returns
+    the packed layout part of their calls. A layout accepted once is found
+    again after one dict lookup."""
     key = (q.dtype, k.dtype, v.dtype,
            q.get_device(), k.get_device(), v.get_device(),
            q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
@@ -162,6 +209,10 @@ def temporal_attention_fwd(q, k, v, *, scale=None):
     return out
 
 
+# K5's plans by (F, N, H, d, itemsize), packed for its call
+_BWD_PLANS = {}
+
+
 def temporal_attention_bwd(q, k, v, do, *, scale=None):
     """Gradients of `temporal_attention_fwd` (K5): (dq, dk, dv), each
     (F, N, H, d) contiguous in q's dtype."""
@@ -171,21 +222,30 @@ def temporal_attention_bwd(q, k, v, do, *, scale=None):
     if not q.is_cuda:
         return temporal_attention_bwd_plain(q, k, v, do, scale)
     do = do.contiguous()
-    _check_layout(q, k, v)
+    # a TMA map takes no zero stride (an expanded view): such a view is
+    # copied to a dense one first
+    q, k, v = (t.clone(memory_format=torch.contiguous_format)
+               if 0 in t.stride()[:3] else t for t in (q, k, v))
+    layout = _check(q, k, v)
     if (tuple(do.shape) != (f, n, h * d) or do.dtype != q.dtype
-            or not do.is_cuda or do.data_ptr() % 16):
+            or do.device != q.device or do.data_ptr() % 16):
         raise ValueError(f"temporal attention backward: do "
                          f"{tuple(do.shape)} {do.dtype}, expected "
-                         f"{(f, n, h * d)} {q.dtype} on CUDA")
+                         f"{(f, n, h * d)} {q.dtype} on {q.device}")
+    key = (f, n, h, d, q.element_size())
+    plan = _BWD_PLANS.get(key)
+    if plan is None:
+        if len(_BWD_PLANS) >= 4096:
+            _BWD_PLANS.clear()
+        plan = _BWD_PLANS[key] = _BWD_PLAN.pack(*bwd_plan(
+            f, d, q.element_size(), h, n))
     dq, dk, dv = (torch.empty((f, n, h, d), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    lib = cuda_build.library()
-    with torch.cuda.device(q.device):
-        err = lib.vst_temporal_attention_bwd(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            f, n, h, d, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            float(scale), cuda_build.stream_of(q))
+    err = cuda_build.library().vst_temporal_attention_bwd(
+        _BWD_POINTERS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                           dv.data_ptr(), cuda_build.stream_of(q))
+        + layout + plan + _SCALE.pack(scale))
     cuda_build.check_launch("temporal_attention_bwd", err)
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
