@@ -59,8 +59,16 @@
    random weights, each with every kernel's launch counters set to 0
    just before and read just after:
    - the stage-2 trainer through ``cli.train_animatediff.train`` (8
-     frames, 1024^2, 3 steps, bf16 UNet, fp32 VAE encode), which writes
-     its motion checkpoint;
+     frames, 1024^2, bf16 UNet, fp32 VAE encode) on one seeded 10-frame
+     1024^2 video held in memory: one epoch, its 3 clip starts, through
+     the latent-moment cache (K1's FMA route runs once per encoded frame,
+     the cache's misses), a checkpoint at step 2, then a run resumed from
+     it to step 4 (restored tensors and optimizer state bitwise as saved,
+     the committed checkpoints alone on disk, one metrics.jsonl line per
+     logged step), which writes the motion checkpoint; then three 8-bit
+     AdamW steps over the trained tensors on the card and on the CPU from
+     the same gradients (codes equal, scales and tensors within 1e-6, the
+     state smaller than fp32 moments);
    - the serving path through ``cli.infer_video.generate`` (16 frames,
      1024^2, CFG 7.5, 2 steps, bf16 UNet, fp32 VAE decode) in the modes
      base, both, content and style, from a rank-64 UnZipLoRA artifact set
@@ -78,7 +86,8 @@
    one; K4's: every backward of the trainer on the wgmma route, each with
    one delta launch; and K2's: every bf16 feed-forward on its wgmma
    route, every fp32 one on its 3xTF32 route.
-5. Prints one JSON line with every kernel's numbers (K1 as its five
+5. Prints a JSON line of the stage-2 precision, 8-bit AdamW and bf16
+   decode readings, then one JSON line with every kernel's numbers (K1 as its five
    kernels, the FMA route's d = 448 instance standing for the JAX
    package's unpacked kernel, K4 as its two routes, K4's delta as a
    kernel of its own, K2 as its two routes, with the wgmma kernels', the
@@ -179,7 +188,13 @@ IMAGE_STEPS = 3
 LORA_RANK = 64
 
 NUM_FRAMES, RESOLUTION, STEPS = 16, 1024, 2
-TRAIN_FRAMES, TRAIN_STEPS = 8, 3
+# stage 2: one epoch over a 10-frame video's 3 clip starts of 8 frames (3
+# steps), a checkpoint at step 2, then a run resumed from it to step 4
+TRAIN_FRAMES, TRAIN_VIDEO_FRAMES, TRAIN_STEPS = 8, 10, 3
+TRAIN_CKPT_EVERY, TRAIN_RESUME_TO = 2, 4
+# the 8-bit AdamW phase: seeded gradients of this global norm, below the
+# trainer's clip of 0.5, so that the clip passes them through unchanged
+ADAM8_GRAD_NORM = 0.25
 
 
 def fail(msg):
@@ -1084,14 +1099,18 @@ def small_training_reference():
             fail(f"kernel {name} was not launched by the tiny stage-2 step")
 
 
-def expected_train_launches(cfg, *, frames, resolution, steps):
+def expected_train_launches(cfg, *, frames, resolution, steps,
+                            encoded=None):
     """Kernel launches of `steps` stage-2 steps at B = 1, from the UNet's
     block counts: spatial self-attentions of >= 1024 tokens and d % 64 ==
     0 take K1/K4, every spatial and motion feed-forward K2, every motion
-    attention K3/K5 (d % 8 == 0), and each clip frame's VAE-encoder
-    mid-block attention K1. The trainer stores every activation (no
-    remat), so each forward runs once per step."""
+    attention K3/K5 (d % 8 == 0), and each frame through the VAE encoder
+    its mid-block attention K1: `encoded` frames (default: every frame of
+    every step, as without the moment cache). The trainer stores every
+    activation (no remat), so each forward runs once per step."""
     from video_style_transfer_tpu_torch.config import CROSS
+    if encoded is None:
+        encoded = steps * frames
     lat = resolution // 8
     flash = spatial = motion = 0
     levels = [(i, cfg.layers_per_block, t) for i, t in
@@ -1113,7 +1132,7 @@ def expected_train_launches(cfg, *, frames, resolution, steps):
     if (lat >> (len(cfg.block_out_channels) - 1)) ** 2 >= 1024 and \
             d % 64 == 0:
         flash += mid
-    return {"flash_attention_fwd": steps * (flash + frames),
+    return {"flash_attention_fwd": steps * flash + encoded,
             "geglu_projection": steps * (spatial + motion),
             "temporal_attention": steps * 2 * motion,
             "flash_attention_bwd": steps * flash,
@@ -1121,55 +1140,145 @@ def expected_train_launches(cfg, *, frames, resolution, steps):
             "temporal_attention_bwd": steps * 2 * motion}
 
 
+class ArrayClips:
+    """A clip source with VideoClipDataset's interface over one video held
+    as uint8 frames (F, H, W, 3) in memory: every start of `num_frames`
+    consecutive frames, drawn by seed as VideoClipDataset draws them,
+    normalised as it does; a frame's id is (0, its index)."""
+
+    def __init__(self, frames, num_frames):
+        self.frames = frames
+        self.num_frames = num_frames
+        self.starts = list(range(len(frames) - num_frames + 1))
+
+    def __len__(self):
+        return len(self.starts)
+
+    def sample_batch_meta(self, batch_size, seed):
+        import numpy as np
+        from video_style_transfer_tpu_torch.data.video import _normalize
+        idx = np.random.RandomState(seed).randint(0, len(self),
+                                                  size=batch_size)
+        f = self.num_frames
+        clips = [_normalize(self.frames[self.starts[i]:self.starts[i] + f])
+                 for i in idx]
+        ids = [[(0, self.starts[i] + j) for j in range(f)] for i in idx]
+        return np.stack(clips), ids
+
+
+def _tree_equal(a, b):
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a.cpu(), b.cpu()))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and set(a) == set(b)
+                and all(_tree_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_tree_equal(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
 def stage2_path(tmp):
-    """The stage-2 trainer at full width: the frozen tensors stay bitwise
-    unchanged, the f32 temporal-LoRA b tensors move, the losses are
-    finite, every kernel launches as often as the block counts say, and
-    the motion checkpoint it writes holds the trained weights with the
-    temporal LoRA folded in. Returns (launch counts, checkpoint path)."""
+    """The stage-2 trainer at full width on one seeded 10-frame 1024²
+    video held in memory: one epoch (its 3 clip starts, 3 steps) through
+    the latent-moment cache with a checkpoint at step 2, then a run
+    resumed from the latest checkpoint to step 4. Checks that the frozen
+    tensors stay bitwise unchanged, the f32 temporal-LoRA b tensors move,
+    the losses are finite, every kernel launches as often as the block
+    counts and the cache's misses say (K1's FMA route once per encoded
+    frame), the resumed run restores the trainable tensors and optimizer
+    state bitwise as saved, the checkpoint directory holds the two
+    committed checkpoints and nothing else, metrics.jsonl one finite line
+    per logged step, and the motion checkpoint it writes holds the
+    trained weights with the temporal LoRA folded in; then runs the 8-bit
+    AdamW phase on the trained tensors. Returns (launch counts, motion
+    checkpoint path, 8-bit AdamW readings)."""
+    import numpy as np
     import torch
     from video_style_transfer_tpu_torch.cli import train_animatediff
+    from video_style_transfer_tpu_torch.cli.common import model_configs
     from video_style_transfer_tpu_torch.lora.surgery import tree_get
+    from video_style_transfer_tpu_torch.training.stage2 import iter_leaves
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
     from video_style_transfer_tpu_torch.utils.motion_convert import (
         fold_temporal_lora, import_motion_state_dict, load_motion_checkpoint)
 
-    args = train_animatediff.build_parser().parse_args([
-        "--output_dir", os.path.join(tmp, "stage2"),
-        "--prompt", "a horse galloping through a snowy forest",
-        "--num_frames", str(TRAIN_FRAMES), "--resolution", str(RESOLUTION),
-        "--max_train_steps", str(TRAIN_STEPS), "--lr_warmup_steps", "1",
-        "--device", "cuda", "--seed", "0",
-        "--log_every", "1"])
+    out_dir = os.path.join(tmp, "stage2")
+    video = np.random.default_rng(3).integers(
+        0, 256, (TRAIN_VIDEO_FRAMES, RESOLUTION, RESOLUTION, 3),
+        dtype=np.uint8)
+    clips = ArrayClips(video, TRAIN_FRAMES)
+    argv = ["--output_dir", out_dir,
+            "--prompt", "a horse galloping through a snowy forest",
+            "--num_frames", str(TRAIN_FRAMES), "--resolution",
+            str(RESOLUTION), "--lr_warmup_steps", "1", "--device", "cuda",
+            "--seed", "0", "--log_every", "1", "--checkpointing_steps",
+            str(TRAIN_CKPT_EVERY)]
+    parser = train_animatediff.build_parser()
     snap = {}
 
-    def on_setup(params, trainable):
-        from video_style_transfer_tpu_torch.training.stage2 import (
-            iter_leaves)
-        names = {p for p, _ in trainable}
-        for path, t in iter_leaves(params):
+    def on_setup(tr):
+        names = {p for p, _ in tr.trainable}
+        for path, t in iter_leaves(tr.params):
             snap[path] = (path in names, t.detach().to("cpu", copy=True))
 
     report = {}
     reset_counters()
     t0 = time.perf_counter()
-    params, trainable = train_animatediff.train(args, report, on_setup)
+    tr = train_animatediff.train(
+        parser.parse_args(argv + ["--num_train_epochs", "1"]), report,
+        on_setup, dataset=clips)
     total = time.perf_counter() - t0
     counts = counters()
-    from video_style_transfer_tpu_torch.cli.common import model_configs
-    from video_style_transfer_tpu_torch.training.stage2 import iter_leaves
-    expected = expected_train_launches(
-        model_configs(smoke=False, motion=True)[0], frames=TRAIN_FRAMES,
-        resolution=RESOLUTION, steps=TRAIN_STEPS)
-    print(f"stage-2 path: set-up {report['weight_init_s']:.3f} s, clip "
-          f"encode {', '.join(f'{s:.3f}' for s in report['encode_s'])} s "
-          f"({TRAIN_FRAMES} frames fp32), train steps "
-          f"{', '.join(f'{s:.3f}' for s in report['step_s'])} s, total "
-          f"{total:.3f} s, peak memory {report.get('peak_memory_gib', 0):.2f} "
-          f"GiB (no remat), {report['trainable_tensors']} "
-          f"trainable tensors ({report['trainable_params']} params), "
-          f"losses {report['loss']}", flush=True)
-    print(f"launches on the stage-2 path: {counts} (expected {expected})",
+    cfg = model_configs(smoke=False, motion=True)[0]
+    encoded = sum(report["encoded_frames"])
+    if tr.max_steps != TRAIN_STEPS or len(report["loss"]) != TRAIN_STEPS:
+        fail(f"one epoch over {len(clips)} clip starts ran "
+             f"{len(report['loss'])} steps, expected {TRAIN_STEPS}")
+    if encoded != tr.cache.misses or encoded > TRAIN_VIDEO_FRAMES:
+        fail(f"the moment cache encoded {encoded} frames (misses "
+             f"{tr.cache.misses}), at most {TRAIN_VIDEO_FRAMES} expected")
+    expected = expected_train_launches(cfg, frames=TRAIN_FRAMES,
+                                       resolution=RESOLUTION,
+                                       steps=TRAIN_STEPS, encoded=encoded)
+    card = card_line()
+    print(f"stage-2 path ({card}): one epoch of {len(clips)} clip starts of "
+          f"a {TRAIN_VIDEO_FRAMES}-frame {RESOLUTION}^2 video in memory; "
+          f"set-up {report['weight_init_s']:.3f} s; checkpoints "
+          f"{[os.path.basename(c) for c in report['checkpoints']]}; per "
+          f"step encoded frames {report['encoded_frames']} (cache hits "
+          f"{tr.cache.hits}, misses {tr.cache.misses}), clip encode "
+          f"{', '.join(f'{s:.4f}' for s in report['encode_s'])} s, train "
+          f"steps {', '.join(f'{s:.4f}' for s in report['step_s'])} s, "
+          f"iteration {', '.join(f'{a + b:.4f}' for a, b in zip(report['encode_s'], report['step_s']))} "
+          f"s; checkpoint writes "
+          f"{', '.join(f'{s:.3f}' for s in report['checkpoint_s'])} s; "
+          f"total {total:.3f} s, peak memory "
+          f"{report.get('peak_memory_gib', 0):.2f} GiB (no remat), "
+          f"{report['trainable_tensors']} trainable tensors "
+          f"({report['trainable_params']} params), losses {report['loss']}",
           flush=True)
+    cached = [(e, s) for e, s, n in zip(report["encode_s"], report["step_s"],
+                                        report["encoded_frames"]) if n == 0]
+    full = [(e, s) for e, s, n in zip(report["encode_s"], report["step_s"],
+                                      report["encoded_frames"])
+            if n == TRAIN_FRAMES]
+    # the host's share of the encode phase: drawing and normalising a clip
+    sample_s = []
+    for step in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        clips.sample_batch_meta(1, step)
+        sample_s.append(time.perf_counter() - t0)
+    print(f"stage-2 iteration ({card}): a step whose clip was all cached "
+          f"{[f'{e:.4f} + {s:.4f} s' for e, s in cached]} (encode + step), "
+          f"a step that encoded all {TRAIN_FRAMES} frames "
+          f"{[f'{e:.4f} + {s:.4f} s' for e, s in full]}; of the encode "
+          f"phase, drawing and normalising the clip on the host takes "
+          f"{', '.join(f'{t:.4f}' for t in sample_s)} s", flush=True)
+    print(f"launches on the stage-2 path, first run: {counts} (expected "
+          f"{expected})", flush=True)
     if not all(map(math.isfinite, report["loss"])):
         fail(f"non-finite stage-2 losses {report['loss']}")
     for name, n in counts.items():
@@ -1177,7 +1286,7 @@ def stage2_path(tmp):
             fail(f"kernel {name} launched {n} times on the stage-2 path, "
                  f"expected {expected.get(name, 0)}")
     frozen_moved, b_still, bf16_changed, bf16_total = 0, 0, 0, 0
-    for path, t in iter_leaves(params):
+    for path, t in iter_leaves(tr.params):
         was_trainable, before = snap[path]
         same = torch.equal(t.detach().cpu(), before)
         if not was_trainable:
@@ -1187,7 +1296,7 @@ def stage2_path(tmp):
         elif t.dtype == torch.bfloat16:
             bf16_total += 1
             bf16_changed += not same
-    n_b = sum(1 for p, _ in trainable if p[-1] == "b" and "tlora" in p)
+    n_b = sum(1 for p, _ in tr.trainable if p[-1] == "b" and "tlora" in p)
     print(f"after {TRAIN_STEPS} steps: {frozen_moved} of "
           f"{sum(1 for w, _ in snap.values() if not w)} frozen tensors "
           f"changed (must be 0); {n_b - b_still} of {n_b} f32 temporal-LoRA "
@@ -1197,15 +1306,95 @@ def stage2_path(tmp):
     if frozen_moved or b_still:
         fail("stage-2 training moved frozen tensors or left temporal-LoRA "
              "b tensors unchanged")
-    folded = fold_temporal_lora(params)
-    written = load_motion_checkpoint(report["motion_checkpoint"])
-    reimported = import_motion_state_dict(params, written)
+    first_logged = len(report["loss"])
+    del tr
+    torch.cuda.empty_cache()
+
+    # the resumed run: its restored state against the file it came from
+    saved_path = os.path.join(out_dir, "checkpoints",
+                              f"checkpoint-{TRAIN_CKPT_EVERY}")
+    restored = {}
+
+    def on_resume(tr):
+        saved = torch.load(os.path.join(saved_path, ckpt.STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        live = ckpt.train_state(tr.trainable, tr.optimizer, tr.start)
+        restored.update(
+            start=tr.start, path=tr.resumed_from,
+            trainable=_tree_equal(live["trainable"], saved["trainable"]),
+            optimizer=_tree_equal(live["optimizer_state"],
+                                  saved["optimizer_state"]),
+            tensors=len(saved["trainable"]))
+
+    resume_report = {}
+    t0 = time.perf_counter()
+    tr = train_animatediff.train(
+        parser.parse_args(argv + ["--max_train_steps", str(TRAIN_RESUME_TO),
+                                  "--resume_from_checkpoint", "latest"]),
+        resume_report, on_resume, dataset=clips)
+    resume_total = time.perf_counter() - t0
+    names = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+    want_names = [f"checkpoint-{TRAIN_CKPT_EVERY}",
+                  f"checkpoint-{TRAIN_RESUME_TO}"]
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f.read().splitlines()]
+    resumed_steps = len(resume_report["loss"])
+    print(f"stage-2 resume ({card}): from {restored.get('path')} at step "
+          f"{restored.get('start')}, {restored.get('tensors')} trainable "
+          f"tensors and the {tr.optimizer.kind} state restored bitwise as "
+          f"saved: {restored.get('trainable')} / "
+          f"{restored.get('optimizer')}; steps "
+          f"{resume_report['start_step']}..{TRAIN_RESUME_TO - 1}: encoded "
+          f"frames {resume_report['encoded_frames']}, clip encode "
+          f"{', '.join(f'{s:.4f}' for s in resume_report['encode_s'])} s, "
+          f"train steps "
+          f"{', '.join(f'{s:.4f}' for s in resume_report['step_s'])} s, "
+          f"set-up {resume_report['weight_init_s']:.3f} s, total "
+          f"{resume_total:.3f} s; checkpoints/ holds {names}; "
+          f"metrics.jsonl {len(logged)} lines for "
+          f"{first_logged + resumed_steps} logged steps", flush=True)
+    if not (restored.get("start") == TRAIN_CKPT_EVERY
+            and restored.get("trainable") and restored.get("optimizer")):
+        fail(f"the resumed run did not restore checkpoint-"
+             f"{TRAIN_CKPT_EVERY} bitwise: {restored}")
+    if names != want_names:
+        fail(f"checkpoints/ holds {names}, expected {want_names}")
+    if resumed_steps != TRAIN_RESUME_TO - TRAIN_CKPT_EVERY or \
+            resume_report["checkpoints"][-1] != os.path.join(
+                out_dir, "checkpoints", want_names[-1]):
+        fail(f"the resumed run took {resumed_steps} steps and wrote "
+             f"{resume_report['checkpoints']}")
+    keys = ("loss", "loss_mse", "loss_orth", "sec_per_step")
+    if len(logged) != first_logged + resumed_steps or not all(
+            math.isfinite(ln[k]) for ln in logged for k in keys):
+        fail(f"metrics.jsonl: {len(logged)} lines, expected "
+             f"{first_logged + resumed_steps} with finite {keys}")
+    if not all(map(math.isfinite, resume_report["loss"])):
+        fail(f"non-finite resumed losses {resume_report['loss']}")
+    # the whole path: both runs' steps, the cache misses of each
+    counts = counters()
+    encoded += sum(resume_report["encoded_frames"])
+    expected = expected_train_launches(
+        cfg, frames=TRAIN_FRAMES, resolution=RESOLUTION,
+        steps=TRAIN_STEPS + resumed_steps, encoded=encoded)
+    print(f"launches on the stage-2 path, both runs: {counts} (expected "
+          f"{expected}; K1's FMA route {encoded} encoded frames, "
+          f"{(TRAIN_STEPS + resumed_steps) * TRAIN_FRAMES} without the "
+          f"cache)", flush=True)
+    for name, n in counts.items():
+        if n != expected.get(name, 0):
+            fail(f"kernel {name} launched {n} times on the stage-2 path, "
+                 f"expected {expected.get(name, 0)}")
+    motion_checkpoint = resume_report["motion_checkpoint"]
+    folded = fold_temporal_lora(tr.params)
+    written = load_motion_checkpoint(motion_checkpoint)
+    reimported = import_motion_state_dict(tr.params, written)
     motion = [(path, t) for path, t in iter_leaves(folded)
               if "motion_modules" in path]
     differing = [path for path, t in motion
                  if not torch.equal(t, tree_get(reimported, path))]
-    print(f"motion checkpoint: {report['motion_checkpoint']} written in "
-          f"{report['export_s']:.3f} s, {len(written)} tensors, "
+    print(f"motion checkpoint: {motion_checkpoint} written in "
+          f"{resume_report['export_s']:.3f} s, {len(written)} tensors, "
           f"{sum(v.size for v in written.values())} parameters; read back "
           f"and re-imported, {len(differing)} of {len(motion)} motion "
           f"tensors differ from the trainer's weights with the temporal "
@@ -1214,10 +1403,96 @@ def stage2_path(tmp):
         fail(f"the motion checkpoint differs from the trained weights, "
              f"e.g. {differing[:3]}")
     counts = check_routes("stage-2", counts,
-                          expected["flash_attention_bwd"],
-                          TRAIN_STEPS * TRAIN_FRAMES,
+                          expected["flash_attention_bwd"], encoded,
                           bwd_wgmma=expected["flash_attention_bwd"])
-    return counts, report["motion_checkpoint"]
+    adam8 = adamw8bit_phase([t for _, t in tr.trainable], card)
+    return counts, motion_checkpoint, adam8
+
+
+def adamw8bit_phase(params, card):
+    """Three ``--optimizer adamw8bit`` steps (training/adam8bit.py) over
+    copies of the trained stage-2 tensors, on the card and on the CPU,
+    from the same values and seeded gradients (global norm
+    ADAM8_GRAD_NORM, so the clip passes them unchanged). The codes must be
+    equal, the scales and the updated tensors within 1e-6, and the 8-bit
+    state smaller than fp32 moments. Times one step on the card against
+    the fp32 AdamW's on the same tensors. Returns the readings."""
+    import torch
+    from video_style_transfer_tpu_torch.training.stage2 import (
+        make_optimizer)
+
+    gen = torch.Generator().manual_seed(17)
+    n = sum(p.numel() for p in params)
+    scale = ADAM8_GRAD_NORM / math.sqrt(n)
+    grads = [[(torch.randn(p.shape, generator=gen) * scale).to(p.dtype)
+              for p in params] for _ in range(3)]
+    cpu = [p.detach().to("cpu", copy=True) for p in params]
+    gpu = [p.detach().clone() for p in params]
+    kw = dict(lr=2e-5, total_steps=1000, warmup=1, optimizer="adamw8bit")
+    opt_cpu, opt_gpu = make_optimizer(cpu, **kw), make_optimizer(gpu, **kw)
+    t0 = time.perf_counter()
+    for g in grads:
+        opt_cpu.step(g)
+    cpu_s = (time.perf_counter() - t0) / 3
+    step_ms = []
+    for g in grads:
+        g = [x.cuda() for x in g]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_gpu.step(g)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    codes_off = scale_err = upd_err = 0.0
+    for a, b in zip(opt_gpu.m + opt_gpu.v, opt_cpu.m + opt_cpu.v):
+        if isinstance(a, dict):
+            codes_off += int((a["q"].cpu() != b["q"]).sum())
+            scale_err = max(scale_err, float((a["s"].cpu() - b["s"]).abs()
+                                             .max()))
+        else:
+            scale_err = max(scale_err, float((a.cpu() - b).abs().max()))
+    for a, b in zip(gpu, cpu):
+        upd_err = max(upd_err, float((a.cpu().float() - b.float()).abs()
+                                     .max()))
+    moved = sum(not torch.equal(a.cpu(), p.cpu())
+                for a, p in zip(gpu, params))
+    fp32 = make_optimizer([p.detach().clone() for p in params],
+                          total_steps=1000, warmup=1)
+    fp32_ms = []
+    for g in grads:
+        g = [x.cuda() for x in g]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fp32.step(g)
+        torch.cuda.synchronize()
+        fp32_ms.append((time.perf_counter() - t0) * 1e3)
+    state8 = opt_gpu.state_bytes()
+    state_fp32 = 8 * n
+    state_adamw = sum(2 * p.numel() * p.element_size() for p in params)
+    r = {"tensors": len(params), "params": n,
+         "quantized_tensors": sum(opt_gpu.quantized(p) for p in params),
+         "codes_differing": int(codes_off), "max_scale_err": scale_err,
+         "max_update_err": upd_err, "tensors_moved": int(moved),
+         "state_bytes_8bit": state8, "state_bytes_fp32": state_fp32,
+         "state_bytes_adamw": state_adamw, "step_ms_8bit": step_ms,
+         "step_ms_adamw": fp32_ms, "cpu_step_s": cpu_s}
+    print(f"adamw8bit phase ({card}): 3 steps over the {len(params)} "
+          f"trained stage-2 tensors ({n} params, "
+          f"{r['quantized_tensors']} quantized) on the card and the CPU "
+          f"from the same gradients: {r['codes_differing']} codes differ "
+          f"(must be 0), scales and moments within {scale_err:.3e}, "
+          f"tensors within {upd_err:.3e} (limit 1e-6), {moved} of "
+          f"{len(params)} tensors moved; state {state8} bytes 8-bit vs "
+          f"{state_fp32} fp32 moments ({state8 / state_fp32:.4f}; the "
+          f"fp32 AdamW keeps each tensor's dtype: {state_adamw}); card "
+          f"step {', '.join(f'{t:.2f}' for t in step_ms)} ms 8-bit, "
+          f"{', '.join(f'{t:.2f}' for t in fp32_ms)} ms AdamW; CPU step "
+          f"{cpu_s:.2f} s", flush=True)
+    if codes_off or scale_err > 1e-6 or upd_err > 1e-6:
+        fail("adamw8bit: the card and the CPU disagree")
+    if not state8 < state_fp32 or not moved:
+        fail(f"adamw8bit: state {state8} bytes against {state_fp32} fp32, "
+             f"{moved} tensors moved")
+    return r
 
 
 def stage2_precision(artifacts):
@@ -1735,7 +2010,7 @@ def main():
     try:
         small_cli_reference(tmp)
         # the trainer first: serving reads the checkpoint it writes
-        stage2_counts, motion_checkpoint = stage2_path(tmp)
+        stage2_counts, motion_checkpoint, adam8 = stage2_path(tmp)
         torch.cuda.empty_cache()
         from video_style_transfer_tpu_torch.config import UNetConfig
         artifacts = os.path.join(tmp, "stage1")
@@ -1842,7 +2117,7 @@ def main():
                        for path in main_paths)
                 for r in ("wgmma", "tf32x3")}
         kernels.append(entry)
-    print(json.dumps({"stage2_precision": precision,
+    print(json.dumps({"stage2_precision": precision, "adamw8bit": adam8,
                       "bf16_decode_s_per_frame":
                           by_path["bf16_decode"]["decode_s_per_frame"]}),
           flush=True)

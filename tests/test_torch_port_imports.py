@@ -50,7 +50,8 @@ def test_port_files_exist():
                 "data/tokenizer.py", "schedulers/dpm.py",
                 "utils/safetensors_io.py", "utils/hf_convert.py",
                 "utils/motion_convert.py", "utils/checkpoint.py",
-                "utils/watermark.py"):
+                "utils/watermark.py", "data/video.py",
+                "training/adam8bit.py", "utils/observability.py"):
         assert f"video_style_transfer_tpu_torch/{mod}" in names
     assert len(names) > 30
 

@@ -558,14 +558,30 @@ def test_train_cli_smoke_cpu(tmp_path):
 @pytest.mark.parametrize("flag,value", [
     ("--video_dir", "clips"), ("--motion_adapter_path", "m.safetensors"),
     ("--resume_from_checkpoint", "latest"), ("--optimizer", "adamw8bit"),
-    ("--unziplora_name_or_path", "stage1")])
-def test_train_cli_refuses_unported(flag, value):
+    ("--unziplora_name_or_path", "stage1"), ("--data_parallel", "2")])
+def test_train_cli_refuses_unported(tmp_path, flag, value):
     args = train_animatediff.build_parser().parse_args(
-        ["--smoke", "--device", "cpu", "--prompt", "a horse", flag, value])
+        ["--smoke", "--device", "cpu", "--prompt", "a horse",
+         "--max_train_steps", "1", "--output_dir", str(tmp_path), flag,
+         value])
     # the loaders have landed: their flags now look for the files
     expect = {"--motion_adapter_path": (FileNotFoundError,
                                         "no motion checkpoint"),
-              "--unziplora_name_or_path": (FileNotFoundError, "stage1")}
-    exc, match = expect.get(flag, (SystemExit, "not ported yet"))
-    with pytest.raises(exc, match=match):
-        train_animatediff.train(args)
+              "--unziplora_name_or_path": (FileNotFoundError, "stage1"),
+              "--data_parallel": (SystemExit, "not ported yet")}
+    if flag in expect:
+        exc, match = expect[flag]
+        with pytest.raises(exc, match=match):
+            train_animatediff.train(args)
+        return
+    # the dataset, resume and 8-bit AdamW have landed, with the JAX CLI's
+    # behaviour: under --smoke a video directory without videos falls
+    # back to synthetic clips, `latest` without a checkpoint starts
+    # afresh, and adamw8bit trains
+    report = {}
+    tr = train_animatediff.train(args, report)
+    assert len(report["loss"]) == 1 and np.isfinite(report["loss"][0])
+    assert tr.dataset is None and tr.start == 0
+    assert tr.resumed_from is None
+    assert tr.optimizer.kind == (value if flag == "--optimizer"
+                                 else "adamw")

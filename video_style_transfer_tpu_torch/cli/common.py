@@ -1,5 +1,6 @@
 """Shared CLI runtime: device selection, model assembly, text
-conditioning and VAE-encoded training latents.
+conditioning and VAE-encoded training latents (per frame, or through the
+per-frame posterior-moment cache of video training).
 
 Two sources of weights:
 
@@ -16,7 +17,7 @@ from __future__ import annotations
 import os
 import zlib
 from dataclasses import dataclass
-from typing import Any, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +29,7 @@ from video_style_transfer_tpu_torch.models.clip import (
 from video_style_transfer_tpu_torch.models.layers import Init
 from video_style_transfer_tpu_torch.models.unet import init_unet
 from video_style_transfer_tpu_torch.models.vae import (
-    init_vae_decoder, init_vae_encoder, vae_encode)
+    init_vae_decoder, init_vae_encoder, vae_encode, vae_encode_moments)
 from video_style_transfer_tpu_torch.pipelines.image import default_time_ids
 from video_style_transfer_tpu_torch.pipelines.sampling import Conditioning
 
@@ -300,3 +301,79 @@ def encode_latents(bundle: ModelBundle, images, generator: torch.Generator):
                           generator=generator, device=x.device)
         out.append(vae_encode(bundle.vae_encoder, bundle.vae_cfg, x, eps))
     return torch.cat(out)
+
+
+class LatentMomentCache:
+    """Per-frame VAE posterior moments for video training (the JAX
+    package's cli/common.py LatentMomentCache).
+
+    Consecutive-start clips of one video share all but one frame, and a
+    frame's posterior moments (mean, logvar) do not change, so they are
+    kept in host memory keyed by the frame's (video_idx, frame_idx); only
+    the draw ``mean + exp(0.5 logvar) * eps`` happens per step, on the
+    device. Its eps are drawn from the caller's generator in the order
+    and shape ``encode_latents`` draws them (one (1, h, w, C) draw per
+    frame), so the same generator state gives the same latents with the
+    cache as without it.
+
+    The encoder runs in fp32, `chunk` missing frames a call, and encodes
+    an id missing twice from one batch once. An entry is 0.5 MB at 1024²;
+    past `max_entries` a frame is encoded and not kept. `misses` counts
+    the frames encoded, `hits` the frames served without an encode."""
+
+    def __init__(self, bundle: ModelBundle, max_entries: int = 4096,
+                 chunk: int = 1):
+        self.bundle = bundle
+        self.max_entries = max_entries
+        self.chunk = chunk
+        self._cache: Dict[Any, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    @torch.no_grad()
+    def moments(self, frames_flat, ids_flat):
+        """(mean, logvar) on the host, (N, h, w, C) each, of frames
+        (N, H, W, 3) in [-1, 1] (host array or tensor) with ids
+        `ids_flat`."""
+        fresh = {}
+        seen, missing = set(), []
+        for k, fid in enumerate(ids_flat):
+            if fid not in self._cache and fid not in seen:
+                seen.add(fid)
+                missing.append(k)
+        self.misses += len(missing)
+        self.hits += len(ids_flat) - len(missing)
+        for s in range(0, len(missing), self.chunk):
+            grp = missing[s:s + self.chunk]
+            x = torch.as_tensor(frames_flat[grp]).to(self.bundle.device,
+                                                     torch.float32)
+            mean, logvar = vae_encode_moments(self.bundle.vae_encoder,
+                                              self.bundle.vae_cfg, x)
+            mean, logvar = mean.cpu(), logvar.cpu()
+            for j, k in enumerate(grp):
+                fresh[ids_flat[k]] = (mean[j], logvar[j])
+                if len(self._cache) < self.max_entries:
+                    self._cache[ids_flat[k]] = (mean[j], logvar[j])
+        got = [self._cache[fid] if fid in self._cache else fresh[fid]
+               for fid in ids_flat]
+        return (torch.stack([m for m, _ in got]),
+                torch.stack([lv for _, lv in got]))
+
+    @torch.no_grad()
+    def latents(self, frames, ids, generator: torch.Generator):
+        """frames (B, F, H, W, 3) in [-1, 1], ids[b][j] the id of frame j
+        of clip b -> scaled latents (B*F, h, w, C) on the bundle's
+        device."""
+        flat = frames.reshape((-1,) + tuple(frames.shape[2:]))
+        mean, logvar = self.moments(flat, [fid for clip in ids
+                                           for fid in clip])
+        dev = self.bundle.device
+        eps = torch.cat([torch.randn((1,) + tuple(mean.shape[1:]),
+                                     generator=generator, device=dev)
+                         for _ in range(mean.shape[0])])
+        mean, logvar = mean.to(dev), logvar.to(dev)
+        z = mean + torch.exp(0.5 * logvar) * eps
+        return z * self.bundle.vae_cfg.scaling_factor

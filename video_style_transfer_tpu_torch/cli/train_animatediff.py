@@ -8,21 +8,31 @@ It loads a diffusers-layout SDXL directory, a stage-1 artifact set and
 initial motion weights where their flags are given; without them it
 trains on what the JAX CLI uses when none is given: seeded random
 full-width SDXL + AnimateDiff-XL weights and rank-4 UnZipLoRA stage-1
-LoRAs. Videos cannot be loaded yet: the clips are synthetic, in [-1, 1].
-Flags for features of later slices raise. ``train(args, report)`` runs
-the loop, writes the motion checkpoint (every motion-module weight with
-the temporal LoRA folded in, ``motion_modules.safetensors`` or ``.pth``
-under --output_dir, which ``cli.infer_video --motion_checkpoint`` reads)
-and returns the trained params.
+LoRAs. Clips come from the videos under --video_dir (data/video.py), each
+frame's posterior moments cached across steps (cli/common.py
+LatentMomentCache; --no_latent_cache encodes every clip each step), or,
+without a video directory, synthetic clips in [-1, 1]; under --smoke a
+video directory without readable videos also falls back to them.
+--num_train_epochs counts passes over the clip starts. A checkpoint of
+the trainable tensors and the optimizer (AdamW, or --optimizer adamw8bit)
+is written every --checkpointing_steps under <output_dir>/checkpoints,
+and --resume_from_checkpoint (a path, or latest) continues from one. The
+losses and seconds a step go to <output_dir>/metrics.jsonl (and
+tensorboard or wandb with --report_to). The multi-GPU flags raise.
+``train(args, report)`` runs the loop, writes the motion checkpoint
+(every motion-module weight with the temporal LoRA folded in,
+``motion_modules.safetensors`` or ``.pth`` under --output_dir, which
+``cli.infer_video --motion_checkpoint`` reads) and returns the trainer.
 
     python -m video_style_transfer_tpu_torch.cli.train_animatediff \\
-        --prompt "a horse galloping" --device cuda
+        --prompt "a horse galloping" --video_dir clips/ --device cuda
 """
 from __future__ import annotations
 
 import argparse
 import os
 
+import numpy as np
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
@@ -30,29 +40,25 @@ from video_style_transfer_tpu_torch.cli.infer_video import _Clock
 
 # flag -> (value that means "unused", what it waits for)
 NOT_PORTED = {
-    "video_dir": (None, "the video dataset and latent-moment cache"),
-    "instance_data_dir": (None, "the video dataset and latent-moment cache"),
-    "resume_from_checkpoint": (None, "checkpoint save/restore "
-                                     "(utils/checkpoint.py)"),
-    "checkpointing_steps": (None, "checkpoint save/restore "
-                                  "(utils/checkpoint.py)"),
-    "num_train_epochs": (None, "the video dataset (epoch accounting)"),
     "data_parallel": (None, "multi-GPU training"),
     "frame_parallel": (None, "multi-GPU training"),
     "num_processes": (None, "multi-GPU training"),
-    "optimizer": ("adamw", "training/adam8bit.py"),
 }
 
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    for flag, (unused, why) in NOT_PORTED.items():
-        if unused is None:
-            p.add_argument(f"--{flag}", default=None,
-                           help=f"not ported yet: waits for {why}")
+    for flag, (_, why) in NOT_PORTED.items():
+        p.add_argument(f"--{flag}", default=None,
+                       help=f"not ported yet: waits for {why}")
     p.add_argument("--pretrained_model_name_or_path", default=None,
                    help="diffusers-layout SDXL directory")
+    p.add_argument("--video_dir", default=None,
+                   help="directory of .mp4 training videos (and one level "
+                        "of subdirectories)")
+    p.add_argument("--instance_data_dir", default=None,
+                   help="reference spelling for --video_dir")
     p.add_argument("--unziplora_name_or_path", default=None,
                    help="stage-1 artifact directory")
     p.add_argument("--unziplora_name", default="unziplora")
@@ -82,6 +88,9 @@ def build_parser():
     p.add_argument("--resolution", type=int, default=1024)
     p.add_argument("--train_batch_size", type=int, default=1)
     p.add_argument("--max_train_steps", type=int, default=1000)
+    p.add_argument("--num_train_epochs", type=int, default=None,
+                   help="passes over the clip starts, in place of "
+                        "--max_train_steps")
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--learning_rate", type=float, default=2e-5)
     p.add_argument("--lr_scheduler", default="cosine",
@@ -92,7 +101,8 @@ def build_parser():
     p.add_argument("--lr_power", type=float, default=1.0)
     p.add_argument("--optimizer", default="adamw",
                    choices=["adamw", "adamw8bit"],
-                   help="adamw8bit is not ported yet")
+                   help="adamw8bit keeps the Adam moments blockwise in 8 "
+                        "bits (training/adam8bit.py)")
     p.add_argument("--adam_beta1", type=float, default=0.9)
     p.add_argument("--adam_beta2", type=float, default=0.999)
     p.add_argument("--adam_epsilon", type=float, default=1e-8)
@@ -103,6 +113,10 @@ def build_parser():
     p.add_argument("--temporal_lora_alpha", type=float, default=1.0)
     p.add_argument("--lambda_orth", type=float, default=1e-4)
     p.add_argument("--cfg_dropout", type=float, default=0.1)
+    p.add_argument("--no_latent_cache", action="store_true",
+                   help="encode every clip each step (the reference's "
+                        "behaviour) instead of caching each frame's VAE "
+                        "posterior moments")
     p.add_argument("--prediction_type", default="epsilon",
                    choices=["epsilon", "v_prediction"])
     p.add_argument("--unfreeze_mergers", action="store_true")
@@ -112,7 +126,21 @@ def build_parser():
     p.add_argument("--mixed_precision", default="bf16",
                    choices=["no", "bf16", "fp16"],
                    help="UNet dtype; fp16 maps to bf16, as in the JAX CLI")
+    p.add_argument("--checkpointing_steps", type=int, default=500,
+                   help="write <output_dir>/checkpoints/checkpoint-<step> "
+                        "every N steps")
+    p.add_argument("--resume_from_checkpoint", default=None,
+                   help="a checkpoint directory, or latest (the newest "
+                        "under <output_dir>/checkpoints; none there "
+                        "starts afresh)")
     p.add_argument("--log_every", type=int, default=10)
+    p.add_argument("--name", default="animatediff-stage2",
+                   help="tracker run / project name")
+    p.add_argument("--report_to", default="jsonl",
+                   choices=["jsonl", "tensorboard", "wandb"],
+                   help="metrics.jsonl under --output_dir always; "
+                        "tensorboard or wandb (offline) besides, where "
+                        "they import")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an "
@@ -122,9 +150,53 @@ def build_parser():
     return p
 
 
-def prepare(args):
+def train_steps(args, n_items: int) -> int:
+    """The run's step count: --num_train_epochs passes over `n_items`
+    clip starts in batches of --train_batch_size, a step taking
+    --gradient_accumulation_steps batches (the JAX CLI's accounting),
+    else --max_train_steps."""
+    if args.num_train_epochs is None:
+        return args.max_train_steps
+    accum = max(args.gradient_accumulation_steps, 1)
+    batches = max(-(-n_items // args.train_batch_size), 1)
+    return args.num_train_epochs * max(-(-batches // accum), 1)
+
+
+def run_seed(seed: int, start: int) -> int:
+    """The trainer generator's seed: `seed` for a run from step 0; a run
+    resumed at `start` folds it in, so that it does not replay the draws
+    of the steps before its checkpoint."""
+    if start == 0:
+        return seed
+    return int(np.random.SeedSequence([seed, start]).generate_state(
+        1, np.uint64)[0])
+
+
+def open_dataset(args, frames: int, res: int):
+    """The VideoClipDataset of --video_dir (or --instance_data_dir), or
+    None without one. Under --smoke a directory without readable videos
+    gives None (synthetic clips), as in the JAX CLI; a missing cv2 raises
+    always."""
+    root = args.video_dir or args.instance_data_dir
+    if not root:
+        return None
+    from video_style_transfer_tpu_torch.data.video import VideoClipDataset
+    try:
+        return VideoClipDataset(root, num_frames=frames, resolution=res)
+    except OSError:
+        if not args.smoke:
+            raise
+        print(f"smoke: no readable videos under {root}; using synthetic "
+              f"clips", flush=True)
+        return None
+
+
+def prepare(args, dataset=None):
     """Build everything the loop needs: models (seeded), the stage-1 and
-    temporal LoRAs, the trainable split, the optimizer, the prompt
+    temporal LoRAs, the trainable split, the clip source (`dataset`, an
+    object with VideoClipDataset's ``__len__`` and ``sample_batch_meta``,
+    or --video_dir's videos, or synthetic clips) and the moment cache, the
+    optimizer (restored from --resume_from_checkpoint), the prompt
     encodings and the step function. Returns a SimpleNamespace."""
     from types import SimpleNamespace
 
@@ -134,6 +206,7 @@ def prepare(args):
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.schedulers.ddpm import make_schedule
     from video_style_transfer_tpu_torch.training import stage2
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
 
     common.refuse_unported(args, NOT_PORTED)
     prompt = args.prompt or args.instance_prompt
@@ -142,6 +215,7 @@ def prepare(args):
     device = common.resolve_device(args.device)
     smoke = args.smoke
     res = 16 if smoke else args.resolution
+    frames = 4 if smoke else args.num_frames
     dtype = (torch.float32 if smoke or args.mixed_precision == "no"
              else torch.bfloat16)
     b = args.train_batch_size
@@ -178,24 +252,44 @@ def prepare(args):
     mask = stage2.trainable_mask(params, train_mergers=args.unfreeze_mergers,
                                  train_full_motion=args.train_full_motion)
     trainable = stage2.split_trainable(params, mask)
+
+    if dataset is None:
+        dataset = open_dataset(args, frames, res)
+    cache = (None if args.no_latent_cache or dataset is None
+             else common.LatentMomentCache(bundle))
+    accum = max(args.gradient_accumulation_steps, 1)
+    # the schedule's length depends on the step count
+    max_steps = train_steps(args, len(dataset) if dataset is not None
+                            else 1)
     opt = stage2.make_optimizer(
         [t for _, t in trainable], lr=args.learning_rate,
-        total_steps=args.max_train_steps, warmup=args.lr_warmup_steps,
+        total_steps=max_steps, warmup=args.lr_warmup_steps,
         weight_decay=args.weight_decay, max_grad_norm=args.max_grad_norm,
         b1=args.adam_beta1, b2=args.adam_beta2, eps=args.adam_epsilon,
         schedule=args.lr_scheduler, num_cycles=args.lr_num_cycles,
-        power=args.lr_power)
+        power=args.lr_power, optimizer=args.optimizer)
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    start, resumed_from = 0, None
+    if args.resume_from_checkpoint:
+        resumed_from = (ckpt.latest_checkpoint(ckpt_dir)
+                        if args.resume_from_checkpoint == "latest"
+                        else args.resume_from_checkpoint)
+        if resumed_from:
+            start = ckpt.restore_checkpoint(resumed_from, trainable, opt)
+            print(f"resumed from {resumed_from} at step {start}",
+                  flush=True)
     with torch.no_grad():
         emb, pooled = common.encode_prompt(bundle, prompt)
         # the empty-prompt encodings for the CFG-dropout swap
         uemb, upooled = common.encode_prompt(bundle, "")
     gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
+    gen.manual_seed(run_seed(args.seed, start))
     return SimpleNamespace(
         device=device, bundle=bundle, params=params, trainable=trainable,
         lora_state=lora_state, optimizer=opt, generator=gen, res=res,
-        frames=4 if smoke else args.num_frames, batch=b,
-        accum=max(args.gradient_accumulation_steps, 1),
+        frames=frames, batch=b, accum=accum, seed=args.seed,
+        dataset=dataset, cache=cache, max_steps=max_steps, start=start,
+        ckpt_dir=ckpt_dir, resumed_from=resumed_from,
         cond={"ctx": emb.repeat(b, 1, 1), "pooled": pooled.repeat(b, 1),
               "uncond_ctx": uemb.repeat(b, 1, 1),
               "uncond_pooled": upooled.repeat(b, 1),
@@ -209,67 +303,120 @@ def prepare(args):
             lora_state=lora_state, dtype=dtype))
 
 
-def sample_micro_batches(tr):
-    """One synthetic clip per micro-batch, fp32-encoded frame by frame."""
+def sample_micro_batches(tr, step: int = 0):
+    """One clip per micro-batch as scaled latents, fp32-encoded frame by
+    frame. From the dataset, micro-batch mi of `step` is
+    ``sample_batch_meta(batch, seed * 1000 + step * accum + mi)`` (the
+    JAX CLI's draw), its latents drawn through the moment cache where
+    there is one; without a dataset, a synthetic clip drawn from the
+    trainer's generator."""
     micro = []
     with torch.no_grad():
-        for _ in range(tr.accum):
-            frames = torch.rand((tr.batch * tr.frames, tr.res, tr.res, 3),
-                                generator=tr.generator,
-                                device=tr.device) * 2.0 - 1.0
-            lat = common.encode_latents(tr.bundle, frames,
-                                        generator=tr.generator)
+        for mi in range(tr.accum):
+            if tr.dataset is None:
+                clip = torch.rand((tr.batch * tr.frames, tr.res, tr.res, 3),
+                                  generator=tr.generator,
+                                  device=tr.device) * 2.0 - 1.0
+                lat = common.encode_latents(tr.bundle, clip,
+                                            generator=tr.generator)
+            else:
+                clips, ids = tr.dataset.sample_batch_meta(
+                    tr.batch, tr.seed * 1000 + step * tr.accum + mi)
+                if tr.cache is not None:
+                    lat = tr.cache.latents(clips, ids, tr.generator)
+                else:
+                    clip = torch.as_tensor(clips).reshape(
+                        -1, *clips.shape[2:]).to(tr.device, torch.float32)
+                    lat = common.encode_latents(tr.bundle, clip,
+                                                generator=tr.generator)
             micro.append({"latents": lat.reshape(tr.batch, tr.frames,
                                                  *lat.shape[1:]),
                           **tr.cond})
     return micro
 
 
-def train(args, report=None, on_setup=None):
-    """Run the stage-2 loop. Returns (params, trainable [(path, tensor)]).
-    When `report` is a dict it receives weight_init_s (set-up through the
-    prompt encodings) and per step encode_s, step_s and the losses (host
-    seconds, each phase ending in a device synchronise), plus
-    peak_memory_gib (from the first step on) on CUDA, and
-    motion_checkpoint, the path of the file written at the end.
-    on_setup(params, trainable) runs once before the first step."""
+def train(args, report=None, on_setup=None, dataset=None):
+    """Run the stage-2 loop from the start step (0, or the resumed
+    checkpoint's) to the run's step count; returns the trainer
+    (prepare's namespace: params, trainable, optimizer, generator, ...).
+    `dataset`: a clip source with VideoClipDataset's interface, in place
+    of --video_dir. When `report` is a dict it receives weight_init_s
+    (set-up through the prompt encodings and any restore), start_step,
+    max_steps, and per step encode_s, encoded_frames (frames that went
+    through the VAE encoder), step_s and the losses (host seconds, each
+    phase ending in a device synchronise), plus peak_memory_gib (from the
+    first step on) on CUDA, checkpoints (the paths written) and
+    motion_checkpoint, the file written at the end; the logged steps go
+    to <output_dir>/metrics.jsonl. on_setup(trainer)
+    runs once before the first step."""
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
+    from video_style_transfer_tpu_torch.utils.observability import (
+        MetricsLogger, StepTimer)
+
     if report is None:
         report = {}
     clock = _Clock(common.resolve_device(args.device))
-    tr = prepare(args)
+    tr = prepare(args, dataset)
     report["weight_init_s"] = clock.lap()
-    report.update(encode_s=[], step_s=[], loss=[], loss_mse=[],
-                  loss_orth=[], trainable_tensors=len(tr.trainable),
+    report.update(encode_s=[], encoded_frames=[], step_s=[], loss=[],
+                  loss_mse=[], loss_orth=[], checkpoints=[],
+                  checkpoint_s=[], start_step=tr.start,
+                  max_steps=tr.max_steps,
+                  trainable_tensors=len(tr.trainable),
                   trainable_params=sum(t.numel() for _, t in tr.trainable))
     if on_setup is not None:
-        on_setup(tr.params, tr.trainable)
+        on_setup(tr)
     if tr.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(tr.device)
+    logger = MetricsLogger(args.output_dir,
+                           use_tensorboard=args.report_to == "tensorboard",
+                           use_wandb=args.report_to == "wandb",
+                           project=args.name)
+    timer, last_log = StepTimer(), tr.start
     clock.lap()
-    for step in range(args.max_train_steps):
-        micro = sample_micro_batches(tr)
-        report["encode_s"].append(clock.lap())
-        metrics = tr.step(tr.params, micro, tr.generator)
-        report["step_s"].append(clock.lap())
-        for k in ("loss", "loss_mse", "loss_orth"):
-            report[k].append(float(metrics[k]))
-        if step % args.log_every == 0 or step == args.max_train_steps - 1:
-            print(f"step {step}: loss={report['loss'][-1]:.4f} "
-                  f"mse={report['loss_mse'][-1]:.4f} "
-                  f"orth={report['loss_orth'][-1]:.6f} "
-                  f"({report['step_s'][-1]:.3f} s)", flush=True)
+    try:
+        for step in range(tr.start, tr.max_steps):
+            misses = tr.cache.misses if tr.cache is not None else 0
+            micro = sample_micro_batches(tr, step)
+            report["encode_s"].append(clock.lap())
+            report["encoded_frames"].append(
+                tr.cache.misses - misses if tr.cache is not None
+                else tr.accum * tr.batch * tr.frames)
+            metrics = tr.step(tr.params, micro, tr.generator)
+            report["step_s"].append(clock.lap())
+            for k in ("loss", "loss_mse", "loss_orth"):
+                report[k].append(float(metrics[k]))
+            if step % args.log_every == 0 or step == tr.max_steps - 1:
+                scalars = {k: report[k][-1]
+                           for k in ("loss", "loss_mse", "loss_orth")}
+                scalars["sec_per_step"] = timer.lap() / max(
+                    step - last_log, 1)
+                last_log = step
+                logger.log(step, scalars)
+                print(f"step {step}: loss={scalars['loss']:.4f} "
+                      f"mse={scalars['loss_mse']:.4f} "
+                      f"orth={scalars['loss_orth']:.6f} "
+                      f"({report['step_s'][-1]:.3f} s)", flush=True)
+            if (step + 1) % args.checkpointing_steps == 0:
+                path = ckpt.save_checkpoint_main_process(
+                    tr.ckpt_dir,
+                    ckpt.train_state(tr.trainable, tr.optimizer, step + 1),
+                    step + 1)
+                report["checkpoints"].append(path)
+                report["checkpoint_s"].append(clock.lap())
+                print(f"saved checkpoint: {path}", flush=True)
+    finally:
+        logger.close()
     if tr.device.type == "cuda":
         report["peak_memory_gib"] = (
             torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
-    from video_style_transfer_tpu_torch.utils.checkpoint import (
-        export_motion_checkpoint)
     out = os.path.join(args.output_dir,
                        f"motion_modules.{args.checkpoint_format}")
-    export_motion_checkpoint(out, tr.params)
+    ckpt.export_motion_checkpoint(out, tr.params)
     report["motion_checkpoint"] = out
     report["export_s"] = clock.lap()
     print("saved motion checkpoint:", out, flush=True)
-    return tr.params, tr.trainable
+    return tr
 
 
 def main(argv=None):

@@ -7,7 +7,8 @@ attention base projections (the reference's freeze set). The loss is the
 eps- (or v-) MSE on (B, F, h, w, 4) latents with one timestep per clip,
 10 % CFG prompt dropout to the empty-prompt encodings, plus the rank-space
 temporal/spatial orthogonality penalty. The optimizer is AdamW with a
-global-norm clip, both written to optax's formulas.
+global-norm clip, both written to optax's formulas, its moments in fp32
+or blockwise in 8 bits (training/adam8bit.py).
 
 Freezing is ``requires_grad``: frozen tensors get no gradient and are not
 in the optimizer (the port's form of optax.multi_transform +
@@ -88,6 +89,53 @@ def split_trainable(params, mask):
     return out
 
 
+def check_state_like(got, want, where="state"):
+    """Raise ValueError unless `got` has the structure of `want`: the same
+    dict keys, list lengths, and tensors of the same shape and dtype
+    (other leaves, such as counts, are free)."""
+    if isinstance(want, torch.Tensor):
+        if not isinstance(got, torch.Tensor):
+            raise ValueError(f"{where}: a tensor was expected, got "
+                             f"{type(got).__name__}")
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise ValueError(f"{where}: {tuple(got.shape)} {got.dtype}, "
+                             f"expected {tuple(want.shape)} {want.dtype}")
+    elif isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            raise ValueError(f"{where}: keys differ")
+        for k in want:
+            check_state_like(got[k], want[k], f"{where}.{k}")
+    elif isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            raise ValueError(f"{where}: {len(got)} entries, expected "
+                             f"{len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            check_state_like(g, w, f"{where}[{i}]")
+
+
+def copy_state(dst, src):
+    """Copy every tensor of `src` into the tensor at the same place of
+    `dst` (a structure check_state_like accepted)."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+    elif isinstance(dst, dict):
+        for k in dst:
+            copy_state(dst[k], src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            copy_state(d, s)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...))
     over the trainable tensors only:
@@ -99,7 +147,12 @@ class AdamW:
       with the incremented count; u = mu_hat / (sqrt(nu_hat) + eps) + wd p;
     - p <- p - lr(count) u, the schedule read before the increment.
 
-    Moments are kept in each tensor's dtype, as optax does."""
+    Moments are kept in each tensor's dtype, as optax does.
+    ``state_dict()`` is the count and the moments as CPU copies;
+    ``load_state_dict`` checks a state's structure before it copies
+    anything in."""
+
+    kind = "adamw"
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable, *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -109,9 +162,26 @@ class AdamW:
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
+        self.count = 0
+        self.init_moments()
+
+    def init_moments(self):
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+
+    def moments(self) -> dict:
+        """The live moment tensors, by name."""
+        return {"mu": self.mu, "nu": self.nu}
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, **_to_cpu(self.moments())}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict):
+        check_state_like(state, {"count": 0, **self.moments()},
+                         f"{self.kind} state")
+        copy_state(self.moments(), {k: state[k] for k in self.moments()})
+        self.count = int(state["count"])
 
     def clip(self, grads):
         norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
@@ -135,19 +205,32 @@ class AdamW:
             p.add_(u, alpha=-lr)
 
 
+OPTIMIZERS = ("adamw", "adamw8bit")
+
+
 def make_optimizer(params: List[torch.Tensor], *, lr: float = 2e-5,
                    total_steps: int = 1000, warmup: int = 100,
                    weight_decay: float = 1e-2, max_grad_norm: float = 0.5,
                    b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                    schedule: str = "cosine", num_cycles: int = 1,
-                   power: float = 1.0) -> AdamW:
+                   power: float = 1.0, optimizer: str = "adamw") -> AdamW:
     """AdamW + cosine decay with warmup + clip 0.5 (the reference's
-    stage-2 defaults) over the trainable tensors."""
+    stage-2 defaults) over the trainable tensors; ``adamw8bit`` keeps the
+    moments blockwise in 8 bits (training/adam8bit.py)."""
     sched = make_lr_schedule(schedule, lr, warmup=warmup,
                              total_steps=total_steps, num_cycles=num_cycles,
                              power=power)
-    return AdamW(params, sched, b1=b1, b2=b2, eps=eps,
-                 weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+    if optimizer == "adamw":
+        cls = AdamW
+    elif optimizer == "adamw8bit":
+        from video_style_transfer_tpu_torch.training.adam8bit import (
+            AdamW8bit)
+        cls = AdamW8bit
+    else:
+        raise ValueError(f"unknown optimizer {optimizer!r}; one of "
+                         f"{OPTIMIZERS}")
+    return cls(params, sched, b1=b1, b2=b2, eps=eps,
+               weight_decay=weight_decay, max_grad_norm=max_grad_norm)
 
 
 def draw_stage2(sched, latent_shape, *, cfg_dropout: float,
