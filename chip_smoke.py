@@ -69,6 +69,20 @@
      AdamW steps over the trained tensors on the card and on the CPU from
      the same gradients (codes equal, scales and tensors within 1e-6, the
      state smaller than fp32 moments);
+   - the stage-1 trainer through ``cli.train_unziplora.train``
+     (``stage1_path``: rank 64, 1024^2, bf16 UNet, the reference's
+     learning rates, two seeded instance images and two content class
+     images held in memory): run A, 8 steps of the column separation
+     through every phase with a checkpoint, validation and the export;
+     run B, resumed from its step-4 checkpoint (restored state bitwise as
+     saved, the phases run A's, the re-imported artifacts bitwise the
+     trained tensors); the selection arithmetic from run A's
+     selection-step gradients on the card, and from those gradients
+     scaled past the threshold on the card against the CPU; run F, one
+     zero-out step resumed from a checkpoint holding that scaled
+     selection (partial masks: mergers gated by them, the exported up
+     tensors partly zeroed and read back bitwise); run C, two fp32 steps
+     (K1, K4 and K2 on tf32x3); two steps each of 8-bit AdamW and Prodigy;
    - the serving path through ``cli.infer_video.generate`` (16 frames,
      1024^2, CFG 7.5, 2 steps, bf16 UNet, fp32 VAE decode) in the modes
      base, both, content and style, from a rank-64 UnZipLoRA artifact set
@@ -86,20 +100,20 @@
    one; K4's: every backward of the trainer on the wgmma route, each with
    one delta launch; and K2's: every bf16 feed-forward on its wgmma
    route, every fp32 one on its 3xTF32 route.
-5. Prints a JSON line of the stage-2 precision, 8-bit AdamW and bf16
-   decode readings, then one JSON line with every kernel's numbers (K1 as its five
-   kernels, the FMA route's d = 448 instance standing for the JAX
-   package's unpacked kernel, K4 as its two routes, K4's delta as a
+5. Prints a JSON line of the stage-2 precision, 8-bit AdamW, stage-1 and
+   bf16 decode readings, then one JSON line with every kernel's numbers
+   (K1 as its five kernels, the FMA route's d = 448 instance standing for
+   the JAX package's unpacked kernel, K4 as its two routes, K4's delta as a
    kernel of its own, K2 as its two routes, with the wgmma kernels', the
    FMA kernels', the 3xTF32 kernels', K4's and K2's and K3's registers,
    spills and wgmma serialisation from nvcc's report; the FMA, 3xTF32,
    K3, K4, K2 and K1 wgmma kernels must not spill, and K1's and K2's
    wgmma kernels must not have their products serialised; the
    stage-2 precision check's launches count as a path of their own,
-   "stage2_fp32"), then the last line {"ok": true, "device":
-   {...}}. Any failure exits non-zero before that. Each K1 and K2 bf16
-   phase and each K3 phase also prints its share of the bound and its
-   time against SDPA's or the three calls'.
+   "stage2_fp32", and stage 1's as "stage1"), then the last line
+   {"ok": true, "device": {...}}. Any failure exits non-zero before
+   that. Each K1 and K2 bf16 phase and each K3 phase also prints its
+   share of the bound and its time against SDPA's or the three calls'.
 """
 from __future__ import annotations
 
@@ -195,6 +209,19 @@ TRAIN_CKPT_EVERY, TRAIN_RESUME_TO = 2, 4
 # the 8-bit AdamW phase: seeded gradients of this global norm, below the
 # trainer's clip of 0.5, so that the clip passes them through unchanged
 ADAM8_GRAD_NORM = 0.25
+# stage 1: two seeded 1024^2 instance images and two class images (one
+# prior branch) in memory, rank 64; run A takes 8 steps with the column
+# separation at 2 sample times (phases below), a checkpoint every 4 and
+# validation at step 8 (3 modes x 4 DPM-Solver++ steps); run B resumes
+# from checkpoint-4; runs C (fp32) and E (8-bit AdamW, Prodigy) take 2
+STAGE1_STEPS, STAGE1_CKPT, STAGE1_SAMPLE_TIMES = 8, 4, 2
+STAGE1_VAL_STEPS, STAGE1_SHORT = 4, 2
+STAGE1_PHASES = ["reset", "sampling", "select", "zeroout"] * 2
+# the selection step whose gradients run D recomputes on both devices
+STAGE1_SELECT_STEP = 2
+# what a selection writes into a projection's LoRA state
+STAGE1_SELECTION_KEYS = ("score_content", "score_style", "mask_content",
+                         "mask_style")
 
 
 def fail(msg):
@@ -449,8 +476,9 @@ def kernel_phases():
     # 64: every UNet self-attention under --mixed_precision no) at the
     # serving path's levels 2 and 1, and the FMA route's other head dims
     # (fp32 d from 128 to 448, on no path; d = 448 is one of the JAX
-    # package's unpacked kernel's). The plain version runs in batch chunks
-    # of at most ~3 GB of logits (1 GiB at S=16384).
+    # package's unpacked kernel's), and stage 1's batch-1 levels 1 and 2
+    # in bf16 and fp32. The plain version runs in batch chunks of at most
+    # ~3 GB of logits (1 GiB at S=16384).
     phases["flash_attention_fwd_tf32x3"] = []
     phases["flash_attention_fwd_fma"] = []
     phases["flash_attention_fwd_wide"] = []
@@ -486,7 +514,15 @@ def kernel_phases():
             ("d256 (2,4096,5x256)", (2, 4096, 5, 256), torch.float32, 3),
             ("d320 (1,4096,1x320)", (1, 4096, 1, 320), torch.float32, 5),
             ("d384 (1,4096,1x384)", (1, 4096, 1, 384), torch.float32, 5),
-            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 5)):
+            ("d448 (1,4096,1x448)", (1, 4096, 1, 448), torch.float32, 5),
+            ("stage1_l1 (1,4096,10x64)", (1, 4096, 10, 64), torch.bfloat16,
+             50),
+            ("stage1_l2 (1,1024,20x64)", (1, 1024, 20, 64), torch.bfloat16,
+             200),
+            ("stage1_l1 (1,4096,10x64)", (1, 4096, 10, 64), torch.float32,
+             10),
+            ("stage1_l2 (1,1024,20x64)", (1, 1024, 20, 64), torch.float32,
+             50)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -537,8 +573,9 @@ def kernel_phases():
     # K2 (under TOL; bf16 also normwise under FWD_OUT_BF16, each phase
     # refusing the two faulty copies): the FF shapes of the paths, spatial
     # and motion level 2 and level 1 at the serving path's 32 rows, motion
-    # level 0, spatial level 2 at the image path's 2 rows, and the first
-    # three in fp32 (the 3xTF32 route: every feed-forward under
+    # level 0, spatial level 2 at the image path's 2 rows, levels 2 and 1
+    # at stage 1's one row (1024 and 4096 tokens), and the first three and
+    # stage 1's two in fp32 (the 3xTF32 route: every feed-forward under
     # --mixed_precision no). The yardstick is three PyTorch calls:
     # F.linear over the fused weight and bias, the exact-erf gate, the
     # product; F.linear alone is also timed, a reading of cuBLAS's rate
@@ -558,11 +595,17 @@ def kernel_phases():
              torch.bfloat16, 5),
             ("image_l2 (2048,1280->5120)", (2048, 1280), torch.bfloat16,
              50),
+            ("stage1_l2 (1024,1280->5120)", (1024, 1280), torch.bfloat16,
+             50),
+            ("stage1_l1 (4096,640->2560)", (4096, 640), torch.bfloat16, 50),
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
              torch.float32, 3),
             ("l1 (131072,640->2560)", (131072, 640), torch.float32, 3),
             ("motion_l0 (524288,320->1280)", (524288, 320),
-             torch.float32, 3)):
+             torch.float32, 3),
+            ("stage1_l2 (1024,1280->5120)", (1024, 1280), torch.float32,
+             20),
+            ("stage1_l1 (4096,640->2560)", (4096, 640), torch.float32, 20)):
         inner = 4 * c
         x = randn(m, c, dtype=dt)
         w = randn(2 * inner, c, dtype=dt, scale=c ** -0.5)
@@ -660,7 +703,8 @@ def bwd_phases():
     # K4: spatial self-attention at level 1 (S = 4096, 10 heads) and
     # level 2 (S = 1024, 20 heads), d = 64, and a ragged length that
     # leaves q and kv tails in both kernels, in bf16 (the wgmma route) and
-    # fp32 (the 3xTF32 route); flops are the JAX cost estimate
+    # fp32 (the 3xTF32 route), and both levels at stage 1's batch of one;
+    # flops are the JAX cost estimate
     # 10*B*H*Sq*Sk*D (the bound); the two-kernel design does 14
     # (design_bound_ms); bytes q, k, v, o, dO in and dq, dk, dv out plus
     # lse. The kernel time includes the delta kernel, SDPA's backward
@@ -672,7 +716,15 @@ def bwd_phases():
             ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.bfloat16, 50),
             ("unet_l2 (8,1024,20x64)", (8, 1024, 20, 64), torch.float32, 5),
             ("unet_l1 (8,4096,10x64)", (8, 4096, 10, 64), torch.float32, 2),
-            ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.float32, 50)):
+            ("ragged (2,1100,2x64)", (2, 1100, 2, 64), torch.float32, 50),
+            ("stage1_l1 (1,4096,10x64)", (1, 4096, 10, 64), torch.bfloat16,
+             20),
+            ("stage1_l2 (1,1024,20x64)", (1, 1024, 20, 64), torch.bfloat16,
+             100),
+            ("stage1_l1 (1,4096,10x64)", (1, 4096, 10, 64), torch.float32,
+             5),
+            ("stage1_l2 (1,1024,20x64)", (1, 1024, 20, 64), torch.float32,
+             20)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         out, lse = fa.flash_attention_fwd(q, k, v)
@@ -1118,7 +1170,7 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
     levels += [(len(cfg.up_block_types) - 1 - i, cfg.layers_per_block + 1, t)
                for i, t in enumerate(cfg.up_block_types)]
     for lvl, n_groups, btype in levels:
-        motion += n_groups
+        motion += n_groups if cfg.use_motion_modules else 0
         if btype == CROSS:
             layers = n_groups * cfg.transformer_layers_per_block[lvl]
             spatial += layers
@@ -1407,6 +1459,609 @@ def stage2_path(tmp):
                           bwd_wgmma=expected["flash_attention_bwd"])
     adam8 = adamw8bit_phase([t for _, t in tr.trainable], card)
     return counts, motion_checkpoint, adam8
+
+
+def stage1_launches(per, *, train_forwards, unet_calls, vae_calls):
+    """Launches of `train_forwards` stage-1 training forwards (each with
+    its backward), `unet_calls` inference UNet calls (a CFG pair in one)
+    and `vae_calls` VAE encodes or decodes at 1024^2 (one mid-block
+    attention each), from `per`, one training forward's
+    (expected_train_launches at one step and no encode)."""
+    fwd = train_forwards + unet_calls
+    return {"flash_attention_fwd": per["flash_attention_fwd"] * fwd
+            + vae_calls,
+            "geglu_projection": per["geglu_projection"] * fwd,
+            "temporal_attention": 0,
+            "flash_attention_bwd": per["flash_attention_bwd"]
+            * train_forwards,
+            "flash_attention_bwd_delta": per["flash_attention_bwd_delta"]
+            * train_forwards,
+            "temporal_attention_bwd": 0, "layer_norm": 0}
+
+
+def stage1_selection_phase(captured, chosen, sep, card):
+    """Run D: the selection arithmetic of one projection after another
+    (training.stage1.select_projection: the cone in float64, top-k) from
+    the gradients and tensors run A held at its selection step. On the
+    card, the masks must be those run A chose. With seeded random
+    weights at rank 64 the cone stays far below its 1e-5 threshold (the
+    largest |cone| is printed) and nothing is selected, so the arithmetic
+    runs again with the gradients scaled by a power of two (exact) that
+    brings the largest |cone| to [1e-3, 2e-3), on the card and on the
+    CPU: masks and scores must be equal on both, ties and all. Returns
+    (the readings, the card's scaled selection {path: (score_content,
+    score_style, mask_content, mask_style)} on the CPU)."""
+    import torch
+    from video_style_transfer_tpu_torch.lora.unzip import (
+        CONE_THRESHOLD, cone_matrix)
+    from video_style_transfer_tpu_torch.training.stage1 import (
+        select_projection)
+    from video_style_transfer_tpu_torch.utils.convert import to_device
+
+    def cone_max(lp, lg, factor=1.0):
+        lg = {k: ({kk: vv * factor for kk, vv in v.items()}
+                  if isinstance(v, dict) else torch.zeros_like(v))
+              for k, v in to_device(lg, "cuda").items()}
+        lp = to_device(lp, "cuda")
+        return max(float(cone_matrix(lp, lg, b, torch.float64).abs().max())
+                   for b in ("content", "style"))
+
+    largest = max(cone_max(lp, lg) for lp, lg, _, _ in captured.values())
+    scale = 2.0 ** math.ceil(math.log2(1e-3 / largest)) if largest else 1.0
+
+    def select_all(dev, factor):
+        out = {}
+        for path, (lp, lg, st, label) in captured.items():
+            g = to_device(lg, dev)
+            if factor != 1.0:
+                g = {k: ({kk: vv * factor for kk, vv in v.items()}
+                         if isinstance(v, dict) else v * factor)
+                     for k, v in g.items()}
+            picked = select_projection(to_device(lp, dev), g,
+                                       to_device(st, dev), label, sep)
+            out[path] = [t.cpu() for t in picked]
+        return out
+
+    def columns(picked):
+        return {b: int(sum(int(v[2 + i].sum()) for v in picked.values()))
+                for i, b in enumerate(("content", "style"))}
+
+    readings = {"largest_abs_cone": largest, "scale": scale}
+    t0 = time.perf_counter()
+    on_card = select_all("cuda", 1.0)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    differ = [path for path, picked in on_card.items()
+              if not (torch.equal(picked[2], chosen[path][0])
+                      and torch.equal(picked[3], chosen[path][1]))]
+    cols = columns(on_card)
+    print(f"stage-1 selection as trained, on the card ({card}): run A's "
+          f"step {STAGE1_SELECT_STEP} gradients and tensors through the "
+          f"cone (float64) and top-k of {len(on_card)} projections: "
+          f"{len(differ)} differ in a mask from the trainer's (must be 0); "
+          f"largest |cone| {largest:.3e} (threshold 1e-5); columns "
+          f"selected content {cols['content']}, style {cols['style']}; "
+          f"{card_s:.3f} s", flush=True)
+    if differ:
+        fail(f"stage-1 selection on the card differs from the trainer's at "
+             f"{[chip_path(p) for p in differ[:3]]}")
+    readings["as trained"] = {"projections": len(on_card),
+                              "differing": 0, "columns": cols,
+                              "card_s": card_s}
+
+    scaled = max(cone_max(lp, lg, scale)
+                 for lp, lg, _, _ in captured.values())
+    t0 = time.perf_counter()
+    on_card = select_all("cuda", scale)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    on_cpu = select_all("cpu", scale)
+    cpu_s = time.perf_counter() - t0
+    differ = [path for path, picked in on_cpu.items()
+              if not all(torch.equal(a, b)
+                         for a, b in zip(picked, on_card[path]))]
+    cols = columns(on_card)
+    scored = sum(int((v[i] > 0).sum()) for v in on_card.values()
+                 for i in (0, 1))
+    print(f"stage-1 selection gradients scaled (x{scale:g}), card vs CPU "
+          f"({card}): {len(differ)} of {len(on_card)} projections differ "
+          f"in a mask or score between the card and the CPU (must be 0); "
+          f"largest |cone| {scaled:.3e} (threshold 1e-5); {scored} nonzero "
+          f"column scores; columns selected content {cols['content']}, "
+          f"style {cols['style']}; {card_s:.3f} s on the card, "
+          f"{cpu_s:.3f} s on the CPU", flush=True)
+    for path in differ[:3]:
+        # where the two devices part: which outputs, and the cone elements
+        # that cross the threshold on one device only
+        parts = {n: int((a != b).sum()) for n, a, b in zip(
+            STAGE1_SELECTION_KEYS, on_cpu[path], on_card[path])
+            if not torch.equal(a, b)}
+        lp, lg, _, _ = captured[path]
+        g = {k: ({kk: vv * scale for kk, vv in v.items()}
+                 if isinstance(v, dict) else v * 0.0)
+             for k, v in lg.items()}
+        for b in ("content", "style"):
+            cc = cone_matrix(to_device(lp, "cuda"), to_device(g, "cuda"),
+                             b, torch.float64).cpu()
+            cp = cone_matrix(lp, g, b, torch.float64)
+            flip = (cc.abs() > CONE_THRESHOLD) != (cp.abs() > CONE_THRESHOLD)
+            rel = float(((cc - cp).abs() / cp.abs().clamp_min(1e-300))
+                        .max())
+            print(f"    {chip_path(path)} {b}: differing {parts}; cone "
+                  f"max relative difference card vs CPU {rel:.3e}, "
+                  f"{int(flip.sum())} elements cross 1e-5 on one device "
+                  f"only, e.g. card {cc[flip][:3].tolist()} CPU "
+                  f"{cp[flip][:3].tolist()}", flush=True)
+    if differ:
+        fail(f"stage-1 selection (gradients scaled) differs between the "
+             f"card and the CPU at {[chip_path(p) for p in differ[:3]]}")
+    if scaled <= CONE_THRESHOLD:
+        fail(f"stage-1 selection: the scaled gradients' largest |cone| "
+             f"{scaled:.3e} is under the 1e-5 threshold")
+    if not cols["content"]:
+        fail("stage-1 selection with scaled gradients selected nothing")
+    readings["gradients scaled"] = {
+        "projections": len(on_card), "differing": 0, "columns": cols,
+        "largest_abs_cone": scaled, "nonzero_scores": scored,
+        "card_s": card_s, "cpu_s": cpu_s}
+    return readings, on_card
+
+
+def write_selection_checkpoint(tr_b, selected, out):
+    """Run B's final state (its trainer `tr_b`) given run D's scaled
+    selection `selected` (every projection's scores and masks, both masks
+    in use, orth_on and merger_on set), written as a checkpoint under
+    `out` through train_state. Returns (its path, its step, the mergers
+    {path: {branch: CPU tensor}}, the write's seconds)."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import train_unziplora
+    from video_style_transfer_tpu_torch.lora.surgery import tree_get
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
+
+    state = tr_b.state
+    with torch.no_grad():
+        for path, picked in selected.items():
+            st = tree_get(state.lora_state, path)
+            for key, val in zip(STAGE1_SELECTION_KEYS, picked):
+                st[key].copy_(val)
+            for b in ("content", "style"):
+                st[f"use_mask_{b}"].fill_(True)
+    state.orth_on = state.merger_on = True
+    step = state.step
+    mergers = {path: {b: tree_get(state.params, path)["lora"][f"merge_{b}"]
+                      .detach().cpu().clone() for b in ("content", "style")}
+               for path in selected}
+    t0 = time.perf_counter()
+    written = ckpt.save_checkpoint_main_process(
+        os.path.join(out, "checkpoints"), ckpt.train_state(
+            tr_b.optimizer.trainable, tr_b.optimizer, step,
+            extra=train_unziplora.checkpoint_extra(state)), step)
+    return written, step, mergers, time.perf_counter() - t0
+
+
+def stage1_masked_run(written, step, mergers, selected, run, expect, routes,
+                      out, images, card):
+    """Run F: the trainer resumes from `written` (write_selection_
+    checkpoint's, at `step`) for one zero-out step with
+    --with_finetune_mask (each merger's gradient and update gated by its
+    branch's mask) and exports, and --final_inference_check reads the
+    artifacts back bitwise. The restored state must equal the written
+    one; after the step the masks must be partial (some columns live,
+    some not), no merger may move outside its branch's mask and some
+    inside it, and the exported up tensors must hold both zeroed (masked)
+    and live rows. `run` is stage1_path's runner. Returns the
+    readings."""
+    import numpy as np
+    import torch
+    from video_style_transfer_tpu_torch.lora import interop
+    from video_style_transfer_tpu_torch.lora.surgery import tree_get
+
+    keys = STAGE1_SELECTION_KEYS
+    restored = {}
+
+    def on_resume(tr):
+        restored.update(step=tr.state.step, flags=(tr.state.orth_on,
+                                                   tr.state.merger_on))
+        restored["state"] = all(
+            torch.equal(tree_get(tr.state.lora_state, path)[key].cpu(), val)
+            for path, picked in selected.items()
+            for key, val in zip(keys, picked)) and all(
+            bool(tree_get(tr.state.lora_state, path)[f"use_mask_{b}"])
+            for path in selected for b in ("content", "style"))
+
+    tr, rep, _ = run(
+        "F (partial masks)", [
+            "--output_dir", out, "--resume_from_checkpoint", written,
+            "--max_train_steps", str(step + 1), "--with_finetune_mask",
+            "--final_inference_check"],
+        expect, routes, images=images, on_setup=on_resume)
+    live = {b: 0 for b in ("content", "style")}
+    moved_in = dict(live)
+    moved_out = dict(live)
+    total = 0
+    for path in selected:
+        st = tree_get(tr.state.lora_state, path)
+        lp = tree_get(tr.state.params, path)["lora"]
+        for b in ("content", "style"):
+            mask = st[f"mask_{b}"].cpu()
+            moved = lp[f"merge_{b}"].detach().cpu() != mergers[path][b]
+            live[b] += int(mask.sum())
+            moved_in[b] += int((moved & mask).sum())
+            moved_out[b] += int((moved & ~mask).sum())
+        total += int(mask.numel())
+    rows = {}
+    for b in ("content", "style"):
+        ups = [v for k, v in interop.load_safetensors(
+            rep["artifacts"][b]).items() if k.endswith(".lora.up.weight")]
+        zero = sum(int(np.all(u == 0, axis=1).sum()) for u in ups)
+        rows[b] = {"zeroed": zero, "live": sum(u.shape[0] for u in ups)
+                   - zero}
+    print(f"stage-1 partial masks ({card}): checkpoint-{step} with run D's "
+          f"selection, restored as written "
+          f"{restored.get('state')} (step {restored.get('step')}, orth_on "
+          f"and merger_on {restored.get('flags')}); phase "
+          f"{rep['phase']}; live columns {live} of {total} a branch; "
+          f"mergers moved inside their masks {moved_in}, outside "
+          f"{moved_out} (must be 0); exported up rows {rows}; artifacts "
+          f"read back bitwise and generated: {rep['final_check']}",
+          flush=True)
+    if not (restored.get("state") and restored.get("step") == step
+            and restored.get("flags") == (True, True)):
+        fail(f"stage-1 run F did not restore the written selection: "
+             f"{restored}")
+    if rep["phase"] != ["zeroout"]:
+        fail(f"stage-1 run F phases {rep['phase']}, expected ['zeroout']")
+    if rep["selected_columns"][-1] != live or not all(
+            0 < live[b] < total for b in live):
+        fail(f"stage-1 run F: live columns {live} of {total}, the trainer "
+             f"reports {rep['selected_columns'][-1]}")
+    if any(moved_out.values()) or not any(moved_in.values()):
+        fail(f"stage-1 run F: mergers moved outside their masks "
+             f"{moved_out}, inside {moved_in}")
+    if not all(r["zeroed"] and r["live"] for r in rows.values()):
+        fail(f"stage-1 run F: the exported up rows are not partly masked: "
+             f"{rows}")
+    if not rep["final_check"]:
+        fail("stage-1 run F: --final_inference_check did not run")
+    del tr
+    return {"step_s": rep["step_s"], "live_columns": live, "columns": total,
+            "mergers_moved_inside": moved_in, "exported_up_rows": rows,
+            "final_check": rep["final_check"]}
+
+
+def chip_path(path):
+    return ".".join(map(str, path))
+
+
+def stage1_path(tmp):
+    """Stage 1 (``cli.train_unziplora.train``) at SDXL's published widths
+    with seeded random weights: rank 64, 1024^2, batch 1, the reference's
+    learning rates (5e-5 / 5e-5 / 5e-3) and lambda 0.5, two seeded 1024^2
+    instance images and two class images for the content prior (weight 1)
+    held in memory.
+    - Run A (bf16): 8 steps of the column separation at 2 sample times,
+      so that every phase runs (reset, sampling, select, zeroout, twice);
+      a checkpoint at steps 4 and 8; validation at step 8 in the three
+      modes; the export.
+    - Run B resumes from run A's checkpoint-4 to step 8: its restored
+      LoRA leaves, three optimizer groups, masks, scores, use-mask flags,
+      orth_on, merger_on and step equal the file's bitwise, its phases
+      run A's; --final_inference_check reads the exported artifacts back
+      (bitwise equal to the trained tensors) and generates.
+    - Run D: run A's selection step recomputed from its gradients on the
+      card and, from gradients scaled to cross the threshold, on the card
+      and on the CPU (stage1_selection_phase).
+    - Run F resumes from a checkpoint of run B's final state that holds
+      run D's scaled selection (partial masks, in use, the mergers on):
+      one zero-out step with --with_finetune_mask through the trainer,
+      its merger updates gated by the masks (no merger moves outside
+      them, some inside), the export's up tensors partly zeroed by the
+      masks and read back bitwise by --final_inference_check.
+    - Run C: --mixed_precision no, 2 steps without the column separation
+      or a prior: K1, K4 and K2 on their 3xTF32 routes.
+    - Run E: 2 steps with --optimizer adamw8bit, 2 with prodigy.
+    Every run's kernel launches are exact (stage1_launches; K1's FMA
+    route once per encoded or decoded image). Returns (launch counts by
+    route, readings)."""
+    import numpy as np
+    import torch
+    from video_style_transfer_tpu_torch.cli import train_unziplora
+    from video_style_transfer_tpu_torch.cli.common import launches_since
+    from video_style_transfer_tpu_torch.config import UNetConfig
+    from video_style_transfer_tpu_torch.lora.surgery import tree_get
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import geglu
+    from video_style_transfer_tpu_torch.training.stage1 import lora_grads
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
+
+    card = card_line()
+    rng = np.random.default_rng(21)
+
+    def seeded_images(n):
+        return rng.integers(0, 256, (n, RESOLUTION, RESOLUTION, 3),
+                            dtype=np.uint8).astype(np.float32) / 127.5 - 1.0
+
+    images, class_images = seeded_images(2), {"content": seeded_images(2)}
+    per = expected_train_launches(UNetConfig.sdxl(), frames=1,
+                                  resolution=RESOLUTION, steps=1, encoded=0)
+    shared = ["--instance_prompt", "a sbu horse in szn style",
+              "--content_forward_prompt", "a sbu horse",
+              "--style_forward_prompt", "an image in szn style",
+              "--rank", str(LORA_RANK), "--resolution", str(RESOLUTION),
+              "--train_batch_size", "1", "--content_learning_rate", "5e-5",
+              "--style_learning_rate", "5e-5", "--weight_learning_rate",
+              "5e-3", "--similarity_lambda", "0.5", "--device", "cuda",
+              "--seed", "0"]
+    sep_args = ["--with_period_column_separation", "--sample_times",
+                str(STAGE1_SAMPLE_TIMES), "--max_train_steps",
+                str(STAGE1_STEPS), "--checkpointing_steps", str(STAGE1_CKPT),
+                "--validation_steps", str(STAGE1_VAL_STEPS)]
+    prior_args = ["--class_prompt", "a horse", "--prior_loss_weight", "1.0"]
+    parser = train_unziplora.build_parser()
+
+    def route_counts():
+        return {"K1": dict(fa.ROUTE_LAUNCHES), "K4": dict(
+            fa.BWD_ROUTE_LAUNCHES), "K2": dict(geglu.ROUTE_LAUNCHES)}
+
+    def run(label, argv, expect, routes, **kw):
+        """One trainer run; its launches must equal `expect`, and its
+        launches by route `routes` ({"K1": {route: n}, ...})."""
+        before, rbefore = counters(), route_counts()
+        report = {}
+        t0 = time.perf_counter()
+        tr = train_unziplora.train(parser.parse_args(shared + argv), report,
+                                   **kw)
+        total = time.perf_counter() - t0
+        got = launches_since(before)
+        rafter = route_counts()
+        by_route = {k: {r: rafter[k][r] - rbefore[k].get(r, 0)
+                        for r in rafter[k]} for k in rafter}
+        want_routes = {k: {r: routes.get(k, {}).get(r, 0) for r in v}
+                       for k, v in by_route.items()}
+        losses = report["losses"]
+        print(f"stage-1 run {label} ({card}): steps {report['start_step']}"
+              f"..{report['max_steps'] - 1}, set-up {report['setup_s']:.3f} "
+              f"s, encode {report['encode_s']:.3f} s, steps "
+              f"{', '.join(f'{t:.4f}' for t in report['step_s'])} s "
+              f"(drawing the latents "
+              f"{', '.join(f'{t:.4f}' for t in report['sample_s'])} s), "
+              f"phases {report['phase']}, checkpoint writes "
+              f"{', '.join(f'{t:.3f}' for t in report['checkpoint_s'])} s, "
+              f"validation {', '.join(f'{t:.3f}' for t in report['validation_s'])} "
+              f"s, export {report['export_s']:.3f} s, total {total:.3f} s, "
+              f"peak memory {report.get('peak_memory_gib', 0):.2f} GiB, "
+              f"{report['trainable_tensors']} trainable tensors "
+              f"({report['trainable_params']} params)", flush=True)
+        keys = sorted(losses[0])
+        print(f"  losses ({', '.join(keys)}): "
+              f"{[[round(l[k], 6) for k in keys] for l in losses]}; columns "
+              f"selected after each step {report['selected_columns']}",
+              flush=True)
+        print(f"  launches {got} (expected {expect}); by route {by_route} "
+              f"(expected {want_routes})", flush=True)
+        if not all(math.isfinite(v) for l in losses for v in l.values()):
+            fail(f"stage-1 run {label}: non-finite losses")
+        if got != expect:
+            fail(f"stage-1 run {label}: launches {got}, expected {expect}")
+        if by_route != want_routes:
+            fail(f"stage-1 run {label}: launches by route {by_route}, "
+                 f"expected {want_routes}")
+        return tr, report, total
+
+    def routes(k1, k4, k2, fma, route="wgmma"):
+        return {"K1": {route: k1, "fma": fma}, "K4": {route: k4},
+                "K2": {route: k2}}
+
+    readings = {}
+    reset_counters()
+    # run A, holding the selection step's gradients and tensors for run D
+    captured, chosen = {}, {}
+
+    def on_grads(state, grads):
+        if state.step == STAGE1_SELECT_STEP:
+            for path, label in state_assignments[0].items():
+                lp = tree_get(state.params, path)["lora"]
+                cpu = {k: (v.detach().cpu().clone() if torch.is_tensor(v)
+                           else {kk: vv.detach().cpu().clone()
+                                 for kk, vv in v.items()})
+                       for k, v in lp.items()}
+                lg = {k: (v.cpu().clone() if torch.is_tensor(v)
+                          else {kk: vv.cpu().clone() for kk, vv in v.items()})
+                      for k, v in lora_grads(grads, path).items()}
+                st = {k: v.cpu().clone() for k, v in
+                      tree_get(state.lora_state, path).items()}
+                captured[path] = (cpu, lg, st, label)
+        elif state.step == STAGE1_SELECT_STEP + 1:
+            for path in state_assignments[0]:
+                st = tree_get(state.lora_state, path)
+                chosen[path] = (st["mask_content"].cpu().clone(),
+                                st["mask_style"].cpu().clone())
+
+    state_assignments = []
+    out_a = os.path.join(tmp, "stage1_a")
+    forwards_a = 2 * STAGE1_STEPS
+    val_calls = 3 * STAGE1_VAL_STEPS
+    tr, rep_a, total_a = run(
+        "A", sep_args + prior_args + [
+            "--output_dir", out_a, "--validation_prompt",
+            "a sbu horse in szn style", "--validation_epochs",
+            str(STAGE1_STEPS)],
+        stage1_launches(per, train_forwards=forwards_a, unet_calls=val_calls,
+                        vae_calls=4 + 3),
+        routes(per["flash_attention_fwd"] * (forwards_a + val_calls),
+               per["flash_attention_bwd"] * forwards_a,
+               per["geglu_projection"] * (forwards_a + val_calls), 4 + 3),
+        images=images, class_images=class_images, on_grads=on_grads,
+        on_setup=lambda t: state_assignments.append(t.assignments))
+    sep = tr.sep
+    if rep_a["phase"] != STAGE1_PHASES:
+        fail(f"stage-1 run A phases {rep_a['phase']}, expected "
+             f"{STAGE1_PHASES}")
+    with open(os.path.join(out_a, "metrics.jsonl")) as f:
+        logged = [json.loads(ln) for ln in f.read().splitlines()]
+    scalars = [ln for ln in logged if "loss" in ln]
+    if len(scalars) != 2 or not all(
+            math.isfinite(v) for ln in scalars for k, v in ln.items()
+            if k.startswith(("loss", "content_", "style_"))):
+        fail(f"stage-1 metrics.jsonl: {len(scalars)} scalar lines, "
+             f"expected 2 with finite losses, norms and merger means")
+    vals = sorted(os.listdir(os.path.join(out_a, "validation")))
+    print(f"stage-1 run A: metrics.jsonl {len(logged)} lines "
+          f"({len(scalars)} of scalars: "
+          f"{sum(k.endswith('_norm') for k in scalars[-1])} block norms, "
+          f"{sum(k.endswith('_merge') for k in scalars[-1])} merger means), "
+          f"validation images {vals}, artifacts "
+          f"{sorted(os.path.basename(p) for p in rep_a['artifacts'].values())}",
+          flush=True)
+    if len(vals) != 3:
+        fail(f"stage-1 validation wrote {vals}")
+    readings["A"] = {k: rep_a.get(k) for k in (
+        "setup_s", "encode_s", "step_s", "sample_s", "phase",
+        "checkpoint_s", "validation_s", "export_s", "peak_memory_gib",
+        "selected_columns")}
+    readings["A"]["losses"] = rep_a["losses"]
+    del tr
+    torch.cuda.empty_cache()
+
+    # run D: run A's selection on the card, and scaled on the card and CPU
+    readings["D"], selected = stage1_selection_phase(captured, chosen, sep,
+                                                     card)
+    del captured
+
+    # run B: resumed from checkpoint-4, restored bitwise, to step 8
+    saved_path = os.path.join(out_a, "checkpoints",
+                              f"checkpoint-{STAGE1_CKPT}")
+    restored = {}
+
+    def on_resume(tr):
+        saved = torch.load(os.path.join(saved_path, ckpt.STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        live = ckpt.train_state(
+            tr.optimizer.trainable, tr.optimizer, tr.state.step,
+            extra=train_unziplora.checkpoint_extra(tr.state))
+        restored.update(
+            step=tr.state.step, path=tr.resumed_from,
+            trainable=_tree_equal(live["trainable"], saved["trainable"]),
+            optimizer=_tree_equal(live["optimizer_state"],
+                                  saved["optimizer_state"]),
+            lora_state=_tree_equal(live["extra"]["lora_state"],
+                                   saved["extra"]["lora_state"]),
+            flags=_tree_equal(live["extra"]["flags"],
+                              saved["extra"]["flags"]),
+            kind=saved["optimizer"])
+
+    forwards_b = 2 * (STAGE1_STEPS - STAGE1_CKPT)
+    tr, rep_b, _ = run(
+        "B", sep_args + prior_args + [
+            "--output_dir", os.path.join(tmp, "stage1_b"),
+            "--resume_from_checkpoint", saved_path,
+            "--checkpointing_steps", str(STAGE1_STEPS + 1),
+            "--final_inference_check"],
+        stage1_launches(per, train_forwards=forwards_b,
+                        unet_calls=STAGE1_VAL_STEPS, vae_calls=4 + 1),
+        routes(per["flash_attention_fwd"] * (forwards_b + STAGE1_VAL_STEPS),
+               per["flash_attention_bwd"] * forwards_b,
+               per["geglu_projection"] * (forwards_b + STAGE1_VAL_STEPS),
+               4 + 1),
+        images=images, class_images=class_images, on_setup=on_resume)
+    print(f"stage-1 resume ({card}): from {restored.get('path')} at step "
+          f"{restored.get('step')}, bitwise as saved: LoRA leaves "
+          f"{restored.get('trainable')}, the three {restored.get('kind')} "
+          f"groups {restored.get('optimizer')}, masks, scores and use-mask "
+          f"flags {restored.get('lora_state')}, orth_on and merger_on "
+          f"{restored.get('flags')}; phases {rep_b['phase']} (run A's steps "
+          f"{STAGE1_CKPT}..{STAGE1_STEPS - 1}: "
+          f"{rep_a['phase'][STAGE1_CKPT:]}); artifacts read back bitwise "
+          f"equal to the trained tensors and generated: "
+          f"{rep_b['final_check']}", flush=True)
+    if not (restored.get("step") == STAGE1_CKPT and all(
+            restored.get(k) for k in ("trainable", "optimizer", "lora_state",
+                                      "flags"))):
+        fail(f"stage-1 resume did not restore checkpoint-{STAGE1_CKPT} "
+             f"bitwise: {restored}")
+    if rep_b["phase"] != rep_a["phase"][STAGE1_CKPT:]:
+        fail("stage-1 resumed phases differ from run A's")
+    if not rep_b["final_check"]:
+        fail("stage-1 --final_inference_check did not run")
+    readings["B"] = {"restored": restored, "step_s": rep_b["step_s"],
+                     "final_check": rep_b["final_check"]}
+
+    # run F: one zero-out step under run D's scaled (partial) selection
+    out_f = os.path.join(tmp, "stage1_f")
+    written, step_f, mergers, write_s = write_selection_checkpoint(
+        tr, selected, out_f)
+    print(f"stage-1 run F's checkpoint ({card}): run B's final state with "
+          f"run D's scaled selection, written in {write_s:.3f} s",
+          flush=True)
+    del tr
+    torch.cuda.empty_cache()
+    readings["F"] = stage1_masked_run(
+        written, step_f, mergers, selected,
+        lambda label, argv, expect, routes_, **kw: run(
+            label, sep_args + argv, expect, routes_, **kw),
+        stage1_launches(per, train_forwards=1, unet_calls=STAGE1_VAL_STEPS,
+                        vae_calls=2 + 1),
+        routes(per["flash_attention_fwd"] * (1 + STAGE1_VAL_STEPS),
+               per["flash_attention_bwd"],
+               per["geglu_projection"] * (1 + STAGE1_VAL_STEPS), 2 + 1),
+        out_f, images, card)
+    readings["F"]["checkpoint_write_s"] = write_s
+    del selected, mergers
+    torch.cuda.empty_cache()
+
+    # run C: fp32 (--mixed_precision no), every kernel on its 3xTF32 route
+    forwards_c = STAGE1_SHORT
+    tr, rep_c, _ = run(
+        "C (fp32)", ["--output_dir", os.path.join(tmp, "stage1_c"),
+                     "--max_train_steps", str(STAGE1_SHORT),
+                     "--mixed_precision", "no"],
+        stage1_launches(per, train_forwards=forwards_c, unet_calls=0,
+                        vae_calls=2),
+        {"K1": {"tf32x3": per["flash_attention_fwd"] * forwards_c,
+                "fma": 2},
+         "K4": {"tf32x3": per["flash_attention_bwd"] * forwards_c},
+         "K2": {"tf32x3": per["geglu_projection"] * forwards_c}},
+        images=images)
+    readings["C"] = {"step_s": rep_c["step_s"],
+                     "peak_memory_gib": rep_c.get("peak_memory_gib")}
+    del tr
+    torch.cuda.empty_cache()
+
+    # run E: the other two optimizers
+    readings["E"] = {}
+    for opt in ("adamw8bit", "prodigy"):
+        tr, rep_e, _ = run(
+            f"E ({opt})", ["--output_dir", os.path.join(tmp, f"stage1_{opt}"),
+                           "--max_train_steps", str(STAGE1_SHORT),
+                           "--optimizer", opt],
+            stage1_launches(per, train_forwards=STAGE1_SHORT, unet_calls=0,
+                            vae_calls=2),
+            routes(per["flash_attention_fwd"] * STAGE1_SHORT,
+                   per["flash_attention_bwd"] * STAGE1_SHORT,
+                   per["geglu_projection"] * STAGE1_SHORT, 2),
+            images=images)
+        readings["E"][opt] = {"step_s": rep_e["step_s"],
+                              "losses": rep_e["losses"]}
+        del tr
+        torch.cuda.empty_cache()
+
+    # the whole path, by route since the counters were set to 0
+    train_fwd = forwards_a + forwards_b + 1 + 2 * STAGE1_SHORT
+    unet = val_calls + 2 * STAGE1_VAL_STEPS
+    vae = (4 + 3) + (4 + 1) + (2 + 1) + 2 + 2 * 2
+    counts = counters()
+    check_counts("stage-1", counts, stage1_launches(
+        per, train_forwards=train_fwd + forwards_c, unet_calls=unet,
+        vae_calls=vae))
+    counts = check_routes(
+        "stage-1", counts, per["flash_attention_fwd"] * (train_fwd + unet),
+        vae,
+        bwd_wgmma=per["flash_attention_bwd"] * train_fwd,
+        tf32x3=per["flash_attention_fwd"] * forwards_c,
+        bwd_tf32x3=per["flash_attention_bwd"] * forwards_c,
+        geglu_tf32x3=per["geglu_projection"] * forwards_c)
+    return counts, readings
 
 
 def adamw8bit_phase(params, card):
@@ -1982,7 +2637,12 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}",
           flush=True)
     from video_style_transfer_tpu_torch.ops import cuda_build
-    t0 = time.perf_counter()
+    start = t0 = time.perf_counter()
+    sections = []  # (name, seconds since the start), printed at the end
+
+    def section(name):
+        sections.append((name, time.perf_counter() - start))
+
     cuda_build.library()
     built = cuda_build.build_info
     log = built["log"].splitlines()
@@ -2000,18 +2660,26 @@ def main():
     for ln in spills:
         print(f"  {ln}", flush=True)
 
+    section("build")
     print("kernels vs plain versions:", flush=True)
     phases = kernel_phases()
+    section("forward kernel phases")
     phases.update(bwd_phases())
+    section("backward kernel phases")
     phases["layer_norm"], ln_launches = layer_norm_phases()
     small_reference()
     small_training_reference()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         small_cli_reference(tmp)
+        section("K7 and the small references")
         # the trainer first: serving reads the checkpoint it writes
         stage2_counts, motion_checkpoint, adam8 = stage2_path(tmp)
         torch.cuda.empty_cache()
+        section("stage 2")
+        stage1_counts, stage1 = stage1_path(tmp)
+        torch.cuda.empty_cache()
+        section("stage 1")
         from video_style_transfer_tpu_torch.config import UNetConfig
         artifacts = os.path.join(tmp, "stage1")
         t0 = time.perf_counter()
@@ -2023,16 +2691,21 @@ def main():
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         precision, precision_counts = stage2_precision(artifacts)
         torch.cuda.empty_cache()
+        section("stage-2 precision")
         by_path = {"serving": main_path(artifacts, motion_checkpoint),
                    "stage2": stage2_counts,
-                   "stage2_fp32": precision_counts}
+                   "stage2_fp32": precision_counts,
+                   "stage1": stage1_counts}
+        section("serving")
         by_path["image"] = image_path(artifacts)
         torch.cuda.empty_cache()
         by_path["bf16_decode"] = vae_bf16_decode_path()
+        section("image and bf16 decode")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
-    main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32")
+    main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32",
+                  "stage1")
 
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
@@ -2117,7 +2790,16 @@ def main():
                        for path in main_paths)
                 for r in ("wgmma", "tf32x3")}
         kernels.append(entry)
+    section("ptxas report")
+    prev = 0.0
+    parts = []
+    for name, at in sections:
+        parts.append(f"{name} {at - prev:.1f}")
+        prev = at
+    print(f"seconds by section ({card_line()}): {', '.join(parts)}; total "
+          f"{prev:.1f} after the imports", flush=True)
     print(json.dumps({"stage2_precision": precision, "adamw8bit": adam8,
+                      "stage1": stage1,
                       "bf16_decode_s_per_frame":
                           by_path["bf16_decode"]["decode_s_per_frame"]}),
           flush=True)

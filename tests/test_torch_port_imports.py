@@ -51,7 +51,9 @@ def test_port_files_exist():
                 "utils/safetensors_io.py", "utils/hf_convert.py",
                 "utils/motion_convert.py", "utils/checkpoint.py",
                 "utils/watermark.py", "data/video.py",
-                "training/adam8bit.py", "utils/observability.py"):
+                "training/adam8bit.py", "utils/observability.py",
+                "training/stage1.py", "training/prodigy.py",
+                "cli/train_unziplora.py", "cli/cone_diagnostics.py"):
         assert f"video_style_transfer_tpu_torch/{mod}" in names
     assert len(names) > 30
 
@@ -100,6 +102,34 @@ def test_every_module_imports_without_optional_packages():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert f"imported {len(mods)}" in out.stdout
+
+
+def _flags(parser):
+    return {o for a in parser._actions for o in a.option_strings
+            if o.startswith("--")} - {"--help"}
+
+
+def test_stage1_cli_flags_match_jax():
+    """The stage-1 CLI takes every flag of the JAX package's, and
+    --device besides; the multi-process ones it refuses are among
+    them."""
+    from video_style_transfer_tpu.cli import train_unziplora as jcli
+    from video_style_transfer_tpu_torch.cli import train_unziplora as tcli
+    want = _flags(jcli.build_parser())
+    got = _flags(tcli.build_parser())
+    assert got - {"--device"} == want
+    assert {f"--{f}" for f in tcli.NOT_PORTED} <= want
+
+
+def test_stage1_cuda_device_without_cuda_raises(monkeypatch):
+    from video_style_transfer_tpu_torch.cli import train_unziplora
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = train_unziplora.build_parser().parse_args(
+        ["--smoke", "--instance_prompt", "a", "--content_forward_prompt",
+         "b", "--style_forward_prompt", "c"])
+    assert args.device == "cuda"
+    with pytest.raises(SystemExit, match="CUDA is not available"):
+        train_unziplora.train(args)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

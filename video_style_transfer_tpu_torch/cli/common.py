@@ -1,6 +1,7 @@
 """Shared CLI runtime: device selection, model assembly, text
-conditioning and VAE-encoded training latents (per frame, or through the
-per-frame posterior-moment cache of video training).
+conditioning and VAE-encoded training latents (per frame, from the
+posterior moments of a fixed image set, or through the per-frame
+posterior-moment cache of video training).
 
 Two sources of weights:
 
@@ -303,6 +304,43 @@ def encode_latents(bundle: ModelBundle, images, generator: torch.Generator):
     return torch.cat(out)
 
 
+def encode_latent_moments(bundle: ModelBundle, images):
+    """(N, H, W, 3) in [-1, 1] (host array or tensor) -> the posterior
+    (mean, logvar), unscaled, (N, H/f, W/f, C) each on the bundle's
+    device: fp32 encode, one image per call, as encode_latents runs it.
+    The trainers encode their fixed image sets once and draw from these
+    every step (sample_scaled_latents)."""
+    means, logvars = [], []
+    with torch.no_grad():
+        for k in range(len(images)):
+            x = torch.as_tensor(images[k:k + 1]).to(bundle.device,
+                                                     torch.float32)
+            mean, logvar = vae_encode_moments(bundle.vae_encoder,
+                                              bundle.vae_cfg, x)
+            means.append(mean)
+            logvars.append(logvar)
+    return torch.cat(means), torch.cat(logvars)
+
+
+def sample_scaled_latents(bundle: ModelBundle, moments, idx,
+                          generator: torch.Generator):
+    """Scaled latents mean + exp(0.5 logvar) * eps of rows `idx` (None:
+    every row) of posterior moments, on the bundle's device. eps is drawn
+    from `generator` one (1, h, w, C) row at a time, in the order and
+    shape encode_latents and LatentMomentCache draw theirs, so one
+    generator state gives the same latents on every route."""
+    mean, logvar = moments
+    if idx is not None:
+        mean, logvar = mean[idx], logvar[idx]
+    dev = bundle.device
+    eps = torch.cat([torch.randn((1,) + tuple(mean.shape[1:]),
+                                 generator=generator, device=dev)
+                     for _ in range(mean.shape[0])])
+    mean, logvar = mean.to(dev), logvar.to(dev)
+    z = mean + torch.exp(0.5 * logvar) * eps
+    return z * bundle.vae_cfg.scaling_factor
+
+
 class LatentMomentCache:
     """Per-frame VAE posterior moments for video training (the JAX
     package's cli/common.py LatentMomentCache).
@@ -368,12 +406,5 @@ class LatentMomentCache:
         of clip b -> scaled latents (B*F, h, w, C) on the bundle's
         device."""
         flat = frames.reshape((-1,) + tuple(frames.shape[2:]))
-        mean, logvar = self.moments(flat, [fid for clip in ids
-                                           for fid in clip])
-        dev = self.bundle.device
-        eps = torch.cat([torch.randn((1,) + tuple(mean.shape[1:]),
-                                     generator=generator, device=dev)
-                         for _ in range(mean.shape[0])])
-        mean, logvar = mean.to(dev), logvar.to(dev)
-        z = mean + torch.exp(0.5 * logvar) * eps
-        return z * self.bundle.vae_cfg.scaling_factor
+        moments = self.moments(flat, [fid for clip in ids for fid in clip])
+        return sample_scaled_latents(self.bundle, moments, None, generator)

@@ -35,7 +35,7 @@ call (no synchronise inside), then the host µs a call of each part of
 the wrapper at the image path's shape (``k1_host_parts``). ``--k4`` does the same for K4's wrapper
 (``ops.flash_attention.flash_attention_bwd``: its delta, dk/dv and dq
 kernels) at the train step's bf16 shapes, a ragged length and fp32 at
-both levels. Each fp32 row also holds the device ms of
+both levels; both also at stage 1's batch-1 levels in bf16 and fp32. Each fp32 row also holds the device ms of
 ``scaled_dot_product_attention`` (K1: its forward, K4: its backward) and,
 the first time in a process, the names of its kernels;
 ``--k2`` for K2's wrapper (``ops.geglu.geglu_fwd``) at the paths' shapes
@@ -303,7 +303,11 @@ K1_SHAPES = (("serving L2", (32, 1024, 20, 64), torch.bfloat16),
              ("d256", (2, 4096, 5, 256), torch.float32),
              ("d320", (1, 4096, 1, 320), torch.float32),
              ("d384", (1, 4096, 1, 384), torch.float32),
-             ("d448", (1, 4096, 1, 448), torch.float32))
+             ("d448", (1, 4096, 1, 448), torch.float32),
+             ("stage-1 L1", (1, 4096, 10, 64), torch.bfloat16),
+             ("stage-1 L2", (1, 1024, 20, 64), torch.bfloat16),
+             ("stage-1 L1", (1, 4096, 10, 64), torch.float32),
+             ("stage-1 L2", (1, 1024, 20, 64), torch.float32))
 
 
 # (tag, (B, S, H, D), dtype): K4's shapes in chip_smoke.py's K4 phases
@@ -311,7 +315,11 @@ K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
              ("train L2", (8, 1024, 20, 64), torch.bfloat16),
              ("ragged", (2, 1100, 2, 64), torch.bfloat16),
              ("train L2", (8, 1024, 20, 64), torch.float32),
-             ("train L1", (8, 4096, 10, 64), torch.float32))
+             ("train L1", (8, 4096, 10, 64), torch.float32),
+             ("stage-1 L1", (1, 4096, 10, 64), torch.bfloat16),
+             ("stage-1 L2", (1, 1024, 20, 64), torch.bfloat16),
+             ("stage-1 L1", (1, 4096, 10, 64), torch.float32),
+             ("stage-1 L2", (1, 1024, 20, 64), torch.float32))
 
 # (tag, (F, N, H, d), dtype): K3's shapes, every one a path launches:
 # the serving path's three motion levels at 16 frames (bf16, and fp32

@@ -1,5 +1,5 @@
-"""Video clips for stage 2 and frame extraction for stage 1 (the JAX
-package's data/video.py, its cv2 decode path).
+"""Video clips for stage 2, frame extraction and image directories for
+stage 1 (the JAX package's data/video.py, its cv2 decode path).
 
 - VideoClipDataset: the .mp4s under a directory (and one level of
   subdirectories), one index entry per clip start; a clip is that many
@@ -7,7 +7,9 @@ package's data/video.py, its cv2 decode path).
   normalised to [-1, 1], a short read padded by repeating its last frame.
 - extract_frames: N evenly spaced frames of one video (its middle frame
   when N == 1), resized with INTER_AREA; extract_first_frames: its first
-  N consecutive frames.
+  N consecutive frames;
+- load_image_dir: stage 1's instance or class images from a directory
+  (PIL, squished, centre- or randomly cropped to square).
 
 Clips are drawn by an integer seed through ``np.random.RandomState``, as
 the JAX package draws them, so both pick the same clips. Frames come out
@@ -194,3 +196,43 @@ def extract_first_frames(video_path: str, num_frames: int,
     if not frames:
         raise IOError(f"no frames decoded from {video_path}")
     return _normalize(_pad_repeat(frames, num_frames))
+
+
+IMAGE_EXTS = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+
+
+def load_image_dir(root: str, resolution: int, *, crop: str = "squish",
+                   seed: int = 0) -> np.ndarray:
+    """Every image under root, in name order -> (N, res, res, 3) float32
+    in [-1, 1] (stage 1's instance or class images). crop: "squish"
+    resizes both axes (LANCZOS); "center" and "random" resize the shorter
+    side to res and crop the other, the random offsets drawn once per
+    image from `seed`. PIL is imported here: nothing else needs it."""
+    from PIL import Image
+    paths = [os.path.join(root, f) for f in sorted(os.listdir(root))
+             if f.lower().endswith(IMAGE_EXTS)]
+    if not paths:
+        raise FileNotFoundError(f"no images under {root}")
+    if crop not in ("squish", "center", "random"):
+        raise ValueError(f"unknown crop mode {crop!r}")
+    rng = np.random.default_rng(seed)
+    out = []
+    for p in paths:
+        with Image.open(p) as src:
+            img = src.convert("RGB")
+        if crop == "squish":
+            img = img.resize((resolution, resolution), Image.LANCZOS)
+        else:
+            w, h = img.size
+            scale = resolution / min(w, h)
+            nw = max(round(w * scale), resolution)
+            nh = max(round(h * scale), resolution)
+            img = img.resize((nw, nh), Image.LANCZOS)
+            if crop == "center":
+                left, top = (nw - resolution) // 2, (nh - resolution) // 2
+            else:
+                left = int(rng.integers(0, nw - resolution + 1))
+                top = int(rng.integers(0, nh - resolution + 1))
+            img = img.crop((left, top, left + resolution, top + resolution))
+        out.append(np.asarray(img))
+    return _normalize(out)

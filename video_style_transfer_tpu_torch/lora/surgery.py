@@ -1,5 +1,6 @@
-"""LoRA insertion and pairing over the port's param trees (the JAX
-package's lora/surgery.py counterpart).
+"""LoRA insertion and pairing over the port's param trees, and stage 1's
+block-separation tables and their grammar (the JAX package's
+lora/surgery.py counterpart).
 
 Params are nested dicts and per-layer lists, so every path here names the
 layer: (..., "attentions", j, "transformer_blocks", k, "attn1"). The
@@ -12,7 +13,7 @@ state tree does.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,6 +23,15 @@ from video_style_transfer_tpu_torch.lora.unzip import (
 
 PROJS = ("to_q", "to_k", "to_v", "to_out")
 Path = Tuple
+
+# The reference's published block-separation recipe for stage 1
+# (``--with_freeze_unet``), in the grammar of expand_block_patterns
+FREEZE_UNET_CONTENT = {"mid_block": ["N_0_A_A"],
+                       "up_blocks.": ["1_A_A_A", "0_1_A_A"],
+                       "down_blocks.": ["A_A_A_A"]}
+FREEZE_UNET_STYLE = {"mid_block": ["N_0_A_A"],
+                     "up_blocks.": ["0_0,2_A_A"],
+                     "down_blocks.": ["A_A_A_A"]}
 
 
 def tree_get(tree, path: Path):
@@ -234,3 +244,80 @@ def fold_unziplora(unet_params, lora_state, *, mode: str = "both",
             params = tree_replace(params, path + (proj,), new_p)
             n += 1
     return params, n
+
+
+def expand_block_patterns(mask_dictionary: Dict[str, Sequence[str]], *,
+                          num_down_blocks: int = 3, num_up_blocks: int = 3,
+                          layers_per_block: int = 2) -> set:
+    """Expand the reference's "{blocks}_{groups}_{attns}_{projs}" grammar
+    into a set of (block_kind, block_idx, group_idx, attn_name, proj)
+    tuples. Per pattern element:
+      blocks: "N" (mid: no index) | "A" (SDXL's attention-bearing blocks:
+              up 0, 1 / down 1, 2) | "0,1"
+      groups: "A" (every attention group of the block) | "0,2"
+      attns:  "A" (attn1 and attn2) | "1" | "2"
+      projs:  "A" (q, k, v, out) | "q,k" ...
+    num_down_blocks and num_up_blocks are accepted for the JAX
+    signature; "A" names SDXL's blocks whatever they say."""
+    out = set()
+    for key, patterns in mask_dictionary.items():
+        kind = key.rstrip(".")
+        for pattern in patterns:
+            nums, groups, attns, projs = pattern.split("_")
+            if nums == "N":
+                block_ids = [None]
+            elif nums == "A":
+                block_ids = [0, 1] if kind == "up_blocks" else [1, 2]
+            else:
+                block_ids = [int(x) for x in nums.split(",")]
+            if groups == "A":
+                n = layers_per_block + (kind == "up_blocks")
+                group_ids = list(range(n))
+            else:
+                group_ids = [int(x) for x in groups.split(",")]
+            attn_names = (["attn1", "attn2"] if attns == "A"
+                          else [f"attn{x}" for x in attns.split(",")])
+            proj_names = (list(PROJS) if projs == "A"
+                          else [f"to_{x}" for x in projs.split(",")])
+            for bi in block_ids:
+                for gi in group_ids:
+                    for an in attn_names:
+                        for pn in proj_names:
+                            out.add((kind, bi, gi, an, pn))
+    return out
+
+
+def selection_matches(path: Path, proj: str, selections: set) -> bool:
+    """Does (attention path, projection) fall in an expanded selection?
+    A path is per layer, (kind, [block,] "attentions", group,
+    "transformer_blocks", layer, attn): every layer of a group shares its
+    group's selection."""
+    i = path.index("attentions")
+    kind = path[0]
+    block = None if kind == "mid_block" else path[1]
+    return (kind, block, path[i + 1], path[-1], proj) in selections
+
+
+def layer_assignments(unet_params, mask_dictionary_content: Dict,
+                      mask_dictionary_style: Dict,
+                      **expand_kw) -> Dict[Path, Optional[str]]:
+    """Column-separation assignment of each (attention path, proj), per
+    layer: "both" where both dictionaries (or neither) select it (both
+    branches get sparse column masks), "style" where only the style one
+    does (style sparse, content all on), "content" where only the
+    content one does."""
+    sel_c = expand_block_patterns(mask_dictionary_content, **expand_kw)
+    sel_s = expand_block_patterns(mask_dictionary_style, **expand_kw)
+    out: Dict[Path, Optional[str]] = {}
+    for path in iter_spatial_attention_paths(unet_params):
+        for proj in PROJS:
+            in_c = selection_matches(path, proj, sel_c)
+            in_s = selection_matches(path, proj, sel_s)
+            if in_s and not in_c:
+                label = "style"
+            elif in_c and not in_s:
+                label = "content"
+            else:
+                label = "both"
+            out[path + (proj,)] = label
+    return out

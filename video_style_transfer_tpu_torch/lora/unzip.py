@@ -13,14 +13,23 @@ the gate is merge x mask x on per output column ("both") or mask x on
 ("content"/"style": the single-branch modes skip the merger). The LoRA
 matrices keep the JAX (in, r) / (r, out) orientation, so ``x @ down``
 needs no transpose.
+
+Stage 1's column separation reads the merger similarity and the cone
+(W .* dW, the gradient-importance score that picks each branch's
+columns) from here.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from video_style_transfer_tpu_torch.models import layers
 
 BRANCHES = ("content", "style")
+# a cone element counts toward its column's score above this, strictly
+# (the reference's threshold)
+CONE_THRESHOLD = 1e-5
 
 
 def init_unzip_lora_params(ini, in_features: int, out_features: int,
@@ -145,3 +154,70 @@ def export_weights(params, state, branch: str):
     else:
         gate = params[f"merge_{branch}"]
     return down, up * gate[:, None]
+
+
+def mergers_similarity(params, state=None):
+    """mean |merge_content * merge_style| of one layer; once both column
+    masks are in use, the mergers are first multiplied by their masks."""
+    mc, ms = params["merge_content"], params["merge_style"]
+    plain = torch.mean(torch.abs(mc * ms))
+    if state is None:
+        return plain
+    masked = torch.mean(torch.abs((mc * state["mask_content"])
+                                  * (ms * state["mask_style"])))
+    both = state["use_mask_content"] & state["use_mask_style"]
+    return torch.where(both, masked, plain)
+
+
+def cone_matrix(params, grads, branch: str, dtype=None):
+    """cone = W .* dW of one layer, (in, out), with W = down @ up (no
+    merger) and dW by the product rule with the merger term:
+    dW = (d_down @ up + down @ d_up) * merge + W * d_merge. `dtype`: the
+    arithmetic's (default: the factors')."""
+    def c(t):
+        return t if dtype is None else t.to(dtype)
+
+    down, up = c(params[branch]["down"]), c(params[branch]["up"])
+    g_down, g_up = c(grads[branch]["down"]), c(grads[branch]["up"])
+    merge = c(params[f"merge_{branch}"])
+    g_merge = c(grads[f"merge_{branch}"])
+    w = down @ up
+    dw = (g_down @ up + down @ g_up) * merge[None, :] + w * g_merge[None, :]
+    return w * dw
+
+
+def cone_columns(params, grads, branch: str):
+    """Per-column cone score, float32 (out,): the fraction of rows whose
+    |cone| exceeds CONE_THRESHOLD (strictly). The cone is computed in
+    float64 from the float32 factors, whose products it holds exactly:
+    the sums of the card and of the CPU differ by ~1e-16 relative, so the
+    same elements pass the threshold on both (a float32 cone differs
+    between them in its last bits, and an element within them of 1e-5
+    would change a column's count)."""
+    cone = cone_matrix(params, grads, branch, torch.float64)
+    count = torch.sum(torch.abs(cone) > CONE_THRESHOLD, dim=0)
+    # divided by a tensor: a division by a host number becomes a product
+    # by its reciprocal on the card, which rounds differently
+    rows = torch.tensor(float(cone.shape[0]), device=count.device)
+    return count.to(torch.float32) / rows
+
+
+def select_columns(score_content, score_style, prev_mask_content,
+                   prev_mask_style, *, ratio: float, avoid: bool = True):
+    """Top-k column selection with content priority, OR'd with the
+    previous masks. k = max(int(out * ratio), 1). Content takes the
+    columns scoring strictly above its k-th best score; with `avoid`,
+    the columns content holds score -inf before the style pick. Only the
+    k-th value is read, so ties among the scores (a score is a count over
+    the rows) decide nothing but that threshold."""
+    k = max(int(score_content.shape[0] * ratio), 1)
+    thresh_c = torch.topk(score_content, k).values[-1]
+    mask_content = (score_content > thresh_c) | prev_mask_content
+    masked_style = score_style
+    if avoid:
+        masked_style = torch.where(mask_content,
+                                   torch.full_like(score_style, -math.inf),
+                                   score_style)
+    thresh_s = torch.topk(masked_style, k).values[-1]
+    mask_style = (masked_style > thresh_s) | prev_mask_style
+    return mask_content, mask_style

@@ -183,7 +183,7 @@ class AdamW8bit(AdamW):
         return total
 
     @torch.no_grad()
-    def step(self, grads):
+    def step(self, grads, gates=None):
         lr = self.schedule(self.count)
         self.count += 1
         # bias corrections as the JAX package computes them (float32
@@ -191,7 +191,9 @@ class AdamW8bit(AdamW):
         c1 = 1.0 - torch.tensor(self.b1, dtype=torch.float32) ** self.count
         c2 = 1.0 - torch.tensor(self.b2, dtype=torch.float32) ** self.count
         scalars = {}
-        for i, (p, g) in enumerate(zip(self.params, self.clip(grads))):
+        gates = gates or [None] * len(self.params)
+        for i, (p, g, gate) in enumerate(zip(self.params, self.clip(grads),
+                                             gates)):
             dev = p.device
             if dev not in scalars:
                 scalars[dev] = (c1.to(dev), c2.to(dev))
@@ -215,4 +217,6 @@ class AdamW8bit(AdamW):
                 u = _fma(p, self._wd, u)
             else:
                 u = u + p * self.weight_decay
+            if gate is not None:
+                u = u * gate
             p.copy_(p + u * (-lr))

@@ -23,7 +23,7 @@ temporal-LoRA leaves stay f32, with no master weights.
 """
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 
@@ -136,9 +136,19 @@ def _to_cpu(tree):
     return tree
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """optax.clip_by_global_norm: with g_norm = ||all grads||_2, g <- g
+    if g_norm < max_norm else g / g_norm * max_norm."""
+    norm = torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm)
+            for g in grads]
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...))
-    over the trainable tensors only:
+    over the trainable tensors only (max_grad_norm None: no clip, for a
+    caller that clips several optimizers' gradients together):
 
     - clip: with g_norm = ||all grads||_2, g <- g if g_norm < max_norm
       else g / g_norm * max_norm (no epsilon: torch's clip_grad_norm_
@@ -156,7 +166,8 @@ class AdamW:
 
     def __init__(self, params: List[torch.Tensor], schedule: Callable, *,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-2, max_grad_norm: float = 0.5):
+                 weight_decay: float = 1e-2,
+                 max_grad_norm: Optional[float] = 0.5):
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -184,24 +195,29 @@ class AdamW:
         self.count = int(state["count"])
 
     def clip(self, grads):
-        norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
-                              for g in grads))
-        keep = norm < self.max_grad_norm
-        return [torch.where(keep, g, g / norm.to(g.dtype)
-                            * self.max_grad_norm) for g in grads]
+        if self.max_grad_norm is None:
+            return list(grads)
+        return clip_by_global_norm(grads, self.max_grad_norm)
 
     @torch.no_grad()
-    def step(self, grads):
+    def step(self, grads, gates=None):
+        """One update from `grads` (one per tensor). `gates`: None, or one
+        multiplier per tensor (None for none), applied to the update
+        before it is added (the moments and the count move regardless,
+        as optax's do when a caller gates its updates)."""
         lr = self.schedule(self.count)
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        for p, g, m, v in zip(self.params, self.clip(grads), self.mu,
-                              self.nu):
+        gates = gates or [None] * len(self.params)
+        for p, g, m, v, gate in zip(self.params, self.clip(grads), self.mu,
+                                    self.nu, gates):
             m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             v.mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / c1) / (torch.sqrt(v / c2) + self.eps)
             u.add_(p, alpha=self.weight_decay)
+            if gate is not None:
+                u = u * gate
             p.add_(u, alpha=-lr)
 
 

@@ -10,7 +10,9 @@
   any point leaves the previous checkpoint whole, and latest_checkpoint
   never sees an uncommitted directory (its name does not match
   ``checkpoint-<digits>``). A restore checks every path, shape, dtype and
-  the optimizer's kind before it copies anything in.
+  the optimizer's kind before it copies anything in. Stage 1 adds its
+  LoRA state tree (masks, scores, use-mask flags) and its orth_on /
+  merger_on flags as ``extra``.
 - export_stage1_artifacts: the reference's four stage-1 artifacts;
 - export_motion_checkpoint: the stage-2 motion-module weights with the
   temporal LoRA folded in.
@@ -33,13 +35,19 @@ def path_key(path) -> str:
     return "/".join(map(str, path))
 
 
-def train_state(trainable, optimizer, step: int) -> dict:
+def train_state(trainable, optimizer, step: int, extra=None) -> dict:
     """The checkpoint of a trainer: {"step", "optimizer" (its kind),
-    "optimizer_state", "trainable" {path: tensor}}, CPU copies."""
-    return {"step": int(step), "optimizer": optimizer.kind,
-            "optimizer_state": optimizer.state_dict(),
-            "trainable": {path_key(p): t.detach().to("cpu", copy=True)
-                          for p, t in trainable}}
+    "optimizer_state", "trainable" {path: tensor}}, CPU copies; with
+    `extra` (a tree of dicts, lists and tensors: stage 1's LoRA state and
+    flags) also "extra", its CPU copy."""
+    from video_style_transfer_tpu_torch.training.stage2 import _to_cpu
+    state = {"step": int(step), "optimizer": optimizer.kind,
+             "optimizer_state": optimizer.state_dict(),
+             "trainable": {path_key(p): t.detach().to("cpu", copy=True)
+                           for p, t in trainable}}
+    if extra is not None:
+        state["extra"] = _to_cpu(extra)
+    return state
 
 
 def _committed(ckpt_dir: str):
@@ -85,11 +93,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
         else None
 
 
-def restore_checkpoint(path: str, trainable, optimizer) -> int:
+def restore_checkpoint(path: str, trainable, optimizer, extra=None) -> int:
     """Load the checkpoint at `path` into the trainable tensors
-    [(path, tensor)] and the optimizer; returns its step. Raises
-    ValueError, having changed nothing, where the trainable paths,
-    shapes or dtypes or the optimizer's kind or state differ."""
+    [(path, tensor)] and the optimizer (and, given `extra`, the live tree
+    train_state saved as "extra"); returns its step. Raises ValueError,
+    having changed nothing, where the trainable paths, shapes or dtypes,
+    the optimizer's kind or state, or the extra tree's structure
+    differ."""
     state = torch.load(os.path.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)
     if state["optimizer"] != optimizer.kind:
@@ -105,10 +115,17 @@ def restore_checkpoint(path: str, trainable, optimizer) -> int:
     from video_style_transfer_tpu_torch.training.stage2 import (
         check_state_like, copy_state)
     check_state_like(saved, live, f"{path}: trainable")
+    if extra is not None:
+        if "extra" not in state:
+            raise ValueError(f"{path}: holds no trainer state beside the "
+                             f"optimizer's")
+        check_state_like(state["extra"], extra, f"{path}: extra")
     # checks its state before it copies any of it in
     optimizer.load_state_dict(state["optimizer_state"])
     with torch.no_grad():
         copy_state(live, saved)
+        if extra is not None:
+            copy_state(extra, state["extra"])
     return int(state["step"])
 
 
