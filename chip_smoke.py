@@ -93,7 +93,29 @@
    - the bf16 VAE decode that ``--vae_dtype bfloat16`` gives
      (``pipelines.video.decode_video`` on 16 seeded 128^2 latent frames,
      the full-width SDXL decoder with seeded weights), held within mean
-     3 and p99 16 uint8 levels of the fp32 decode of the same latents.
+     3 and p99 16 uint8 levels of the fp32 decode of the same latents;
+   - two processes on the one card (``multi_process_section``), each in
+     a gloo process group this script sets up on cuda:0 (NCCL refuses
+     two ranks on one device): a probe of gloo's collectives on CUDA
+     tensors, then through the CLIs' entry points ``cli.infer_video
+     --frame_parallel 2`` (the serving configuration above, mode both),
+     ``cli.train_animatediff --frame_parallel 2`` at 512^2 (SDXL's
+     widths, 8 frames: 2 steps with a checkpoint after each, then a run
+     resumed from checkpoint-1, restored bitwise) and
+     ``cli.train_unziplora --data_parallel 2`` at one row a process (2
+     steps through a selection from gradients scaled by run D's factor,
+     then run D's selection on each rank, which must give run D's
+     masks), each held against one process: serving also runs in fp32
+     (--mixed_precision no) and its first UNet output (same inputs) and
+     latents must be within 1e-4 of one process's fp32 run normwise; in
+     bf16 within twice the serving phase's mode both's distance from
+     that fp32 run, its frames within mean 3 / p99 16 levels of the
+     serving phase's; the trainers' losses (relative 2^-6), per-tensor
+     gradient norms (2^-5 normwise) and tensors (2^-8 normwise) against
+     one-process runs of the same configurations, the ranks' tensors and
+     masks equal; each rank's launches exact by kernel and route, and the
+     bytes its all-to-alls sent equal to the exchange computed from the
+     shapes. Its times are two ranks time-sharing one card.
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma route's d <= 256 kernel, every bf16 VAE
    attention on its wide kernel, every fp32 VAE attention on the FMA
@@ -117,6 +139,7 @@
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -522,7 +545,12 @@ def kernel_phases():
             ("stage1_l1 (1,4096,10x64)", (1, 4096, 10, 64), torch.float32,
              10),
             ("stage1_l2 (1,1024,20x64)", (1, 1024, 20, 64), torch.float32,
-             50)):
+             50),
+            # a rank's share of the serving path under --frame_parallel 2
+            ("fp2_unet_l1 (16,4096,10x64)", (16, 4096, 10, 64),
+             torch.bfloat16, 10),
+            ("fp2_unet_l2 (16,1024,20x64)", (16, 1024, 20, 64),
+             torch.bfloat16, 20)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -605,7 +633,13 @@ def kernel_phases():
              torch.float32, 3),
             ("stage1_l2 (1024,1280->5120)", (1024, 1280), torch.float32,
              20),
-            ("stage1_l1 (4096,640->2560)", (4096, 640), torch.float32, 20)):
+            ("stage1_l1 (4096,640->2560)", (4096, 640), torch.float32, 20),
+            # a rank's share of the serving path under --frame_parallel 2
+            ("fp2_spatial_l2 (16384,1280->5120)", (16384, 1280),
+             torch.bfloat16, 20),
+            ("fp2_l1 (65536,640->2560)", (65536, 640), torch.bfloat16, 10),
+            ("fp2_motion_l0 (262144,320->1280)", (262144, 320),
+             torch.bfloat16, 10)):
         inner = 4 * c
         x = randn(m, c, dtype=dt)
         w = randn(2 * inner, c, dtype=dt, scale=c ** -0.5)
@@ -653,7 +687,18 @@ def kernel_phases():
             ("stage2_l1", (8, 4096, 8, 80), torch.bfloat16, 20),
             ("stage2_l2", (8, 1024, 8, 160), torch.bfloat16, 20),
             ("clip32_l2", (32, 1024, 8, 160), torch.bfloat16, 20),
-            ("clip32_l2", (32, 1024, 8, 160), torch.float32, 10)):
+            ("clip32_l2", (32, 1024, 8, 160), torch.float32, 10),
+            # the one-process serving path's levels 1 and 2 hold 2 x 4096
+            # and 2 x 1024 pixels: the serving_l1 and serving_l2 rows above
+            # have half those, a rank's share under --frame_parallel 2,
+            # whose level 0 is fp2_l0
+            ("serving_l1_2x4096", (16, 8192, 8, 80), torch.bfloat16, 20),
+            ("serving_l2_2x1024", (16, 2048, 8, 160), torch.bfloat16, 20),
+            ("fp2_l0", (16, 16384, 8, 40), torch.bfloat16, 20),
+            # a rank's pixel shard of the two-process stage-2 run (512^2)
+            ("fp2_512_l0", (8, 2048, 8, 40), torch.bfloat16, 20),
+            ("fp2_512_l1", (8, 512, 8, 80), torch.bfloat16, 20),
+            ("fp2_512_l2", (8, 128, 8, 160), torch.bfloat16, 20)):
         qkv = randn(f, n, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.permute(1, 2, 0, 3) for t in (q, k, v))  # (N,H,F,d)
@@ -793,7 +838,21 @@ def bwd_phases():
             ("clip32_widest (32,1024,2x600)", (32, 1024, 2, 600),
              torch.float32, 5),
             ("clip32_widest (32,1024,2x1208)", (32, 1024, 2, 1208),
-             torch.bfloat16, 5)):
+             torch.bfloat16, 5),
+            # a rank's pixel shard of stage 2 (1024^2, 8 frames) under
+            # --frame_parallel 2
+            ("fp2_motion_l0 (8,8192,8x40)", (8, 8192, 8, 40),
+             torch.bfloat16, 20),
+            ("fp2_motion_l1 (8,2048,8x80)", (8, 2048, 8, 80),
+             torch.bfloat16, 20),
+            ("fp2_motion_l2 (8,512,8x160)", (8, 512, 8, 160),
+             torch.bfloat16, 20),
+            # the two-process stage-2 run's shards (512^2)
+            ("fp2_512_l0 (8,2048,8x40)", (8, 2048, 8, 40), torch.bfloat16,
+             20),
+            ("fp2_512_l1 (8,512,8x80)", (8, 512, 8, 80), torch.bfloat16, 20),
+            ("fp2_512_l2 (8,128,8x160)", (8, 128, 8, 160), torch.bfloat16,
+             20)):
         qkv = randn(f, n, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         do = randn(f, n, h * d, dtype=dt)
@@ -2234,7 +2293,9 @@ def check_counts(path, counts, expected):
 
 def main_path(artifacts, motion_checkpoint):
     """Video serving in every mode from the artifact set and the motion
-    checkpoint on disk."""
+    checkpoint on disk. Returns (launch counts by route, mode both's
+    first UNet output, its latents before the decode and its
+    frames)."""
     import numpy as np
     import torch
     from video_style_transfer_tpu_torch.cli import infer_video
@@ -2250,10 +2311,11 @@ def main_path(artifacts, motion_checkpoint):
         "--resolution", str(RESOLUTION), "--num_inference_steps", str(STEPS),
         "--guidance_scale", "7.5", "--device", "cuda", "--seed", "0"])
     torch.cuda.reset_peak_memory_stats()
-    report = {}
+    report, unet_outs = {}, []
     reset_counters()
     t0 = time.perf_counter()
-    outs = infer_video.generate(args, report)
+    with kept_unet_outputs(unet_outs):
+        outs = infer_video.generate(args, report)
     total = time.perf_counter() - t0
     counts = counters()
     print(f"main path: weight init, motion checkpoint and rank-{LORA_RANK} "
@@ -2293,8 +2355,13 @@ def main_path(artifacts, motion_checkpoint):
           f"pairwise different between {modes}", flush=True)
     check_counts("serving", counts,
                  {k: len(modes) * v for k, v in per_mode.items()})
-    return check_routes("serving", counts, len(modes) * 70 * STEPS,
-                        len(modes) * NUM_FRAMES)
+    routes = check_routes("serving", counts, len(modes) * 70 * STEPS,
+                          len(modes) * NUM_FRAMES)
+    # mode both's first UNet output (after base's STEPS calls), latents
+    # and frames: the frame-parallel run's reference
+    return routes, {"unet": unet_outs[STEPS],
+                    "latents": report["both"]["latents"],
+                    "frames": outs["both"]}
 
 
 def image_path(artifacts):
@@ -2618,7 +2685,853 @@ def fma_ptxas(log):
     return out
 
 
+# -------------------------------------------------------------- multi-process
+# Two processes on the one card, each joining a gloo process group that
+# this script sets up (NCCL refuses two ranks on one device), driving the
+# CLIs' data- and frame-parallel paths through their normal entry points.
+# Times are those of two ranks time-sharing one card, not a multi-GPU
+# speed.
+MP_WORLD = 2
+# stage 2 at 512^2 (SDXL's widths, 8 frames): the two processes' peaks
+# together must stay under the card's 80 GB (one process at 1024^2 peaks
+# at 57 GiB); a seeded 8-frame video in memory, one clip start
+MP_TRAIN_RES, MP_TRAIN_STEPS = 512, 2
+# the fp32 twins (serving and stage 2 under --mixed_precision no, the
+# gates of the two-process paths) take one step each; stage 2's without
+# warmup, so that its one update is not zero
+MP_FP32_STEPS = 1
+# stage 1: 2 steps of the column separation at one sample time (phases
+# reset, select), batch 2 (one row a process); the selection is step 1
+MP_STAGE1_STEPS, MP_STAGE1_SELECT = 2, 1
+# limits of the two-process runs against one process. fp32 (serving and
+# stage 2): the first UNet output, the latents, the losses, the
+# per-tensor gradient norms and the tensors after the step within the
+# port's model tolerance against JAX (1e-4, normwise). bf16: two bf16 runs
+# that round differently (GEMMs over other row counts) are two draws of
+# bf16's own error, so their distances are readings; the served frames
+# are held to the bf16 decode phase's uint8 levels. Stage 1 (bf16, no
+# fp32 twin): per-tensor gradient norms and the LoRA leaves normwise, the
+# losses relatively, and the masks the selection of the world's summed
+# gradients
+MP_FP32_NORMWISE = 1e-4
+MP_FRAME_LEVELS = (3.0, 16.0)
+MP_GRAD_NORMWISE = 2 ** -5
+MP_TENSOR_NORMWISE = 2 ** -8
+MP_LOSS_REL = 2 ** -6
+MP_TIMEOUT_S = 900
+# what rank 0 captures at the stage-1 selection step: each projection's
+# LoRA tensors, summed gradients and state, for one process to select from
+MP_SELECT_FILE = "stage1_select.pt"
+
+
+@contextlib.contextmanager
+def kept_unet_outputs(store):
+    """While open, every UNet call the pipelines make (through
+    pipelines.sampling) appends its output, fp32 on the CPU, to
+    `store`."""
+    from video_style_transfer_tpu_torch.pipelines import sampling
+    orig = sampling.unet_apply
+
+    def keep(*args, **kw):
+        out = orig(*args, **kw)
+        store.append(out.float().cpu())
+        return out
+
+    sampling.unet_apply = keep
+    try:
+        yield store
+    finally:
+        sampling.unet_apply = orig
+
+
+def mp_probe(rank):
+    """gloo's collectives on CUDA tensors of two ranks on one card:
+    all_to_all_single, all_reduce, all_gather (uint8) and a barrier."""
+    import torch
+    import torch.distributed as dist
+    x = torch.arange(8, device="cuda", dtype=torch.float32) + 100 * rank
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x)
+    want = torch.cat([torch.arange(4 * rank, 4 * rank + 4,
+                                   dtype=torch.float32) + 100 * s
+                      for s in range(MP_WORLD)]).cuda()
+    z = x.clone()
+    dist.all_reduce(z)
+    parts = [torch.empty(3, device="cuda", dtype=torch.uint8)
+             for _ in range(MP_WORLD)]
+    dist.all_gather(parts, torch.full((3,), rank, device="cuda",
+                                      dtype=torch.uint8))
+    dist.barrier()
+    ok = (torch.equal(y, want)
+          and torch.equal(z, 2 * torch.arange(8, device="cuda",
+                                               dtype=torch.float32) + 100)
+          and [int(p[0]) for p in parts] == list(range(MP_WORLD)))
+    if not ok:
+        fail(f"rank {rank}: gloo collectives on CUDA tensors gave "
+             f"{y.tolist()}, {z.tolist()}, {[p.tolist() for p in parts]}")
+    # a reading, not used by the package (it sums gradients in float32):
+    # gloo's sum of bf16 CUDA tensors against the float32 sum, rounded
+    gen = torch.Generator(device="cuda")
+    vals = []
+    for r in range(MP_WORLD):
+        gen.manual_seed(r)
+        vals.append(torch.randn(1 << 16, device="cuda", generator=gen)
+                    .to(torch.bfloat16))
+    got = vals[rank].clone()
+    dist.all_reduce(got)
+    want = sum(v.float() for v in vals).to(torch.bfloat16)
+    bf16_err = float((got.float() - want.float()).abs().max())
+    return {"all_to_all_single": True, "all_reduce": True,
+            "all_gather": True, "bf16_all_reduce_max_abs_err": bf16_err}
+
+
+def mp_routes():
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+    from video_style_transfer_tpu_torch.ops import geglu
+    return {"K1": dict(fa.ROUTE_LAUNCHES), "K4": dict(fa.BWD_ROUTE_LAUNCHES),
+            "K2": dict(geglu.ROUTE_LAUNCHES)}
+
+
+def mp_serving_args(rank_flags, fp32=False):
+    """The serving phase's arguments; fp32: --mixed_precision no at
+    MP_FP32_STEPS steps."""
+    return ["--prompt", "a horse galloping through a snowy forest",
+            "--content_prompt", "a horse galloping",
+            "--style_prompt", "a snowy forest in watercolor",
+            "--num_frames", str(NUM_FRAMES), "--resolution", str(RESOLUTION),
+            "--num_inference_steps", str(MP_FP32_STEPS if fp32 else STEPS),
+            "--guidance_scale", "7.5", "--seed", "0", "--modes",
+            "both"] + rank_flags + (["--mixed_precision", "no"] if fp32
+                                    else [])
+
+
+def mp_serving(cfg, rank, fp32=False):
+    """cli.infer_video.generate with --frame_parallel 2: mode both from
+    the artifact set and motion checkpoint of the serving phase, in bf16
+    or (fp32) with --mixed_precision no at MP_FP32_STEPS steps."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import infer_video
+    from video_style_transfer_tpu_torch.parallel import distributed
+
+    label = f"frame-parallel serving{' fp32' if fp32 else ''} (rank {rank})"
+    args = infer_video.build_parser().parse_args(mp_serving_args([
+        "--unziplora_name_or_path", cfg["artifacts"], "--motion_checkpoint",
+        cfg["motion_checkpoint"], "--frame_parallel", str(MP_WORLD),
+        "--device", "cuda:0"], fp32))
+    torch.cuda.reset_peak_memory_stats()
+    report, unet_outs = {}, []
+    reset_counters()
+    distributed.EXCHANGED_BYTES = 0
+    t0 = time.perf_counter()
+    with kept_unet_outputs(unet_outs):
+        outs = infer_video.generate(args, report)
+    total = time.perf_counter() - t0
+    counts = counters()
+    frames = NUM_FRAMES // MP_WORLD
+    steps = MP_FP32_STEPS if fp32 else STEPS
+    check_counts(label, counts, serving_launches(steps, frames))
+    # fp32: every UNet attention and feed-forward on the 3xTF32 routes
+    calls = 70 * steps
+    routes = check_routes(label, counts, 0 if fp32 else calls, frames,
+                          tf32x3=calls if fp32 else 0,
+                          geglu_tf32x3=85 * steps if fp32 else 0)
+    rep = report["both"]
+    a, b = rep["frame_range"]
+    return {"s": total, "weight_init_s": report["weight_init_s"],
+            "denoise_step_s": rep["denoise_step_s"],
+            "decode_s": rep["decode_s"], "frame_range": (a, b),
+            "unet": unet_outs[0], "latents": rep["latents"],
+            "frames": outs["both"][a:b],
+            "shape": tuple(outs["both"].shape), "launches": routes,
+            "exchanged_bytes": distributed.EXCHANGED_BYTES,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mp_video():
+    import numpy as np
+    return np.random.default_rng(31).integers(
+        0, 256, (TRAIN_FRAMES, MP_TRAIN_RES, MP_TRAIN_RES, 3), dtype=np.uint8)
+
+
+def mp_grad_norms(store):
+    """on_grads hook keeping each step's per-tensor gradient norms."""
+    import torch
+
+    def hook(*args):
+        grads = args[-1]
+        if isinstance(grads, dict):
+            grads = list(grads.values())
+        store.append(torch.stack([g.float().norm() for g in grads]).cpu())
+    return hook
+
+
+def mp_stage2_args(out_dir, extra, fp32=False):
+    """The two-process section's stage-2 arguments: MP_TRAIN_STEPS steps
+    with a checkpoint after each and one step of warmup; fp32:
+    --mixed_precision no, MP_FP32_STEPS steps, no warmup, no
+    checkpoint."""
+    if fp32:
+        run = ["--lr_warmup_steps", "0", "--checkpointing_steps", "1000",
+               "--max_train_steps", str(MP_FP32_STEPS),
+               "--mixed_precision", "no"]
+    else:
+        run = ["--lr_warmup_steps", "1", "--checkpointing_steps", "1",
+               "--max_train_steps", str(MP_TRAIN_STEPS)]
+    return ["--output_dir", out_dir,
+            "--prompt", "a horse galloping through a snowy forest",
+            "--num_frames", str(TRAIN_FRAMES), "--resolution",
+            str(MP_TRAIN_RES), "--seed", "0", "--log_every", "1"] + run \
+        + extra
+
+
+def mp_stage2_run(out_dir, flags, label, fp32=False, on_setup=None):
+    """One cli.train_animatediff.train run of the two-process section's
+    configuration (`flags` add the process's own; fp32:
+    mp_stage2_args's). Returns (trainer, report, per-step gradient norms,
+    launches by route, peak GiB). Its launches must be those of a rank's
+    frames (or one process's), by route."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import train_animatediff
+    from video_style_transfer_tpu_torch.cli.common import model_configs
+
+    torch.cuda.reset_peak_memory_stats()
+    norms, report = [], {}
+    reset_counters()
+    tr = train_animatediff.train(
+        train_animatediff.build_parser().parse_args(mp_stage2_args(
+            out_dir, flags, fp32)),
+        report, on_setup, dataset=ArrayClips(mp_video(), TRAIN_FRAMES),
+        on_grads=mp_grad_norms(norms))
+    counts = counters()
+    frames = TRAIN_FRAMES // tr.grid.frame
+    encoded = sum(report["encoded_frames"])
+    if encoded != frames:
+        fail(f"{label} encoded {encoded} frames, expected {frames}")
+    want = expected_train_launches(
+        model_configs(smoke=False, motion=True)[0], frames=frames,
+        resolution=MP_TRAIN_RES,
+        steps=MP_FP32_STEPS if fp32 else MP_TRAIN_STEPS, encoded=encoded)
+    check_counts(label, counts, {**serving_launches(0, 0), **want})
+    flash = want["flash_attention_bwd"]
+    # fp32: every UNet attention, its backward and every feed-forward on
+    # the 3xTF32 routes
+    routes = check_routes(label, counts, 0 if fp32 else flash, encoded,
+                          bwd_wgmma=0 if fp32 else flash,
+                          tf32x3=flash if fp32 else 0,
+                          bwd_tf32x3=flash if fp32 else 0,
+                          geglu_tf32x3=(want["geglu_projection"] if fp32
+                                        else 0))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return tr, report, norms, routes, peak
+
+
+def mp_stage2(cfg, rank, fp32=False):
+    """cli.train_animatediff.train with --frame_parallel 2: 2 steps with a
+    checkpoint after each, then (bf16) a run resumed from checkpoint-1
+    (restored tensors and optimizer state bitwise the file's) for its
+    second step."""
+    import torch
+    from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
+
+    out_dir = os.path.join(cfg["root"], "stage2_fp32" if fp32 else "stage2")
+    flags = ["--frame_parallel", str(MP_WORLD), "--device", "cuda:0",
+             "--unziplora_name_or_path", cfg["artifacts"]]
+    tr, report, norms, routes, peak = mp_stage2_run(
+        out_dir, flags, f"frame-parallel stage-2{' fp32' if fp32 else ''} "
+        f"(rank {rank})", fp32)
+    tensors = {"/".join(map(str, p)): t.detach().cpu()
+               for p, t in tr.trainable}
+    del tr
+    torch.cuda.empty_cache()
+    out = {"loss": report["loss"], "step_s": report["step_s"],
+           "encode_s": report["encode_s"],
+           "weight_init_s": report["weight_init_s"], "grad_norms": norms,
+           "sums": [float(t.double().sum()) for t in tensors.values()],
+           "tensors": tensors if rank == 0 and fp32 else None,
+           "launches": routes, "peak_gib": peak}
+    if fp32:
+        return out
+    restored = {}
+    first = os.path.join(out_dir, "checkpoints", "checkpoint-1")
+
+    def on_setup(tr_b):
+        saved = torch.load(os.path.join(first, ckpt.STATE_FILE),
+                           map_location="cpu", weights_only=True)
+        now = ckpt.train_state(tr_b.trainable, tr_b.optimizer, tr_b.start)
+        restored["bitwise"] = (_tree_equal(now["trainable"],
+                                           saved["trainable"])
+                               and _tree_equal(now["optimizer_state"],
+                                               saved["optimizer_state"])
+                               and tr_b.start == saved["step"] == 1)
+
+    from video_style_transfer_tpu_torch.cli import train_animatediff
+    rep_b = {}
+    train_animatediff.train(
+        train_animatediff.build_parser().parse_args(mp_stage2_args(
+            out_dir, flags + ["--resume_from_checkpoint", first])), rep_b,
+        on_setup, dataset=ArrayClips(mp_video(), TRAIN_FRAMES))
+    if not restored.get("bitwise"):
+        fail(f"stage-2 rank {rank}: the resumed run's state differs from "
+             f"checkpoint-1")
+    return {**out, "resumed_loss": rep_b["loss"], "resume_bitwise": True}
+
+
+def mp_stage1_images():
+    import numpy as np
+    rng = np.random.default_rng(41)
+    return rng.integers(0, 256, (2, RESOLUTION, RESOLUTION, 3),
+                        dtype=np.uint8).astype(np.float32) / 127.5 - 1.0
+
+
+def mp_stage1_args(out_dir, extra):
+    return ["--instance_prompt", "a sbu horse in szn style",
+            "--content_forward_prompt", "a sbu horse",
+            "--style_forward_prompt", "an image in szn style",
+            "--rank", str(LORA_RANK), "--resolution", str(RESOLUTION),
+            "--content_learning_rate", "5e-5", "--style_learning_rate",
+            "5e-5", "--weight_learning_rate", "5e-3", "--similarity_lambda",
+            "0.5", "--seed", "0", "--with_period_column_separation",
+            "--sample_times", "1", "--max_train_steps",
+            str(MP_STAGE1_STEPS), "--checkpointing_steps", "100",
+            "--output_dir", out_dir] + extra
+
+
+def mp_stage1_run(out_dir, extra, scale, capture=None):
+    """One stage-1 run; the gradients scaled by `scale` (run D's power of
+    two) so that the selection at step MP_STAGE1_SELECT picks columns.
+    capture: a file that receives, at the selection step, each
+    projection's LoRA tensors, gradients (as the selection reads them:
+    summed over the processes, scaled) and state, with its label and the
+    column-separation settings. Returns (trainer, report, per-step
+    gradient norms, masks)."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import train_unziplora
+    from video_style_transfer_tpu_torch.lora.surgery import tree_get
+    from video_style_transfer_tpu_torch.training.stage1 import lora_grads
+
+    norms, assignments = [], []
+    record = mp_grad_norms(norms)
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.detach().cpu().clone()
+                for k, v in tree.items()}
+
+    def on_grads(state, grads):
+        for g in grads.values():
+            g.mul_(scale)
+        record(grads)
+        if capture is not None and state.step == MP_STAGE1_SELECT:
+            torch.save({"sep": assignments[0].sep, "captured": {
+                path: (cpu(tree_get(state.params, path)["lora"]),
+                       cpu(lora_grads(grads, path)),
+                       cpu(tree_get(state.lora_state, path)), label)
+                for path, label in assignments[0].assignments.items()}},
+                capture)
+
+    report = {}
+    tr = train_unziplora.train(train_unziplora.build_parser().parse_args(
+        mp_stage1_args(out_dir, extra)), report, images=mp_stage1_images(),
+        on_grads=on_grads, on_setup=assignments.append)
+    masks = torch.cat([tree_get(tr.state.lora_state, p)[f"mask_{b}"]
+                       .flatten().cpu() for p in tr.assignments
+                       for b in ("content", "style")])
+    return tr, report, norms, masks
+
+
+def mp_select(path):
+    """One process's selection (training.stage1.select_projection on the
+    card) from the tensors a stage-1 rank captured at its selection step:
+    the masks, in mp_stage1_run's order, and the projection count."""
+    import torch
+    from video_style_transfer_tpu_torch.training.stage1 import (
+        select_projection)
+    from video_style_transfer_tpu_torch.utils.convert import to_device
+
+    d = torch.load(path, weights_only=False)
+    masks = []
+    for lp, lg, st, label in d["captured"].values():
+        picked = select_projection(to_device(lp, "cuda"),
+                                   to_device(lg, "cuda"),
+                                   to_device(st, "cuda"), label, d["sep"])
+        masks += [picked[2].flatten().cpu(), picked[3].flatten().cpu()]
+    return torch.cat(masks), len(d["captured"])
+
+
+def mp_stage1(cfg, rank):
+    """cli.train_unziplora.train with --data_parallel 2 at one row a
+    process, through a selection from gradients scaled by run D's
+    factor; rank 0 captures what its selection read (MP_SELECT_FILE)."""
+    import torch
+    from video_style_transfer_tpu_torch.cli.common import model_configs
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    root = os.path.join(cfg["root"], "stage1")
+    tr, report, norms, masks = mp_stage1_run(
+        root, ["--train_batch_size", "1", "--data_parallel", str(MP_WORLD),
+               "--device", "cuda:0"], cfg["scale"],
+        capture=(os.path.join(cfg["root"], MP_SELECT_FILE) if rank == 0
+                 else None))
+    counts = counters()
+    per = expected_train_launches(model_configs(smoke=False, motion=False)[0],
+                                  frames=1, resolution=RESOLUTION, steps=1,
+                                  encoded=0)
+    # each process encodes both instance images (their moments are the
+    # whole set's)
+    check_counts(f"data-parallel stage-1 (rank {rank})", counts,
+                 stage1_launches(per, train_forwards=MP_STAGE1_STEPS,
+                                 unet_calls=0, vae_calls=2))
+    routes = check_routes(
+        f"data-parallel stage-1 (rank {rank})", counts,
+        per["flash_attention_fwd"] * MP_STAGE1_STEPS, 2,
+        bwd_wgmma=per["flash_attention_bwd"] * MP_STAGE1_STEPS)
+    leaves = {"/".join(map(str, p)): t.detach().cpu()
+              for p, t in tr.optimizer.trainable}
+    del tr
+    torch.cuda.empty_cache()
+    return {"losses": report["losses"], "phase": report["phase"],
+            "step_s": report["step_s"], "setup_s": report["setup_s"],
+            "grad_norms": norms, "masks": masks,
+            "sums": [float(t.double().sum()) for t in leaves.values()],
+            "tensors": leaves if rank == 0 else None, "launches": routes,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def mp_child(config_path, rank):
+    """One rank of the multi-process section: joins the gloo group (a
+    file store under the section's directory) on cuda:0 and runs the
+    probe, frame-parallel serving, frame-parallel stage 2 and
+    data-parallel stage 1 in turn, writing its results for process 0 of
+    the script to check."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(config_path) as f:
+        cfg = json.load(f)
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + cfg["store"],
+                            world_size=MP_WORLD, rank=rank)
+    out, seconds = {}, {}
+    for name, fn in (("probe", lambda: mp_probe(rank)),
+                     ("serving", lambda: mp_serving(cfg, rank)),
+                     ("serving_fp32", lambda: mp_serving(cfg, rank, True)),
+                     ("stage2", lambda: mp_stage2(cfg, rank)),
+                     ("stage2_fp32", lambda: mp_stage2(cfg, rank, True)),
+                     ("stage1", lambda: mp_stage1(cfg, rank))):
+        dist.barrier()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    out["seconds"] = seconds
+    torch.save(out, os.path.join(cfg["root"], f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mp_launch(cfg):
+    """Start both ranks, wait for both; a rank that fails stops the other
+    and fails the run."""
+    path = os.path.join(cfg["root"], "config.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    procs, logs = [], []
+    for rank in range(MP_WORLD):
+        log = open(os.path.join(cfg["root"], f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--multi-process-child", path, str(rank)], cwd=HERE,
+            stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.time() + MP_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(cfg["root"], f"rank{rank}.log")) as f:
+                tail = f.read()[-4000:]
+            print(f"--- rank {rank} (exit {p.returncode}) ---\n{tail}",
+                  flush=True)
+            fail(f"multi-process rank {rank} exited with {p.returncode}")
+    import torch
+    return [torch.load(os.path.join(cfg["root"], f"rank{r}.pt"),
+                       weights_only=False) for r in range(MP_WORLD)]
+
+
+def normwise(got, want):
+    import torch
+    got, want = got.double(), want.double()
+    return float(torch.linalg.vector_norm(got - want)
+                 / max(float(torch.linalg.vector_norm(want)), 1e-30))
+
+
+def mp_ranks_agree(label, ranks):
+    """The ranks hold bitwise-equal tensors (equal float64 sums) and
+    report the same (global) losses."""
+    if any(r["sums"] != ranks[0]["sums"] for r in ranks[1:]):
+        fail(f"{label}: the ranks' tensors differ")
+    key = "loss" if "loss" in ranks[0] else "losses"
+    if any(r[key] != ranks[0][key] for r in ranks[1:]):
+        fail(f"{label}: the ranks' losses differ: {[r[key] for r in ranks]}")
+
+
+def mp_compare_tensors(label, ranks, want, limit):
+    """The ranks agree (mp_ranks_agree), and rank 0's tensors are within
+    `limit` of one process's, normwise over all of them."""
+    import torch
+    mp_ranks_agree(label, ranks)
+    got = ranks[0]["tensors"]
+    if set(got) != set(want):
+        fail(f"{label}: the trained tensors' paths differ")
+    err = normwise(torch.cat([got[k].flatten() for k in want]),
+                   torch.cat([want[k].flatten() for k in want]))
+    if not err <= limit:
+        fail(f"{label}: the tensors after the steps are {err:.3e} from one "
+             f"process's normwise (limit {limit:.3e})")
+    return err
+
+
+def mp_compare_grads(label, ranks, want, limit):
+    errs = []
+    for r in ranks:
+        if len(r["grad_norms"]) != len(want):
+            fail(f"{label}: {len(r['grad_norms'])} steps, expected "
+                 f"{len(want)}")
+        errs.append(max(normwise(g, w) for g, w in zip(r["grad_norms"],
+                                                        want)))
+    if not max(errs) <= limit:
+        norms = [[round(float(g.norm()), 6) for g in r["grad_norms"]]
+                 for r in ranks]
+        fail(f"{label}: per-tensor gradient norms {max(errs):.3e} from one "
+             f"process's normwise (limit {limit:.3e}); global "
+             f"norms a step {norms}, one process's "
+             f"{[round(float(w.norm()), 6) for w in want]}")
+    return max(errs)
+
+
+def mp_compare_losses(label, got, want, limit):
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if len(got) != len(want) or not err <= limit:
+        fail(f"{label}: losses {got} against one process's {want} (relative "
+             f"limit {limit:.3e})")
+    return err
+
+
+def mp_exchange_bytes(itemsize, steps):
+    """({level: bytes a rank sends in one motion module}, bytes a rank
+    sends in a serving run of `steps` steps): each module sends (n-1)/n of
+    its (2 CFG rows x F/n frames x HW x C) activation to the other ranks,
+    twice (in and back); SDXL has 5 modules a level, one UNet call a
+    step."""
+    per_module = {lvl: 2 * (MP_WORLD - 1) * 2 * (NUM_FRAMES // MP_WORLD)
+                  * (RESOLUTION // 8 >> lvl) ** 2 * c * itemsize // MP_WORLD
+                  for lvl, c in enumerate((320, 640, 1280))}
+    return per_module, steps * 5 * sum(per_module.values())
+
+
+def multi_process_section(tmp, artifacts, motion_checkpoint, serving_ref,
+                          scale):
+    """Two processes on the one card over gloo: the probe, then
+    ``cli.infer_video`` with --frame_parallel 2, ``cli.train_animatediff``
+    with --frame_parallel 2 and ``cli.train_unziplora`` with
+    --data_parallel 2 through their normal entry points, each held against
+    one process: the fp32 serving and stage-2 runs against one-process
+    fp32 runs made here after the ranks exit (the gates), bf16 serving
+    against the serving phase's mode both (same seed; readings and the
+    frames' levels), stage 1 against one process at batch 2 and its masks
+    against one process's selection from the ranks' summed gradients.
+    Returns the readings."""
+    import numpy as np
+    import torch
+    from video_style_transfer_tpu_torch.cli import infer_video
+
+    card = card_line()
+    root = os.path.join(tmp, "multi_process")
+    os.makedirs(root)
+    cfg = {"root": root, "store": os.path.join(root, "store"),
+           "artifacts": artifacts, "motion_checkpoint": motion_checkpoint,
+           "scale": scale}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mp_launch(cfg)
+    ranks_s = time.perf_counter() - t0
+    label = f"two ranks time-sharing one {card}"
+    readings = {"card": card, "ranks_s": ranks_s,
+                "seconds_by_phase": [r["seconds"] for r in ranks]}
+    readings["probe"] = ranks[0]["probe"]
+    phase_s = [{k: round(v, 3) for k, v in r["seconds"].items()}
+               for r in ranks]
+    print(f"multi-process ({label}): gloo probe on CUDA tensors "
+          f"(all_to_all_single, all_reduce, all_gather, barrier) passed on "
+          f"both ranks (gloo's bf16 all_reduce, unused: largest distance "
+          f"from the rounded float32 sum "
+          f"{ranks[0]['probe']['bf16_all_reduce_max_abs_err']:.3e}); the "
+          f"ranks' phases took {phase_s} s, {ranks_s:.1f} s in all with "
+          f"start-up", flush=True)
+
+    def compare_serving():
+        # each rank's first UNet output (its 16 of the 32 rows, same
+        # inputs), latents and frames against one process's mode both: the
+        # fp32 run against one process's fp32 run made here (same seed,
+        # inputs, weights and steps), the gate; the bf16 run against the
+        # serving phase's, readings, its frames held to the levels
+        t0 = time.perf_counter()
+        fp32_unet, fp32_report = [], {}
+        with kept_unet_outputs(fp32_unet):
+            fp32_outs = infer_video.generate(
+                infer_video.build_parser().parse_args(mp_serving_args(
+                    ["--unziplora_name_or_path", artifacts,
+                     "--motion_checkpoint", motion_checkpoint,
+                     "--device", "cuda"], fp32=True)),
+                fp32_report)
+        fp32_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        one = {"bf16": serving_ref,
+               "fp32": {"unet": fp32_unet[0],
+                        "latents": fp32_report["both"]["latents"],
+                        "frames": fp32_outs["both"]}}
+        limits = {"bf16": (None, None),
+                  "fp32": (MP_FP32_NORMWISE, MP_FP32_NORMWISE)}
+        print(f"  one process's fp32 serving: {MP_FP32_STEPS} step, "
+              f"{fp32_s:.1f} s", flush=True)
+        worst = {}
+        for prec, key in (("bf16", "serving"), ("fp32", "serving_fp32")):
+            ref = one[prec]
+            half = ref["latents"].shape[0]
+            w = worst[prec] = {"unet": 0.0, "latents": 0.0, "mean": 0.0,
+                               "p99": 0.0}
+            for rank, r in enumerate(ranks):
+                s = r[key]
+                a, b = s["frame_range"]
+                if (a, b) != (rank * NUM_FRAMES // MP_WORLD,
+                              (rank + 1) * NUM_FRAMES // MP_WORLD) or \
+                        s["shape"] != tuple(ref["frames"].shape):
+                    fail(f"{key} rank {rank}: frames {a}..{b} of {s['shape']}")
+                # a rank's rows: [uncond frames a..b, cond frames a..b]
+                rows = torch.cat([ref["unet"][a:b],
+                                  ref["unet"][half + a:half + b]])
+                got = {"unet": normwise(s["unet"], rows),
+                       "latents": normwise(s["latents"], ref["latents"][a:b])}
+                diff = np.abs(s["frames"].astype(np.int16)
+                              - ref["frames"][a:b].astype(np.int16))
+                got["mean"] = float(diff.mean())
+                got["p99"] = float(np.percentile(diff, 99))
+                for k in w:
+                    w[k] = max(w[k], got[k])
+                held = ("reading" if limits[prec][0] is None else
+                        f"limits {limits[prec][0]:.3e}, "
+                        f"{limits[prec][1]:.3e}")
+                print(f"  serving {prec} rank {rank}: frames {a}..{b - 1}, "
+                      f"weight init {s['weight_init_s']:.3f} s, denoise steps "
+                      f"{', '.join(f'{t:.3f}' for t in s['denoise_step_s'])}"
+                      f" s,"
+                      f" decode {s['decode_s']:.3f} s, total {s['s']:.3f} s, "
+                      f"peak {s['peak_gib']:.2f} GiB; from one process's "
+                      f"{prec} run, normwise: first UNet output "
+                      f"{got['unet']:.3e}, latents {got['latents']:.3e} "
+                      f"({held}); frames mean {got['mean']:.3f} p99 "
+                      f"{got['p99']:.1f} levels (limits {MP_FRAME_LEVELS}); "
+                      f"launches by kernel {s['launches']}; all-to-all sent "
+                      f"{s['exchanged_bytes']} bytes", flush=True)
+            unet_lim, lat_lim = limits[prec]
+            if not ((unet_lim is None or w["unet"] <= unet_lim)
+                    and (lat_lim is None or w["latents"] <= lat_lim)
+                    and w["mean"] <= MP_FRAME_LEVELS[0]
+                    and w["p99"] <= MP_FRAME_LEVELS[1]):
+                fail(f"frame-parallel {prec} serving differs from one "
+                     f"process: {w} (limits {limits[prec]}, frames "
+                     f"{MP_FRAME_LEVELS})")
+        for prec, key, itemsize, steps in (
+                ("bf16", "serving", 2, STEPS),
+                ("fp32", "serving_fp32", 4, MP_FP32_STEPS)):
+            per_module, want_bytes = mp_exchange_bytes(itemsize, steps)
+            for rank, r in enumerate(ranks):
+                if r[key]["exchanged_bytes"] != want_bytes:
+                    fail(f"{key} rank {rank} sent {r[key]['exchanged_bytes']} "
+                         f"bytes by all-to-all, expected {want_bytes}")
+            print(f"  a motion module's exchange in {prec}, each rank: "
+                  f"{per_module} bytes at levels 0-2 ({want_bytes} a rank "
+                  f"over {steps} steps, as counted)", flush=True)
+        readings["serving"] = {
+            "bf16": worst["bf16"], "fp32": worst["fp32"],
+            "module_bytes_by_level": mp_exchange_bytes(2, STEPS)[0],
+            "steps_s": [r["serving"]["denoise_step_s"] for r in ranks],
+            "decode_s": [r["serving"]["decode_s"] for r in ranks],
+            "peak_gib": [r["serving"]["peak_gib"] for r in ranks],
+            "launches": [r["serving"]["launches"] for r in ranks]}
+        readings["serving_fp32"] = {
+            "steps_s": [r["serving_fp32"]["denoise_step_s"] for r in ranks],
+            "decode_s": [r["serving_fp32"]["decode_s"] for r in ranks],
+            "peak_gib": [r["serving_fp32"]["peak_gib"] for r in ranks],
+            "one_process_s": fp32_s,
+            "launches": [r["serving_fp32"]["launches"] for r in ranks]}
+
+    def compare_stage2():
+        # the fp32 run against one process's fp32 run of the same cut
+        # configuration, the gate; the bf16 run (checkpoint and resume)
+        # held to its ranks' agreement, its resume and its peaks, its
+        # first loss a reading beside one process's fp32 first loss
+        t0 = time.perf_counter()
+        tr, report, norms, _, peak = mp_stage2_run(
+            os.path.join(root, "stage2_one_fp32"),
+            ["--device", "cuda", "--unziplora_name_or_path", artifacts],
+            "one-process stage-2 fp32", fp32=True)
+        want = {"/".join(map(str, p)): t.detach().cpu()
+                for p, t in tr.trainable}
+        del tr
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t0
+        out = readings["stage2"] = {}
+        for prec, key in (("fp32", "stage2_fp32"), ("bf16", "stage2")):
+            label = f"frame-parallel stage 2 {prec}"
+            s2 = [r[key] for r in ranks]
+            peaks = sum(r["peak_gib"] for r in s2)
+            if peaks * 2 ** 30 >= 80e9:
+                fail(f"the two {label} ranks peaked at {peaks:.2f} GiB "
+                     f"together")
+            if prec == "fp32":
+                loss_err = max(mp_compare_losses(label, r["loss"],
+                                                 report["loss"],
+                                                 MP_FP32_NORMWISE)
+                               for r in s2)
+                grad_err = mp_compare_grads(label, s2, norms,
+                                            MP_FP32_NORMWISE)
+                tensor_err = mp_compare_tensors(label, s2, want,
+                                                MP_FP32_NORMWISE)
+                held = (f"worst relative {loss_err:.3e}; per-tensor "
+                        f"gradient norms {grad_err:.3e} normwise; tensors "
+                        f"after the step {tensor_err:.3e} normwise (limits "
+                        f"{MP_FP32_NORMWISE:g}), equal on both ranks")
+                out[prec] = {"loss_rel": loss_err,
+                             "grad_norms_normwise": grad_err,
+                             "tensors_normwise": tensor_err}
+            else:
+                mp_ranks_agree(label, s2)
+                first = abs(s2[0]["loss"][0] - report["loss"][0]) \
+                    / abs(report["loss"][0])
+                held = (f"first loss {first:.3e} from one process's fp32 "
+                        f"(a reading); tensors and losses equal on both "
+                        f"ranks; resumed from checkpoint-1 bitwise on both "
+                        f"ranks (resumed losses "
+                        f"{[r['resumed_loss'] for r in s2]})")
+                out[prec] = {"first_loss_rel_to_one_fp32": first,
+                             "resume_bitwise": True}
+            steps = MP_FP32_STEPS if prec == "fp32" else MP_TRAIN_STEPS
+            print(f"  stage 2 {prec} (--frame_parallel 2, {MP_TRAIN_RES}^2, "
+                  f"{TRAIN_FRAMES} frames, {steps} steps): losses "
+                  f"{[r['loss'] for r in s2]} against one process's fp32 "
+                  f"{report['loss']} ({held}); step seconds "
+                  f"{[r['step_s'] for r in s2]} (one process fp32 "
+                  f"{report['step_s']}); peaks "
+                  f"{[round(r['peak_gib'], 2) for r in s2]} GiB "
+                  f"({peaks:.2f} together; one process fp32 {peak:.2f}); "
+                  f"launches by kernel {[r['launches'] for r in s2]}",
+                  flush=True)
+            out[prec].update(step_s=[r["step_s"] for r in s2],
+                             peak_gib=[r["peak_gib"] for r in s2])
+        out["one_fp32"] = {"step_s": report["step_s"], "peak_gib": peak,
+                           "s": one_s}
+        out["launches"] = [r["stage2"]["launches"] for r in ranks]
+        readings["stage2_fp32"] = {"launches": [r["stage2_fp32"]["launches"]
+                                                for r in ranks]}
+
+    def compare_stage1():
+        # against one process at batch 2; the masks against one process's
+        # selection from what rank 0's selection read
+        t0 = time.perf_counter()
+        tr, rep1, norms1, masks1 = mp_stage1_run(
+            os.path.join(root, "stage1_one"),
+            ["--train_batch_size", "2", "--device", "cuda"], scale)
+        want = {"/".join(map(str, p)): t.detach().cpu()
+                for p, t in tr.optimizer.trainable}
+        del tr
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t0
+        label = "data-parallel stage 1"
+        s1 = [r["stage1"] for r in ranks]
+        if rep1["phase"] != ["reset", "select"] or \
+                any(r["phase"] != rep1["phase"] for r in s1):
+            fail(f"stage-1 phases {[r['phase'] for r in s1]} and "
+                 f"{rep1['phase']}, expected reset, select")
+        loss_err = max(mp_compare_losses(
+            label, [x["loss"] for x in r["losses"]],
+            [x["loss"] for x in rep1["losses"]], MP_LOSS_REL) for r in s1)
+        grad_err = mp_compare_grads(label, s1, norms1, MP_GRAD_NORMWISE)
+        tensor_err = mp_compare_tensors(label, s1, want, MP_TENSOR_NORMWISE)
+        cols = int(s1[0]["masks"].sum())
+        if not 0 < cols < masks1.numel():
+            fail(f"the two-process stage-1 selection picked {cols} of "
+                 f"{masks1.numel()} columns")
+        if any(not torch.equal(r["masks"], s1[0]["masks"]) for r in s1):
+            fail("the stage-1 ranks' masks differ")
+        t1 = time.perf_counter()
+        picked, projections = mp_select(os.path.join(root, MP_SELECT_FILE))
+        select_s = time.perf_counter() - t1
+        if not torch.equal(picked, s1[0]["masks"]):
+            fail(f"the two-process stage-1 masks differ from one process's "
+                 f"selection from the ranks' summed gradients in "
+                 f"{int((picked != s1[0]['masks']).sum())} columns")
+        # a reading: one process's gradients differ from the two ranks'
+        # sum in their last bf16 bits, which can move a column across the
+        # top-k boundary
+        moved = int((s1[0]["masks"] != masks1).sum())
+        print(f"  stage 1 (--data_parallel 2, one row a rank, {RESOLUTION}^2, "
+              f"rank {LORA_RANK}, gradients x{scale:g}): phases "
+              f"{rep1['phase']}; "
+              f"losses {[[x['loss'] for x in r['losses']] for r in s1]} "
+              f"against "
+              f"one process's {[x['loss'] for x in rep1['losses']]} (worst "
+              f"relative {loss_err:.3e}); per-tensor gradient norms "
+              f"{grad_err:.3e} normwise; LoRA leaves {tensor_err:.3e} "
+              f"normwise, "
+              f"equal on both ranks; masks equal on both ranks ({cols} of "
+              f"{masks1.numel()} columns) and to one process's selection "
+              f"from the ranks' summed gradients ({projections} "
+              f"projections, {select_s:.1f} s); {moved} columns differ "
+              f"from one process's selection from its own gradients "
+              f"({int(masks1.sum())} columns); step seconds "
+              f"{[r['step_s'] for r in s1]} (one process {rep1['step_s']}); "
+              f"peaks {[round(r['peak_gib'], 2) for r in s1]} GiB; launches "
+              f"by kernel {[r['launches'] for r in s1]}; one-process run "
+              f"{one_s:.1f} s", flush=True)
+        readings["stage1"] = {
+            "loss_rel": loss_err, "grad_norms_normwise": grad_err,
+            "tensors_normwise": tensor_err, "masks_equal_on_ranks": True,
+            "masks_equal_to_one_process_selection": True,
+            "columns": cols, "projections": projections,
+            "columns_differing_from_one_process": moved,
+            "step_s": [r["step_s"] for r in s1],
+            "one_step_s": rep1["step_s"],
+            "peak_gib": [r["peak_gib"] for r in s1],
+            "launches": [r["launches"] for r in s1]}
+
+    # every comparison runs and prints; any that failed fails the run
+    failed = []
+    for compare in (compare_serving, compare_stage2, compare_stage1):
+        try:
+            compare()
+        except SystemExit:
+            failed.append(compare.__name__)
+    if failed:
+        fail(f"multi-process comparisons failed: {failed}")
+    return readings
+
+
 def main():
+    if len(sys.argv) == 4 and sys.argv[1] == "--multi-process-child":
+        return mp_child(sys.argv[2], int(sys.argv[3]))
     try:
         import torch
     except ImportError:
@@ -2692,7 +3605,9 @@ def main():
         precision, precision_counts = stage2_precision(artifacts)
         torch.cuda.empty_cache()
         section("stage-2 precision")
-        by_path = {"serving": main_path(artifacts, motion_checkpoint),
+        serving_counts, serving_ref = main_path(artifacts,
+                                                motion_checkpoint)
+        by_path = {"serving": serving_counts,
                    "stage2": stage2_counts,
                    "stage2_fp32": precision_counts,
                    "stage1": stage1_counts}
@@ -2701,6 +3616,17 @@ def main():
         torch.cuda.empty_cache()
         by_path["bf16_decode"] = vae_bf16_decode_path()
         section("image and bf16 decode")
+        multi = multi_process_section(tmp, artifacts, motion_checkpoint,
+                                      serving_ref, stage1["D"]["scale"])
+        for name in ("serving", "serving_fp32", "stage2", "stage2_fp32",
+                     "stage1"):
+            # both ranks' launches by kernel and route
+            per_rank = multi[name].pop("launches")
+            by_path[f"two_process_{name}"] = {
+                k: (sum(r[k] for r in per_rank) if isinstance(v, int)
+                    else {kk: sum(r[k][kk] for r in per_rank) for kk in v})
+                for k, v in per_rank[0].items()}
+        section("multi-process (two ranks time-sharing the card)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
@@ -2799,7 +3725,7 @@ def main():
     print(f"seconds by section ({card_line()}): {', '.join(parts)}; total "
           f"{prev:.1f} after the imports", flush=True)
     print(json.dumps({"stage2_precision": precision, "adamw8bit": adam8,
-                      "stage1": stage1,
+                      "stage1": stage1, "multi_process": multi,
                       "bf16_decode_s_per_frame":
                           by_path["bf16_decode"]["decode_s_per_frame"]}),
           flush=True)

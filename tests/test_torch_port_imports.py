@@ -1,5 +1,5 @@
 """Import hygiene of the PyTorch port: neither its package nor
-chip_smoke.py may import JAX or anything of the JAX package (only the
+chip_smoke.py nor the chip scripts under tools/ may import JAX or anything of the JAX package (only the
 tests import both), every module imports on a machine that has only
 PyTorch, numpy and the standard library, and its entry points must not
 fall back to the CPU when CUDA is asked for and missing."""
@@ -22,7 +22,8 @@ ABSENT = ("jax", "jaxlib", "safetensors", "regex", "imageio", "PIL", "cv2",
 def _port_files():
     pkg = ROOT / "video_style_transfer_tpu_torch"
     files = sorted(pkg.rglob("*.py")) + sorted(pkg.rglob("*.cu"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("*.py"))
 
 
 def _python_files():
@@ -53,7 +54,9 @@ def test_port_files_exist():
                 "utils/watermark.py", "data/video.py",
                 "training/adam8bit.py", "utils/observability.py",
                 "training/stage1.py", "training/prodigy.py",
-                "cli/train_unziplora.py", "cli/cone_diagnostics.py"):
+                "cli/train_unziplora.py", "cli/cone_diagnostics.py",
+                "parallel/__init__.py", "parallel/distributed.py",
+                "parallel/mesh.py"):
         assert f"video_style_transfer_tpu_torch/{mod}" in names
     assert len(names) > 30
 
@@ -111,14 +114,14 @@ def _flags(parser):
 
 def test_stage1_cli_flags_match_jax():
     """The stage-1 CLI takes every flag of the JAX package's, and
-    --device besides; the multi-process ones it refuses are among
-    them."""
+    --device besides; the multi-process ones are among them."""
     from video_style_transfer_tpu.cli import train_unziplora as jcli
     from video_style_transfer_tpu_torch.cli import train_unziplora as tcli
     want = _flags(jcli.build_parser())
     got = _flags(tcli.build_parser())
     assert got - {"--device"} == want
-    assert {f"--{f}" for f in tcli.NOT_PORTED} <= want
+    assert {"--data_parallel", "--coordinator_address", "--num_processes",
+            "--process_id"} <= want
 
 
 def test_stage1_cuda_device_without_cuda_raises(monkeypatch):

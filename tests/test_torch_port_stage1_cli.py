@@ -217,11 +217,15 @@ def test_warns_when_selection_never_happens(capsys):
     assert "column separation will never select" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--data_parallel", "1"), ("--coordinator_address", "localhost:1"),
-    ("--num_processes", "2"), ("--process_id", "0")])
-def test_refuses_unported_flags(flag, value):
-    with pytest.raises(SystemExit, match="not ported yet"):
+@pytest.mark.parametrize("flag,value,match", [
+    ("--data_parallel", "2", "needs 2 processes"),
+    ("--coordinator_address", "localhost:1", "needs --num_processes"),
+    ("--num_processes", "2", "need --coordinator_address"),
+    ("--process_id", "1", "in a world of one")])
+def test_refuses_unported_flags(flag, value, match):
+    # the multi-process flags are ported: alone in one process they
+    # describe a world that cannot start
+    with pytest.raises(SystemExit, match=match):
         train_unziplora.prepare(_args(flag, value))
 
 

@@ -568,7 +568,7 @@ def test_train_cli_refuses_unported(tmp_path, flag, value):
     expect = {"--motion_adapter_path": (FileNotFoundError,
                                         "no motion checkpoint"),
               "--unziplora_name_or_path": (FileNotFoundError, "stage1"),
-              "--data_parallel": (SystemExit, "not ported yet")}
+              "--data_parallel": (SystemExit, "needs 2 processes")}
     if flag in expect:
         exc, match = expect[flag]
         with pytest.raises(exc, match=match):

@@ -91,6 +91,64 @@ def refuse_unported(args, table: dict):
                              f"{why})")
 
 
+def add_distributed_flags(p, what: str):
+    """The coordinator flags of a multi-process run (the JAX CLIs'),
+    torchrun's environment standing in for any left unset."""
+    p.add_argument("--coordinator_address", default=None,
+                   help=f"host:port of process 0's rendezvous for a "
+                        f"multi-process {what}, with --num_processes and "
+                        f"--process_id (or torchrun's MASTER_ADDR, "
+                        f"MASTER_PORT, WORLD_SIZE and RANK); process 0 "
+                        f"writes every file, to an output directory all "
+                        f"hosts share")
+    p.add_argument("--num_processes", type=int, default=None)
+    p.add_argument("--process_id", type=int, default=None)
+
+
+def setup_distributed(args, *, data: Optional[int] = 1, frame: int = 1,
+                      what: str):
+    """Join the run's process group (parallel.distributed.init_distributed
+    on the coordinator flags or torchrun's environment; a group that
+    exists already is used as it is), pick this rank's device (bare
+    ``cuda`` becomes ``cuda:LOCAL_RANK`` in a world of more than one;
+    args.device is rewritten to it), check that the data x frame grid
+    uses every process (data None: the processes `frame` leaves, as the
+    JAX trainers' --data_parallel 0), build it and meet at the first
+    barrier. Returns (device, grid)."""
+    from video_style_transfer_tpu_torch.parallel import distributed, mesh
+
+    device = resolve_device(args.device)
+    try:
+        distributed.init_distributed(args.coordinator_address,
+                                     args.num_processes, args.process_id,
+                                     device=device)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    world = distributed.world_size()
+    if world > 1 and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", distributed.local_rank())
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    args.device = str(device)
+    if data is None:
+        data = max(world // frame, 1)
+    if data * frame != world:
+        if world == 1:
+            raise SystemExit(f"{what} needs {data * frame} processes; this "
+                             f"run has one (launch them with torchrun "
+                             f"--nproc_per_node, or the coordinator flags)")
+        raise SystemExit(f"multi-process runs must use every device: "
+                         f"{what} spans {data * frame} of {world} "
+                         f"processes")
+    grid = mesh.create_mesh(data=data, frame=frame)
+    # the first collective, before any rank goes its own way
+    distributed.barrier("mesh_ready")
+    if world > 1 and distributed.is_main_process():
+        print(f"{what}: {data} x {frame} (data x frame) grid of {world} "
+              f"processes", flush=True)
+    return device, grid
+
+
 def resolve_device(name: str) -> torch.device:
     """The requested device; asking for CUDA without a usable card is an
     error, never a silent move to the CPU."""
@@ -288,19 +346,40 @@ def load_unziplora(params, *, base: Optional[str], name: str = "unziplora",
                                    f"{name}_merger_style.pth")))
 
 
-def encode_latents(bundle: ModelBundle, images, generator: torch.Generator):
+def _draw_eps(shape, n: int, generator: torch.Generator, device,
+              rows=None):
+    """n draws of shape `shape` from `generator` in order (one a frame,
+    as every encoder here draws them), kept at positions `rows` (None:
+    all), concatenated."""
+    eps = [torch.randn(shape, generator=generator, device=device)
+           for _ in range(n)]
+    return torch.cat(eps if rows is None else [eps[k] for k in rows])
+
+
+def _scaled(bundle: ModelBundle, moments, eps):
+    """Scaled latents mean + exp(0.5 logvar) * eps on the bundle's
+    device."""
+    mean, logvar = (m.to(bundle.device) for m in moments)
+    return (mean + torch.exp(0.5 * logvar) * eps) \
+        * bundle.vae_cfg.scaling_factor
+
+
+def encode_latents(bundle: ModelBundle, images, generator: torch.Generator,
+                   rows=None):
     """(N, H, W, 3) in [-1, 1] -> scaled latents (N, H/f, W/f, 4), each a
     draw mean + std * eps of the posterior: fp32 encode one frame per call
     (a whole 8-frame 1024^2 clip at once holds far more activation
-    memory)."""
-    out = []
-    for k in range(images.shape[0]):
-        x = images[k:k + 1].float()
-        eps = torch.randn((1, x.shape[1] // bundle.vae_scale_factor,
-                           x.shape[2] // bundle.vae_scale_factor,
-                           bundle.vae_cfg.latent_channels),
-                          generator=generator, device=x.device)
-        out.append(vae_encode(bundle.vae_encoder, bundle.vae_cfg, x, eps))
+    memory). rows: the positions to encode (a rank's frames of a global
+    batch, parallel.mesh.Grid.positions); eps is drawn for all N in
+    order, so each keeps the draw one process gives it."""
+    shape = (1, images.shape[1] // bundle.vae_scale_factor,
+             images.shape[2] // bundle.vae_scale_factor,
+             bundle.vae_cfg.latent_channels)
+    keep = range(images.shape[0]) if rows is None else rows
+    eps = _draw_eps(shape, images.shape[0], generator, images.device, rows)
+    out = [vae_encode(bundle.vae_encoder, bundle.vae_cfg,
+                      images[k:k + 1].float(), eps[i:i + 1])
+           for i, k in enumerate(keep)]
     return torch.cat(out)
 
 
@@ -332,13 +411,9 @@ def sample_scaled_latents(bundle: ModelBundle, moments, idx,
     mean, logvar = moments
     if idx is not None:
         mean, logvar = mean[idx], logvar[idx]
-    dev = bundle.device
-    eps = torch.cat([torch.randn((1,) + tuple(mean.shape[1:]),
-                                 generator=generator, device=dev)
-                     for _ in range(mean.shape[0])])
-    mean, logvar = mean.to(dev), logvar.to(dev)
-    z = mean + torch.exp(0.5 * logvar) * eps
-    return z * bundle.vae_cfg.scaling_factor
+    eps = _draw_eps((1,) + tuple(mean.shape[1:]), mean.shape[0], generator,
+                    bundle.device)
+    return _scaled(bundle, (mean, logvar), eps)
 
 
 class LatentMomentCache:
@@ -401,10 +476,19 @@ class LatentMomentCache:
                 torch.stack([lv for _, lv in got]))
 
     @torch.no_grad()
-    def latents(self, frames, ids, generator: torch.Generator):
+    def latents(self, frames, ids, generator: torch.Generator, rows=None):
         """frames (B, F, H, W, 3) in [-1, 1], ids[b][j] the id of frame j
         of clip b -> scaled latents (B*F, h, w, C) on the bundle's
-        device."""
+        device. rows: the flat positions b*F + j to keep (a rank's clips
+        and frames, parallel.mesh.Grid.positions): only those are encoded
+        (and so cached: a rank's cache holds its own frames), eps is
+        drawn for all B*F."""
         flat = frames.reshape((-1,) + tuple(frames.shape[2:]))
-        moments = self.moments(flat, [fid for clip in ids for fid in clip])
-        return sample_scaled_latents(self.bundle, moments, None, generator)
+        fids = [fid for clip in ids for fid in clip]
+        kept = fids
+        if rows is not None:
+            flat, kept = flat[list(rows)], [fids[k] for k in rows]
+        mean, logvar = self.moments(flat, kept)
+        eps = _draw_eps((1,) + tuple(mean.shape[1:]), len(fids), generator,
+                        self.bundle.device, rows)
+        return _scaled(self.bundle, (mean, logvar), eps)

@@ -8,6 +8,12 @@ seeded random weights and seeded prompt token ids; --smoke uses the tiny
 configs (16^2, 2 steps, f32, a seeded rank-4 LoRA). ``generate(args)``
 returns the images, ``main()`` also writes one png per image.
 
+--dp N serves N images at once on N processes (torchrun
+--nproc_per_node N, or the coordinator flags on each): the (seed, draw)
+jobs go out N at a time, one to each process, the last short round
+padded with repeats of its last job; every process gets every image and
+process 0 writes them.
+
     python -m video_style_transfer_tpu_torch.cli.infer \\
         --pretrained_model_name_or_path sdxl/ \\
         --unziplora_name_or_path out/stage1 --prompt "a dog in watercolor" \\
@@ -24,11 +30,8 @@ from video_style_transfer_tpu_torch.cli import common
 
 # flag -> (value that means "unused", what it waits for)
 NOT_PORTED = {
-    "tp": (1, "multi-GPU serving"),
-    "dp": (1, "multi-GPU serving"),
-    "coordinator_address": (None, "multi-process serving"),
-    "num_processes": (None, "multi-process serving"),
-    "process_id": (None, "multi-process serving"),
+    "tp": (1, "tensor parallelism (parallel/tensor.py), the next slice "
+              "of the multi-GPU port"),
 }
 
 
@@ -82,14 +85,12 @@ def build_parser():
                         "reference's) or bfloat16 (fast decode)")
     p.add_argument("--seeds", type=int, nargs="+",
                    default=[0, 1000, 111, 1234])
-    p.add_argument("--tp", type=int, default=1, help="not ported yet")
-    p.add_argument("--dp", type=int, default=1, help="not ported yet")
-    p.add_argument("--coordinator_address", default=None,
-                   help="not ported yet")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="not ported yet")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="not ported yet")
+    p.add_argument("--tp", type=int, default=1,
+                   help="not ported yet: tensor parallelism")
+    p.add_argument("--dp", type=int, default=1,
+                   help="sample-parallel serving: N processes, one a GPU, "
+                        "each generating its own (seed, draw) jobs")
+    common.add_distributed_flags(p, "serving run")
     p.add_argument("--watermark", action="store_true",
                    help="stamp the SDXL invisible watermark "
                         "(utils/watermark.py)")
@@ -134,6 +135,10 @@ def load_lora(args, params, device):
     return insert_unziplora(copy_structure(params), Init(0, device), rank=4)
 
 
+def _name(args, seed: int, i: int) -> str:
+    return f"{args.mode}_seed{seed}" + (f"_{i}" if args.num > 1 else "")
+
+
 def generate(args, report=None):
     """Generate --num images per seed; returns {name: (H, W, 3) uint8
     numpy}, name = "{mode}_seed{seed}[_{i}]". When `report` is a dict it
@@ -141,7 +146,9 @@ def generate(args, report=None):
     LoRA fold and the prompt encodings), n_folded, per image
     denoise_step_s (a list; the first step includes the cross-attention
     k/v precompute), decode_s and kernel_launches, and peak_memory_gib
-    (after the weights are in place) on CUDA."""
+    (after the weights are in place) on CUDA. Under --dp every process
+    returns every image; the per-image report holds the images this
+    process generated (a padding repeat is generated and dropped)."""
     from video_style_transfer_tpu_torch.cli.infer_video import _Clock
     from video_style_transfer_tpu_torch.lora.surgery import fold_unziplora
     from video_style_transfer_tpu_torch.pipelines.image import (
@@ -149,13 +156,18 @@ def generate(args, report=None):
 
     if report is None:
         report = {}
+    from video_style_transfer_tpu_torch.parallel.distributed import (
+        gather_rows)
+
     common.refuse_unported(args, NOT_PORTED)
     smoke = args.smoke
     if (args.mode != "base" and not smoke and not args.single_lora
             and not args.unziplora_name_or_path):
         raise SystemExit("--unziplora_name_or_path is required for LoRA "
                          "modes (use --mode base for plain SDXL)")
-    device = common.resolve_device(args.device)
+    dp = max(args.dp, 1)
+    device, grid = common.setup_distributed(args, data=dp,
+                                            what=f"--dp {dp}")
     tiny = smoke or args.config_preset == "tiny"
     dtype = torch.float32 if tiny else torch.bfloat16
     res = 16 if smoke else args.resolution
@@ -195,29 +207,37 @@ def generate(args, report=None):
             negative_prompt_style=args.negative_prompt_style)
         report["text_encode_s"] = clock.lap()
         report["images"] = {}
-        for seed in args.seeds:
-            for i in range(max(args.num, 1)):
-                # draw i of a seed has its own stream; draw 0 is the seed
-                gen = common.seeded_generator(seed + 0x9E3779B1 * i)
-                steps_s = []
-                before = common.kernel_launch_counts()
-                latents = generate_latents(
-                    params, bundle.unet_cfg, uncond, cond, height=height,
-                    width=width, batch=1, num_steps=steps,
-                    cfg_scale=args.guidance_scale, sampler=args.sampler,
-                    mode=args.mode, state=state, dtype=dtype,
-                    vae_scale_factor=bundle.vae_scale_factor, device=device,
-                    generator=gen,
-                    on_step=lambda _: steps_s.append(clock.lap()))
-                img = decode_images(
-                    bundle.vae, bundle.vae_cfg, latents,
-                    dtype=getattr(torch, args.vae_dtype), check_finite=True)
-                name = (f"{args.mode}_seed{seed}"
-                        + (f"_{i}" if args.num > 1 else ""))
-                outs[name] = img[0].cpu().numpy()
-                report["images"][name] = {
-                    "denoise_step_s": steps_s, "decode_s": clock.lap(),
+        # one (seed, draw) job an image; with --dp, rounds of dp jobs,
+        # job k of a round on process k
+        jobs = [(seed, i) for seed in args.seeds
+                for i in range(max(args.num, 1))]
+        for start in range(0, len(jobs), dp):
+            chunk = jobs[start:start + dp]
+            seed, i = (chunk + [chunk[-1]] * dp)[grid.data_index]
+            # draw i of a seed has its own stream; draw 0 is the seed
+            gen = common.seeded_generator(seed + 0x9E3779B1 * i)
+            steps_s = []
+            before = common.kernel_launch_counts()
+            latents = generate_latents(
+                params, bundle.unet_cfg, uncond, cond, height=height,
+                width=width, batch=1, num_steps=steps,
+                cfg_scale=args.guidance_scale, sampler=args.sampler,
+                mode=args.mode, state=state, dtype=dtype,
+                vae_scale_factor=bundle.vae_scale_factor, device=device,
+                generator=gen,
+                on_step=lambda _: steps_s.append(clock.lap()))
+            img = decode_images(
+                bundle.vae, bundle.vae_cfg, latents,
+                dtype=getattr(torch, args.vae_dtype), check_finite=True)
+            decode_s = clock.lap()
+            if grid.data_index < len(chunk):
+                report["images"][_name(args, seed, i)] = {
+                    "denoise_step_s": steps_s, "decode_s": decode_s,
                     "kernel_launches": common.launches_since(before)}
+            if dp > 1:
+                img = gather_rows(img, [1] * dp, grid.data_group)
+            for (s_, i_), im in zip(chunk, img):
+                outs[_name(args, s_, i_)] = im.cpu().numpy()
         if device.type == "cuda":
             report["peak_memory_gib"] = (
                 torch.cuda.max_memory_allocated(device) / 2 ** 30)
@@ -231,8 +251,12 @@ def generate(args, report=None):
 def main(argv=None):
     from video_style_transfer_tpu_torch.data.video_io import save_image
 
+    from video_style_transfer_tpu_torch.parallel import distributed
+
     args = build_parser().parse_args(argv)
     outs = generate(args)
+    if not distributed.is_main_process():
+        return []
     os.makedirs(args.output_dir, exist_ok=True)
     paths = []
     for name, img in outs.items():

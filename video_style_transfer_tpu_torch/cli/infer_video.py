@@ -10,6 +10,12 @@ AnimateDiff-XL with seeded random weights and seeded prompt token ids;
 LoRA. ``generate(args)`` returns the frames, ``main()`` also writes one
 video per mode.
 
+--frame_parallel N serves each video on N processes (torchrun
+--nproc_per_node N, or --coordinator_address / --num_processes /
+--process_id on each): each holds a contiguous run of the frames, with
+both CFG rows, exchanges frames with the others only in the motion
+modules, decodes its own frames, and process 0 writes the videos.
+
     python -m video_style_transfer_tpu_torch.cli.infer_video \\
         --pretrained_model_name_or_path sdxl/ \\
         --motion_checkpoint out/animatediff \\
@@ -25,14 +31,6 @@ import time
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
-
-# flag -> (value that means "unused", what it waits for)
-NOT_PORTED = {
-    "frame_parallel": (1, "multi-GPU serving"),
-    "coordinator_address": (None, "multi-process serving"),
-    "num_processes": (None, "multi-process serving"),
-    "process_id": (None, "multi-process serving"),
-}
 
 
 def build_parser():
@@ -87,13 +85,13 @@ def build_parser():
     p.add_argument("--fps", type=int, default=8)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--frame_parallel", type=int, default=1,
-                   help="not ported yet")
-    p.add_argument("--coordinator_address", default=None,
-                   help="not ported yet")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="not ported yet")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="not ported yet")
+                   help="split each video's frames over N processes, one "
+                        "a GPU: spatial layers and the sampler run on each "
+                        "process's own frames, the motion modules exchange "
+                        "frames (one all-to-all pair a module), and each "
+                        "process decodes its own frames. A frame count N "
+                        "does not divide is served with uneven runs")
+    common.add_distributed_flags(p, "serving run")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an "
                         "error")
@@ -127,16 +125,18 @@ def generate(args, report=None):
     uint8 numpy frames}. When `report` is a dict it receives the phase
     seconds: weight_init_s (models, motion checkpoint and LoRA import),
     and per mode text_encode_s, fold_s and n_folded (the LoRA fold),
-    denoise_step_s (a list), decode_s and kernel_launches."""
+    denoise_step_s (a list), decode_s, kernel_launches (this process's),
+    frame_range (this process's frames) and latents (its denoised
+    latents before the decode, on the CPU). Under --frame_parallel
+    every process returns the whole video."""
     from video_style_transfer_tpu_torch.lora.surgery import (
         copy_structure, fold_unziplora, insert_unziplora)
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.pipelines.video import (
-        decode_video, generate_video_latents)
+        decode_video, decode_video_frame_sharded, generate_video_latents)
 
     if report is None:
         report = {}
-    common.refuse_unported(args, NOT_PORTED)
     prompt = args.prompt or args.instance_prompt
     if not prompt:
         raise SystemExit("need --prompt (or --instance_prompt)")
@@ -149,7 +149,9 @@ def generate(args, report=None):
         raise SystemExit("--unziplora_name_or_path is required for LoRA "
                          "modes (use --modes base for plain AnimateDiff "
                          "generation)")
-    device = common.resolve_device(args.device)
+    fp = max(args.frame_parallel, 1)
+    device, grid = common.setup_distributed(
+        args, frame=fp, what=f"--frame_parallel {fp}")
     dtype = (torch.float32 if smoke or args.mixed_precision == "no"
              else torch.bfloat16)
     res = 16 if smoke else args.resolution
@@ -157,6 +159,11 @@ def generate(args, report=None):
     width = res if smoke else (args.width or res)
     steps = 2 if smoke else args.num_inference_steps
     frames = 4 if smoke else args.num_frames
+    shard = grid.frame_shard(frames)
+    if shard is not None and not shard.even and grid.rank == 0:
+        print(f"note: --num_frames {frames} over --frame_parallel {fp}: "
+              f"runs of {shard.counts} frames; the motion modules gather "
+              f"the whole clip", flush=True)
     mode_prompts = {"both": prompt, "base": prompt,
                     "content": args.content_prompt or prompt,
                     "style": args.style_prompt or prompt}
@@ -213,13 +220,22 @@ def generate(args, report=None):
                 num_steps=steps, cfg_scale=args.guidance_scale, mode=mode,
                 state=state, dtype=dtype,
                 vae_scale_factor=bundle.vae_scale_factor, device=device,
-                generator=gen, on_step=lambda i: steps_s.append(clock.lap()))
+                generator=gen, on_step=lambda i: steps_s.append(clock.lap()),
+                frame_shard=shard)
             del fparams
             rep["denoise_step_s"] = steps_s
-            video = decode_video(bundle.vae, bundle.vae_cfg, latents,
-                                 chunk=frames if smoke else 1,
-                                 dtype=getattr(torch, args.vae_dtype),
-                                 check_finite=True)
+            rep["frame_range"] = ((0, frames) if shard is None else
+                                  (shard.start, shard.start + shard.local))
+            rep["latents"] = latents.float().cpu()
+            vae_dtype = getattr(torch, args.vae_dtype)
+            if shard is None:
+                video = decode_video(bundle.vae, bundle.vae_cfg, latents,
+                                     chunk=frames if smoke else 1,
+                                     dtype=vae_dtype, check_finite=True)
+            else:
+                video = decode_video_frame_sharded(
+                    bundle.vae, bundle.vae_cfg, latents, shard,
+                    dtype=vae_dtype, check_finite=True)
             rep["decode_s"] = clock.lap()
             rep["kernel_launches"] = common.launches_since(before)
             outs[mode] = video.cpu().numpy()
@@ -228,9 +244,12 @@ def generate(args, report=None):
 
 def main(argv=None):
     from video_style_transfer_tpu_torch.data.video_io import save_video
+    from video_style_transfer_tpu_torch.parallel import distributed
 
     args = build_parser().parse_args(argv)
     outs = generate(args)
+    if not distributed.is_main_process():
+        return []
     os.makedirs(args.output_dir, exist_ok=True)
     paths = []
     for mode, video in outs.items():

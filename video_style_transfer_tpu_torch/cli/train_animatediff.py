@@ -18,7 +18,17 @@ the trainable tensors and the optimizer (AdamW, or --optimizer adamw8bit)
 is written every --checkpointing_steps under <output_dir>/checkpoints,
 and --resume_from_checkpoint (a path, or latest) continues from one. The
 losses and seconds a step go to <output_dir>/metrics.jsonl (and
-tensorboard or wandb with --report_to). The multi-GPU flags raise.
+tensorboard or wandb with --report_to).
+
+--data_parallel N and --frame_parallel M train on N x M processes
+(torchrun --nproc_per_node, or the coordinator flags on each; the
+reference's ``accelerate launch`` DDP): each process takes
+--train_batch_size clips of the global batch and, with M > 1, its run
+of their frames; the motion modules exchange frames; the gradients are
+summed over the processes before the clip, so every process makes the
+update one process would make from the global batch. Process 0 writes
+the checkpoints, the metrics and the motion checkpoint, to an output
+directory every host shares; every process resumes from it.
 ``train(args, report)`` runs the loop, writes the motion checkpoint
 (every motion-module weight with the temporal LoRA folded in,
 ``motion_modules.safetensors`` or ``.pth`` under --output_dir, which
@@ -38,20 +48,20 @@ import torch
 from video_style_transfer_tpu_torch.cli import common
 from video_style_transfer_tpu_torch.cli.infer_video import _Clock
 
-# flag -> (value that means "unused", what it waits for)
-NOT_PORTED = {
-    "data_parallel": (None, "multi-GPU training"),
-    "frame_parallel": (None, "multi-GPU training"),
-    "num_processes": (None, "multi-GPU training"),
-}
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
-    for flag, (_, why) in NOT_PORTED.items():
-        p.add_argument(f"--{flag}", default=None,
-                       help=f"not ported yet: waits for {why}")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="split the clips over N processes, each taking "
+                        "--train_batch_size clips (the reference's "
+                        "accelerate-launch DDP). 0 (default): every "
+                        "process --frame_parallel leaves")
+    p.add_argument("--frame_parallel", type=int, default=1,
+                   help="split each clip's frames over N processes; the "
+                        "motion modules exchange frames (one all-to-all "
+                        "pair a module). N must divide the frame count")
+    common.add_distributed_flags(p, "training run")
     p.add_argument("--pretrained_model_name_or_path", default=None,
                    help="diffusers-layout SDXL directory")
     p.add_argument("--video_dir", default=None,
@@ -150,15 +160,15 @@ def build_parser():
     return p
 
 
-def train_steps(args, n_items: int) -> int:
+def train_steps(args, n_items: int, dp: int = 1) -> int:
     """The run's step count: --num_train_epochs passes over `n_items`
-    clip starts in batches of --train_batch_size, a step taking
-    --gradient_accumulation_steps batches (the JAX CLI's accounting),
-    else --max_train_steps."""
+    clip starts in global batches of --train_batch_size x `dp`, a step
+    taking --gradient_accumulation_steps batches (the JAX CLI's
+    accounting), else --max_train_steps."""
     if args.num_train_epochs is None:
         return args.max_train_steps
     accum = max(args.gradient_accumulation_steps, 1)
-    batches = max(-(-n_items // args.train_batch_size), 1)
+    batches = max(-(-n_items // (args.train_batch_size * dp)), 1)
     return args.num_train_epochs * max(-(-batches // accum), 1)
 
 
@@ -208,14 +218,20 @@ def prepare(args, dataset=None):
     from video_style_transfer_tpu_torch.training import stage2
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
 
-    common.refuse_unported(args, NOT_PORTED)
     prompt = args.prompt or args.instance_prompt
     if not prompt:
         raise SystemExit("need --prompt (or --instance_prompt)")
-    device = common.resolve_device(args.device)
     smoke = args.smoke
     res = 16 if smoke else args.resolution
     frames = 4 if smoke else args.num_frames
+    fp = max(args.frame_parallel, 1)
+    if frames % fp:
+        raise SystemExit(f"--frame_parallel {fp} must divide the frame "
+                         f"count {frames}")
+    device, grid = common.setup_distributed(
+        args, data=args.data_parallel or None, frame=fp,
+        what=f"--data_parallel {args.data_parallel} x --frame_parallel "
+             f"{fp}")
     dtype = (torch.float32 if smoke or args.mixed_precision == "no"
              else torch.bfloat16)
     b = args.train_batch_size
@@ -260,7 +276,7 @@ def prepare(args, dataset=None):
     accum = max(args.gradient_accumulation_steps, 1)
     # the schedule's length depends on the step count
     max_steps = train_steps(args, len(dataset) if dataset is not None
-                            else 1)
+                            else 1, grid.data)
     opt = stage2.make_optimizer(
         [t for _, t in trainable], lr=args.learning_rate,
         total_steps=max_steps, warmup=args.lr_warmup_steps,
@@ -287,7 +303,7 @@ def prepare(args, dataset=None):
     return SimpleNamespace(
         device=device, bundle=bundle, params=params, trainable=trainable,
         lora_state=lora_state, optimizer=opt, generator=gen, res=res,
-        frames=frames, batch=b, accum=accum, seed=args.seed,
+        frames=frames, batch=b, accum=accum, seed=args.seed, grid=grid,
         dataset=dataset, cache=cache, max_steps=max_steps, start=start,
         ckpt_dir=ckpt_dir, resumed_from=resumed_from,
         cond={"ctx": emb.repeat(b, 1, 1), "pooled": pooled.repeat(b, 1),
@@ -300,42 +316,48 @@ def prepare(args, dataset=None):
             bundle.unet_cfg, make_schedule(), opt, spatial_pairs(params),
             lambda_orth=args.lambda_orth, cfg_dropout=args.cfg_dropout,
             prediction_type=args.prediction_type, mode="both",
-            lora_state=lora_state, dtype=dtype))
+            lora_state=lora_state, dtype=dtype, grid=grid))
 
 
 def sample_micro_batches(tr, step: int = 0):
-    """One clip per micro-batch as scaled latents, fp32-encoded frame by
-    frame. From the dataset, micro-batch mi of `step` is
-    ``sample_batch_meta(batch, seed * 1000 + step * accum + mi)`` (the
-    JAX CLI's draw), its latents drawn through the moment cache where
-    there is one; without a dataset, a synthetic clip drawn from the
-    trainer's generator."""
+    """One global batch of clips per micro-batch as scaled latents,
+    fp32-encoded frame by frame. From the dataset, micro-batch mi of
+    `step` is ``sample_batch_meta(global batch, seed * 1000 + step *
+    accum + mi)`` (the JAX CLI's draw), its latents drawn through the
+    moment cache where there is one; without a dataset, a synthetic clip
+    drawn from the trainer's generator. Every process draws the whole
+    batch and encodes only its own clips and frames."""
     micro = []
+    n_clips = tr.batch * tr.grid.data
+    rows = tr.grid.positions(n_clips, tr.frames)
     with torch.no_grad():
         for mi in range(tr.accum):
             if tr.dataset is None:
-                clip = torch.rand((tr.batch * tr.frames, tr.res, tr.res, 3),
+                clip = torch.rand((n_clips * tr.frames, tr.res, tr.res, 3),
                                   generator=tr.generator,
                                   device=tr.device) * 2.0 - 1.0
                 lat = common.encode_latents(tr.bundle, clip,
-                                            generator=tr.generator)
+                                            generator=tr.generator,
+                                            rows=rows)
             else:
                 clips, ids = tr.dataset.sample_batch_meta(
-                    tr.batch, tr.seed * 1000 + step * tr.accum + mi)
+                    n_clips, tr.seed * 1000 + step * tr.accum + mi)
                 if tr.cache is not None:
-                    lat = tr.cache.latents(clips, ids, tr.generator)
+                    lat = tr.cache.latents(clips, ids, tr.generator,
+                                           rows=rows)
                 else:
                     clip = torch.as_tensor(clips).reshape(
                         -1, *clips.shape[2:]).to(tr.device, torch.float32)
                     lat = common.encode_latents(tr.bundle, clip,
-                                                generator=tr.generator)
-            micro.append({"latents": lat.reshape(tr.batch, tr.frames,
+                                                generator=tr.generator,
+                                                rows=rows)
+            micro.append({"latents": lat.reshape(tr.batch, -1,
                                                  *lat.shape[1:]),
                           **tr.cond})
     return micro
 
 
-def train(args, report=None, on_setup=None, dataset=None):
+def train(args, report=None, on_setup=None, dataset=None, on_grads=None):
     """Run the stage-2 loop from the start step (0, or the resumed
     checkpoint's) to the run's step count; returns the trainer
     (prepare's namespace: params, trainable, optimizer, generator, ...).
@@ -348,7 +370,10 @@ def train(args, report=None, on_setup=None, dataset=None):
     first step on) on CUDA, checkpoints (the paths written) and
     motion_checkpoint, the file written at the end; the logged steps go
     to <output_dir>/metrics.jsonl. on_setup(trainer)
-    runs once before the first step."""
+    runs once before the first step; on_grads(grads) sees each step's
+    gradients (summed over the processes) before the update
+    (training.stage2.make_train_step)."""
+    from video_style_transfer_tpu_torch.parallel import distributed
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
     from video_style_transfer_tpu_torch.utils.observability import (
         MetricsLogger, StepTimer)
@@ -382,7 +407,8 @@ def train(args, report=None, on_setup=None, dataset=None):
             report["encoded_frames"].append(
                 tr.cache.misses - misses if tr.cache is not None
                 else tr.accum * tr.batch * tr.frames)
-            metrics = tr.step(tr.params, micro, tr.generator)
+            metrics = tr.step(tr.params, micro, tr.generator,
+                              on_grads=on_grads)
             report["step_s"].append(clock.lap())
             for k in ("loss", "loss_mse", "loss_orth"):
                 report[k].append(float(metrics[k]))
@@ -393,18 +419,21 @@ def train(args, report=None, on_setup=None, dataset=None):
                     step - last_log, 1)
                 last_log = step
                 logger.log(step, scalars)
-                print(f"step {step}: loss={scalars['loss']:.4f} "
-                      f"mse={scalars['loss_mse']:.4f} "
-                      f"orth={scalars['loss_orth']:.6f} "
-                      f"({report['step_s'][-1]:.3f} s)", flush=True)
+                if distributed.is_main_process():
+                    print(f"step {step}: loss={scalars['loss']:.4f} "
+                          f"mse={scalars['loss_mse']:.4f} "
+                          f"orth={scalars['loss_orth']:.6f} "
+                          f"({report['step_s'][-1]:.3f} s)", flush=True)
             if (step + 1) % args.checkpointing_steps == 0:
                 path = ckpt.save_checkpoint_main_process(
                     tr.ckpt_dir,
-                    ckpt.train_state(tr.trainable, tr.optimizer, step + 1),
+                    lambda: ckpt.train_state(tr.trainable, tr.optimizer,
+                                             step + 1),
                     step + 1)
                 report["checkpoints"].append(path)
                 report["checkpoint_s"].append(clock.lap())
-                print(f"saved checkpoint: {path}", flush=True)
+                if distributed.is_main_process():
+                    print(f"saved checkpoint: {path}", flush=True)
     finally:
         logger.close()
     if tr.device.type == "cuda":
@@ -412,10 +441,13 @@ def train(args, report=None, on_setup=None, dataset=None):
             torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
     out = os.path.join(args.output_dir,
                        f"motion_modules.{args.checkpoint_format}")
-    ckpt.export_motion_checkpoint(out, tr.params)
+    if distributed.is_main_process():
+        ckpt.export_motion_checkpoint(out, tr.params)
+    distributed.barrier("motion-checkpoint")
     report["motion_checkpoint"] = out
     report["export_s"] = clock.lap()
-    print("saved motion checkpoint:", out, flush=True)
+    if distributed.is_main_process():
+        print("saved motion checkpoint:", out, flush=True)
     return tr
 
 

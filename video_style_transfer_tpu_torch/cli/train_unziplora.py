@@ -1,7 +1,6 @@
 """Stage-1 CLI: joint content/style UnZipLoRA training on SDXL (the JAX
 package's cli/train_unziplora.py, flag for flag; --device is the port's
-own, and the multi-process flags raise until multi-GPU training is
-ported).
+own).
 
 Instance images come from one video (--instance_video: N evenly spaced
 frames, or with --instance_video_mode consecutive its first N) or an
@@ -26,6 +25,16 @@ end the reference's four artifacts are written under --output_dir
 trained tensors bitwise and generates once. ``train(args, report,
 images=..., class_images=...)`` runs it on image arrays held in memory.
 
+--data_parallel N trains on N processes (torchrun --nproc_per_node N, or
+the coordinator flags on each; the reference's ``accelerate launch``
+DDP): each takes --train_batch_size rows of the global batch, the
+gradients are summed over the processes before the column separation
+reads them, so every process selects the same columns and makes the
+same update. --scale_lr also multiplies by N. Process 0 makes the class
+images (the others wait), and writes the checkpoints, metrics,
+validation images, grad records and artifacts, to an output directory
+every host shares.
+
     python -m video_style_transfer_tpu_torch.cli.train_unziplora \\
         --instance_video horse.mp4 --instance_prompt "a sbu horse in szn style" \\
         --content_forward_prompt "a sbu horse" \\
@@ -46,14 +55,6 @@ from video_style_transfer_tpu_torch.cli.infer_video import _Clock
 from video_style_transfer_tpu_torch.cli.train_animatediff import run_seed
 from video_style_transfer_tpu_torch.lora.surgery import (
     FREEZE_UNET_CONTENT, FREEZE_UNET_STYLE)
-
-# flag -> (value that means "unused", what it waits for)
-NOT_PORTED = {
-    "data_parallel": (0, "multi-GPU training"),
-    "coordinator_address": (None, "multi-GPU training"),
-    "num_processes": (None, "multi-GPU training"),
-    "process_id": (None, "multi-GPU training"),
-}
 
 
 def _bool(s):
@@ -119,11 +120,13 @@ def build_parser():
                    help="polynomial decay power")
     p.add_argument("--scale_lr", action="store_true",
                    help="multiply the learning rates by accumulation "
-                        "steps x batch size")
-    for flag, (unused, why) in NOT_PORTED.items():
-        p.add_argument(f"--{flag}", default=unused,
-                       type=str if flag == "coordinator_address" else int,
-                       help=f"not ported yet: waits for {why}")
+                        "steps x batch size x data-parallel processes")
+    p.add_argument("--data_parallel", type=int, default=0,
+                   help="split the batch over N processes, each taking "
+                        "--train_batch_size rows (the reference's "
+                        "accelerate-launch DDP). 0 (default): every "
+                        "process of the run")
+    common.add_distributed_flags(p, "training run")
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
     p.add_argument("--max_grad_norm", type=float, default=1.0)
     p.add_argument("--checkpointing_steps", type=int, default=500)
@@ -250,7 +253,6 @@ def build_parser():
 
 def check_args(args):
     """The JAX CLI's refusals, warnings and flag rewrites."""
-    common.refuse_unported(args, NOT_PORTED)
     if args.train_text_encoder:
         raise NotImplementedError(
             "--train_text_encoder is not implemented (the reference raises "
@@ -357,8 +359,13 @@ def prepare(args, images=None, class_images=None):
     from video_style_transfer_tpu_torch.training import stage1
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
 
+    from video_style_transfer_tpu_torch.parallel import distributed
+
     check_args(args)
-    device = common.resolve_device(args.device)
+    dp = args.data_parallel
+    device, grid = common.setup_distributed(
+        args, data=dp or None, what=f"--data_parallel {dp}")
+    dp = grid.data
     dtype = (torch.float32 if args.smoke or args.mixed_precision == "no"
              else torch.bfloat16)
     clock = _Clock(device)
@@ -381,13 +388,18 @@ def prepare(args, images=None, class_images=None):
                 "--with_prior_preservation needs --class_data_dir")
         if args.class_prompt is None:
             raise SystemExit("--with_prior_preservation needs --class_prompt")
-        for ddir, prompt in ((args.class_data_dir, args.class_prompt),
-                             (args.class_data_dir_2, args.class_prompt_2)):
-            if ddir:
-                n = ensure_class_images(args, bundle, ddir, prompt, res)
-                if n:
-                    print(f"generated {n} class images under {ddir}",
-                          flush=True)
+        # process 0 makes them, the others wait, then all read them
+        if distributed.is_main_process():
+            for ddir, prompt in ((args.class_data_dir, args.class_prompt),
+                                 (args.class_data_dir_2,
+                                  args.class_prompt_2)):
+                if ddir:
+                    n = ensure_class_images(args, bundle, ddir, prompt,
+                                            res)
+                    if n:
+                        print(f"generated {n} class images under {ddir}",
+                              flush=True)
+        distributed.barrier("class_images")
     priors = {}
     for branch, ddir, prompt in (
             ("content", args.class_data_dir, args.class_prompt),
@@ -427,13 +439,13 @@ def prepare(args, images=None, class_images=None):
 
     accum = max(args.gradient_accumulation_steps, 1)
     n_items = len(images) * max(args.repeats, 1)
-    batches_per_epoch = max(-(-n_items // args.train_batch_size), 1)
+    batches_per_epoch = max(-(-n_items // (args.train_batch_size * dp)), 1)
     updates_per_epoch = max(-(-batches_per_epoch // accum), 1)
     if args.num_train_epochs is not None:
         args.max_train_steps = args.num_train_epochs * updates_per_epoch
     max_steps = args.smoke_steps or args.max_train_steps
     if args.scale_lr:
-        scale = accum * args.train_batch_size
+        scale = accum * args.train_batch_size * dp
         args.content_learning_rate *= scale
         args.style_learning_rate *= scale
         args.weight_learning_rate *= scale
@@ -476,7 +488,8 @@ def prepare(args, images=None, class_images=None):
             state.step = ckpt.restore_checkpoint(resumed_from,
                                                  opt.trainable, opt, extra)
             state.orth_on, state.merger_on = map(bool, extra["flags"])
-            print(f"resumed from {resumed_from} at step {state.step}",
+            if distributed.is_main_process():
+                print(f"resumed from {resumed_from} at step {state.step}",
                   flush=True)
     gen = torch.Generator(device=device)
     gen.manual_seed(run_seed(args.seed, state.step))
@@ -484,9 +497,10 @@ def prepare(args, images=None, class_images=None):
         bundle.unet_cfg, make_schedule(), sep_cfg=sep,
         assignments=assignments, similarity_lambda=args.similarity_lambda,
         prior_weight=args.prior_loss_weight,
-        prior_weight_2=args.prior_loss_weight_2, dtype=dtype)
+        prior_weight_2=args.prior_loss_weight_2, dtype=dtype, grid=grid)
     return SimpleNamespace(
         device=device, dtype=dtype, bundle=bundle, res=res, moments=moments,
+        grid=grid,
         priors=priors, cond={"ctx": emb, "ctx_content": emb_c,
                              "ctx_style": emb_s, "pooled": pooled,
                              "time_ids": time_ids},
@@ -508,7 +522,11 @@ def micro_batches(tr, batch_size: int):
     """One step's micro-batches: --gradient_accumulation_steps of
     `batch_size` rows each, the instance rows (and each prior branch's)
     drawn uniformly from their image set by the host generator, their
-    latents from the device generator."""
+    latents from the device generator. Data-parallel, every process
+    draws the global batch (batch_size x processes rows a micro-batch)
+    and keeps its own rows of each micro-batch."""
+    dp = tr.grid.data
+    batch_size *= dp
     b = batch_size * tr.accum
     idx = tr.host_rng.integers(0, tr.moments[0].shape[0], size=b)
     with torch.no_grad():
@@ -528,12 +546,12 @@ def micro_batches(tr, batch_size: int):
                 "pooled": prior["pooled"].repeat(b, 1),
                 "time_ids": tr.cond["time_ids"].repeat(b, 1)}
 
-    def rows(tree, i):
+    def chunk(tree, i):
         if isinstance(tree, dict):
-            return {k: rows(v, i) for k, v in tree.items()}
+            return {k: chunk(v, i) for k, v in tree.items()}
         return tree[i * batch_size:(i + 1) * batch_size]
 
-    return [rows(full, i) for i in range(tr.accum)]
+    return [tr.grid.take(chunk(full, i)) for i in range(tr.accum)]
 
 
 def grad_record(lora_state, assignments):
@@ -682,6 +700,7 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
     memory (peak_memory_gib on CUDA, from the first step on), artifacts,
     export_s and final_check (the image written, or None); host seconds,
     each phase ending in a device synchronise."""
+    from video_style_transfer_tpu_torch.parallel import distributed
     from video_style_transfer_tpu_torch.training import stage1
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
     from video_style_transfer_tpu_torch.utils.observability import (
@@ -709,6 +728,7 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
                            project=args.name)
     timer, last_log = StepTimer(), tr.start
     state, sep = tr.state, tr.sep
+    is_main = distributed.is_main_process()
     clock = _Clock(tr.device)
     try:
         for step in range(tr.start, tr.max_steps):
@@ -730,20 +750,22 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
                     scalars.update(lora_norm_log(state.params, branch))
                     scalars.update(lora_merge_log(state.params, branch))
                 logger.log(step, scalars)
-                print(f"step {step}: loss={scalars['loss']:.4f} "
-                      f"({report['step_s'][-1]:.3f} s, phase {phase})",
-                      flush=True)
+                if is_main:
+                    print(f"step {step}: loss={scalars['loss']:.4f} "
+                          f"({report['step_s'][-1]:.3f} s, phase {phase})",
+                          flush=True)
             clock.lap()
             if (step + 1) % args.checkpointing_steps == 0:
                 path = ckpt.save_checkpoint_main_process(
-                    tr.ckpt_dir, ckpt.train_state(
+                    tr.ckpt_dir, lambda: ckpt.train_state(
                         tr.optimizer.trainable, tr.optimizer, step + 1,
                         extra=checkpoint_extra(state)),
                     step + 1, total_limit=args.checkpoints_total_limit)
                 report["checkpoints"].append(path)
                 report["checkpoint_s"].append(clock.lap())
-                print(f"saved checkpoint: {path}", flush=True)
-            if args.validation_prompt and \
+                if is_main:
+                    print(f"saved checkpoint: {path}", flush=True)
+            if args.validation_prompt and is_main and \
                     (step + 1) % args.validation_epochs == 0:
                 if args.with_image_per_validation:
                     run_validation(args, tr, step + 1, logger)
@@ -756,7 +778,8 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
                                                  state.lora_state)
                 report["validation_s"].append(clock.lap())
             ne, ss = sep.steps_per_epoch, sep.sampled_steps
-            if (args.with_grad_record and sep.enabled and step >= ne
+            if (args.with_grad_record and sep.enabled and is_main
+                    and step >= ne
                     and (step - ne) % ss == 0
                     and step < sep.sample_times * ss):
                 rec_dir = os.path.join(args.output_dir, "grad_records")
@@ -769,6 +792,9 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
     if tr.device.type == "cuda":
         report["peak_memory_gib"] = (
             torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
+    report["artifacts"] = report["final_check"] = None
+    if not is_main:
+        return tr
     paths = ckpt.export_stage1_artifacts(args.output_dir, args.name,
                                          state.params, state.lora_state)
     report["artifacts"] = paths

@@ -1,7 +1,7 @@
-"""Temporal (motion) transformer modules — AnimateDiff, single device.
+"""Temporal (motion) transformer modules — AnimateDiff.
 
-Counterpart of the JAX package's models/motion.py local path (the
-frame-sharded `_motion_module_sharded` comes with multi-GPU):
+Counterpart of the JAX package's models/motion.py, its local path and
+its frame-sharded one (``_motion_module_sharded``):
 
   norm (GroupNorm eps 1e-6, statistics pooled over frames and space)
   proj_in
@@ -17,8 +17,20 @@ temporal-attention kernels (K3, K5) read the three segments in place;
 with one (stage-2 training), each projection adds its fp32 rank-space
 delta, rounded once to the activation dtype, and the kernels read the
 three (F, N, P) results as (F, N, H, d) views.
+
+Under frame parallelism (a ``FrameShard``: each rank of a frame group
+holds a contiguous run of every clip's frames) the module needs every
+frame of a pixel. With equal frame counts and HW divisible by the group
+size it exchanges frame shards for pixel shards with one all-to-all,
+pools the GroupNorm statistics with two tiny all-reduces, runs the
+blocks (K3, and K5 in the backward) on its pixel shard, and exchanges
+back: each rank sends and receives (n-1)/n of its activation twice. Any
+other split gathers the whole clip on every rank and keeps its own
+frames of the result: the same math at n times the work.
 """
 from __future__ import annotations
+
+import torch
 
 from video_style_transfer_tpu_torch.lora.temporal import apply_temporal_lora
 from video_style_transfer_tpu_torch.models import layers
@@ -28,6 +40,7 @@ from video_style_transfer_tpu_torch.models.embeddings import (
     temporal_positional_encoding)
 from video_style_transfer_tpu_torch.ops.temporal_attention import (
     temporal_attention, temporal_attention_plain)
+from video_style_transfer_tpu_torch.parallel import distributed
 
 
 def init_motion_block(ini, dim: int, *, heads: int):
@@ -96,11 +109,106 @@ def init_motion_module(ini, in_channels: int, *, num_layers: int = 1,
     }
 
 
-def motion_module(p, x, *, num_frames: int, heads: int, norm_num_groups: int,
-                  max_seq_length: int = 32, remat: bool = False):
-    """x: (B*F, H, W, C) (spatial batch layout). Returns the same shape.
-    remat: recompute each motion block in the backward."""
+def _blocks(p, y, num_frames: int, c: int, *, heads: int,
+            max_seq_length: int, remat: bool):
+    """proj_in, the temporal blocks and proj_out on (F, N, C) tokens."""
+    y = layers.linear(p["proj_in"], y)
+    pe = temporal_positional_encoding(num_frames, c, max_len=max_seq_length,
+                                      device=y.device)
+    pe = pe[:, None, :].to(y.dtype)
+    for bp in p["transformer_blocks"]:
+        def block(y_, bp=bp):
+            return motion_block(bp, y_, pe, heads=heads)
+        y = layers.remat(block, y) if remat else block(y)
+    return layers.linear(p["proj_out"], y)
+
+
+def _group_norm_psum(p, x, *, num_groups: int, eps: float, shard):
+    """GroupNorm of (B, S, C) rows whose S axis is split over the ranks
+    of a FrameShard's group (equal shares): exact two-pass statistics, the
+    per-channel sums all-reduced to the global mean, then the centred
+    second moments to the global variance; only (B, C) statistics cross
+    ranks. The affine is layers.group_norm's: x * scale + shift in f32,
+    rounded once."""
+    b, c = x.shape[0], x.shape[-1]
+    g = num_groups
+    xf = x.reshape(b, -1, c).float()
+    cnt = xf.shape[1] * (c // g) * shard.size
+    s1 = distributed.all_reduce_sum(xf.sum(1), shard.group)      # (B, C)
+    mean = s1.view(b, g, c // g).sum(-1, keepdim=True) / cnt     # (B, g, 1)
+    xc = xf.view(b, -1, g, c // g) - mean.view(b, 1, g, 1)
+    s2 = distributed.all_reduce_sum((xc * xc).sum(1), shard.group)
+    var = s2.sum(-1, keepdim=True) / cnt
+    scale = torch.rsqrt(var + eps) * p["weight"].float().view(g, -1)
+    shift = p["bias"].float().view(g, -1) - mean * scale
+    y = xf.view(b, -1, g, c // g) * scale.unsqueeze(1) + shift.unsqueeze(1)
+    return y.to(x.dtype).reshape(x.shape)
+
+
+def _motion_module_sharded(p, x, shard, *, heads: int, norm_num_groups: int,
+                           max_seq_length: int, remat: bool):
+    """The frame-parallel module (equal frame counts, HW % n == 0): x is
+    (b * f, H, W, C), f = F / n of each of b clips. Frame shards become
+    pixel shards by one all-to-all, (F, b * HW / n, C) tokens run through
+    the blocks, and the inverse exchange brings the frames back."""
+    n, f = shard.size, shard.local
     bf, h, w, c = x.shape
+    b = bf // f
+    hw = h * w
+    y = _group_norm_psum(p["norm"], x.reshape(b, f * h, w, c),
+                         num_groups=norm_num_groups, eps=1e-6, shard=shard)
+    # (b, f, n, HW/n, C) -> (n, f, b, HW/n, C): chunk j, this rank's
+    # frames of pixel block j, goes to rank j, which stacks the ranks'
+    # frame runs in order into (F, b, HW/n, C)
+    send = y.reshape(b, f, n, hw // n, c).permute(2, 1, 0, 3, 4)
+    y = distributed.all_to_all(send, shard.group)
+    y = y.reshape(n * f, b * (hw // n), c)
+    y = _blocks(p, y, n * f, c, heads=heads, max_seq_length=max_seq_length,
+                remat=remat)
+    # inverse: chunk s, the frames of rank s at this pixel block, goes
+    # back to rank s
+    y = distributed.all_to_all(y.reshape(n, f, b, hw // n, c), shard.group)
+    y = y.permute(2, 1, 0, 3, 4).reshape(bf, h, w, c)
+    return y + x
+
+
+def _motion_module_gathered(p, x, shard, **kw):
+    """Any other split: every rank gathers the whole clip (differentiably,
+    through an all-to-all of the padded shards), runs the local module on
+    it and keeps its own frames."""
+    n, f, m = shard.size, shard.local, max(shard.counts)
+    bf, h, w, c = x.shape
+    b = bf // f
+    xs = x.reshape(b, f, h, w, c)
+    if f < m:
+        xs = torch.cat([xs, xs.new_zeros((b, m - f, h, w, c))], dim=1)
+    # the same padded shard to every rank: an all-gather written as an
+    # all-to-all, whose backward carries each rank's gradient home
+    got = distributed.all_to_all(xs.unsqueeze(0).expand(n, -1, -1, -1, -1,
+                                                        -1), shard.group)
+    full = torch.cat([got[r, :, :k] for r, k in enumerate(shard.counts)],
+                     dim=1)                                 # (b, F, H, W, C)
+    out = motion_module(p, full.reshape(-1, h, w, c),
+                        num_frames=shard.frames, **kw)
+    out = out.reshape(b, shard.frames, h, w, c)[:, shard.slice()]
+    return out.reshape(bf, h, w, c)
+
+
+def motion_module(p, x, *, num_frames: int, heads: int, norm_num_groups: int,
+                  max_seq_length: int = 32, remat: bool = False,
+                  frame_shard=None):
+    """x: (B*F, H, W, C) (spatial batch layout). Returns the same shape.
+    remat: recompute each motion block in the backward. frame_shard
+    (parallel.mesh.FrameShard): x holds this rank's num_frames =
+    frame_shard.local frames of each clip, and the module exchanges
+    frames with the rest of its frame group."""
+    bf, h, w, c = x.shape
+    kw = dict(heads=heads, norm_num_groups=norm_num_groups,
+              max_seq_length=max_seq_length, remat=remat)
+    if frame_shard is not None and frame_shard.size > 1:
+        if frame_shard.even and (h * w) % frame_shard.size == 0:
+            return _motion_module_sharded(p, x, frame_shard, **kw)
+        return _motion_module_gathered(p, x, frame_shard, **kw)
     b = bf // num_frames
     residual = x
     # fold frames into the spatial dims so group statistics pool over
@@ -110,14 +218,7 @@ def motion_module(p, x, *, num_frames: int, heads: int, norm_num_groups: int,
     # (B, F, HW, C) -> (F, B*HW, C)
     y = y.reshape(b, num_frames, h * w, c).transpose(0, 1) \
         .reshape(num_frames, b * h * w, c)
-    y = layers.linear(p["proj_in"], y)
-    pe = temporal_positional_encoding(num_frames, c, max_len=max_seq_length,
-                                      device=y.device)
-    pe = pe[:, None, :].to(y.dtype)
-    for bp in p["transformer_blocks"]:
-        def block(y_, bp=bp):
-            return motion_block(bp, y_, pe, heads=heads)
-        y = layers.remat(block, y) if remat else block(y)
-    y = layers.linear(p["proj_out"], y)
+    y = _blocks(p, y, num_frames, c, heads=heads,
+                max_seq_length=max_seq_length, remat=remat)
     y = y.reshape(num_frames, b, h, w, c).transpose(0, 1).reshape(bf, h, w, c)
     return y + residual

@@ -144,7 +144,7 @@ def _kv(cross_kv, path, i, j):
 def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
                pooled_text, time_ids, *, num_frames: int = 1,
                cross_kv=None, mode: str = "base", state=None,
-               remat: bool = False):
+               remat: bool = False, frame_shard=None):
     """Denoiser forward.
 
     sample:      (N, H, W, C_in) NHWC, N = batch * num_frames
@@ -157,6 +157,11 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
     remat:       recompute each transformer and motion block in the
                  backward (the JAX package's remat=True); False stores
                  every activation
+    frame_shard: parallel.mesh.FrameShard under frame parallelism:
+                 sample holds this rank's num_frames (= frame_shard.local)
+                 frames of each clip; the motion modules exchange frames
+                 across its group, every other layer is per frame and
+                 stays local
     """
     n = sample.shape[0]
     b = n // num_frames
@@ -191,7 +196,8 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
         ctx = None
 
     groups = cfg.norm_num_groups
-    motion_on = cfg.use_motion_modules and num_frames > 1
+    motion_on = cfg.use_motion_modules and (
+        frame_shard.frames if frame_shard is not None else num_frames) > 1
 
     def resnet(rp, h):
         return resnet_block(rp, h, emb, num_groups=groups, eps=cfg.norm_eps)
@@ -206,7 +212,7 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
                              heads=cfg.motion_num_attention_heads,
                              norm_num_groups=groups,
                              max_seq_length=cfg.motion_max_seq_length,
-                             remat=remat)
+                             remat=remat, frame_shard=frame_shard)
 
     h = layers.conv2d(params["conv_in"], sample)
     skips = [h]

@@ -50,12 +50,13 @@ def generate_latents(unet_params, unet_cfg, uncond: Conditioning,
                      num_frames: int = 1, sched=None, dtype=torch.bfloat16,
                      vae_scale_factor: int = 8, device="cpu",
                      generator=None, noise: Optional[torch.Tensor] = None,
-                     on_step=None):
+                     on_step=None, frame_shard=None):
     """Denoise from pure noise to clean scaled latents (the reference's
     defaults: 25 steps, CFG 5.0). For video, batch is the B*num_frames
     row count. `generator` is one torch.Generator or one per row; `noise`
     (standard normal, the latent shape) replaces the draw, so a caller
-    can feed the same noise to another implementation."""
+    can feed the same noise to another implementation. frame_shard: see
+    make_cfg_denoiser (batch and num_frames are then this rank's)."""
     if sched is None:
         sched = make_schedule()
     shape = (batch, height // vae_scale_factor, width // vae_scale_factor,
@@ -69,7 +70,7 @@ def generate_latents(unet_params, unet_cfg, uncond: Conditioning,
                                cfg_scale=cfg_scale,
                                guidance_rescale=guidance_rescale, mode=mode,
                                state=state, num_frames=num_frames,
-                               dtype=dtype)
+                               dtype=dtype, frame_shard=frame_shard)
     if sampler == "euler":
         table = euler_timetable(sched, num_steps)
         init = torch.tensor(table["init_sigma"],

@@ -63,12 +63,14 @@ def make_cfg_denoiser(unet_params, unet_cfg, uncond: Conditioning,
                       cond: Conditioning, *, cfg_scale: float,
                       guidance_rescale: float = 0.0, mode: str = "both",
                       state=None, num_frames: int = 1,
-                      dtype=None) -> Callable:
+                      dtype=None, frame_shard=None) -> Callable:
     """Returns eps_fn(latents, t) with the CFG pair batched as a doubled
     leading axis ([uncond, cond]). Every cross-attention's prompt k/v,
     live LoRA branches included, is evaluated once here (it is invariant
     across steps); `dtype` casts the prompt embeddings before
-    projecting."""
+    projecting. frame_shard: the latents are this rank's num_frames
+    frames of a frame-parallel clip (unet_apply's); both CFG rows of
+    them are local, so the combine needs no collective."""
     both = _cat_cond(uncond, cond)
     kv = precompute_cross_kv(unet_params, unet_cfg, both.ctx, mode=mode,
                              state=state, dtype=dtype,
@@ -78,7 +80,8 @@ def make_cfg_denoiser(unet_params, unet_cfg, uncond: Conditioning,
         doubled = torch.cat([latents, latents], dim=0)
         out = unet_apply(unet_params, unet_cfg, doubled, t, both.ctx,
                          both.pooled, both.time_ids, mode=mode, state=state,
-                         num_frames=num_frames, cross_kv=kv)
+                         num_frames=num_frames, cross_kv=kv,
+                         frame_shard=frame_shard)
         eps_u, eps_c = out.chunk(2, dim=0)
         eps = eps_u + cfg_scale * (eps_c - eps_u)
         if guidance_rescale > 0.0:

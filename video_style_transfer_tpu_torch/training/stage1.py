@@ -38,6 +38,14 @@ mergers clamped. A gated merger is not skipped: its moments decay on a
 zero gradient and its group's count moves, as optax's do. The new flags
 first act on the next step's forward.
 
+Data parallelism (a ``parallel.mesh.Grid``, the reference's DDP): each
+rank holds its rows of the global batch and draws the step's timesteps
+and noise for the whole of it; its loss is its share (squared errors
+over the global count, the replicated merger similarity over the world
+size), and the gradients are summed over the world before the column
+separation reads them, so every rank computes the same cone, the same
+masks and the same update.
+
 Draws come in from the caller (``draw_stage1``, from a
 ``torch.Generator``), so a test can hand the loss the JAX trainer's.
 Activations run in the UNet's dtype (bf16 at full width); the LoRA
@@ -271,21 +279,27 @@ def _similarity_loss(params, lora_state, lora_paths):
     return torch.mean(torch.stack(vals))
 
 
-def _mse(pred, target):
-    return torch.mean((pred.float() - target.float()) ** 2)
+def _mse(pred, target, share=None):
+    """The mean squared error, or with `share` (the world size) this
+    rank's share of the global one (its rows among equal shares)."""
+    err = (pred.float() - target.float()) ** 2
+    return torch.mean(err) if share is None else \
+        torch.sum(err) / (err.numel() * share)
 
 
 def stage1_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
                 lora_state, lora_paths, orth_on: bool,
                 similarity_lambda: float, prior_weight: float = 0.0,
                 prior_weight_2: float = 0.0, remat: bool = False,
-                dtype=None):
+                dtype=None, share=None):
     """batch: latents (B, h, w, 4) scaled; ctx, ctx_content, ctx_style
     (B, S, D) the combined, content and style prompt encodings; pooled
     (B, P); time_ids (B, 6); optionally prior_content / prior_style,
     each {latents, ctx, pooled, time_ids}. draws: draw_stage1's. dtype:
-    the UNet's activation dtype (default: its weights'). Returns (loss,
-    {"loss_rec", "loss_sim", "loss_prior_<branch>" per prior run})."""
+    the UNet's activation dtype (default: its weights'). share: None, or
+    the world size for this rank's share of the loss (module docstring).
+    Returns (loss, {"loss_rec", "loss_sim", "loss_prior_<branch>" per
+    prior run})."""
     if dtype is None:
         dtype = params["conv_in"]["weight"].dtype
     latents = batch["latents"]
@@ -296,8 +310,10 @@ def stage1_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
                        batch["ctx_style"]),
                       batch["pooled"], batch["time_ids"], mode="both",
                       state=lora_state, remat=remat)
-    rec = _mse(pred, noise)
+    rec = _mse(pred, noise, share)
     sim = _similarity_loss(params, lora_state, lora_paths)
+    if share is not None:
+        sim = sim / share
     loss = rec + similarity_lambda * sim if orth_on else rec
     aux = {"loss_rec": rec, "loss_sim": sim}
     for branch, weight in (("content", prior_weight),
@@ -312,7 +328,7 @@ def stage1_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
                            (prior["ctx"], None, None), prior["pooled"],
                            prior["time_ids"], mode=branch, state=lora_state,
                            remat=remat)
-        ploss = _mse(ppred, pnoise)
+        ploss = _mse(ppred, pnoise, share)
         loss = loss + weight * ploss
         aux[f"loss_prior_{branch}"] = ploss
     return loss, aux
@@ -450,15 +466,21 @@ def make_train_step(unet_cfg: UNetConfig, sched, *,
                     sep_cfg: ColumnSepConfig, assignments: Dict,
                     similarity_lambda: float = 0.5,
                     prior_weight: float = 0.0, prior_weight_2: float = 0.0,
-                    remat: bool = False, dtype=None):
+                    remat: bool = False, dtype=None, grid=None):
     """Returns step(state, micro_batches, generator=None, draws=None,
     on_grads=None) -> metrics, which updates `state` in place. Each
     micro-batch (one per gradient-accumulation step) takes its own draws,
     from `generator` in order, or draws[i]; the gradients are summed over
     them and divided by their count, the losses averaged, then one update
     is made. on_grads(state, grads) sees the averaged, ungated gradients
-    by trainable path before the column separation reads them."""
+    by trainable path before the column separation reads them. grid
+    (parallel.mesh.Grid): the micro-batches hold this rank's rows of
+    equal shares; the draws are made for the global batch, the
+    gradients summed over the world first, the metrics global."""
+    from video_style_transfer_tpu_torch.parallel import distributed
+
     paths = list(assignments)
+    dp = grid.data if grid is not None else 1
 
     def step(state: Stage1State, micro_batches, generator=None,
              draws=None, on_grads=None):
@@ -469,17 +491,22 @@ def make_train_step(unet_cfg: UNetConfig, sched, *,
             if draws is not None:
                 dr = draws[i]
             else:
-                priors = {b: tuple(mb[f"prior_{b}"]["latents"].shape)
+                def whole(shape):
+                    return (shape[0] * dp,) + tuple(shape[1:])
+                priors = {b: whole(mb[f"prior_{b}"]["latents"].shape)
                           for b in BRANCHES if f"prior_{b}" in mb}
-                dr = draw_stage1(sched, tuple(mb["latents"].shape), priors,
+                dr = draw_stage1(sched, whole(mb["latents"].shape), priors,
                                  generator=generator,
                                  device=mb["latents"].device)
+                if dp > 1:
+                    dr = grid.take(dr)
             loss, aux = stage1_loss(
                 state.params, unet_cfg, sched, mb, dr,
                 lora_state=state.lora_state, lora_paths=paths,
                 orth_on=state.orth_on, similarity_lambda=similarity_lambda,
                 prior_weight=prior_weight, prior_weight_2=prior_weight_2,
-                remat=remat, dtype=dtype)
+                remat=remat, dtype=dtype,
+                share=grid.size if dp > 1 else None)
             loss.backward()
             losses.append(loss.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
@@ -488,6 +515,7 @@ def make_train_step(unet_cfg: UNetConfig, sched, *,
             g = t.grad if t.grad is not None else torch.zeros_like(t)
             grads[path] = g / accum if accum > 1 else g
             t.grad = None
+        distributed.all_reduce_tensors(list(grads.values()))
         if on_grads is not None:
             on_grads(state, grads)
         gates, ph = None, None
@@ -504,9 +532,10 @@ def make_train_step(unet_cfg: UNetConfig, sched, *,
         if ph is not None:
             state.orth_on, state.merger_on = apply_schedule_flags(state, ph)
         state.step += 1
-        return {"loss": torch.stack(losses).mean(),
-                **{k: torch.stack([a[k] for a in auxs]).mean()
-                   for k in auxs[0]}}
+        return distributed.global_metrics({
+            "loss": torch.stack(losses).mean(),
+            **{k: torch.stack([a[k] for a in auxs]).mean()
+               for k in auxs[0]}})
 
     return step
 

@@ -16,6 +16,14 @@ set_to_zero), so they stay bitwise unchanged. The random draws (t,
 noise, dropout) are a function of their own, so a test can hand the loss
 the JAX trainer's draws.
 
+Data and frame parallelism (a ``parallel.mesh.Grid``): every rank draws
+the step's timesteps, noise and dropout flags for the whole global
+batch and keeps its own clips and frames; its loss is its share (its
+squared errors over the global count, the replicated orthogonality
+term over the world size), so the gradients summed over the world
+before the clip are one process's gradients, and the clip and the
+optimizer see what one process sees.
+
 Activations run in the UNet's dtype (bf16 at full width, as the
 reference's mixed-precision autocast does; the JAX trainer feeds its f32
 latents to the bf16-stored UNet and so computes in f32); the LoRA and
@@ -23,6 +31,7 @@ temporal-LoRA leaves stay f32, with no master weights.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, List, Optional
 
 import torch
@@ -266,12 +275,16 @@ def draw_stage2(sched, latent_shape, *, cfg_dropout: float,
 def stage2_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
                 pairs, lambda_orth: float = 1e-4,
                 prediction_type: str = "epsilon", mode: str = "both",
-                state=None, remat: bool = False, dtype=None):
+                state=None, remat: bool = False, dtype=None,
+                frame_shard=None, share=None):
     """batch: latents (B, F, h, w, 4) scaled, ctx (B, S, D), pooled
     (B, P), time_ids (B, 6), optionally uncond_ctx / uncond_pooled (the
     encoded empty prompt; zeros otherwise). draws: draw_stage2's dict.
     remat: unet_apply's. dtype: the UNet's activation dtype (default: its
-    weights'). Returns (loss, {"loss_mse", "loss_orth"})."""
+    weights'). frame_shard: unet_apply's (F is then this rank's frames).
+    share: None, or (the global batch's latent element count, the world
+    size) for a rank's share of the loss (module docstring). Returns
+    (loss, {"loss_mse", "loss_orth"})."""
     latents = batch["latents"]
     b, f = latents.shape[:2]
     if dtype is None:
@@ -295,12 +308,14 @@ def stage2_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
     pred = unet_apply(params, unet_cfg, noisy.to(dtype), t,
                       (ctx.to(dtype), None, None), pooled,
                       batch["time_ids"], num_frames=f, mode=mode,
-                      state=state, remat=remat)
+                      state=state, remat=remat, frame_shard=frame_shard)
     if prediction_type == "v_prediction":
         target = velocity_target(sched, rows, noise_rows, t_rows)
     else:
         target = noise_rows
-    loss_mse = torch.mean((pred.float() - target.float()) ** 2)
+    err = (pred.float() - target.float()) ** 2
+    loss_mse = torch.mean(err) if share is None else \
+        torch.sum(err) / share[0]
 
     loss_orth = torch.zeros((), device=latents.device)
     if lambda_orth > 0.0 and pairs:
@@ -308,6 +323,8 @@ def stage2_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
                                        tree_get(params, sp))
                     for tp, sp in pairs)
         loss_orth = lambda_orth * total / len(pairs)
+        if share is not None:
+            loss_orth = loss_orth / share[1]
     return loss_mse + loss_orth, {"loss_mse": loss_mse,
                                   "loss_orth": loss_orth}
 
@@ -315,24 +332,42 @@ def stage2_loss(params, unet_cfg: UNetConfig, sched, batch, draws, *,
 def make_train_step(unet_cfg: UNetConfig, sched, optimizer: AdamW, pairs, *,
                     lambda_orth: float = 1e-4, cfg_dropout: float = 0.1,
                     prediction_type: str = "epsilon", mode: str = "both",
-                    lora_state=None, dtype=None):
-    """Returns step(params, micro_batches, generator) -> metrics. Each
-    micro-batch (one per gradient-accumulation step) gets its own draws;
-    the gradients are summed over them and divided by their count, the
-    loss averaged, then one optimizer update is made. Every activation is
-    stored (no remat): the 8-frame 1024^2 step fits one 80 GB card."""
+                    lora_state=None, dtype=None, grid=None):
+    """Returns step(params, micro_batches, generator, on_grads=None) ->
+    metrics. Each micro-batch (one per gradient-accumulation step) gets
+    its own draws; the gradients are summed over them and divided by
+    their count, the loss averaged, then one optimizer update is made;
+    on_grads(grads) sees the gradients (one per optimizer tensor) just
+    before it. Every activation is
+    stored (no remat): the 8-frame 1024^2 step fits one 80 GB card.
+    grid (parallel.mesh.Grid): the micro-batches hold this rank's clips
+    and frames of the global batch (equal shares); the draws are made
+    for the global batch, the gradients summed over the world before the
+    update, and the metrics are the global batch's."""
+    from video_style_transfer_tpu_torch.parallel import distributed
 
-    def step(params, micro_batches, generator: torch.Generator):
+    def step(params, micro_batches, generator: torch.Generator,
+             on_grads=None):
         accum = len(micro_batches)
         losses, auxs = [], []
         for mb in micro_batches:
-            dr = draw_stage2(sched, tuple(mb["latents"].shape),
-                             cfg_dropout=cfg_dropout, generator=generator,
+            shape = tuple(mb["latents"].shape)
+            shard, share = None, None
+            if grid is not None and grid.size > 1:
+                shape = (shape[0] * grid.data, shape[1] * grid.frame) \
+                    + shape[2:]
+                shard = grid.frame_shard(shape[1])
+                share = (math.prod(shape), grid.size)
+            dr = draw_stage2(sched, shape, cfg_dropout=cfg_dropout,
+                             generator=generator,
                              device=mb["latents"].device)
+            if share is not None:
+                dr = grid.take(dr, frames=True)
             loss, aux = stage2_loss(
                 params, unet_cfg, sched, mb, dr, pairs=pairs,
                 lambda_orth=lambda_orth, prediction_type=prediction_type,
-                mode=mode, state=lora_state, dtype=dtype)
+                mode=mode, state=lora_state, dtype=dtype, frame_shard=shard,
+                share=share)
             loss.backward()
             losses.append(loss.detach())
             auxs.append({k: v.detach() for k, v in aux.items()})
@@ -341,9 +376,13 @@ def make_train_step(unet_cfg: UNetConfig, sched, optimizer: AdamW, pairs, *,
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads.append(g / accum if accum > 1 else g)
             p.grad = None
+        distributed.all_reduce_tensors(grads)
+        if on_grads is not None:
+            on_grads(grads)
         optimizer.step(grads)
-        return {"loss": torch.stack(losses).mean(),
-                **{k: torch.stack([a[k] for a in auxs]).mean()
-                   for k in auxs[0]}}
+        metrics = {"loss": torch.stack(losses).mean(),
+                   **{k: torch.stack([a[k] for a in auxs]).mean()
+                      for k in auxs[0]}}
+        return distributed.global_metrics(metrics)
 
     return step

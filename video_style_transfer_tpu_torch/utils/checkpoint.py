@@ -77,11 +77,23 @@ def save_checkpoint(ckpt_dir: str, state: dict, step: int, *,
     return path
 
 
-def save_checkpoint_main_process(ckpt_dir: str, state: dict, step: int, *,
+def save_checkpoint_main_process(ckpt_dir: str, state, step: int, *,
                                  total_limit: Optional[int] = None) -> str:
-    """save_checkpoint for the writing process; with one process, that
-    process (multi-process runs are not ported)."""
-    return save_checkpoint(ckpt_dir, state, step, total_limit=total_limit)
+    """save_checkpoint on process 0 alone, then every process meets at a
+    barrier ('checkpoint-saved'), so none runs ahead into the next step's
+    collectives while process 0 writes, and a checkpoint is whole on
+    disk before any process can resume from it. `state`: the dict, or a
+    callable that builds it (called on process 0 only: the other
+    processes make no CPU copies). Returns the checkpoint's path on
+    every process. Every process resumes from that path, so a
+    multi-host run needs an output directory all hosts share."""
+    from video_style_transfer_tpu_torch.parallel import distributed
+    path = os.path.abspath(os.path.join(ckpt_dir, f"checkpoint-{step}"))
+    if distributed.is_main_process():
+        path = save_checkpoint(ckpt_dir, state() if callable(state)
+                               else state, step, total_limit=total_limit)
+    distributed.barrier("checkpoint-saved")
+    return path
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -117,11 +117,17 @@ def lora_merge_log(params, branch: str) -> Dict[str, float]:
 
 
 class MetricsLogger:
-    """JSONL scalar sink plus optional tensorboard and wandb."""
+    """JSONL scalar sink plus optional tensorboard and wandb. enabled
+    None (the default): on process 0 only, as the reference gates its
+    trackers on the main process; every other process writes nothing."""
 
     def __init__(self, log_dir: str, *, use_tensorboard: bool = False,
                  use_wandb: bool = False, project: str = "vst-torch",
-                 enabled: bool = True):
+                 enabled: Optional[bool] = None):
+        if enabled is None:
+            from video_style_transfer_tpu_torch.parallel.distributed import (
+                is_main_process)
+            enabled = is_main_process()
         self.enabled = enabled
         self.path = None
         self._f = self._tb = self._wandb = None
