@@ -115,15 +115,35 @@
      one-process runs of the same configurations, the ranks' tensors and
      masks equal; each rank's launches exact by kernel and route, and the
      bytes its all-to-alls sent equal to the exchange computed from the
-     shapes. Its times are two ranks time-sharing one card.
+     shapes; then ``cli.infer --tp 2`` (the image path's settings, each
+     rank on its heads and feed-forward columns): an fp32 twin of one
+     CFG-pair UNet call (mode both, the cross-attention LoRA branches
+     live) within 1e-4 of one process's normwise, the bf16 run's image
+     and latents against the image path's (readings), K1 and K2
+     launches a rank equal one process's by route, and the bytes of the
+     model-axis reductions equal to those computed from the shapes
+     (1,258,291,200 a bf16 UNet call). Its times are two ranks
+     time-sharing one card;
+   - the native clip preprocessing (before stage 2, whose in-memory
+     clips go through it): a seeded (16, 1080, 1920, 3) BGR clip to
+     1024^2 against the plain numpy version (the resize within one
+     level, the output within 0.01), both timed, the cv2 chain beside;
+   - LPIPS with seeded VGG16 weights read back from a safetensors file,
+     card against CPU at one 256^2 pair, then ``cli.compare_outputs``'
+     measures on the serving path's 16 mode-both frames against its
+     content frames, timed; then ``cli.verify_parity --config_preset
+     tiny`` on the synthetic checkpoint: a CPU run's images are the
+     reference outputs of a card run through all four stages, which must
+     exit 0.
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma route's d <= 256 kernel, every bf16 VAE
    attention on its wide kernel, every fp32 VAE attention on the FMA
    one; K4's: every backward of the trainer on the wgmma route, each with
    one delta launch; and K2's: every bf16 feed-forward on its wgmma
    route, every fp32 one on its 3xTF32 route.
-5. Prints a JSON line of the stage-2 precision, 8-bit AdamW, stage-1 and
-   bf16 decode readings, then one JSON line with every kernel's numbers
+5. Prints a JSON line of the stage-2 precision, 8-bit AdamW, stage-1,
+   multi-process, native preprocessing, LPIPS, runbook and bf16 decode
+   readings, then one JSON line with every kernel's numbers
    (K1 as its five kernels, the FMA route's d = 448 instance standing for
    the JAX package's unpacked kernel, K4 as its two routes, K4's delta as a
    kernel of its own, K2 as its two routes, with the wgmma kernels', the
@@ -550,7 +570,12 @@ def kernel_phases():
             ("fp2_unet_l1 (16,4096,10x64)", (16, 4096, 10, 64),
              torch.bfloat16, 10),
             ("fp2_unet_l2 (16,1024,20x64)", (16, 1024, 20, 64),
-             torch.bfloat16, 20)):
+             torch.bfloat16, 20),
+            # a rank's heads of the image path under --tp 2
+            ("tp2_image_l1 (2,4096,5x64)", (2, 4096, 5, 64),
+             torch.bfloat16, 50),
+            ("tp2_image_l2 (2,1024,10x64)", (2, 1024, 10, 64),
+             torch.bfloat16, 100)):
         qkv = randn(b, s, 3 * h * d, dtype=dt)
         q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -615,7 +640,7 @@ def kernel_phases():
     # closely than either with the exact value; its distance from the
     # fp32 plain version is reported beside.
     phases["geglu_projection_tf32x3"] = []
-    for tag, (m, c), dt, iters in (
+    for tag, shape, dt, iters in (
             ("spatial_l2 (32768,1280->5120)", (32768, 1280),
              torch.bfloat16, 10),
             ("l1 (131072,640->2560)", (131072, 640), torch.bfloat16, 5),
@@ -639,8 +664,14 @@ def kernel_phases():
              torch.bfloat16, 20),
             ("fp2_l1 (65536,640->2560)", (65536, 640), torch.bfloat16, 10),
             ("fp2_motion_l0 (262144,320->1280)", (262144, 320),
-             torch.bfloat16, 10)):
-        inner = 4 * c
+             torch.bfloat16, 10),
+            # a rank's feed-forward columns of the image path under --tp 2
+            ("tp2_image_l1 (8192,640->1280)", (8192, 640, 1280),
+             torch.bfloat16, 50),
+            ("tp2_image_l2 (2048,1280->2560)", (2048, 1280, 2560),
+             torch.bfloat16, 50)):
+        m, c, *rest = shape
+        inner = rest[0] if rest else 4 * c
         x = randn(m, c, dtype=dt)
         w = randn(2 * inner, c, dtype=dt, scale=c ** -0.5)
         bias = randn(2 * inner, dtype=dt, scale=0.1)
@@ -1253,9 +1284,11 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
 
 class ArrayClips:
     """A clip source with VideoClipDataset's interface over one video held
-    as uint8 frames (F, H, W, 3) in memory: every start of `num_frames`
-    consecutive frames, drawn by seed as VideoClipDataset draws them,
-    normalised as it does; a frame's id is (0, its index)."""
+    as raw BGR uint8 frames (F, H, W, 3) in memory, as cv2 decodes them:
+    every start of `num_frames` consecutive frames, drawn by seed as
+    VideoClipDataset draws them and preprocessed as its native path does
+    (data/native.py preprocess_frames_bgr: bilinear resize, BGR -> RGB,
+    [-1, 1]); a frame's id is (0, its index)."""
 
     def __init__(self, frames, num_frames):
         self.frames = frames
@@ -1267,12 +1300,14 @@ class ArrayClips:
 
     def sample_batch_meta(self, batch_size, seed):
         import numpy as np
-        from video_style_transfer_tpu_torch.data.video import _normalize
+        from video_style_transfer_tpu_torch.data import native
         idx = np.random.RandomState(seed).randint(0, len(self),
                                                   size=batch_size)
         f = self.num_frames
-        clips = [_normalize(self.frames[self.starts[i]:self.starts[i] + f])
-                 for i in idx]
+        h, w = self.frames.shape[1:3]
+        clips = [native.preprocess_frames_bgr(
+            self.frames[self.starts[i]:self.starts[i] + f], h, w)
+            for i in idx]
         ids = [[(0, self.starts[i] + j) for j in range(f)] for i in idx]
         return np.stack(clips), ids
 
@@ -2358,25 +2393,33 @@ def main_path(artifacts, motion_checkpoint):
     routes = check_routes("serving", counts, len(modes) * 70 * STEPS,
                           len(modes) * NUM_FRAMES)
     # mode both's first UNet output (after base's STEPS calls), latents
-    # and frames: the frame-parallel run's reference
+    # and frames: the frame-parallel run's reference; content's frames,
+    # the comparison tool's
     return routes, {"unet": unet_outs[STEPS],
                     "latents": report["both"]["latents"],
-                    "frames": outs["both"]}
+                    "frames": outs["both"], "content": outs["content"]}
+
+
+def image_argv(artifacts, device="cuda"):
+    """The image path's arguments: mode both with distinct content and
+    style prompts, 1024^2, CFG 5, IMAGE_STEPS DPM-Solver++ steps, seed
+    0."""
+    return ["--prompt", "a dog in watercolor style", "--prompt_content",
+            "a dog", "--prompt_style", "watercolor style", "--mode", "both",
+            "--unziplora_name_or_path", artifacts, "--resolution",
+            str(RESOLUTION), "--guidance_scale", "5", "--sampler", "dpm",
+            "--num_inference_steps", str(IMAGE_STEPS), "--seeds", "0",
+            "--device", device]
 
 
 def image_path(artifacts):
     """The image path at full SDXL width: mode both with distinct content
     and style prompts, so 10 of 12 projections per block fold and the
-    cross-attention k/v keep live LoRA branches, cached once."""
+    cross-attention k/v keep live LoRA branches, cached once. Returns
+    (launch counts by route, the image and its latents)."""
     from video_style_transfer_tpu_torch.cli import infer
 
-    args = infer.build_parser().parse_args([
-        "--prompt", "a dog in watercolor style", "--prompt_content",
-        "a dog", "--prompt_style", "watercolor style", "--mode", "both",
-        "--unziplora_name_or_path", artifacts, "--resolution",
-        str(RESOLUTION), "--guidance_scale", "5", "--sampler", "dpm",
-        "--num_inference_steps", str(IMAGE_STEPS), "--seeds", "0",
-        "--device", "cuda"])
+    args = infer.build_parser().parse_args(image_argv(artifacts))
     report = {}
     reset_counters()
     t0 = time.perf_counter()
@@ -2408,7 +2451,8 @@ def image_path(artifacts):
         fail("the image is constant")
     print(f"image: {img.shape} uint8, finite before the cast, mean "
           f"{float(img.mean()):.2f} std {float(img.std()):.2f}", flush=True)
-    return check_routes("image", counts, 70 * IMAGE_STEPS, 1)
+    return (check_routes("image", counts, 70 * IMAGE_STEPS, 1),
+            {"image": img, "latents": rep["latents"]})
 
 
 def vae_bf16_decode_path():
@@ -2476,6 +2520,209 @@ def vae_bf16_decode_path():
              f"from the fp32 decode (limits 3 / 16)")
     return {**routes, "decode_s_per_frame": {
         k: v / NUM_FRAMES for k, v in seconds.items()}}
+
+
+# the native clip preprocessing: a seeded 1080p BGR clip to 1024^2, native
+# against the plain numpy version (data/native.py), as the JAX package's
+# tests/test_native.py holds them: the resize within one level, the
+# output within 0.01
+NATIVE_CLIP = (16, 1080, 1920, 3)
+NATIVE_LIMITS = (1, 0.01)
+# LPIPS (models/lpips.py, cuDNN convolutions) with seeded full-VGG16
+# weights, card against CPU in fp32 at one 256^2 pair, within the JAX
+# package's LPIPS tolerance (rtol 1e-4, atol 1e-5)
+LPIPS_TOL = (1e-4, 1e-5)
+LPIPS_RES = 256
+# the parity runbook on the synthetic checkpoint: the card's images
+# against the CPU run's (the reference outputs), PSNR at least this
+RUNBOOK_PSNR_MIN = 40.0
+
+
+def native_phase():
+    """The native preprocessing library built from the checkout, held
+    against its plain version on a seeded 1080p clip and timed (best of
+    three; the plain version once); the cv2 chain's time beside."""
+    import numpy as np
+    from video_style_transfer_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        fail("the native preprocessing library is not available (the "
+             "compiler's log is above)")
+    build_s = time.perf_counter() - t0
+    clip = np.random.default_rng(41).integers(0, 256, NATIVE_CLIP,
+                                              dtype=np.uint8)
+    res = RESOLUTION
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = native.preprocess_frames_bgr(clip, res, res)
+        times.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    want = native.preprocess_frames_bgr_plain(clip, res, res)
+    plain_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    levels = int(np.abs(native.resize_bilinear(clip[0], res, res).astype(int)
+                        - native.resize_bilinear_plain(clip[0], res, res)
+                        .astype(int)).max())
+    cv2_s = None
+    try:
+        import cv2
+        t0 = time.perf_counter()
+        for f in clip:
+            cv2.resize(cv2.cvtColor(f, cv2.COLOR_BGR2RGB), (res, res),
+                       interpolation=cv2.INTER_LINEAR).astype(
+                np.float32) / 127.5 - 1.0
+        cv2_s = time.perf_counter() - t0
+    except ImportError:
+        pass
+    openmp = native.build_info["openmp"]
+    out = {"native_s": min(times), "plain_s": plain_s, "cv2_s": cv2_s,
+           "load_s": build_s, "max_abs_err": err, "resize_levels": levels,
+           "clip": list(NATIVE_CLIP), "to": res, "openmp": openmp,
+           "host_cores": os.cpu_count()}
+    print(f"native preprocessing ({NATIVE_CLIP} uint8 BGR -> {res}^2, "
+          f"{os.cpu_count()} host cores, "
+          f"{'OpenMP' if openmp else 'built without OpenMP, a thread a share of the frames'}"
+          f"; library built and loaded in "
+          f"{build_s:.2f} s): native {min(times):.3f} s (best of 3), plain "
+          f"numpy {plain_s:.3f} s, cv2 chain "
+          f"{'n/a' if cv2_s is None else f'{cv2_s:.3f} s'}; output "
+          f"{err:.3e} from the plain version (limit {NATIVE_LIMITS[1]}), "
+          f"the resize {levels} level(s) (limit {NATIVE_LIMITS[0]})",
+          flush=True)
+    if got.shape != (NATIVE_CLIP[0], res, res, 3) or \
+            not np.isfinite(got).all():
+        fail(f"native preprocessing gave {got.shape}")
+    if levels > NATIVE_LIMITS[0] or err > NATIVE_LIMITS[1]:
+        fail(f"native preprocessing {levels} levels / {err:.3e} from its "
+             f"plain version")
+    return out
+
+
+def lpips_state_dict(params):
+    """models/lpips.py params -> the torchvision + lpips names."""
+    from video_style_transfer_tpu_torch.models.lpips import (
+        VGG16_SLICE_CONV_IDX)
+    sd = {}
+    for convs, idxs, lin, s in zip(params["slices"], VGG16_SLICE_CONV_IDX,
+                                   params["lins"], range(5)):
+        for conv, i in zip(convs, idxs):
+            sd[f"features.{i}.weight"] = conv["weight"]
+            sd[f"features.{i}.bias"] = conv["bias"]
+        sd[f"lin{s}.model.1.weight"] = lin["weight"].reshape(
+            1, -1, 1, 1).contiguous()
+    return sd
+
+
+def lpips_phase(tmp, serving_ref):
+    """LPIPS with seeded full-VGG16 weights read back from a safetensors
+    file: card against CPU at one 256^2 pair (fp32, TF32 off), then
+    cli.compare_outputs' measures (PSNR, SSIM, per-frame LPIPS on the
+    card) on the serving path's 16 mode-both frames against its content
+    frames at 1024^2, timed. Returns (the weights file, readings)."""
+    import numpy as np
+    import torch
+    from video_style_transfer_tpu_torch.cli import compare_outputs
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.lpips import (
+        init_lpips, lpips_distance)
+    from video_style_transfer_tpu_torch.utils.safetensors_io import save_file
+
+    path = os.path.join(tmp, "lpips_seeded.safetensors")
+    save_file(lpips_state_dict(init_lpips(Init(5))), path)
+    cpu = compare_outputs.load_lpips_weights(path, "cpu")
+    card = compare_outputs.load_lpips_weights(path, "cuda")
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand((1, LPIPS_RES, LPIPS_RES, 3), generator=gen) * 2 - 1
+    y = (x + 0.2 * torch.randn(x.shape, generator=gen)).clamp(-1, 1)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = lpips_distance(cpu, x, y)
+        cpu_s = time.perf_counter() - t0
+        xc, yc = x.cuda(), y.cuda()
+        got = lpips_distance(card, xc, yc)
+        ms = time_ms(lambda: lpips_distance(card, xc, yc), 10)
+    d_cpu, d_card = float(want[0]), float(got[0])
+    err = abs(d_card - d_cpu)
+    rtol, atol = LPIPS_TOL
+    print(f"LPIPS (seeded VGG16 weights, {LPIPS_RES}^2 pair, fp32): card "
+          f"{d_card:.7f}, CPU {d_cpu:.7f}, {err:.3e} apart (limit {atol:g} "
+          f"+ {rtol:g}*|CPU|); card {ms:.3f} ms a pair, CPU "
+          f"{1e3 * cpu_s:.1f} ms", flush=True)
+    if not err <= atol + rtol * abs(d_cpu) or d_cpu <= 0:
+        fail(f"LPIPS on the card {d_card} against the CPU's {d_cpu}")
+    a, b = serving_ref["frames"], serving_ref["content"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals = compare_outputs.lpips_frames(card, a, b, torch.device("cuda"))
+    lpips_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    psnrs = [compare_outputs.psnr(f, g) for f, g in zip(a, b)]
+    ssims = [compare_outputs.ssim(f, g) for f, g in zip(a, b)]
+    host_s = time.perf_counter() - t0
+    print(f"compare_outputs, serving's {len(a)} mode-both frames against "
+          f"its content frames at {a.shape[1]}^2: LPIPS mean "
+          f"{float(np.mean(vals)):.4f} max {float(np.max(vals)):.4f} "
+          f"({lpips_s:.2f} s on the card, {1e3 * lpips_s / len(a):.1f} ms a "
+          f"frame), PSNR mean {float(np.mean(psnrs)):.2f} dB, SSIM mean "
+          f"{float(np.mean(ssims)):.4f} ({host_s:.2f} s on the host)",
+          flush=True)
+    if not np.isfinite(vals).all() or len(vals) != len(a):
+        fail(f"compare_outputs LPIPS gave {vals}")
+    return path, {"pair": {"card": d_card, "cpu": d_cpu, "abs_err": err,
+                           "card_ms": ms, "cpu_s": cpu_s},
+                  "compare": {"frames": len(a), "lpips_s": lpips_s,
+                              "psnr_ssim_s": host_s,
+                              "lpips_mean": float(np.mean(vals)),
+                              "psnr_mean": float(np.mean(psnrs)),
+                              "ssim_mean": float(np.mean(ssims))}}
+
+
+def runbook_phase(tmp, lpips_path):
+    """cli.verify_parity --config_preset tiny on the synthetic checkpoint:
+    its CPU run up to the generate stage gives the reference outputs, then
+    the card runs all four stages against them (the seeded LPIPS weights
+    and a PSNR gate) and must exit 0."""
+    from video_style_transfer_tpu_torch.cli import verify_parity
+
+    ckpt = verify_parity.make_synthetic_checkpoint(
+        os.path.join(tmp, "synthetic_ckpt"))
+    run = ["--pretrained_model_name_or_path", ckpt, "--config_preset",
+           "tiny", "--prompt", "a photo of a dog", "--num_inference_steps",
+           "2", "--resolution", "16", "--seeds", "0", "1"]
+    ref = os.path.join(tmp, "runbook_cpu")
+    t0 = time.perf_counter()
+    rc = verify_parity.main(run + [
+        "--device", "cpu", "--stop_after", "generate", "--output_dir", ref,
+        "--report", os.path.join(tmp, "runbook_cpu.json")])
+    cpu_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"the runbook's CPU run exited {rc}")
+    report_path = os.path.join(tmp, "runbook_card.json")
+    t0 = time.perf_counter()
+    rc = verify_parity.main(run + [
+        "--device", "cuda", "--reference_outputs", ref, "--lpips",
+        lpips_path, "--psnr_min", str(RUNBOOK_PSNR_MIN), "--output_dir",
+        os.path.join(tmp, "runbook_card"), "--report", report_path])
+    card_s = time.perf_counter() - t0
+    with open(report_path) as f:
+        report = json.load(f)
+    pairs = report["stages"].get("compare", {}).get("pairs", [])
+    print(f"runbook (verify_parity, tiny synthetic checkpoint): CPU run "
+          f"{cpu_s:.1f} s, card run {card_s:.1f} s through stages "
+          f"{list(report['stages'])}, exit {rc}; card against CPU: "
+          + ", ".join(f"{os.path.basename(p['ours'])} PSNR "
+                      f"{p.get('psnr_mean', 0):.2f} dB LPIPS max "
+                      f"{p.get('lpips_max', float('nan')):.2e}"
+                      for p in pairs), flush=True)
+    if rc != 0 or list(report["stages"]) != ["inventory", "load",
+                                             "generate", "compare"]:
+        fail(f"the runbook on the card exited {rc}: {report}")
+    return {"cpu_s": cpu_s, "card_s": card_s, "exit": rc,
+            "pairs": [{k: p[k] for k in ("psnr_mean", "ssim_mean",
+                                         "lpips_max", "psnr_gate",
+                                         "lpips_gate")} for p in pairs]}
 
 
 def ptxas_report(log, pattern):
@@ -3097,12 +3344,139 @@ def mp_stage1(cfg, rank):
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
+# the payload of one bf16 UNet call's model-axis reductions a rank under
+# --tp 2 at 1024^2 (a CFG pair): 3 reductions (attn1, attn2, ff) in each
+# of the 10 level-1 layers of 2 x 4096 x 640 and the 60 level-2 layers of
+# 2 x 1024 x 1280 (tp_reduced_bytes computes it from the config)
+TP_UNET_BYTES_BF16 = 1_258_291_200
+
+
+def tp_reduced_bytes(itemsize):
+    """The payload (numel x itemsize) of one SDXL UNet call's model-axis
+    reductions at RESOLUTION, a CFG pair: each spatial transformer layer
+    reduces three (2, tokens, C) partial sums."""
+    from video_style_transfer_tpu_torch.config import CROSS, UNetConfig
+    cfg = UNetConfig.sdxl()
+    n = len(cfg.block_out_channels)
+    total = 0
+    for lvl, c in enumerate(cfg.block_out_channels):
+        per = cfg.transformer_layers_per_block[lvl]
+        layers = ((cfg.layers_per_block if cfg.down_block_types[lvl] == CROSS
+                   else 0)
+                  + (cfg.layers_per_block + 1
+                     if cfg.up_block_types[n - 1 - lvl] == CROSS else 0)
+                  + (1 if lvl == n - 1 else 0)) * per
+        total += 3 * layers * 2 * (RESOLUTION // 8 >> lvl) ** 2 * c * itemsize
+    return total
+
+
+def tp_unet_call(artifacts, device, grid=None):
+    """One fp32 UNet call of the image path's CFG pair (mode both, the
+    cross-attention k/v LoRA branches live, the other projections folded,
+    seeded latents at t = 999): the weights built, LoRA-imported and
+    folded whole, then, with `grid`, cut to this rank's slices. Returns
+    the UNet output (fp32, CPU), K1/K2 launches by route and the bytes the
+    model-axis reductions carried."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import common, infer
+    from video_style_transfer_tpu_torch.lora.surgery import fold_unziplora
+    from video_style_transfer_tpu_torch.parallel import distributed, tensor
+    from video_style_transfer_tpu_torch.pipelines.image import draw_noise
+    from video_style_transfer_tpu_torch.pipelines.sampling import (
+        make_cfg_denoiser)
+
+    args = infer.build_parser().parse_args(image_argv(artifacts,
+                                                      str(device)))
+    res = RESOLUTION
+    with torch.inference_mode():
+        bundle = common.load_models(None, motion=False, dtype=torch.float32,
+                                    seed=0, device=device)
+        params, state = infer.load_lora(args, bundle.unet, device)
+        bundle.unet = None
+        params, _ = fold_unziplora(params, state, mode="both",
+                                   fold_cross_kv=False)
+        cond = common.make_conditioning(
+            bundle, args.prompt, args.prompt_content, args.prompt_style,
+            height=res, width=res)
+        uncond = common.negative_conditioning(bundle, args.negative_prompt,
+                                              height=res, width=res)
+        if grid is not None:
+            state = tensor.tp_shard_state(state, params, bundle.unet_cfg,
+                                          grid)
+            params = tensor.tp_shard(params, bundle.unet_cfg, grid)
+        latents = draw_noise((1, res // 8, res // 8, 4),
+                             common.seeded_generator(0)).to(device)
+        outs = []
+        reset_counters()
+        distributed.MODEL_REDUCED_BYTES = 0
+        eps_fn = make_cfg_denoiser(params, bundle.unet_cfg, uncond, cond,
+                                   cfg_scale=5.0, mode="both", state=state,
+                                   dtype=torch.float32)
+        with kept_unet_outputs(outs):
+            eps_fn(latents, torch.tensor(999.0, device=device))
+        torch.cuda.synchronize()
+        counts = counters()
+    label = "fp32 UNet call" + ("" if grid is None else
+                                f" (--tp 2 rank {grid.model_index})")
+    routes = check_routes(label, counts, 0, 0, tf32x3=70, geglu_tf32x3=70)
+    return {"unet": outs[0], "launches": routes,
+            "reduced_bytes": distributed.MODEL_REDUCED_BYTES}
+
+
+def mp_tp_unet(cfg, rank):
+    """The --tp 2 fp32 twin: tp_unet_call on this rank's slices."""
+    import torch
+    from video_style_transfer_tpu_torch.parallel import mesh
+    grid = mesh.create_mesh(data=1, model=MP_WORLD)
+    torch.cuda.reset_peak_memory_stats()
+    out = tp_unet_call(cfg["artifacts"], torch.device("cuda", 0), grid)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return out
+
+
+def mp_tp_image(cfg, rank):
+    """cli.infer.generate with --tp 2: the image path (bf16, mode both,
+    IMAGE_STEPS DPM-Solver++ steps) on this rank's heads and feed-forward
+    columns."""
+    import torch
+    from video_style_transfer_tpu_torch.cli import infer
+    from video_style_transfer_tpu_torch.parallel import distributed
+
+    args = infer.build_parser().parse_args(
+        image_argv(cfg["artifacts"], "cuda:0") + ["--tp", str(MP_WORLD)])
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    reset_counters()
+    distributed.MODEL_REDUCED_BYTES = 0
+    t0 = time.perf_counter()
+    outs = infer.generate(args, report)
+    total = time.perf_counter() - t0
+    counts = counters()
+    label = f"--tp 2 image (rank {rank})"
+    check_counts(label, counts,
+                 {**serving_launches(0, 0),
+                  "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
+                  "geglu_projection": 70 * IMAGE_STEPS})
+    routes = check_routes(label, counts, 70 * IMAGE_STEPS, 1)
+    (name, img), = outs.items()
+    rep = report["images"][name]
+    return {"s": total, "weight_init_s": report["weight_init_s"],
+            "text_encode_s": report["text_encode_s"],
+            "denoise_step_s": rep["denoise_step_s"],
+            "decode_s": rep["decode_s"], "image": img,
+            "latents": rep["latents"], "launches": routes,
+            "reduced_bytes": distributed.MODEL_REDUCED_BYTES,
+            "report_reduced_bytes": rep["model_reduced_bytes"],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
 def mp_child(config_path, rank):
     """One rank of the multi-process section: joins the gloo group (a
     file store under the section's directory) on cuda:0 and runs the
-    probe, frame-parallel serving, frame-parallel stage 2 and
-    data-parallel stage 1 in turn, writing its results for process 0 of
-    the script to check."""
+    probe, frame-parallel serving, frame-parallel stage 2, data-parallel
+    stage 1 and tensor-parallel image serving (bf16, and the fp32 UNet
+    call) in turn, writing its results for process 0 of the script to
+    check."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, HERE)
@@ -3119,7 +3493,9 @@ def mp_child(config_path, rank):
                      ("serving_fp32", lambda: mp_serving(cfg, rank, True)),
                      ("stage2", lambda: mp_stage2(cfg, rank)),
                      ("stage2_fp32", lambda: mp_stage2(cfg, rank, True)),
-                     ("stage1", lambda: mp_stage1(cfg, rank))):
+                     ("stage1", lambda: mp_stage1(cfg, rank)),
+                     ("tp_image", lambda: mp_tp_image(cfg, rank)),
+                     ("tp_unet_fp32", lambda: mp_tp_unet(cfg, rank))):
         dist.barrier()
         t0 = time.perf_counter()
         out[name] = fn()
@@ -3242,7 +3618,7 @@ def mp_exchange_bytes(itemsize, steps):
 
 
 def multi_process_section(tmp, artifacts, motion_checkpoint, serving_ref,
-                          scale):
+                          scale, image_ref, image_routes):
     """Two processes on the one card over gloo: the probe, then
     ``cli.infer_video`` with --frame_parallel 2, ``cli.train_animatediff``
     with --frame_parallel 2 and ``cli.train_unziplora`` with
@@ -3251,8 +3627,12 @@ def multi_process_section(tmp, artifacts, motion_checkpoint, serving_ref,
     fp32 runs made here after the ranks exit (the gates), bf16 serving
     against the serving phase's mode both (same seed; readings and the
     frames' levels), stage 1 against one process at batch 2 and its masks
-    against one process's selection from the ranks' summed gradients.
-    Returns the readings."""
+    against one process's selection from the ranks' summed gradients;
+    then ``cli.infer --tp 2``: its fp32 UNet call against one process's
+    (the gate), its bf16 image and latents against the image path's
+    (`image_ref`, readings), its K1 and K2 launches by route against the
+    image path's (`image_routes`) and its reductions' bytes against the
+    shapes'. Returns the readings."""
     import numpy as np
     import torch
     from video_style_transfer_tpu_torch.cli import infer_video
@@ -3517,9 +3897,102 @@ def multi_process_section(tmp, artifacts, motion_checkpoint, serving_ref,
             "peak_gib": [r["peak_gib"] for r in s1],
             "launches": [r["launches"] for r in s1]}
 
+    def compare_tp():
+        # the fp32 twin against one process's fp32 call made here, the
+        # gate; bf16 serving against the image path's run, readings; the
+        # launches by route and the reductions' bytes exact
+        t0 = time.perf_counter()
+        one = tp_unet_call(artifacts, torch.device("cuda"))
+        torch.cuda.empty_cache()
+        one_s = time.perf_counter() - t0
+        want_bytes = {"fp32": tp_reduced_bytes(4),
+                      "bf16": IMAGE_STEPS * tp_reduced_bytes(2)}
+        if tp_reduced_bytes(2) != TP_UNET_BYTES_BF16:
+            fail(f"the reductions of a bf16 UNet call come to "
+                 f"{tp_reduced_bytes(2)} bytes, not {TP_UNET_BYTES_BF16}")
+        keys = ("flash_attention_fwd", "flash_attention_fwd_wide",
+                "flash_attention_fwd_tf32x3", "flash_attention_fwd_fma",
+                "geglu_projection", "geglu_projection_tf32x3")
+        out = readings["tp"] = {"one_fp32_s": one_s}
+        unet_err = []
+        for rank, r in enumerate(ranks):
+            u, im = r["tp_unet_fp32"], r["tp_image"]
+            unet_err.append(normwise(u["unet"], one["unet"]))
+            for label, got, want in (
+                    ("fp32 UNet call", u["launches"], one["launches"]),
+                    ("bf16 image", im["launches"], image_routes)):
+                if any(got[k] != want[k] for k in keys):
+                    fail(f"--tp 2 {label} rank {rank}: K1/K2 launches "
+                         f"{ {k: got[k] for k in keys} }, one process's "
+                         f"{ {k: want[k] for k in keys} }")
+            for label, got, want in (
+                    ("fp32 UNet call", u["reduced_bytes"],
+                     want_bytes["fp32"]),
+                    ("bf16 image", im["reduced_bytes"], want_bytes["bf16"]),
+                    ("bf16 image (report)", im["report_reduced_bytes"],
+                     want_bytes["bf16"])):
+                if got != want:
+                    fail(f"--tp 2 {label} rank {rank}: the model-axis "
+                         f"reductions carried {got} bytes, expected {want}")
+        lat_err = [normwise(r["tp_image"]["latents"], image_ref["latents"])
+                   for r in ranks]
+        diffs = [np.abs(r["tp_image"]["image"].astype(np.int16)
+                        - image_ref["image"].astype(np.int16))
+                 for r in ranks]
+        same = all(np.array_equal(r["tp_image"]["image"],
+                                  ranks[0]["tp_image"]["image"])
+                   for r in ranks)
+        for rank, r in enumerate(ranks):
+            im = r["tp_image"]
+            print(f"  --tp 2 rank {rank}: fp32 UNet call (CFG pair, mode "
+                  f"both, live cross-attention LoRA) {unet_err[rank]:.3e} "
+                  f"from one process's normwise (limit "
+                  f"{MP_FP32_NORMWISE:g}), peak "
+                  f"{r['tp_unet_fp32']['peak_gib']:.2f} GiB; bf16 image "
+                  f"path: weight init {im['weight_init_s']:.3f} s, fold and "
+                  f"text encode {im['text_encode_s']:.3f} s, denoise steps "
+                  f"{', '.join(f'{t:.3f}' for t in im['denoise_step_s'])} s, "
+                  f"decode {im['decode_s']:.3f} s, total {im['s']:.3f} s, "
+                  f"peak {im['peak_gib']:.2f} GiB; latents {lat_err[rank]:.3e}"
+                  f" from the image path's normwise, image mean "
+                  f"{float(diffs[rank].mean()):.3f} p99 "
+                  f"{float(np.percentile(diffs[rank], 99)):.1f} max "
+                  f"{int(diffs[rank].max())} levels (readings); launches by "
+                  f"kernel {im['launches']}", flush=True)
+        print(f"  --tp 2: model-axis reductions a rank "
+              f"{want_bytes['bf16'] // IMAGE_STEPS} bytes a bf16 UNet call "
+              f"({IMAGE_STEPS} calls, {want_bytes['bf16']} as counted), "
+              f"{want_bytes['fp32']} an fp32 call, as counted; K1 and K2 "
+              f"launches a rank equal one process's by route; the ranks' "
+              f"images {'equal' if same else 'differ'}; one process's fp32 "
+              f"call {one_s:.1f} s", flush=True)
+        if not max(unet_err) <= MP_FP32_NORMWISE:
+            fail(f"--tp 2 fp32 UNet call {max(unet_err):.3e} from one "
+                 f"process's normwise (limit {MP_FP32_NORMWISE:g})")
+        for r in ranks:
+            img = r["tp_image"]["image"]
+            if img.shape != image_ref["image"].shape or float(img.std()) == 0:
+                fail(f"--tp 2 image {img.shape}, std {float(img.std())}")
+        out.update(
+            unet_fp32_normwise=max(unet_err),
+            latents_normwise=max(lat_err),
+            image_mean_levels=max(float(d.mean()) for d in diffs),
+            image_p99_levels=max(float(np.percentile(d, 99)) for d in diffs),
+            image_max_levels=max(int(d.max()) for d in diffs),
+            ranks_equal=same, reduced_bytes_per_bf16_call=TP_UNET_BYTES_BF16,
+            reduced_bytes_fp32_call=want_bytes["fp32"],
+            steps_s=[r["tp_image"]["denoise_step_s"] for r in ranks],
+            decode_s=[r["tp_image"]["decode_s"] for r in ranks],
+            peak_gib=[r["tp_image"]["peak_gib"] for r in ranks])
+        readings["tp_image"] = {"launches": [r["tp_image"]["launches"]
+                                             for r in ranks]}
+        readings["tp_unet_fp32"] = {"launches": [
+            r["tp_unet_fp32"]["launches"] for r in ranks]}
+
     # every comparison runs and prints; any that failed fails the run
     failed = []
-    for compare in (compare_serving, compare_stage2, compare_stage1):
+    for compare in (compare_serving, compare_stage2, compare_stage1,
+                    compare_tp):
         try:
             compare()
         except SystemExit:
@@ -3586,6 +4059,9 @@ def main():
     try:
         small_cli_reference(tmp)
         section("K7 and the small references")
+        # before stage 2, whose clips go through it
+        native = native_phase()
+        section("native preprocessing")
         # the trainer first: serving reads the checkpoint it writes
         stage2_counts, motion_checkpoint, adam8 = stage2_path(tmp)
         torch.cuda.empty_cache()
@@ -3612,14 +4088,20 @@ def main():
                    "stage2_fp32": precision_counts,
                    "stage1": stage1_counts}
         section("serving")
-        by_path["image"] = image_path(artifacts)
+        by_path["image"], image_ref = image_path(artifacts)
         torch.cuda.empty_cache()
         by_path["bf16_decode"] = vae_bf16_decode_path()
         section("image and bf16 decode")
+        lpips_path, aux = lpips_phase(tmp, serving_ref)
+        aux["runbook"] = runbook_phase(tmp, lpips_path)
+        aux["native"] = native
+        torch.cuda.empty_cache()
+        section("LPIPS, compare_outputs and the runbook")
         multi = multi_process_section(tmp, artifacts, motion_checkpoint,
-                                      serving_ref, stage1["D"]["scale"])
+                                      serving_ref, stage1["D"]["scale"],
+                                      image_ref, by_path["image"])
         for name in ("serving", "serving_fp32", "stage2", "stage2_fp32",
-                     "stage1"):
+                     "stage1", "tp_image", "tp_unet_fp32"):
             # both ranks' launches by kernel and route
             per_rank = multi[name].pop("launches")
             by_path[f"two_process_{name}"] = {
@@ -3726,6 +4208,7 @@ def main():
           f"{prev:.1f} after the imports", flush=True)
     print(json.dumps({"stage2_precision": precision, "adamw8bit": adam8,
                       "stage1": stage1, "multi_process": multi,
+                      "native_lpips_runbook": aux,
                       "bf16_decode_s_per_frame":
                           by_path["bf16_decode"]["decode_s_per_frame"]}),
           flush=True)

@@ -145,6 +145,18 @@ def test_grid_places_ranks_row_major():
     assert mesh.Grid(data=2, frame=1, rank=1).frame_shard(16) is None
 
 
+def test_grid_model_axis_is_fastest():
+    # --dp 2 --tp 2 over a frame axis of 2: rank 5 is data row 1, frame
+    # 0, model rank 1; the ranks of a model group share rows and frames
+    g = mesh.Grid(data=2, frame=2, rank=5, model=2)
+    assert (g.size, g.data_index, g.frame_index, g.model_index) == \
+        (8, 1, 0, 1)
+    twin = mesh.Grid(data=2, frame=2, rank=4, model=2)
+    assert g.positions(4, 6) == twin.positions(4, 6) == [
+        12, 13, 14, 18, 19, 20]
+    assert mesh.Grid(data=2, frame=1, rank=1).model_index == 0
+
+
 @pytest.mark.parametrize("data,frame,rank,want", [
     (1, 1, 0, None),
     (2, 1, 1, [6, 7, 8, 9, 10, 11]),

@@ -469,9 +469,8 @@ def test_video_cli_smoke_cpu_every_mode():
     (infer_video, "--frame_parallel", "2"),
     (infer_video, "--coordinator_address", "localhost:1234")])
 def test_cli_refuses_multi_gpu_flags(cli, flag, value):
-    # --tp waits for tensor parallelism; the data- and frame-parallel
-    # flags are ported and refuse a world that cannot hold them
-    match = {"--tp": "not ported yet", "--dp": "needs 2 processes",
+    # the multi-GPU flags refuse a world that cannot hold them
+    match = {"--tp": "needs 2 processes", "--dp": "needs 2 processes",
              "--frame_parallel": "needs 2 processes",
              "--num_processes": "need --coordinator_address",
              "--coordinator_address": "needs --num_processes"}[flag]

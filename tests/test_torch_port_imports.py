@@ -56,7 +56,8 @@ def test_port_files_exist():
                 "training/stage1.py", "training/prodigy.py",
                 "cli/train_unziplora.py", "cli/cone_diagnostics.py",
                 "parallel/__init__.py", "parallel/distributed.py",
-                "parallel/mesh.py"):
+                "parallel/mesh.py", "parallel/tensor.py", "data/native.py",
+                "models/lpips.py", "cli/compare_outputs.py"):
         assert f"video_style_transfer_tpu_torch/{mod}" in names
     assert len(names) > 30
 
@@ -122,6 +123,22 @@ def test_stage1_cli_flags_match_jax():
     assert got - {"--device"} == want
     assert {"--data_parallel", "--coordinator_address", "--num_processes",
             "--process_id"} <= want
+
+
+@pytest.mark.parametrize("name", ["compare_outputs", "verify_parity"])
+def test_runbook_cli_flags_match_jax(name):
+    """The parity runbook and the comparison tool take every flag of the
+    JAX package's, and --device besides."""
+    import importlib
+    jcli = importlib.import_module(f"video_style_transfer_tpu.cli.{name}")
+    tcli = importlib.import_module(
+        f"video_style_transfer_tpu_torch.cli.{name}")
+    if name == "compare_outputs":
+        # the JAX tool builds its parser inside main
+        want = {"--ours", "--reference", "--lpips", "--json_out"}
+    else:
+        want = _flags(jcli.build_parser())
+    assert _flags(tcli.build_parser()) - {"--device"} == want
 
 
 def test_stage1_cuda_device_without_cuda_raises(monkeypatch):

@@ -1,9 +1,10 @@
 """The port's video clip dataset (data/video.py) and latent-moment cache
 (cli/common.py LatentMomentCache) held against the JAX package's, on two
 tiny mp4s written here and the tiny VAE with weights carried across from
-JAX. The port decodes with cv2 only, so the JAX side runs with its native
-preprocessing switched off, and then the frames must be equal; one case
-holds the port against the JAX native path, within one level."""
+JAX. Both packages take the native fused preprocessing where its library
+builds, else the cv2 chain; the clips must be equal on either path: most
+cases switch the native library off in both packages, one holds the two
+native paths against each other."""
 import os
 from types import SimpleNamespace
 
@@ -20,6 +21,7 @@ from video_style_transfer_tpu.data import video as jvideo
 from video_style_transfer_tpu.models import vae as jvae
 from video_style_transfer_tpu_torch.cli import common as tcommon
 from video_style_transfer_tpu_torch.config import VAEConfig
+from video_style_transfer_tpu_torch.data import native as tnative
 from video_style_transfer_tpu_torch.data import video as tvideo
 from video_style_transfer_tpu_torch.utils import convert
 
@@ -36,8 +38,6 @@ def one_thread():
     yield
     torch.set_num_threads(n)
 
-
-LEVEL = 1.0 / 127.5
 
 
 @pytest.fixture(scope="module")
@@ -59,10 +59,12 @@ def video_dir(tmp_path_factory):
 
 @pytest.fixture
 def jax_cv2_only(monkeypatch):
-    """The JAX dataset on its cv2 decode path, the one the port has."""
-    monkeypatch.setattr(jnative, "_lib", None)
-    monkeypatch.setattr(jnative, "_lib_tried", True)
-    assert not jnative.native_available()
+    """Both datasets on their cv2 decode path (the native library
+    switched off in both packages)."""
+    for mod in (jnative, tnative):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_lib_tried", True)
+        assert not mod.native_available()
 
 
 def test_list_videos_matches_jax(video_dir):
@@ -111,14 +113,18 @@ def test_frame_ids_pad_tail_matches_jax(video_dir, jax_cv2_only):
 
 
 def test_clips_within_a_level_of_jax_native_path(video_dir):
+    """Both packages on their native path: the clips are equal (zero
+    levels apart; the port's copy of the source, built with the same
+    flags)."""
     if not jnative.native_available():
         pytest.skip("the JAX package's native preprocessing did not build")
     t = tvideo.VideoClipDataset(video_dir, num_frames=4, resolution=16)
     j = jvideo.VideoClipDataset(video_dir, num_frames=4, resolution=16)
+    assert t.preprocess == "native"
     tf, tids = t.sample_batch_meta(4, 5)
     jf, jids = j.sample_batch_meta(4, 5)
     assert tids == jids
-    assert np.abs(tf - jf).max() <= LEVEL * 1.0001
+    np.testing.assert_array_equal(tf, jf)
 
 
 @pytest.mark.parametrize("num_frames,resolution", [(1, 16), (5, 16),

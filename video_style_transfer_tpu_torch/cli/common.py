@@ -82,15 +82,6 @@ def seeded_generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed)
 
 
-def refuse_unported(args, table: dict):
-    """Raise for every flag of `table` ({flag: (the value that means
-    unused, what it waits for)}) that the caller set."""
-    for flag, (unused, why) in table.items():
-        if getattr(args, flag) != unused:
-            raise SystemExit(f"--{flag} is not ported yet (it waits for "
-                             f"{why})")
-
-
 def add_distributed_flags(p, what: str):
     """The coordinator flags of a multi-process run (the JAX CLIs'),
     torchrun's environment standing in for any left unset."""
@@ -106,15 +97,15 @@ def add_distributed_flags(p, what: str):
 
 
 def setup_distributed(args, *, data: Optional[int] = 1, frame: int = 1,
-                      what: str):
+                      model: int = 1, what: str):
     """Join the run's process group (parallel.distributed.init_distributed
     on the coordinator flags or torchrun's environment; a group that
     exists already is used as it is), pick this rank's device (bare
     ``cuda`` becomes ``cuda:LOCAL_RANK`` in a world of more than one;
-    args.device is rewritten to it), check that the data x frame grid
-    uses every process (data None: the processes `frame` leaves, as the
-    JAX trainers' --data_parallel 0), build it and meet at the first
-    barrier. Returns (device, grid)."""
+    args.device is rewritten to it), check that the data x frame x model
+    grid uses every process (data None: the processes `frame` and `model`
+    leave, as the JAX trainers' --data_parallel 0), build it and meet at
+    the first barrier. Returns (device, grid)."""
     from video_style_transfer_tpu_torch.parallel import distributed, mesh
 
     device = resolve_device(args.device)
@@ -131,21 +122,21 @@ def setup_distributed(args, *, data: Optional[int] = 1, frame: int = 1,
         torch.cuda.set_device(device)
     args.device = str(device)
     if data is None:
-        data = max(world // frame, 1)
-    if data * frame != world:
+        data = max(world // (frame * model), 1)
+    need = data * frame * model
+    if need != world:
         if world == 1:
-            raise SystemExit(f"{what} needs {data * frame} processes; this "
+            raise SystemExit(f"{what} needs {need} processes; this "
                              f"run has one (launch them with torchrun "
                              f"--nproc_per_node, or the coordinator flags)")
         raise SystemExit(f"multi-process runs must use every device: "
-                         f"{what} spans {data * frame} of {world} "
-                         f"processes")
-    grid = mesh.create_mesh(data=data, frame=frame)
+                         f"{what} spans {need} of {world} processes")
+    grid = mesh.create_mesh(data=data, frame=frame, model=model)
     # the first collective, before any rank goes its own way
     distributed.barrier("mesh_ready")
     if world > 1 and distributed.is_main_process():
-        print(f"{what}: {data} x {frame} (data x frame) grid of {world} "
-              f"processes", flush=True)
+        print(f"{what}: {data} x {frame} x {model} (data x frame x model) "
+              f"grid of {world} processes", flush=True)
     return device, grid
 
 

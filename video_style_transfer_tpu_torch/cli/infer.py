@@ -12,7 +12,11 @@ returns the images, ``main()`` also writes one png per image.
 --nproc_per_node N, or the coordinator flags on each): the (seed, draw)
 jobs go out N at a time, one to each process, the last short round
 padded with repeats of its last job; every process gets every image and
-process 0 writes them.
+process 0 writes them. --tp M splits each spatial transformer's attention
+heads and feed-forward columns over M processes (parallel/tensor.py):
+the weights are loaded and folded whole, then each process keeps its
+slices, and the M processes of a model group run the same job with the
+same noise. --dp N --tp M takes N x M processes.
 
     python -m video_style_transfer_tpu_torch.cli.infer \\
         --pretrained_model_name_or_path sdxl/ \\
@@ -27,13 +31,6 @@ import os
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
-
-# flag -> (value that means "unused", what it waits for)
-NOT_PORTED = {
-    "tp": (1, "tensor parallelism (parallel/tensor.py), the next slice "
-              "of the multi-GPU port"),
-}
-
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
@@ -86,7 +83,11 @@ def build_parser():
     p.add_argument("--seeds", type=int, nargs="+",
                    default=[0, 1000, 111, 1234])
     p.add_argument("--tp", type=int, default=1,
-                   help="not ported yet: tensor parallelism")
+                   help="tensor-parallel size: split the spatial "
+                        "transformers' heads and feed-forward columns over "
+                        "this many processes (at most the UNet's smallest "
+                        "head count, SDXL 10); --dp N --tp M takes N x M "
+                        "processes")
     p.add_argument("--dp", type=int, default=1,
                    help="sample-parallel serving: N processes, one a GPU, "
                         "each generating its own (seed, draw) jobs")
@@ -139,16 +140,21 @@ def _name(args, seed: int, i: int) -> str:
     return f"{args.mode}_seed{seed}" + (f"_{i}" if args.num > 1 else "")
 
 
-def generate(args, report=None):
+def generate(args, report=None, bundle=None):
     """Generate --num images per seed; returns {name: (H, W, 3) uint8
     numpy}, name = "{mode}_seed{seed}[_{i}]". When `report` is a dict it
     receives weight_init_s (models and LoRA import), text_encode_s (the
     LoRA fold and the prompt encodings), n_folded, per image
     denoise_step_s (a list; the first step includes the cross-attention
-    k/v precompute), decode_s and kernel_launches, and peak_memory_gib
-    (after the weights are in place) on CUDA. Under --dp every process
-    returns every image; the per-image report holds the images this
-    process generated (a padding repeat is generated and dropped)."""
+    k/v precompute), decode_s, kernel_launches and the latents before the
+    decode (fp32, on the CPU), and peak_memory_gib
+    (after the weights are in place) on CUDA; under --tp also per image
+    model_reduced_bytes, the payload of this process's model-axis
+    reductions. Under --dp every process returns every image; the
+    per-image report holds the images this process generated (a padding
+    repeat is generated and dropped). `bundle`: a common.ModelBundle
+    already loaded for these flags (the parity runbook's load stage), used
+    in place of loading one."""
     from video_style_transfer_tpu_torch.cli.infer_video import _Clock
     from video_style_transfer_tpu_torch.lora.surgery import fold_unziplora
     from video_style_transfer_tpu_torch.pipelines.image import (
@@ -156,19 +162,19 @@ def generate(args, report=None):
 
     if report is None:
         report = {}
-    from video_style_transfer_tpu_torch.parallel.distributed import (
-        gather_rows)
+    from video_style_transfer_tpu_torch.parallel import distributed, tensor
 
-    common.refuse_unported(args, NOT_PORTED)
     smoke = args.smoke
     if (args.mode != "base" and not smoke and not args.single_lora
             and not args.unziplora_name_or_path):
         raise SystemExit("--unziplora_name_or_path is required for LoRA "
                          "modes (use --mode base for plain SDXL)")
-    dp = max(args.dp, 1)
-    device, grid = common.setup_distributed(args, data=dp,
-                                            what=f"--dp {dp}")
+    dp, tp = max(args.dp, 1), max(args.tp, 1)
     tiny = smoke or args.config_preset == "tiny"
+    tensor.check_tp(tp, common.model_configs(tiny, False)[0])
+    device, grid = common.setup_distributed(
+        args, data=dp, model=tp,
+        what=f"--dp {dp}" + (f" x --tp {tp}" if tp > 1 else ""))
     dtype = torch.float32 if tiny else torch.bfloat16
     res = 16 if smoke else args.resolution
     height = res if smoke else (args.height or res)
@@ -178,12 +184,13 @@ def generate(args, report=None):
     outs = {}
     with torch.inference_mode():
         clock = _Clock(device)
-        bundle = common.load_models(
-            args.pretrained_model_name_or_path, smoke=smoke, motion=False,
-            dtype=dtype, seed=0, device=device,
-            vae_path=args.pretrained_vae_model_name_or_path,
-            configs=(common.tiny_checkpoint_configs()
-                     if args.config_preset == "tiny" else None))
+        if bundle is None:
+            bundle = common.load_models(
+                args.pretrained_model_name_or_path, smoke=smoke,
+                motion=False, dtype=dtype, seed=0, device=device,
+                vae_path=args.pretrained_vae_model_name_or_path,
+                configs=(common.tiny_checkpoint_configs()
+                         if args.config_preset == "tiny" else None))
         params, state = load_lora(args, bundle.unet, device)
         report["weight_init_s"] = clock.lap()
         if device.type == "cuda":
@@ -195,6 +202,11 @@ def generate(args, report=None):
             shared = args.prompt_content is None and args.prompt_style is None
             params, report["n_folded"] = fold_unziplora(
                 params, state, mode=args.mode, fold_cross_kv=shared)
+        if tp > 1:
+            # the folded weights, whole, cut to this process's slices
+            state = tensor.tp_shard_state(state, params, bundle.unet_cfg,
+                                          grid)
+            params = tensor.tp_shard(params, bundle.unet_cfg, grid)
         cond = common.make_conditioning(
             bundle, args.prompt, args.prompt_content, args.prompt_style,
             height=height, width=width, prompt_2=args.prompt_2,
@@ -218,6 +230,7 @@ def generate(args, report=None):
             gen = common.seeded_generator(seed + 0x9E3779B1 * i)
             steps_s = []
             before = common.kernel_launch_counts()
+            reduced = distributed.MODEL_REDUCED_BYTES
             latents = generate_latents(
                 params, bundle.unet_cfg, uncond, cond, height=height,
                 width=width, batch=1, num_steps=steps,
@@ -233,9 +246,13 @@ def generate(args, report=None):
             if grid.data_index < len(chunk):
                 report["images"][_name(args, seed, i)] = {
                     "denoise_step_s": steps_s, "decode_s": decode_s,
-                    "kernel_launches": common.launches_since(before)}
+                    "kernel_launches": common.launches_since(before),
+                    "latents": latents.float().cpu(),
+                    "model_reduced_bytes":
+                        distributed.MODEL_REDUCED_BYTES - reduced}
             if dp > 1:
-                img = gather_rows(img, [1] * dp, grid.data_group)
+                img = distributed.gather_rows(img, [1] * dp,
+                                              grid.data_group)
             for (s_, i_), im in zip(chunk, img):
                 outs[_name(args, s_, i_)] = im.cpu().numpy()
         if device.type == "cuda":
@@ -248,13 +265,16 @@ def generate(args, report=None):
     return outs
 
 
-def main(argv=None):
+def main(argv=None, bundle=None):
+    """Generate and write the images (process 0); returns the paths
+    written. `bundle`: see generate."""
     from video_style_transfer_tpu_torch.data.video_io import save_image
 
     from video_style_transfer_tpu_torch.parallel import distributed
 
     args = build_parser().parse_args(argv)
-    outs = generate(args)
+    outs = generate(args) if bundle is None else generate(args,
+                                                          bundle=bundle)
     if not distributed.is_main_process():
         return []
     os.makedirs(args.output_dir, exist_ok=True)

@@ -191,14 +191,20 @@ def open_dataset(args, frames: int, res: int):
     if not root:
         return None
     from video_style_transfer_tpu_torch.data.video import VideoClipDataset
+    from video_style_transfer_tpu_torch.parallel import distributed
     try:
-        return VideoClipDataset(root, num_frames=frames, resolution=res)
+        ds = VideoClipDataset(root, num_frames=frames, resolution=res)
     except OSError:
         if not args.smoke:
             raise
         print(f"smoke: no readable videos under {root}; using synthetic "
               f"clips", flush=True)
         return None
+    if distributed.is_main_process():
+        print(f"clips: {len(ds)} starts of {frames} frames in "
+              f"{len(ds.videos)} videos under {root}, preprocessing "
+              f"{ds.preprocess}", flush=True)
+    return ds
 
 
 def prepare(args, dataset=None):

@@ -1,10 +1,14 @@
 """Video clips for stage 2, frame extraction and image directories for
-stage 1 (the JAX package's data/video.py, its cv2 decode path).
+stage 1 (the JAX package's data/video.py).
 
 - VideoClipDataset: the .mp4s under a directory (and one level of
   subdirectories), one index entry per clip start; a clip is that many
-  CONSECUTIVE frames, BGR -> RGB, resized square (INTER_LINEAR),
-  normalised to [-1, 1], a short read padded by repeating its last frame.
+  CONSECUTIVE frames, BGR -> RGB, resized square (bilinear), normalised
+  to [-1, 1], a short read padded by repeating its last frame. As in the
+  JAX package, the raw BGR frames go through the native fused
+  preprocessing (data/native.py) where its library builds, else through
+  the cv2 chain (cv2.cvtColor, cv2.resize INTER_LINEAR); the dataset's
+  ``preprocess`` names the one it takes.
 - extract_frames: N evenly spaced frames of one video (its middle frame
   when N == 1), resized with INTER_AREA; extract_first_frames: its first
   N consecutive frames;
@@ -22,6 +26,8 @@ import os
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from video_style_transfer_tpu_torch.data import native
 
 
 def _require_cv2():
@@ -47,9 +53,9 @@ def list_videos(root: str) -> List[str]:
     return out
 
 
-def _read_frames(cap, start: int, count: int, resolution: int):
-    """Up to `count` consecutive frames from `start`, RGB, resized to
-    resolution² with INTER_LINEAR; fewer where the video ends."""
+def _read_raw_frames(cap, start: int, count: int):
+    """Up to `count` consecutive frames from `start`, as decoded (BGR,
+    full size); fewer where the video ends."""
     cv2 = _require_cv2()
     cap.set(cv2.CAP_PROP_POS_FRAMES, start)
     frames = []
@@ -57,10 +63,18 @@ def _read_frames(cap, start: int, count: int, resolution: int):
         ok, frame = cap.read()
         if not ok:
             break
-        frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
-        frames.append(cv2.resize(frame, (resolution, resolution),
-                                 interpolation=cv2.INTER_LINEAR))
+        frames.append(frame)
     return frames
+
+
+def _read_frames(cap, start: int, count: int, resolution: int):
+    """Up to `count` consecutive frames from `start`, RGB, resized to
+    resolution² with INTER_LINEAR; fewer where the video ends."""
+    cv2 = _require_cv2()
+    return [cv2.resize(cv2.cvtColor(f, cv2.COLOR_BGR2RGB),
+                       (resolution, resolution),
+                       interpolation=cv2.INTER_LINEAR)
+            for f in _read_raw_frames(cap, start, count)]
 
 
 def _pad_repeat(frames: List[np.ndarray], count: int) -> List[np.ndarray]:
@@ -76,13 +90,15 @@ def _normalize(frames: Sequence[np.ndarray]) -> np.ndarray:
 
 class VideoClipDataset:
     """Index of (video, start frame) pairs with random-access clip
-    loading: ``ds[i]`` is a (F, H, W, 3) float32 clip in [-1, 1]."""
+    loading: ``ds[i]`` is a (F, H, W, 3) float32 clip in [-1, 1].
+    ``preprocess``: "native" or "cv2", chosen once, at construction."""
 
     def __init__(self, root: str, *, num_frames: int = 8,
                  resolution: int = 1024, stride: int = 1):
         cv2 = _require_cv2()
         self.num_frames = num_frames
         self.resolution = resolution
+        self.preprocess = "native" if native.native_available() else "cv2"
         self.videos = list_videos(root)
         if not self.videos:
             raise FileNotFoundError(f"no .mp4 under {root}")
@@ -106,14 +122,21 @@ class VideoClipDataset:
         path, start = self.index[i]
         cap = cv2.VideoCapture(path)
         try:
-            frames = _read_frames(cap, start, self.num_frames,
-                                  self.resolution)
+            if self.preprocess == "native":
+                frames = _read_raw_frames(cap, start, self.num_frames)
+            else:
+                frames = _read_frames(cap, start, self.num_frames,
+                                      self.resolution)
         finally:
             cap.release()
         if not frames:
             raise IOError(f"failed to read frames from {path}@{start}")
         n_read = len(frames)
-        return _normalize(_pad_repeat(frames, self.num_frames)), n_read
+        frames = _pad_repeat(frames, self.num_frames)
+        if self.preprocess == "native":
+            return native.preprocess_frames_bgr(
+                np.stack(frames), self.resolution, self.resolution), n_read
+        return _normalize(frames), n_read
 
     def __getitem__(self, i: int) -> np.ndarray:
         return self._load(i)[0]

@@ -11,6 +11,12 @@ projects q, k and v separately. Threading of the three streams:
 - cross-attention k/v: the (combined, content, style) prompt embeddings
   (content/style default to the combined one);
 - cross-attention may take precomputed prompt k/v instead.
+
+Under tensor parallelism (parallel/tensor.py) an attention or
+feed-forward sliced for this rank carries a ``ModelShard`` under
+``"tp"``: the attention runs at the rank's head count, and ``to_out``
+and ``ff.out`` add their partial products (LoRA branches included) over
+the model group before their bias.
 """
 from __future__ import annotations
 
@@ -20,11 +26,13 @@ import torch
 import torch.nn.functional as F
 
 from video_style_transfer_tpu_torch.lora.temporal import apply_temporal_lora
-from video_style_transfer_tpu_torch.lora.unzip import dual_linear
+from video_style_transfer_tpu_torch.lora.unzip import (
+    apply_unzip_lora, dual_linear)
 from video_style_transfer_tpu_torch.models import layers
 from video_style_transfer_tpu_torch.ops.attention import (
     merge_heads, sdpa, sdpa_fused_qkv, split_heads)
 from video_style_transfer_tpu_torch.ops.geglu import geglu_projection
+from video_style_transfer_tpu_torch.parallel.tensor import reduce_partial
 
 _QKV = ("to_q", "to_k", "to_v")
 
@@ -65,6 +73,27 @@ def _proj(p, st, name, x, x_c, x_s, mode):
     return y
 
 
+def _row_parallel(pp, st, x, mode, shard):
+    """A row-parallel projection of a model shard: this rank's partial
+    product and its LoRA branches' partials, summed over the model group,
+    then the bias."""
+    y = F.linear(x, pp["weight"].to(x.dtype))
+    if mode != "base" and "lora" in pp:
+        y = y + apply_unzip_lora(pp["lora"], x, x, mode=mode, state=st)
+    if "tlora" in pp:
+        y = y + apply_temporal_lora(pp["tlora"], x)
+    y = reduce_partial(y, shard)
+    return y if "bias" not in pp else y + pp["bias"].to(y.dtype)
+
+
+def _out(p, st, o, mode):
+    shard = p.get("tp")
+    if shard is None:
+        return _proj(p, st, "to_out", o, o, o, mode)
+    return _row_parallel(p["to_out"], None if st is None else
+                         st.get("to_out"), o, mode, shard)
+
+
 def _plain(pp) -> bool:
     return "lora" not in pp and "tlora" not in pp
 
@@ -74,7 +103,10 @@ def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None,
     """x: (N, S, C). ctx: None for self-attention, or a (combined,
     content, style) tuple of encoder states. kv: optional precomputed
     (k, v), each (Bk, Sk, inner); Bk may divide N by a frame-replication
-    factor. state: this attention's UnZipLoRA state ({proj: entry})."""
+    factor. state: this attention's UnZipLoRA state ({proj: entry}).
+    heads: the config's head count; a model shard runs its own."""
+    if "tp" in p:
+        heads = p["tp"].heads
     if kv is not None:
         q = _proj(p, state, "to_q", x, x, x, mode)
         k, v = kv
@@ -86,10 +118,10 @@ def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None,
         o = merge_heads(sdpa(split_heads(q, heads),
                              split_heads(k.to(q.dtype), heads),
                              split_heads(v.to(q.dtype), heads)))
-        return _proj(p, state, "to_out", o, o, o, mode)
+        return _out(p, state, o, mode)
     if ctx is None and all(_plain(p[n]) for n in _QKV):
         o = sdpa_fused_qkv(fused_qkv_projection(p, x), heads)
-        return _proj(p, state, "to_out", o, o, o, mode)
+        return _out(p, state, o, mode)
     q = _proj(p, state, "to_q", x, x, x, mode)
     if ctx is None:
         c = c_c = c_s = x
@@ -101,7 +133,7 @@ def attention(p, x, ctx=None, *, heads: int, kv: Optional[Tuple] = None,
     v = _proj(p, state, "to_v", c, c_c, c_s, mode)
     o = merge_heads(sdpa(split_heads(q, heads), split_heads(k, heads),
                          split_heads(v, heads)))
-    return _proj(p, state, "to_out", o, o, o, mode)
+    return _out(p, state, o, mode)
 
 
 def cross_attention_kv(p, ctx: Tuple, *, mode: str = "base", state=None):
@@ -127,4 +159,6 @@ def init_feed_forward(ini, dim: int, *, mult: int = 4):
 def feed_forward(p, x):
     h = geglu_projection(x, p["proj"]["weight"].to(x.dtype),
                          p["proj"]["bias"].to(x.dtype))
+    if "tp" in p:
+        return _row_parallel(p["out"], None, h, "base", p["tp"])
     return layers.linear(p["out"], h)

@@ -21,7 +21,8 @@ explicit collectives where the math crosses ranks.
   ``torch.distributed.nn.functional`` has both, but warns that it is
   deprecated; these are the few lines the port needs.
   ``EXCHANGED_BYTES`` counts the bytes this process's all-to-alls sent
-  to other ranks (forward and backward).
+  to other ranks (forward and backward), ``MODEL_REDUCED_BYTES`` the
+  payload of its tensor-parallel reductions.
 - ``gather_rows`` collects row shards of unequal counts without
   autograd (decoded frames, served images); ``all_reduce_tensors`` sums
   a trainer's gradients in place, bucketed by dtype, and
@@ -150,6 +151,10 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 # bytes sent to other ranks by all_to_all in this process (the chunk a
 # rank keeps for itself is not counted)
 EXCHANGED_BYTES = 0
+# the payload (numel x element size) of this process's model-axis
+# reductions: the partial products of the row-parallel projections
+# (parallel/tensor.py reduce_partial)
+MODEL_REDUCED_BYTES = 0
 
 
 class _AllToAll(torch.autograd.Function):

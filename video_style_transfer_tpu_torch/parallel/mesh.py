@@ -1,11 +1,14 @@
-"""The (data, frame) grid of ranks and the global-batch helpers.
+"""The (data, frame, model) grid of ranks and the global-batch helpers.
 
-The JAX package's ``create_mesh`` builds a ('data', 'frame') device mesh
-and GSPMD places the collectives; here the same grid is a layout of
-processes, row-major: rank = data_index * frame + frame_index. Batch
-rows (clips, images) split over 'data'; the frames of a clip split
-over 'frame', contiguously, each rank holding both CFG rows of its
-frames when serving. Parameters are replicated.
+The JAX package's ``create_mesh`` builds a ('data', 'frame'[, 'model'])
+device mesh and GSPMD places the collectives; here the same grid is a
+layout of processes, row-major with 'model' fastest: rank = (data_index
+* frame + frame_index) * model + model_index. Batch rows (clips, images)
+split over 'data'; the frames of a clip split over 'frame',
+contiguously, each rank holding both CFG rows of its frames when
+serving; the ranks of a model group hold slices of the spatial
+transformers' weights (parallel/tensor.py) and run the same rows.
+Parameters are otherwise replicated.
 
 Rows are global: every rank builds the whole host batch from the step
 seed (clips, noise, timesteps, CFG dropout, latent draws) and keeps its
@@ -80,27 +83,33 @@ class FrameShard:
 
 @dataclass(frozen=True)
 class Grid:
-    """This rank's place in a (data, frame) grid of `data * frame`
-    ranks. frame_group: the ranks of this rank's data row (None when
-    frame == 1); data_group: the ranks of its frame column (None when
-    data == 1)."""
+    """This rank's place in a (data, frame, model) grid of `data * frame
+    * model` ranks. Each group holds the ranks that differ from this one
+    only in that axis: frame_group (None when frame == 1), data_group
+    (None when data == 1), model_group (None when model == 1)."""
     data: int
     frame: int
     rank: int
     frame_group: Optional[object] = None
     data_group: Optional[object] = None
+    model: int = 1
+    model_group: Optional[object] = None
 
     @property
     def size(self) -> int:
-        return self.data * self.frame
+        return self.data * self.frame * self.model
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.frame
+        return self.rank // (self.frame * self.model)
 
     @property
     def frame_index(self) -> int:
-        return self.rank % self.frame
+        return self.rank // self.model % self.frame
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     def frame_shard(self, frames: int) -> Optional[FrameShard]:
         """How `frames` frames split over this rank's frame group (None
@@ -139,37 +148,48 @@ class Grid:
 
 
 def create_mesh(*, data: Optional[int] = None,
-                frame: Optional[int] = None) -> Grid:
-    """The (data, frame) grid over every rank of the world. With one of
-    data / frame given the other takes the remaining ranks; with neither,
-    every rank is on 'frame' (the video-serving layout). Every rank must
-    call it, in the same order as its other group creations: it makes
-    the groups of every row and column."""
+                frame: Optional[int] = None, model: int = 1) -> Grid:
+    """The (data, frame, model) grid over every rank of the world. With
+    one of data / frame given the other takes the ranks `model` leaves;
+    with neither, they all go on 'frame' (the video-serving layout).
+    Every rank must call it, in the same order as its other group
+    creations: it makes the groups of every axis."""
     n = distributed.world_size()
+    rest = max(n // model, 1)
     if data is None and frame is None:
-        data, frame = 1, n
+        data, frame = 1, rest
     elif data is None:
-        data = max(n // frame, 1)
+        data = max(rest // frame, 1)
     elif frame is None:
-        frame = max(n // data, 1)
-    if data * frame != n:
-        raise ValueError(f"a {data} x {frame} grid needs {data * frame} "
-                         f"processes; the world has {n}")
+        frame = max(rest // data, 1)
+    if data * frame * model != n:
+        raise ValueError(f"a {data} x {frame} x {model} grid needs "
+                         f"{data * frame * model} processes; the world has "
+                         f"{n}")
     r = distributed.rank()
-    frame_group = data_group = None
+    sizes = (data, frame, model)
+
+    def coords(rank):
+        g = Grid(data, frame, rank, model=model)
+        return g.data_index, g.frame_index, g.model_index
+
+    groups = [None, None, None]
     if n > 1:
-        # new_group is collective: every rank makes every group
-        for d in range(data):
-            ranks = list(range(d * frame, (d + 1) * frame))
-            g = (dist.new_group(ranks) if frame < n
-                 else dist.group.WORLD) if frame > 1 else None
-            if d == r // frame:
-                frame_group = g
-        for f in range(frame):
-            ranks = list(range(f, n, frame))
-            g = (dist.new_group(ranks) if data < n
-                 else dist.group.WORLD) if data > 1 else None
-            if f == r % frame:
-                data_group = g
-    return Grid(data, frame, r, frame_group, data_group)
+        # new_group is collective: every rank makes every group, in one
+        # order (axis by axis, each group's lowest rank ascending)
+        for axis in range(3):
+            if sizes[axis] == 1:
+                continue
+            lines = {}
+            for q in range(n):
+                c = coords(q)
+                lines.setdefault(c[:axis] + c[axis + 1:], []).append(q)
+            mine = coords(r)
+            for key, ranks in lines.items():
+                g = (dist.group.WORLD if len(ranks) == n
+                     else dist.new_group(ranks))
+                if key == mine[:axis] + mine[axis + 1:]:
+                    groups[axis] = g
+    return Grid(data, frame, r, frame_group=groups[1],
+                data_group=groups[0], model=model, model_group=groups[2])
 
