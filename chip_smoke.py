@@ -40,13 +40,19 @@
    2's three levels, level 0 in fp32 at 8 and at 2 frames (the
    stage2_fp32 path), and 32-frame clips at the widest head each dtype's
    K3 takes (taken in column chunks), against SDPA's backward; the build
-   report fails if a K3 or K5 kernel spills. K4 has two routes
-   (`bwd_route`): bf16 on wgmma + TMA, fp32 on
-   mma.sync at 3xTF32; its phases (the train step's two levels and a
-   ragged length, each in bf16 and fp32) also print the bound at the
-   two-kernel design's 14 flops, and its delta kernel is held to the torch
-   formula and timed beside torch.linalg.vecdot, one PyTorch call of the
-   same function.
+   report fails if a K3 or K5 kernel spills. K4 has four routes
+   (`bwd_route`): at d = 64 bf16 on wgmma + TMA, fp32 on mma.sync at
+   3xTF32; at d = 128-512 the sliced kernels (`bwd_plan`: D split across
+   blocks in bf16 on wgmma + TMA, across a block's warps in fp32 at
+   3xTF32);
+   its d = 64 phases (the train step's two levels and a ragged length,
+   each in bf16 and fp32) also print the bound at the two-kernel design's
+   14 flops, its sliced phases (`sliced_phases`: the VAE's head at 16384
+   and 4096 tokens and every other head dim, bf16 and fp32) the bound at
+   the design's own count, SDPA's backward with its backend named, and
+   two runs held bitwise equal; its delta kernel is held to the torch
+   formula at every shape and timed beside torch.linalg.vecdot, one
+   PyTorch call of the same function.
 3. Holds the tiny pipeline, a tiny stage-2 training step, and the image
    and video CLIs on a synthetic checkpoint directory with LoRA and
    motion artifacts read from files, on the card against the same on the
@@ -94,6 +100,12 @@
      (``pipelines.video.decode_video`` on 16 seeded 128^2 latent frames,
      the full-width SDXL decoder with seeded weights), held within mean
      3 and p99 16 uint8 levels of the fp32 decode of the same latents;
+   - gradients through the full-width SDXL VAE (``vae_grad_path``): one
+     1024^2 frame through ``models.vae.vae_decode`` in fp32 and bf16 and
+     ``vae_encode`` in fp32, the input's and the mid attention's
+     projection weights' gradients held (VAE_GRAD_LIMITS) against the
+     same call with that attention on the plain route; K4 once a call on
+     its sliced route, peak memory printed;
    - two processes on the one card (``multi_process_section``), each in
      a gloo process group this script sets up on cuda:0 (NCCL refuses
      two ranks on one device): a probe of gloo's collectives on CUDA
@@ -138,19 +150,21 @@
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma route's d <= 256 kernel, every bf16 VAE
    attention on its wide kernel, every fp32 VAE attention on the FMA
-   one; K4's: every backward of the trainer on the wgmma route, each with
-   one delta launch; and K2's: every bf16 feed-forward on its wgmma
+   one; K4's: every backward of the trainer on the wgmma route, every
+   VAE gradient on a sliced route, each with one delta launch; and K2's:
+   every bf16 feed-forward on its wgmma
    route, every fp32 one on its 3xTF32 route.
 5. Prints a JSON line of the stage-2 precision, 8-bit AdamW, stage-1,
-   multi-process, native preprocessing, LPIPS, runbook and bf16 decode
-   readings, then one JSON line with every kernel's numbers
+   multi-process, native preprocessing, LPIPS, runbook, bf16 decode and
+   VAE gradient readings, then one JSON line with every kernel's numbers
    (K1 as its five kernels, the FMA route's d = 448 instance standing for
-   the JAX package's unpacked kernel, K4 as its two routes, K4's delta as a
+   the JAX package's unpacked kernel, K4 as its four routes, K4's delta as a
    kernel of its own, K2 as its two routes, with the wgmma kernels', the
    FMA kernels', the 3xTF32 kernels', K4's and K2's and K3's registers,
    spills and wgmma serialisation from nvcc's report; the FMA, 3xTF32,
-   K3, K4, K2 and K1 wgmma kernels must not spill, and K1's and K2's
-   wgmma kernels must not have their products serialised; the
+   K3, K4, K2 and K1 wgmma kernels must not spill, and K1's, K2's and
+   K4's sliced bf16 wgmma kernels must not have their products
+   serialised; the
    stage-2 precision check's launches count as a path of their own,
    "stage2_fp32", and stage 1's as "stage1"), then the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -775,6 +789,8 @@ def bwd_phases():
                                            retain_graph=True)
 
     phases = {"flash_attention_bwd": [], "flash_attention_bwd_tf32x3": [],
+              "flash_attention_bwd_sliced": [],
+              "flash_attention_bwd_sliced_tf32x3": [],
               "flash_attention_bwd_delta": [], "temporal_attention_bwd": []}
     # K4: spatial self-attention at level 1 (S = 4096, 10 heads) and
     # level 2 (S = 1024, 20 heads), d = 64, and a ragged length that
@@ -850,6 +866,7 @@ def bwd_phases():
         del o4, do4
         del qkv, q, k, v, out, lse, do
         torch.cuda.empty_cache()
+    sliced_phases(phases, randn, sdpa_bwd)
     # K5 (tensor-core backward: mma.sync, fp32 at 3xTF32): motion level 0
     # (F = 8, N = 16384, 8 heads x d = 40) in bf16 and fp32, levels 1 and
     # 2 in bf16, level 0 at the stage2_fp32 path's 2 frames in fp32, and
@@ -901,6 +918,109 @@ def bwd_phases():
         del qkv, q, k, v, do
         torch.cuda.empty_cache()
     return phases
+
+
+def sdpa_backend(q, k, v):
+    """The backend scaled_dot_product_attention dispatches (q, k, v) to
+    (PyTorch's own choice, torch._fused_sdp_choice), by name."""
+    import torch
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v)).name
+    except (ImportError, AttributeError, RuntimeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+# K4 at d = 128-512 (the sliced kernels): the VAE's mid-block attention
+# (one head, d = 512) at the 1024^2 and 512^2 paths' token counts, then
+# every other head dim K1 takes, each in bf16 and fp32 (tag, (B, S, H, D),
+# iterations by dtype)
+SLICED_SHAPES = (
+    ("vae_1024 (1,16384,1x512)", (1, 16384, 1, 512), (5, 1)),
+    ("vae_512 (1,4096,1x512)", (1, 4096, 1, 512), (20, 3)),
+    ("d128 (2,4096,10x128)", (2, 4096, 10, 128), (5, 1)),
+    ("d192 (2,4096,2x192)", (2, 4096, 2, 192), (10, 2)),
+    ("d320 (1,4096,1x320)", (1, 4096, 1, 320), (20, 3)),
+    ("d384 (1,4096,1x384)", (1, 4096, 1, 384), (20, 3)),
+    ("d448 (1,4096,1x448)", (1, 4096, 1, 448), (20, 3)))
+
+
+def sliced_phases(phases, randn, sdpa_bwd):
+    """K4's sliced kernels against the plain backward at SLICED_SHAPES
+    in bf16 (the "wgmma_sliced" route) and fp32 ("tf32x3_sliced"), with
+    the backward phases' limits and faulty-copy controls; each also run
+    twice and held bitwise equal (no atomics), and its delta kernel held
+    to the formula. Bounds: the JAX cost estimate's 10 * B*H*Sq*Sk*D
+    flops (`bound_ms`; fp32 at 3 TF32 products a product, the FMA bound
+    beside) and the design's own count (`bwd_plan`'s flops:
+    `design_bound_ms`); bytes q, k, v, o, dO in and dq, dk, dv out plus
+    lse. The yardstick is SDPA's backward, its backend named."""
+    import torch
+    from video_style_transfer_tpu_torch.ops import flash_attention as fa
+
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        for tag, (b, s, h, d), iters in SLICED_SHAPES:
+            qkv = randn(b, s, 3 * h * d, dtype=dt)
+            q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+            out, lse = fa.flash_attention_fwd(q, k, v)
+            do = randn(b, s, h * d, dtype=dt)
+            es = qkv.element_size()
+            plan = fa.bwd_plan(dt, d)
+            route = plan["route"]
+            def kernel():
+                return fa.flash_attention_bwd(q, k, v, out, lse, do)
+            first, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(x, y) for x, y in zip(first, again))
+            del first, again
+            if not repeat:
+                fail(f"K4 {tag} {name} ({route}): two backwards differ")
+            library = sdpa_bwd(q, k, v, do, (0, 2, 1, 3))
+            qt = q.permute(0, 2, 1, 3).contiguous().requires_grad_()
+            backend = sdpa_backend(qt, qt, qt)
+            del qt
+            flops = 10 * b * h * s * s * d
+            nbytes = 8 * b * s * h * d * es + b * h * s * 4
+            phase = check_phase(
+                f"K4 {tag} {name} ({route})", kernel,
+                lambda: fa.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     d ** -0.5),
+                library, flops=flops, nbytes=nbytes, dtype_name=name,
+                iters=iters[dt == torch.float32], bwd=True,
+                library_name=f"SDPA backward ({backend})")
+            del library
+            design = plan["flops"] * b * h * s * s * d
+            phase.update(kernel_route=route, bitwise_repeatable=True,
+                         sdpa_backend=backend, design_flops=plan["flops"],
+                         slices=plan["slices"])
+            if route == "tf32x3_sliced":
+                tf32x3_bound(phase, flops, nbytes,
+                             library=f"SDPA ({backend})")
+                phase["design_bound_ms"] = max(
+                    3 * design / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
+            else:
+                phase["design_bound_ms"] = bound(design, nbytes, name)[0]
+            vs_bound_and_library(phase, f"SDPA's backward ({backend})")
+            print(f"    design bound ({plan['flops']} flops): "
+                  f"{phase['design_bound_ms']:.4f} ms, "
+                  f"{phase['design_bound_ms'] / phase['ms']:.1%} of it "
+                  f"reached; bitwise repeatable", flush=True)
+            phases["flash_attention_bwd_sliced"
+                   + ("_tf32x3" if route == "tf32x3_sliced" else "")
+                   ].append(phase)
+            o4, do4 = (t.unflatten(-1, (h, d)) for t in (out, do))
+            phases["flash_attention_bwd_delta"].append(check_phase(
+                f"K4 delta {tag} {name}",
+                lambda: fa.flash_attention_bwd_delta(out, do, h),
+                lambda: fa.flash_attention_bwd_delta_plain(out, do, h),
+                lambda: torch.linalg.vecdot(do4, o4, dim=-1),
+                flops=2 * b * s * h * d,
+                nbytes=2 * b * s * h * d * es + b * h * s * 4,
+                dtype_name=name, iters=20, tol=TOL_DELTA,
+                library_name="torch.linalg.vecdot"))
+            del o4, do4, qkv, q, k, v, out, lse, do
+            torch.cuda.empty_cache()
 
 
 def layer_norm_phases():
@@ -1041,21 +1161,25 @@ def reset_counters():
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
     fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0)
     fa.WIDE_LAUNCHES = 0
-    fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
+    fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, wgmma_sliced=0,
+                                 tf32x3_sliced=0)
     geglu.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0)
 
 
 def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0, tf32x3=0,
-                 bwd_tf32x3=0, geglu_tf32x3=0):
+                 bwd_tf32x3=0, geglu_tf32x3=0, bwd_wgmma_sliced=0,
+                 bwd_tf32x3_sliced=0):
     """K1's launches on a path split by route: every bf16 UNet attention
     (d = 64) took the wgmma route's d <= 256 kernel, every fp32 one the
     3xTF32 route, every bf16 VAE attention (d = 512) the wgmma route's
     wide kernel (`wide` of the route's launches), every fp32 VAE
-    attention (d = 512) the FMA one; K4's: every bf16 backward the wgmma
-    route, every fp32 one the 3xTF32 route; and K2's: every fp32
-    feed-forward (`geglu_tf32x3`) the 3xTF32 route, every other one the
-    bf16 wgmma route. Returns the path's counts with K1 split into its
-    four kernels, K4 into its two routes and K2 into its two."""
+    attention (d = 512) the FMA one; K4's: every bf16 UNet backward (d =
+    64) the wgmma route, every fp32 one the 3xTF32 route, every bf16 VAE
+    backward (d = 512) the wgmma_sliced route, every fp32 one the
+    tf32x3_sliced route; and K2's: every fp32 feed-forward
+    (`geglu_tf32x3`) the 3xTF32 route, every other one the bf16 wgmma
+    route. Returns the path's counts with K1 split into its four kernels,
+    K4 into its four routes and K2 into its two."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
     from video_style_transfer_tpu_torch.ops import geglu
     k2 = counts["geglu_projection"]
@@ -1064,7 +1188,9 @@ def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0, tf32x3=0,
            "K2": dict(geglu.ROUTE_LAUNCHES)}
     want = {"K1": {"wgmma": wgmma + wide, "tf32x3": tf32x3, "fma": fma},
             "K1 wide": wide,
-            "K4": {"wgmma": bwd_wgmma, "tf32x3": bwd_tf32x3},
+            "K4": {"wgmma": bwd_wgmma, "tf32x3": bwd_tf32x3,
+                   "wgmma_sliced": bwd_wgmma_sliced,
+                   "tf32x3_sliced": bwd_tf32x3_sliced},
             "K2": {"wgmma": k2 - geglu_tf32x3, "tf32x3": geglu_tf32x3}}
     print(f"K1, K4 and K2 launches on the {path} path by route: {got} "
           f"(expected {want})", flush=True)
@@ -1076,6 +1202,8 @@ def check_routes(path, counts, wgmma, fma, bwd_wgmma=0, wide=0, tf32x3=0,
             "flash_attention_fwd_fma": fma,
             "flash_attention_bwd": bwd_wgmma,
             "flash_attention_bwd_tf32x3": bwd_tf32x3,
+            "flash_attention_bwd_sliced": bwd_wgmma_sliced,
+            "flash_attention_bwd_sliced_tf32x3": bwd_tf32x3_sliced,
             "flash_attention_bwd_by_route": got["K4"],
             "geglu_projection": k2 - geglu_tf32x3,
             "geglu_projection_tf32x3": geglu_tf32x3}
@@ -2522,6 +2650,147 @@ def vae_bf16_decode_path():
         k: v / NUM_FRAMES for k, v in seconds.items()}}
 
 
+# the VAE gradient path: gradients through the full-width SDXL VAE at one
+# 1024^2 frame with its mid-block attention on K1 + K4 against the same
+# call with that attention on the plain route (torch's own ops under
+# autograd), same weights, inputs and cotangent; normwise distances of the
+# input's gradient and of the mid attention's four projection weights'
+# gradients. fp32: both routes are f32 throughout and differ in the order
+# of the attention's sums and in K4's 3xTF32 products (~2^-21 each), and
+# the decoder's 30-odd layers carry that to the input: 1e-4, the fp32
+# limit of the multi-process section's twins. bf16: both round the whole
+# VAE at every layer, and the two attentions round P and the output at
+# different points (K1/K4 once in f32, the plain route's softmax weights
+# to bf16), so the gradients differ by bf16 noise carried through the
+# decoder: 2^-4, against which zeroed gradients read 1 and negated ones 2.
+VAE_GRAD_LIMITS = {"float32": 1e-4, "bfloat16": 2 ** -4}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Every fused self-attention of the port on the plain route (the
+    reference of the VAE gradient path)."""
+    from video_style_transfer_tpu_torch.models import attention as mattn
+    from video_style_transfer_tpu_torch.ops import attention as oattn
+    real = mattn.sdpa_fused_qkv
+    mattn.sdpa_fused_qkv = lambda qkv, heads: oattn.sdpa_fused_qkv(
+        qkv, heads, impl="plain")
+    try:
+        yield
+    finally:
+        mattn.sdpa_fused_qkv = real
+
+
+def vae_grad_path():
+    """Gradients through the port's ``vae_decode`` (fp32, the default
+    --vae_dtype, and bf16) and ``vae_encode`` (fp32) at one 1024^2 frame
+    of the full-width SDXL VAE with seeded weights: the input's gradient
+    (the latents', or the image's) and the mid-block attention's q, k, v
+    and out projection weights', from a seeded cotangent. The mid
+    attention (one head, d = 512, 16384 tokens) runs K1 forward and K4
+    backward once a call on its sliced route; each call's launches are
+    counted by route (check_routes) and its gradients held to
+    VAE_GRAD_LIMITS against the plain attention's. Returns the path's
+    launch counts, summed over the three calls, and its readings."""
+    import torch
+    from video_style_transfer_tpu_torch.cli.common import model_configs
+    from video_style_transfer_tpu_torch.models.layers import Init
+    from video_style_transfer_tpu_torch.models.vae import (
+        init_vae_decoder, init_vae_encoder, vae_decode, vae_encode)
+    from video_style_transfer_tpu_torch.utils.convert import to_device
+
+    vcfg = model_configs(smoke=False, motion=True)[1]
+    lat = RESOLUTION // 8
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    z = torch.randn(1, lat, lat, vcfg.latent_channels, generator=gen,
+                    device="cuda")
+    img = torch.rand(1, RESOLUTION, RESOLUTION, 3, generator=gen,
+                     device="cuda") * 2 - 1
+    trees = {"decode": init_vae_decoder(Init(1, "cuda"), vcfg),
+             "encode": init_vae_encoder(Init(3, "cuda"), vcfg)}
+    total, readings = None, {}
+    for side, name, route in (("decode", "float32", "tf32x3_sliced"),
+                              ("decode", "bfloat16", "wgmma_sliced"),
+                              ("encode", "float32", "tf32x3_sliced")):
+        dt = getattr(torch, name)
+        params = trees[side] if dt == torch.float32 else to_device(
+            trees[side], dtype=dt)
+        fn = vae_decode if side == "decode" else vae_encode
+        attn = params["decoder" if side == "decode" else "encoder"][
+            "mid_block"]["attentions"][0]
+        weights = {n: attn[n]["weight"].requires_grad_()
+                   for n in ("to_q", "to_k", "to_v", "to_out")}
+        x = (z if side == "decode" else img).to(dt)
+
+        def run():
+            xx = x.clone().requires_grad_()
+            for w in weights.values():
+                w.grad = None
+            y = fn(params, vcfg, xx)
+            cot = torch.randn(y.shape, device="cuda",
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(10)).to(dt)
+            y.backward(cot)
+            torch.cuda.synchronize()
+            return {"input": xx.grad,
+                    **{n: w.grad for n, w in weights.items()}}, y.shape
+
+        run()  # warm-up: the cuDNN plans of the backward's convolutions
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got, shape = run()
+        seconds = time.perf_counter() - t0
+        counts = counters()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        label = f"vae {side} grad {name}"
+        routes = check_routes(
+            label, counts, 0, 0 if dt == torch.bfloat16 else 1,
+            wide=1 if dt == torch.bfloat16 else 0,
+            bwd_wgmma_sliced=int(route == "wgmma_sliced"),
+            bwd_tf32x3_sliced=int(route == "tf32x3_sliced"))
+        check_counts(label, counts, {**serving_launches(0, 0),
+                                     "flash_attention_fwd": 1,
+                                     "flash_attention_bwd": 1,
+                                     "flash_attention_bwd_delta": 1})
+        with plain_attention():
+            t1 = time.perf_counter()
+            want, _ = run()
+            plain_seconds = time.perf_counter() - t1
+        for w in weights.values():
+            w.requires_grad_(False)
+            w.grad = None
+        errs = {}
+        for key, g in got.items():
+            r = want[key].double()
+            errs[key] = ((g.double() - r).norm() / r.norm()).item()
+            if not bool(torch.isfinite(g.float()).all()):
+                fail(f"{label}: non-finite gradient of {key}")
+        worst = max(errs.values())
+        limit = VAE_GRAD_LIMITS[name]
+        print(f"{label} ({tuple(x.shape)} -> {tuple(shape)}): forward and "
+              f"backward {seconds:.3f} s (plain attention {plain_seconds:.3f}"
+              f" s), peak memory {peak:.2f} GiB; gradients against the "
+              f"plain attention's, normwise: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (limit {limit:g})", flush=True)
+        if worst > limit:
+            fail(f"{label}: gradients {worst:.3e} from the plain attention's "
+                 f"(limit {limit:g})")
+        readings[f"{side}_{name}"] = {"seconds": seconds,
+                                      "plain_attention_seconds":
+                                          plain_seconds,
+                                      "peak_memory_gib": peak,
+                                      "normwise": errs, "limit": limit}
+        total = routes if total is None else {
+            k: (total[k] + v if isinstance(v, int) else
+                {r: total[k][r] + n for r, n in v.items()})
+            for k, v in routes.items()}
+        del got, want, params, attn, weights
+        torch.cuda.empty_cache()
+    return {**total, "readings": readings}
+
+
 # the native clip preprocessing: a seeded 1080p BGR clip to 1024^2, native
 # against the plain numpy version (data/native.py), as the JAX package's
 # tests/test_native.py holds them: the resize within one level, the
@@ -2809,6 +3078,39 @@ def bwd_ptxas(log):
             fail(f"K4's {name} spills registers: {rep}")
     print(f"K4 bf16 kernels (ptxas; wgmma_serialized is reported, not "
           f"held): {json.dumps(out)}", flush=True)
+    return out
+
+
+def sliced_ptxas(log):
+    """Registers, spills and wgmma serialisation of K4's kernels at d =
+    128-512: the bf16 dk/dv and dq kernels by head dim (a template on D /
+    64 panels) and the fp32 ones (a template on D), each 256 threads, at
+    most 255 registers a thread. Fails if one spills, or if ptxas
+    serialised a bf16 kernel's products (the panel walk keeps one group
+    in flight while the next stage lands)."""
+    rep = ptxas_report(log, r"(flash_bwd_sliced_sm90_kernelILb[01]ELi\d+E|"
+                            r"flash_bwd_split_tf32_kernelILb[01]ELi\d+E)")
+    out = {"bf16": {}, "fp32": {}}
+    for name, r in rep.items():
+        kern = "dq" if "ILb1E" in name else "dkv"
+        n = int(name.rsplit("Li", 1)[1][:-1])
+        if "sm90" in name:
+            out["bf16"][f"{kern} d{64 * n}"] = r
+        else:
+            out["fp32"][f"{kern} d{n}"] = r
+    want = sorted(f"{k} d{d}" for k in ("dkv", "dq")
+                  for d in (128, 192, 256, 320, 384, 448, 512))
+    if sorted(out["bf16"]) != want or sorted(out["fp32"]) != want:
+        fail(f"the build log names no sliced K4 kernel for every head "
+             f"dim: {sorted(out['bf16'])}, {sorted(out['fp32'])}")
+    for dt, kernels in out.items():
+        for key, r in kernels.items():
+            if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+                fail(f"K4's {dt} sliced {key} kernel spills registers: {r}")
+            if dt == "bf16" and r["wgmma_serialized"]:
+                fail(f"ptxas serialised the wgmma products of K4's sliced "
+                     f"{key} kernel: {r['wgmma_serialized']}")
+    print(f"K4 sliced kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
 
 
@@ -4092,6 +4394,9 @@ def main():
         torch.cuda.empty_cache()
         by_path["bf16_decode"] = vae_bf16_decode_path()
         section("image and bf16 decode")
+        by_path["vae_grad"] = vae_grad_path()
+        torch.cuda.empty_cache()
+        section("VAE gradients")
         lpips_path, aux = lpips_phase(tmp, serving_ref)
         aux["runbook"] = runbook_phase(tmp, lpips_path)
         aux["native"] = native
@@ -4113,7 +4418,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
     main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32",
-                  "stage1")
+                  "stage1", "vae_grad")
 
     csrc = "video_style_transfer_tpu_torch/csrc/"
     jax_ops = "video_style_transfer_tpu/ops/"
@@ -4146,6 +4451,13 @@ def main():
                                "temporal_attention.py:37"),
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:596"),
+        # K4 at d = 128-512, D split across blocks (bf16, wgmma + TMA) or
+        # a block's warps (fp32, 3xTF32): the VAE gradient path's mid-block
+        # attention
+        "flash_attention_bwd_sliced": ("flash_attention_bwd_sliced.cu",
+                                       "flash_attention.py:596"),
+        "flash_attention_bwd_sliced_tf32x3": ("flash_attention_tf32.cu",
+                                              "flash_attention.py:596"),
         # not a TPU kernel: JAX computes delta in XLA at this line
         "flash_attention_bwd_delta": ("flash_attention_bwd.cu",
                                       "flash_attention.py:657"),
@@ -4166,6 +4478,7 @@ def main():
              "flash_attention_f32.cu": fma_ptxas(log),
              "flash_attention_bwd.cu": bwd_ptxas(log),
              "flash_attention_tf32.cu": tf32_ptxas(log),
+             "flash_attention_bwd_sliced.cu": sliced_ptxas(log),
              "temporal_attention.cu": ta_ptxas(log),
              "temporal_attention_bwd.cu": ta_bwd_ptxas(log),
              "geglu.cu": geglu_ptxas(log)}
@@ -4184,6 +4497,10 @@ def main():
             "library_ms": first["library_ms"], "phases": phases[name]}
         if src in ptxas:
             entry["ptxas"] = ptxas[src]
+        if name == "flash_attention_bwd_sliced_tf32x3":
+            entry["ptxas"] = ptxas["flash_attention_bwd_sliced.cu"]["fp32"]
+        elif name == "flash_attention_bwd_sliced":
+            entry["ptxas"] = ptxas["flash_attention_bwd_sliced.cu"]["bf16"]
         if name == "temporal_attention":
             entry["kernel"] = "ta_fwd_mma_kernel"
         if name == "temporal_attention_bwd":
@@ -4196,7 +4513,8 @@ def main():
             entry["launches_by_route"] = {
                 r: sum(by_path[path]["flash_attention_bwd_by_route"][r]
                        for path in main_paths)
-                for r in ("wgmma", "tf32x3")}
+                for r in ("wgmma", "tf32x3", "wgmma_sliced",
+                          "tf32x3_sliced")}
         kernels.append(entry)
     section("ptxas report")
     prev = 0.0
@@ -4210,7 +4528,8 @@ def main():
                       "stage1": stage1, "multi_process": multi,
                       "native_lpips_runbook": aux,
                       "bf16_decode_s_per_frame":
-                          by_path["bf16_decode"]["decode_s_per_frame"]}),
+                          by_path["bf16_decode"]["decode_s_per_frame"],
+                      "vae_grad": by_path["vae_grad"].pop("readings")}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

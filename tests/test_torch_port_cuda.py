@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1 on its three routes, the wgmma route's
 wide kernel at d >= 320 and the FMA template at every fp32 head dim but
 64 included, K2 on both its routes, K3's tensor-core forward at every
-frame count, K4 on both its routes, K5, K7)
+frame count, K4 on its four routes (d = 64 and the D-sliced kernels at
+d = 128-512), K5, K7)
 against their plain PyTorch versions on the card, and gradients through
 their autograd wrappers against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
@@ -593,6 +594,115 @@ def test_cuda_flash_bwd_delta_matches_formula(dtype):
         bad = got * (1 + 1e-4)
         assert ((bad - want).double().norm().item()
                 <= 1e-5 * want.double().norm().item())
+
+
+def _sliced_case(dtype, d, b, h, sq, sk, seed, fused):
+    """K4 on the D-sliced route against its plain version: (q, k, v) from
+    one fused (B, S, 3*H*D) projection (fused, Sq = Sk) or q its own
+    tensor and k, v views of one (B, Sk, 2*H*D) projection; one backward
+    launches the route once and the delta kernel once."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if fused:
+        qkv = torch.randn(b, sq, 3 * h * d, device="cuda", generator=g,
+                          dtype=dtype)
+        q, k, v = (t.unflatten(-1, (h, d)) for t in qkv.split(h * d, -1))
+    else:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=g, dtype=dtype)
+        kv = torch.randn(b, sk, 2 * h * d, device="cuda", generator=g,
+                         dtype=dtype)
+        k, v = (t.unflatten(-1, (h, d)) for t in kv.split(h * d, -1))
+    do = torch.randn(b, sq, h * d, device="cuda", generator=g, dtype=dtype)
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    ref = tfa.flash_attention_bwd_plain(q, k, v, out, lse, do, d ** -0.5)
+    route = tfa.bwd_route(dtype, d)
+    assert route.endswith("_sliced")
+    before = (tfa.BWD_ROUTE_LAUNCHES[route], tfa.DELTA_LAUNCHES)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do)
+    assert (tfa.BWD_ROUTE_LAUNCHES[route], tfa.DELTA_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    for a, r, want in zip(got, ref, (q, k, v)):
+        assert a.shape == want.shape and a.is_contiguous()
+        _assert_close_bwd(a, r)
+        # the check sees a 3 % scale fault
+        with pytest.raises(AssertionError):
+            _assert_close_bwd((a.float() * 0.97).to(dtype), r)
+    return got, (q, k, v, out, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(dt, d)
+                                     for dt in (torch.bfloat16, torch.float32)
+                                     for d in (128, 192, 256, 320, 384, 448,
+                                               512)])
+def test_cuda_flash_bwd_sliced_matches_plain(dtype, d):
+    # K4 at d = 128-512 (bf16 on wgmma + TMA, fp32 at 3xTF32, each block a
+    # slice of D: 128 wide, the last 64 at d = 192, 320, 448): q, k, v
+    # strided views of one fused projection, S = 1100 leaves q and kv
+    # tails in both kernels, two heads (one above 256, as the VAE)
+    _need_cuda()
+    _sliced_case(dtype, d, 2, 2 if d <= 256 else 1, 1100, 1100, seed=d,
+                 fused=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,sq,sk", [(128, 1100, 700), (320, 700, 1100),
+                                     (512, 100, 50), (448, 77, 300)])
+def test_cuda_flash_bwd_sliced_cross_lengths(dtype, d, sq, sk):
+    # Sq != Sk: streamed tiles that end inside their first half (50 < 64
+    # keys for dq, 77 = 2 x 32 + 13 q rows for dk/dv), own tiles past the
+    # end; q its own tensor, k and v views of one fused projection; B*H = 4
+    _need_cuda()
+    _sliced_case(dtype, d, 2, 2, sq, sk, seed=7 + d, fused=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_bwd_sliced_deterministic(dtype):
+    # no atomics: two backwards of the VAE's head (d = 512, one head) are
+    # bitwise equal
+    _need_cuda()
+    first, args = _sliced_case(dtype, 512, 1, 1, 1500, 1500, seed=11,
+                               fused=True)
+    again = tfa.flash_attention_bwd(*args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [128, 192, 320, 448, 512])
+def test_cuda_flash_bwd_delta_every_head_dim(dtype, d):
+    # the delta kernel at a row wider than one warp's 16-byte loads (bf16
+    # d = 512: 64 vectors, two a thread) and at counts of vectors that 32
+    # does not divide (d = 192: 24 bf16 vectors, 8 threads of 3)
+    _need_cuda()
+    b, s, h = 2, 301, 2
+    g = torch.Generator(device="cuda").manual_seed(d)
+    o, do = (torch.randn(b, s, h * d, device="cuda", generator=g,
+                         dtype=dtype) for _ in range(2))
+    before = tfa.DELTA_LAUNCHES
+    got = tfa.flash_attention_bwd_delta(o, do, h)
+    assert tfa.DELTA_LAUNCHES == before + 1
+    want = (do.float() * o.float()).unflatten(-1, (h, d)).sum(-1) \
+        .transpose(1, 2)
+    diff = (got - want).double()
+    assert diff.norm().item() <= 1e-5 * want.double().norm().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 512])
+def test_cuda_autograd_through_sliced_flash(d):
+    # fp32 gradients through flash_attention_qkv at d = 128 (two heads) and
+    # d = 512 (the VAE's one head): K1 forward, K4's sliced backward,
+    # against the same call on the CPU (the plain versions)
+    _need_cuda()
+    h = 2 if d == 128 else 1
+    g = torch.Generator().manual_seed(d)
+    qkv = torch.randn(1, 700, 3 * h * d, generator=g)
+    before = tfa.BWD_ROUTE_LAUNCHES["tf32x3_sliced"]
+    _grads_vs_cpu(lambda x: tfa.flash_attention_qkv(x, h), [qkv])
+    assert tfa.BWD_ROUTE_LAUNCHES["tf32x3_sliced"] == before + 1
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""K1's three routes and K4's two: which kernel each (dtype, head_dim)
+"""K1's three routes and K4's four: which kernel each (dtype, head_dim)
 takes on the card, how the FMA route and the wide wgmma kernel split
 their kv walk, how the wide kernel splits O's columns and how the FMA
 template tiles each head dim, and K1's plain
@@ -57,11 +57,18 @@ def test_route_refuses_what_k1_does_not_take(dtype, d, exc):
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.float32, 64, "tf32x3"),
-    (torch.bfloat16, 128, ValueError), (torch.bfloat16, 192, ValueError),
-    (torch.float32, 128, ValueError), (torch.float16, 64, TypeError)])
+    (torch.bfloat16, 128, "wgmma_sliced"),
+    (torch.bfloat16, 192, "wgmma_sliced"),
+    (torch.float32, 128, "tf32x3_sliced"), (torch.float16, 64, TypeError),
+    (torch.bfloat16, 96, ValueError), (torch.float32, 576, ValueError),
+    *((torch.bfloat16, d, "wgmma_sliced") for d in (256, 320, 384, 448,
+                                                    512)),
+    *((torch.float32, d, "tf32x3_sliced") for d in (192, 256, 320, 384,
+                                                    448, 512))])
 def test_bwd_route_names_the_kernels(dtype, d, want):
-    # K4 takes d = 64 only: bf16 on the wgmma + TMA kernels, fp32 on the
-    # 3xTF32 ones; anything else raises before a launch
+    # K4 takes every head dim K1 takes: d = 64 on its own kernels (bf16
+    # wgmma + TMA, fp32 3xTF32), d = 128-512 on the D-sliced ones (bf16
+    # wgmma + TMA, fp32 3xTF32); anything else raises before a launch
     if isinstance(want, str):
         assert tfa.bwd_route(dtype, d) == want
     else:

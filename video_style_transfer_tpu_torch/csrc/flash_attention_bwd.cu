@@ -29,16 +29,20 @@
 //  - the dq kernel owns one q tile and walks every kv tile, accumulating
 //    dq.
 // Neither needs atomics, and both are deterministic. Each recomputes S and
-// dP, so the pair does 14 rather than 10 * Sq * Sk * D flops. d = 64
-// only (every SDXL head), in two routes (`bwd_route` in
+// dP, so the pair does 14 rather than 10 * Sq * Sk * D flops. At d = 64
+// (every SDXL UNet head) two routes (`bwd_route` in
 // ops/flash_attention.py):
 //  - bf16 (every K4 call of the training paths): wgmma + TMA,
 //    warp-specialised, as K1's bf16 route (below, `_sm90_`);
 //  - fp32 (--mixed_precision no, and the card-vs-CPU reference step):
 //    mma.sync at 3xTF32 with cp.async tiles, in flash_attention_tf32.cu
 //    beside K1's fp32 d = 64 forward.
-// This file also holds the delta kernel both routes take, and the C entry
-// point. The kv and q tails are zero-filled and masked.
+// At d = 128-512 (the VAE's mid-block attention, d = 512, under a
+// gradient) the same two-kernel form with D split: bf16 across blocks in
+// flash_attention_bwd_sliced.cu, fp32 across a block's warps at the end of
+// flash_attention_tf32.cu.
+// This file also holds the delta kernel every route takes, and the C
+// entry point. The kv and q tails are zero-filled and masked.
 
 #include "common.cuh"
 #include "flash_attention.cuh"
@@ -497,27 +501,39 @@ int launch_sm90(const BwdArgs& a, cudaStream_t stream) {
 // ----------------------------------------------------------------- delta
 //
 // delta = rowsum(dO * O) of every (batch, q row, head), f32 sums, written
-// (B, H, Sq): the row term of ds that both kernels read. dO and O are
-// (B, Sq, H * D) contiguous, read once (D / VEC threads a row, 16 bytes
-// each, then a shuffle sum), so it is bound by their bytes.
+// (B, H, Sq): the row term of ds that every K4 kernel reads. dO and O are
+// (B, Sq, H * D) contiguous, read once, 16 bytes a thread a load, so it is
+// bound by their bytes. A row's D / VEC vectors go to TPR threads of one
+// warp, the most (a power of two up to 32) that divides them evenly, each
+// summing VPT of them (d = 64: one each), then a shuffle sum.
+template <typename T, int D>
+struct DeltaCfg {
+  static constexpr int NV = D / Vec<T>::N;  // 16-byte vectors a row
+  static constexpr int TPR = NV % 32 == 0 ? 32 : NV % 16 == 0 ? 16 : 8;
+  static constexpr int VPT = NV / TPR;
+  static_assert(NV % TPR == 0 && 32 % TPR == 0, "a row within a warp");
+};
+
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_delta_kernel(const T* __restrict__ o,
                            const T* __restrict__ dout,
                            float* __restrict__ delta, long long rows,
                            int seq_q, int heads) {
-  constexpr int VEC = Vec<T>::N, TPR = D / VEC;  // threads a row
-  static_assert(TPR <= 32 && 32 % TPR == 0, "a row within a warp");
+  constexpr int VEC = Vec<T>::N, TPR = DeltaCfg<T, D>::TPR;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long row = i / TPR;  // (b, q, h)
   const int part = (int)(i % TPR);
   float acc = 0.f;
   if (row < rows) {
-    float x[VEC], y[VEC];
-    unpack16<T>(o + row * D + part * VEC, x);
-    unpack16<T>(dout + row * D + part * VEC, y);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc = fmaf(x[e], y[e], acc);
+    for (int j = 0; j < DeltaCfg<T, D>::VPT; ++j) {
+      float x[VEC], y[VEC];
+      unpack16<T>(o + row * D + (part + TPR * j) * VEC, x);
+      unpack16<T>(dout + row * D + (part + TPR * j) * VEC, y);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc = fmaf(x[e], y[e], acc);
+    }
   }
 #pragma unroll
   for (int off = TPR / 2; off > 0; off >>= 1)
@@ -533,13 +549,39 @@ __global__ void __launch_bounds__(256)
 template <typename T, int D>
 int launch_delta(const void* o, const void* dout, float* delta, int batch,
                  int seq_q, int heads, cudaStream_t stream) {
-  constexpr int TPR = D / Vec<T>::N;
+  constexpr int TPR = DeltaCfg<T, D>::TPR;
   const long long rows = (long long)batch * seq_q * heads;
   const long long blocks = (rows * TPR + 255) / 256;
   flash_bwd_delta_kernel<T, D><<<(unsigned)blocks, 256, 0, stream>>>(
       static_cast<const T*>(o), static_cast<const T*>(dout), delta, rows,
       seq_q, heads);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_delta_d(int head_dim, const void* o, const void* dout,
+                   float* delta, int batch, int seq_q, int heads,
+                   cudaStream_t s) {
+  switch (head_dim) {
+    case 64:
+      return launch_delta<T, 64>(o, dout, delta, batch, seq_q, heads, s);
+    case 128:
+      return launch_delta<T, 128>(o, dout, delta, batch, seq_q, heads, s);
+    case 192:
+      return launch_delta<T, 192>(o, dout, delta, batch, seq_q, heads, s);
+    case 256:
+      return launch_delta<T, 256>(o, dout, delta, batch, seq_q, heads, s);
+    case 320:
+      return launch_delta<T, 320>(o, dout, delta, batch, seq_q, heads, s);
+    case 384:
+      return launch_delta<T, 384>(o, dout, delta, batch, seq_q, heads, s);
+    case 448:
+      return launch_delta<T, 448>(o, dout, delta, batch, seq_q, heads, s);
+    case 512:
+      return launch_delta<T, 512>(o, dout, delta, batch, seq_q, heads, s);
+    default:
+      return -2;
+  }
 }
 
 }  // namespace
@@ -557,9 +599,17 @@ extern "C" int vst_flash_attention_bwd(
                  seq_k, heads, q_sb,  q_ss,  q_sh, k_sb, k_ss, k_sh, v_sb,
                  v_ss,  v_sh,  scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim != 64 || seq_q < 1 || seq_k < 1) return -2;
-  if (dtype == vst::kFloat32) return vst::flash_bwd_tf32(a, s);
-  if (dtype == vst::kBFloat16) return vst::launch_sm90(a, s);
+  if (seq_q < 1 || seq_k < 1) return -2;
+  if (head_dim == 64) {
+    if (dtype == vst::kFloat32) return vst::flash_bwd_tf32(a, s);
+    if (dtype == vst::kBFloat16) return vst::launch_sm90(a, s);
+    return -1;
+  }
+  // head_dim 128-512: the D-sliced kernels (the launchers refuse others)
+  if (dtype == vst::kFloat32)
+    return vst::flash_bwd_tf32_sliced(a, head_dim, s);
+  if (dtype == vst::kBFloat16)
+    return vst::flash_bwd_sliced_sm90(a, head_dim, s);
   return -1;
 }
 
@@ -573,11 +623,11 @@ extern "C" int vst_flash_attention_bwd_delta(int dtype, int head_dim,
                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(delta);
-  if (head_dim != 64) return -2;
   if (dtype == vst::kFloat32)
-    return vst::launch_delta<float, 64>(o, dout, out, batch, seq_q, heads, s);
+    return vst::launch_delta_d<float>(head_dim, o, dout, out, batch, seq_q,
+                                      heads, s);
   if (dtype == vst::kBFloat16)
-    return vst::launch_delta<vst::bf16, 64>(o, dout, out, batch, seq_q,
-                                           heads, s);
+    return vst::launch_delta_d<vst::bf16>(head_dim, o, dout, out, batch,
+                                          seq_q, heads, s);
   return -1;
 }

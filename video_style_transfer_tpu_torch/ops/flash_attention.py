@@ -20,10 +20,16 @@ choices). On the H100 all are bound by tensor-core (bf16, TF32) or FMA
 (fp32) throughput; see the sources for their designs. Where a grid of
 the FMA route or of the wide kernel would leave the card's last wave
 emptier, they split the kv walk (`kv_splits`) and a combine kernel
-merges the parts. K4 has two routes, named by `bwd_route`: bf16 at d =
-64 on wgmma with TMA loads, fp32 at d = 64 on the 3xTF32 route's dk/dv
-and dq kernels; its delta = rowsum(dO * O) is a kernel of its own. The
-TPU's head packing, MXU row-sum and block tuning have no counterpart:
+merges the parts. K4 takes every head dim K1 takes, on four routes named
+by `bwd_route`: bf16 at d = 64 on wgmma with TMA loads ("wgmma"), fp32 at
+d = 64 on the 3xTF32 route's dk/dv and dq kernels ("tf32x3"), and at d =
+128-512 the same two-kernel form with D split (`bwd_plan`): bf16 on wgmma
+with TMA loads, D across blocks ("wgmma_sliced":
+csrc/flash_attention_bwd_sliced.cu), fp32 at 3xTF32, D across a block's
+warps ("tf32x3_sliced": csrc/flash_attention_tf32.cu) -- the VAE's
+mid-block attention (d = 512) under a gradient. Its delta = rowsum(dO * O) is a
+kernel of its own. The TPU's head packing, MXU row-sum and block tuning
+have no counterpart:
 the kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
 projection is consumed in place.
 
@@ -51,7 +57,8 @@ LAUNCHES = 0
 ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "fma": 0}
 WIDE_LAUNCHES = 0
 BWD_LAUNCHES = 0
-BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0}
+BWD_ROUTE_LAUNCHES = {"wgmma": 0, "tf32x3": 0, "wgmma_sliced": 0,
+                      "tf32x3_sliced": 0}
 DELTA_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -76,8 +83,19 @@ WIDE_HEAD_DIMS = (320, 384, 448, 512)
 # wide kernel's (WideCfg): query rows a block, keys a kv tile
 FMA_BLOCK_Q, FMA_BLOCK_K = 64, 256
 WIDE_BLOCK_Q, WIDE_BLOCK_K = 64, 64
-# every SDXL head; the VAE's d=512 attention runs under no_grad
-BWD_HEAD_DIMS = (64,)
+# K4 takes what K1 takes: d = 64 (every SDXL UNet head) on its own
+# kernels, 128-512 (the VAE's d = 512) on the sliced ones
+BWD_HEAD_DIMS = HEAD_DIMS
+# K4's kernels at d = 128-512 (`bwd_plan`): bf16 splits D across blocks
+# (64 rows a block, one warpgroup, at most two 64-wide panels of the
+# output a block; streamed rows a tile by kernel), fp32 across the 8
+# warps of a block (each warp 16 rows and a quarter of the output's
+# columns from d = 256 up, a half below)
+SLICED_ROWS = 64
+SLICE_PANELS = 2
+SLICED_STREAM = {"dkv": 32, "dq": 64}
+# the shared memory a block may take on an H100
+SMEM_PER_BLOCK = 232448
 
 
 def flash_attention_plain(q, k, v, scale: float):
@@ -152,16 +170,86 @@ def wide_o_split(head_dim: int) -> tuple:
 def bwd_route(dtype, head_dim: int) -> str:
     """The K4 kernels a CUDA backward of this dtype and head dim launches:
     "wgmma" (bf16 d = 64: wgmma + TMA, warp-specialised, in
-    csrc/flash_attention_bwd.cu) or "tf32x3" (fp32 d = 64: mma.sync at
+    csrc/flash_attention_bwd.cu), "tf32x3" (fp32 d = 64: mma.sync at
     3xTF32, in csrc/flash_attention_tf32.cu beside K1's fp32 d = 64
-    forward). Raises on what K4 does not take."""
+    forward), "wgmma_sliced" (bf16 d = 128-512: wgmma + TMA, each block a
+    slice of D, in csrc/flash_attention_bwd_sliced.cu) or "tf32x3_sliced"
+    (fp32 d = 128-512: the 3xTF32 arithmetic with D split across a
+    block's warps, at the end of csrc/flash_attention_tf32.cu). Raises on
+    what K4 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention backward takes float32 or "
                         f"bfloat16, got {dtype}")
     if head_dim not in BWD_HEAD_DIMS:
         raise ValueError(f"flash attention backward: head_dim {head_dim} "
                          f"not in {BWD_HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    route = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
+    return route if head_dim == 64 else route + "_sliced"
+
+
+def _split_groups(head_dim: int) -> tuple:
+    """(row groups, column groups) of the fp32 kernels' 8 warps at d =
+    128-512: D in quarters from 256 up, in halves below."""
+    cg = 4 if head_dim >= 256 else 2
+    return 8 // cg, cg
+
+
+def _split_stream(head_dim: int) -> int:
+    """Streamed rows a tile of the fp32 kernels at d = 128-512: the most of
+    32, 16 and 8 whose two stages of both streamed tensors fit beside the
+    block's own rows of both own tensors and two buffers of its 8 warps'
+    shares of S and dP (rows of D + 4 floats)."""
+    ld, rows = head_dim + 4, 16 * _split_groups(head_dim)[0]
+    for bn in (32, 16, 8):
+        if (2 * rows * ld + 4 * bn * ld + 2 * 8 * 2 * 16 * bn) * 4 \
+                <= SMEM_PER_BLOCK:
+            return bn
+    raise ValueError(f"no streamed tile fits at head_dim {head_dim}")
+
+
+def bwd_plan(dtype, head_dim: int) -> dict:
+    """K4's kernels at a head dim of 128-512, as
+    csrc/flash_attention_bwd_sliced.cu (bf16) and the end of
+    csrc/flash_attention_tf32.cu (fp32) make them and static_assert them.
+    Each of the dk/dv and the dq kernel owns `rows` rows a block (keys, or
+    q rows) and streams the other side in tiles of `stream` rows (by
+    kernel) through `stages` stages; `slices` (by kernel, as (first
+    column, width)) split the output's columns, `split` says across what:
+    - bf16 ("blocks"): each slice is a block of the grid, 128 wide (the
+      last 64 where D / 64 is odd); a block keeps its 64 rows' whole D in
+      shared memory and streams one 64-wide panel of both streamed tensors
+      a stage, as many stages as fit (at most 8), and recomputes S and dP
+      over the full D: the pair does (4 * slices + 4) + (4 * slices + 2)
+      * Sq * Sk * D flops (`flops`) a (batch, head);
+    - fp32 ("warps"): each slice is owned by a column group of the
+      block's 8 warps (16 rows a warp; quarters of D from 256 up, 64 own
+      rows and halves below); the warps sum their shares of S and dP
+      through shared memory, so nothing is recomputed (14 flops), and the
+      tile is the most of 32, 16, 8 rows whose two cp.async stages fit
+      beside the block's own rows."""
+    route = bwd_route(dtype, head_dim)
+    if head_dim == 64:
+        raise ValueError("K4's sliced kernels take head_dim 128-512; "
+                         "d = 64 has kernels of its own")
+    if route == "tf32x3_sliced":
+        rg, cg = _split_groups(head_dim)
+        cw = head_dim // cg
+        parts = tuple((cw * i, cw) for i in range(cg))
+        bn = _split_stream(head_dim)
+        return {"route": route, "split": "warps", "rows": 16 * rg,
+                "slices": {"dkv": parts, "dq": parts},
+                "stream": {"dkv": bn, "dq": bn},
+                "stages": {"dkv": 2, "dq": 2}, "flops": 14}
+    panels = head_dim // 64
+    slices = tuple((64 * p, 64 * min(SLICE_PANELS, panels - p))
+                   for p in range(0, panels, SLICE_PANELS))
+    own = 2 * panels * SLICED_ROWS * 128   # both own tensors, bf16
+    stages = {kern: min(8, (SMEM_PER_BLOCK - 2048 - own) // (2 * rows * 128))
+              for kern, rows in SLICED_STREAM.items()}
+    return {"route": route, "split": "blocks", "rows": SLICED_ROWS,
+            "slices": {"dkv": slices, "dq": slices},
+            "stream": dict(SLICED_STREAM), "stages": stages,
+            "flops": 8 * len(slices) + 6}
 
 
 def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
