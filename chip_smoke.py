@@ -42,9 +42,10 @@
    K3 takes (taken in column chunks), against SDPA's backward; the build
    report fails if a K3 or K5 kernel spills. K4 has four routes
    (`bwd_route`): at d = 64 bf16 on wgmma + TMA, fp32 on mma.sync at
-   3xTF32; at d = 128-512 the sliced kernels (`bwd_plan`: D split across
-   blocks in bf16 on wgmma + TMA, across a block's warps in fp32 at
-   3xTF32);
+   3xTF32; at d = 128-512 the sliced kernels (`bwd_plan`: D split, bf16
+   on wgmma + TMA across the blocks of a thread-block cluster, which sum
+   their shares of S and dP through distributed shared memory, fp32 at
+   3xTF32 across a block's warps);
    its d = 64 phases (the train step's two levels and a ragged length,
    each in bf16 and fp32) also print the bound at the two-kernel design's
    14 flops, its sliced phases (`sliced_phases`: the VAE's head at 16384
@@ -993,7 +994,9 @@ def sliced_phases(phases, randn, sdpa_bwd):
             design = plan["flops"] * b * h * s * s * d
             phase.update(kernel_route=route, bitwise_repeatable=True,
                          sdpa_backend=backend, design_flops=plan["flops"],
-                         slices=plan["slices"])
+                         slices=plan["slices"], cluster=plan["cluster"],
+                         owners=plan.get("owners"), stream=plan["stream"],
+                         stages=plan["stages"])
             if route == "tf32x3_sliced":
                 tf32x3_bound(phase, flops, nbytes,
                              library=f"SDPA ({backend})")
@@ -1002,7 +1005,11 @@ def sliced_phases(phases, randn, sdpa_bwd):
             else:
                 phase["design_bound_ms"] = bound(design, nbytes, name)[0]
             vs_bound_and_library(phase, f"SDPA's backward ({backend})")
-            print(f"    design bound ({plan['flops']} flops): "
+            print(f"    plan: D split across {plan['split']} (a cluster "
+                  f"of {plan['cluster']} block(s)), {plan['rows']} own rows "
+                  f"a block, streamed rows {plan['stream']}, stages "
+                  f"{plan['stages']}; "
+                  f"design bound ({plan['flops']} flops): "
                   f"{phase['design_bound_ms']:.4f} ms, "
                   f"{phase['design_bound_ms'] / phase['ms']:.1%} of it "
                   f"reached; bitwise repeatable", flush=True)
@@ -3084,10 +3091,11 @@ def bwd_ptxas(log):
 def sliced_ptxas(log):
     """Registers, spills and wgmma serialisation of K4's kernels at d =
     128-512: the bf16 dk/dv and dq kernels by head dim (a template on D /
-    64 panels) and the fp32 ones (a template on D), each 256 threads, at
-    most 255 registers a thread. Fails if one spills, or if ptxas
-    serialised a bf16 kernel's products (the panel walk keeps one group
-    in flight while the next stage lands)."""
+    64 panels; 384 threads, 168 registers at launch, then setmaxnreg moves
+    the producer warpgroup to 24 and the two consumer warpgroups to 240)
+    and the fp32 ones (a template on D; 256 threads, at most 255
+    registers a thread). Fails if one spills, or if ptxas serialised a
+    bf16 kernel's products."""
     rep = ptxas_report(log, r"(flash_bwd_sliced_sm90_kernelILb[01]ELi\d+E|"
                             r"flash_bwd_split_tf32_kernelILb[01]ELi\d+E)")
     out = {"bf16": {}, "fp32": {}}
@@ -4451,9 +4459,9 @@ def main():
                                "temporal_attention.py:37"),
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:596"),
-        # K4 at d = 128-512, D split across blocks (bf16, wgmma + TMA) or
-        # a block's warps (fp32, 3xTF32): the VAE gradient path's mid-block
-        # attention
+        # K4 at d = 128-512, D split across the blocks of a cluster (bf16,
+        # wgmma + TMA) or a block's warps (fp32, 3xTF32): the VAE gradient
+        # path's mid-block attention
         "flash_attention_bwd_sliced": ("flash_attention_bwd_sliced.cu",
                                        "flash_attention.py:596"),
         "flash_attention_bwd_sliced_tf32x3": ("flash_attention_tf32.cu",

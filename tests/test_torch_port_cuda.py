@@ -650,10 +650,26 @@ def test_cuda_flash_bwd_sliced_matches_plain(dtype, d):
                                      (512, 100, 50), (448, 77, 300)])
 def test_cuda_flash_bwd_sliced_cross_lengths(dtype, d, sq, sk):
     # Sq != Sk: streamed tiles that end inside their first half (50 < 64
-    # keys for dq, 77 = 2 x 32 + 13 q rows for dk/dv), own tiles past the
-    # end; q its own tensor, k and v views of one fused projection; B*H = 4
+    # keys for bf16 dq, 77 = 64 + 13 q rows for bf16 dk/dv, 2 x 32 + 13 in
+    # fp32), own tiles past the end; q its own tensor, k and v views of one
+    # fused projection; B*H = 4
     _need_cuda()
     _sliced_case(dtype, d, 2, 2, sq, sk, seed=7 + d, fused=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,sq,sk", [(128, 1100, 200), (128, 200, 1100),
+                                     (512, 1100, 200), (512, 200, 1100)])
+def test_cuda_flash_bwd_sliced_cross_lengths_past_the_tiles(dtype, d, sq,
+                                                             sk):
+    # Sq and Sk not multiples of the kernels' tiles (64 streamed rows in
+    # bf16, 32 in fp32; 128 or 64 own rows): 200 = 3 x 64 + 8 and 1100 =
+    # 17 x 64 + 12 leave a ragged last streamed tile and own rows past the
+    # end in both kernels, at one block (d = 128) and a cluster of four
+    # (d = 512)
+    _need_cuda()
+    _sliced_case(dtype, d, 2, 2, sq, sk, seed=31 + d + sq, fused=False)
 
 
 @pytest.mark.cuda

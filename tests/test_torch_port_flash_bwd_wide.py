@@ -105,23 +105,31 @@ def test_flash_qkv_wide_autograd_matches_jax_packed_vjp(no_library, d, h):
     _close(tx.grad, want, BWD_TOL)
 
 
+# ring stages of the bf16 kernels (dk/dv, dq) at each head dim: as many
+# as fit beside the own rows and, with a cluster, the receive buffers
+BF16_STAGES = {128: (4, 4), 192: (3, 3), 256: (3, 3), 320: (2, 2),
+               384: (2, 2), 448: (2, 3), 512: (2, 3)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_bwd_plan_pins_the_slices(dtype, d):
     # the plan of K4's kernels at d = 128-512 (static_asserted in their
-    # CUDA sources). bf16: slices of the output's columns that are blocks
-    # of the grid, 128 wide but the last (64 where D / 64 is odd), 64 own
-    # rows, 32 q rows (dk/dv) or 64 keys (dq) a streamed tile through as
-    # many ring stages as fit (at most 8, and one beside the slice's two
-    # held panels). fp32: D split across a block's 8 warps, in quarters
-    # (32 own rows) from d = 256 up, in halves (64 own rows) below, the
-    # most of 32, 16, 8 streamed rows whose two stages fit
+    # CUDA sources); nothing is recomputed (14 flops) at any d. bf16: D
+    # split across the blocks of a cluster, 128 columns a block (the last
+    # 64 where D / 64 is odd), which sum their shares of S and dP; 128 own
+    # rows a block, 64 streamed rows a tile in both kernels through as
+    # many ring stages as fit (at most 4). fp32: D split across a block's 8
+    # warps, in quarters (32 own rows) from d = 256 up, in halves (64) at
+    # 192, whole (128 own rows, one column group) at 128, the most of 32,
+    # 16, 8 streamed rows whose two stages fit (16 for dk/dv at 128)
     plan = tfa.bwd_plan(dtype, d)
     bf16 = dtype == torch.bfloat16
     assert plan["route"] == ("wgmma_sliced" if bf16 else "tf32x3_sliced")
-    assert plan["split"] == ("blocks" if bf16 else "warps")
-    groups = 4 if d >= 256 else 2
-    assert plan["rows"] == (64 if bf16 else 16 * 8 // groups)
+    assert plan["split"] == ("cluster" if bf16 else "warps")
+    groups = 1 if d == 128 else 4 if d >= 256 else 2
+    assert plan["cluster"] == (-(-d // 128) if bf16 else 1)
+    assert plan["rows"] == (128 if bf16 else 16 * 8 // groups)
     for kern in ("dkv", "dq"):
         slices = plan["slices"][kern]
         widest = 128 if bf16 else d // groups
@@ -131,42 +139,62 @@ def test_bwd_plan_pins_the_slices(dtype, d):
         assert slices[-1][1] in (64, widest)
         assert all(w % 16 == 0 for _, w in slices)
     if bf16:
-        assert plan["stream"] == {"dkv": 32, "dq": 64}
-        own = 2 * (d // 64) * 64 * 128
-        for kern, rows in plan["stream"].items():
-            st = plan["stages"][kern]
-            assert 3 <= st <= 8
-            assert 2048 + own + st * 2 * rows * 128 <= 232448
-            assert (st == 8
-                    or 2048 + own + (st + 1) * 2 * rows * 128 > 232448)
-        assert plan["flops"] == 8 * len(plan["slices"]["dq"]) + 6
+        assert plan["stream"] == {"dkv": 64, "dq": 64}
+        assert (plan["stages"]["dkv"], plan["stages"]["dq"]) == \
+            BF16_STAGES[d]
     else:
-        bn = plan["stream"]["dkv"]
-        assert plan["stream"] == {"dkv": bn, "dq": bn}
         assert plan["stages"] == {"dkv": 2, "dq": 2}
 
         def smem(rows):
             ld = d + 4
-            return (2 * plan["rows"] * ld + 4 * rows * ld
-                    + 2 * 8 * 2 * 16 * rows) * 4
-        assert smem(bn) <= 232448 and (bn == 32 or smem(2 * bn) > 232448)
-        assert plan["flops"] == 14
+            shares = 2 * 8 * 2 * 16 * rows if groups > 1 else 0
+            return (2 * plan["rows"] * ld + 4 * rows * ld + shares) * 4
+        for kern, bn in plan["stream"].items():
+            # at most 16 for dk/dv at d = 128 (its dK and dV take 128
+            # registers a thread)
+            most = 16 if kern == "dkv" and d == 128 else 32
+            assert smem(bn) <= 232448
+            assert bn == most or smem(2 * bn) > 232448
+    assert plan["flops"] == 14
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_bwd_plan_splits_the_cluster_columns(d):
+    # bf16: block r of the cluster owns columns [128 r, 128 r + 128) of D
+    # (the last 64 wide where D / 64 is odd), and each of a streamed
+    # tile's four 16-column k steps has one owner block, which forms its P
+    # and dS; every block owns at least one, in rank order
+    plan = tfa.bwd_plan(torch.bfloat16, d)
+    nc = plan["cluster"]
+    assert nc == {128: 1, 192: 2, 256: 2, 320: 3, 384: 3, 448: 4,
+                  512: 4}[d]
+    assert plan["slices"]["dkv"] == plan["slices"]["dq"] == tuple(
+        (128 * r, min(128, d - 128 * r)) for r in range(nc))
+    owners = plan["owners"]
+    assert len(owners) == 4 and list(owners) == sorted(owners)
+    assert set(owners) == set(range(nc))
 
 
 def test_bwd_plan_values_at_the_vae_head():
-    # d = 512 (the VAE's head): bf16 dq keeps 6 stages beside its 128 KB of
-    # own Q and dO, dk/dv 8, and the pair does 38 * Sq * Sk * D flops
-    # against JAX's 10 (14 at d = 128); fp32 streams 8 rows a tile beside
-    # its 32 own rows, 128 columns a warp, and recomputes nothing (14)
+    # d = 512 (the VAE's head): bf16 is a cluster of four blocks, one k
+    # step each, its dk/dv kernel keeping 2 ring stages and its dq kernel 3
+    # beside their receive buffers; fp32 streams 8 rows a tile beside its
+    # 32 own rows, 128 columns a warp; both do 14 * Sq * Sk * D flops, as
+    # at every d
     bf, f32 = (tfa.bwd_plan(dt, 512) for dt in (torch.bfloat16,
                                                 torch.float32))
-    assert bf["stages"] == {"dkv": 8, "dq": 6}
-    assert tfa.bwd_plan(torch.bfloat16, 448)["stages"] == {"dkv": 8, "dq": 7}
-    assert (bf["flops"], f32["flops"]) == (38, 14)
+    assert bf["cluster"] == 4 and bf["owners"] == (0, 1, 2, 3)
+    assert bf["stages"] == {"dkv": 2, "dq": 3}
+    assert tfa.bwd_plan(torch.bfloat16, 448)["stages"] == {"dkv": 2, "dq": 3}
+    assert (bf["flops"], f32["flops"]) == (14, 14)
     assert tfa.bwd_plan(torch.bfloat16, 128)["flops"] == 14
+    assert tfa.bwd_plan(torch.bfloat16, 128)["cluster"] == 1
     assert f32["stream"]["dq"] == 8 and f32["slices"]["dq"][1] == (128, 128)
     assert [tfa.bwd_plan(torch.float32, d)["stream"]["dkv"]
-            for d in WIDE_DIMS] == [32, 16, 16, 16, 16, 8, 8]
+            for d in WIDE_DIMS] == [16, 16, 16, 16, 16, 8, 8]
+    assert tfa.bwd_plan(torch.float32, 128)["stream"] == {"dkv": 16,
+                                                          "dq": 32}
+    assert tfa.bwd_plan(torch.float32, 128)["rows"] == 128
     for d in (64, 96, 576):
         with pytest.raises(ValueError):
             tfa.bwd_plan(torch.float32, d)

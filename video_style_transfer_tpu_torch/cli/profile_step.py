@@ -64,7 +64,13 @@ each dtype's widest head, each row with its bound and the device ms and
 kernel names of ``scaled_dot_product_attention``'s backward (a shape the
 wrapper refuses reads ``refused``); ``--k5_cutouts`` times its cut-out
 copies as ``--k3_cutouts`` does K3's (``k5_cut_source``, the macro
-``VST_K5_CUTOUT``).
+``VST_K5_CUTOUT``). ``--k4`` ends with the sliced routes' shapes
+(d = 128-512, bf16 and fp32, each row with SDPA's backward);
+``--k4_cutouts`` times those rows against copies of the flash-attention
+sources built apart with ``-DVST_K4_CUTOUT`` (``k4_cut_entries``): whole,
+with the sliced kernels' loads and stores alone, with their compute on
+data that stays in L2, and (bf16 from d = 192 up) without the exchange of
+S and dP shares between the blocks of a cluster.
 
 ``--precision`` holds the first stage-2 step (2 frames by default) in bf16
 against fp32 on the same weights and draws, and the fp32 step against
@@ -74,7 +80,8 @@ line of readings (``precision_readings``).
 
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
         [--train | --image | --decode | --k1 | --k2 | --k2_restarts | --k3 |
-         --k3_cutouts | --k4 | --k5 | --k5_cutouts | --k7 | --precision]
+         --k3_cutouts | --k4 | --k4_cutouts | --k5 |
+         --k5_cutouts | --k7 | --precision]
         [--mixed_precision bf16|no] [--vae_dtype float32|bfloat16]
         [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
@@ -320,6 +327,19 @@ K4_SHAPES = (("train L1", (8, 4096, 10, 64), torch.bfloat16),
              ("stage-1 L2", (1, 1024, 20, 64), torch.bfloat16),
              ("stage-1 L1", (1, 4096, 10, 64), torch.float32),
              ("stage-1 L2", (1, 1024, 20, 64), torch.float32))
+# K4's sliced routes at chip_smoke.py's SLICED_SHAPES (d = 128-512), bf16
+# ("wgmma_sliced") and fp32 ("tf32x3_sliced"): the VAE's mid-block
+# attention at 1024^2 and 512^2 and one shape at each other head dim
+K4_SLICED_SHAPES = tuple(
+    (tag, shape, dtype) for dtype in (torch.bfloat16, torch.float32)
+    for tag, shape in (("VAE 1024^2", (1, 16384, 1, 512)),
+                       ("VAE 512^2", (1, 4096, 1, 512)),
+                       ("d128", (2, 4096, 10, 128)),
+                       ("d192", (2, 4096, 2, 192)),
+                       ("d320", (1, 4096, 1, 320)),
+                       ("d384", (1, 4096, 1, 384)),
+                       ("d448", (1, 4096, 1, 448))))
+K4_SHAPES += K4_SLICED_SHAPES
 
 # (tag, (F, N, H, d), dtype): K3's shapes, every one a path launches:
 # the serving path's three motion levels at 16 frames (bf16, and fp32
@@ -654,6 +674,74 @@ def k5_cutouts(dev, runs: int):
         cuda_build._lib = None
 
 
+# K4's cut-out copies: the sliced kernels take the cuts from the macro
+# VST_K4_CUTOUT (csrc/flash_attention_bwd_sliced.cu and the sliced kernels
+# of csrc/flash_attention_tf32.cu); "no-exchange" skips the bf16 kernels'
+# exchange of S and dP shares between the blocks of a cluster (wrong
+# gradients; the fp32 kernels have none, and run whole)
+K4_CUTS = ("whole", "load+store", "resident", "no-exchange")
+
+
+def k4_cut_entries():
+    """{cut: K4's C entry point in a throwaway library built from the
+    flash-attention sources (csrc/flash_attention*.cu) of the package
+    Python finds first with -DVST_K4_CUTOUT=<the cut's index>, every nvcc
+    started together, in _build/k4_cutouts/<cut>}."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    srcs = sorted(cuda_build.CSRC.glob("flash_attention*.cu"))
+    if "VST_K4_CUTOUT" not in (cuda_build.CSRC /
+                               "flash_attention_bwd_sliced.cu").read_text():
+        raise ValueError("the sliced K4 source has no VST_K4_CUTOUT")
+    builds = {}
+    for i, cut in enumerate(K4_CUTS):
+        work = cuda_build.BUILD_DIR / "k4_cutouts" / cut.replace("+", "_")
+        work.mkdir(parents=True, exist_ok=True)
+        objs = [(work / (src.stem + ".o"), subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS,
+             f"-DVST_K4_CUTOUT={i}", "-I", str(cuda_build.CSRC), "-c",
+             str(src), "-o", str(work / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in srcs]
+        builds[cut] = (work, objs)
+    entries = {}
+    for cut, (work, objs) in builds.items():
+        for obj, proc in objs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for the {cut} copy\n{out}")
+        so = work / "libk4_cut.so"
+        link = subprocess.run(
+            [cuda_build._nvcc(), "-shared", "-o", str(so),
+             *[str(o) for o, _ in objs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the {cut} copy failed\n"
+                               + link.stdout)
+        lib = ctypes.CDLL(str(so))
+        for name in ("vst_flash_attention_fwd", "vst_flash_attention_bwd",
+                     "vst_flash_attention_bwd_delta"):
+            getattr(lib, name).argtypes = cuda_build.SIGNATURES[name]
+            getattr(lib, name).restype = ctypes.c_int
+        entries[cut] = lib
+    return entries
+
+
+def k4_cutouts(dev, runs: int):
+    """Yields {cut, shape, device_ms}: K4's wrapper timed at each of
+    K4_SLICED_SHAPES against each cut copy of the sliced kernels (the
+    wrapper finds the copy's library as its own; the forward that makes
+    the inputs runs from the same copy, uncut)."""
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    try:
+        for cut, lib in k4_cut_entries().items():
+            cuda_build._lib = lib
+            for row in kernel_calls(dev, runs, K4_SLICED_SHAPES, k4_call):
+                yield {"cut": cut, "shape": row["shape"],
+                       "device_ms": row["device_ms"]}
+    finally:
+        cuda_build._lib = None
+
+
 def _geglu_inputs(shape, dtype, gen):
     """Seeded x (M, C), W (2 inner, C) and b (2 inner,), inner = 4 C."""
     m, c = shape
@@ -694,15 +782,17 @@ def sdpa_yardstick(shape, dtype, gen, runs: int, backward: bool = False):
     alone with `backward`) on seeded fp32 (q, k, v) of `shape`, and the
     names of the kernels one call runs (torch.profiler; only a process's
     first profile lists them): the library's fp32 arithmetic, read from
-    its kernels' names. None for bf16."""
+    its kernels' names. None for bf16, but for the backward at d > 64
+    (the sliced routes' yardstick)."""
     import torch.nn.functional as F
-    if dtype != torch.float32:
+    if dtype != torch.float32 and not (backward and shape[3] > 64):
         return {}
     q, k, v = (t.transpose(1, 2) for t in _qkv(shape, dtype, gen))
     if backward:
         q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(q, k, v)
-        go = torch.randn(o.shape, generator=gen, device=o.device)
+        go = torch.randn(o.shape, generator=gen, device=o.device,
+                         dtype=dtype)
 
         def fn():
             return torch.autograd.grad(o, (q, k, v), go, retain_graph=True)
@@ -960,7 +1050,11 @@ def main(argv=None):
                         "with its compute on resident data")
     p.add_argument("--k4", action="store_true",
                    help="time K4's wrapper alone at the train step's "
-                        "shapes")
+                        "shapes and the sliced routes' (d = 128-512)")
+    p.add_argument("--k4_cutouts", action="store_true",
+                   help="time K4's sliced kernels whole, with their loads "
+                        "and stores alone, with their compute on resident "
+                        "data and without their cluster exchange")
     p.add_argument("--k7", action="store_true",
                    help="time K7's wrapper alone at the serving step's "
                         "LayerNorm shapes")
@@ -1020,6 +1114,12 @@ def main(argv=None):
         for row in k5_cutouts(dev, max(args.steps, 5)):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": "K5 temporal_attention_bwd", **row}),
+                  flush=True)
+        return
+    if args.k4_cutouts:
+        for row in k4_cutouts(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K4 flash_attention_bwd", **row}),
                   flush=True)
         return
     if args.k1 or args.k2 or args.k3 or args.k4 or args.k5 or args.k7:

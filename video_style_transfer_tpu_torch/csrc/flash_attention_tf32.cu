@@ -89,6 +89,13 @@
 #include "mma_sync.cuh"
 #include "sm90.cuh"
 
+// VST_K4_CUTOUT (cli/profile_step.py --k4_cutouts) cuts the sliced
+// kernels: 1 keeps their loads and stores alone, 2 keeps their compute on
+// data that stays in L2 (every streamed tile is the sequence's first)
+#ifndef VST_K4_CUTOUT
+#define VST_K4_CUTOUT 0
+#endif
+
 namespace vst {
 namespace {
 
@@ -621,13 +628,14 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 // d = 512 no thread can hold the dK and dV of a 16-row fragment across
 // the whole D (256 floats each), so each of a block's 8 warps owns 16 of
 // its rows (keys for dk/dv, q rows for dq) and a quarter of the output's
-// columns (a half below d = 256, the block then 64 rows; `bwd_plan`). The
-// block keeps its own rows of both own tensors (K, V or Q, dO) whole in
-// shared memory and streams tiles of BN rows of the other two through two
-// cp.async stages. For each tile:
+// columns (a half at d = 192, the block then 64 rows; the whole at 128,
+// the block 128 rows; `bwd_plan`). The block keeps its own rows of both
+// own tensors (K, V or Q, dO) whole in shared memory and streams tiles of
+// BN rows of the other two through two cp.async stages. For each tile:
 //  - each warp forms its columns' share of S (S^T for dk/dv) and dP, 64
 //    columns at a time summed from zero in the tensor core and added in
-//    f32, and writes both to shared memory;
+//    f32, and (with more than one column group) writes both to shared
+//    memory;
 //  - after a block barrier each warp adds its row group's shares in one
 //    order, so the group's warps hold the same S and dP, bit for bit, and
 //    forms P and dS from them;
@@ -638,24 +646,31 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 // threads, one block an SM; BN is the most of 32, 16, 8 whose stages fit
 // beside the own rows (8 at d >= 448).
 
-template <int D>
+template <int D, bool DQ>
 struct SplitCfg {
   // the 8 warps as RG row groups of 16 own rows by CG column groups: D in
-  // quarters from 256 up, in halves below (more own rows, fewer passes of
-  // the streamed side, where a quarter would be a thin slice)
-  static constexpr int CG = D >= 256 ? 4 : 2;
+  // quarters from 256 up, in halves at 192, whole at 128 (one column
+  // group: 128 own rows and no shares to exchange, which ran faster on an
+  // H100 than D in halves)
+  static constexpr int CG = D == 128 ? 1 : D >= 256 ? 4 : 2;
   static constexpr int RG = 8 / CG;
   static constexpr int RT = 16 * RG;  // own rows a block
   static constexpr int CW = D / CG;   // output columns a warp owns
   static constexpr int LDX = D + 4;   // floats a row of a tile
   static constexpr int THREADS = 256;
   static constexpr size_t bytes(int bn) {
-    // both own tensors, two stages of both streamed ones, and two buffers
-    // of every warp's S and dP shares ([2][8 warps][2][16 * bn])
-    return (2 * RT * LDX + 2 * 2 * bn * LDX + 2 * 8 * 2 * 16 * bn) *
+    // both own tensors, two stages of both streamed ones, and (with more
+    // than one column group) two buffers of every warp's S and dP shares
+    // ([2][8 warps][2][16 * bn])
+    return (2 * RT * LDX + 2 * 2 * bn * LDX +
+            (CG > 1 ? 2 * 8 * 2 * 16 * bn : 0)) *
            sizeof(float);
   }
-  static constexpr int BN = bytes(32) <= 232448   ? 32
+  // the most of 32, 16, 8 streamed rows that fit; the dk/dv kernel at
+  // d = 128 takes 16 (a warp's dK and dV across the whole D take 128
+  // registers, and at 32 rows ptxas spilled)
+  static constexpr int MOST = !DQ && D == 128 ? 16 : 32;
+  static constexpr int BN = bytes(MOST) <= 232448 ? MOST
                             : bytes(16) <= 232448 ? 16
                                                   : 8;
   static constexpr size_t SMEM = bytes(BN);
@@ -664,11 +679,16 @@ struct SplitCfg {
   static_assert(SMEM <= 232448, "tiles exceed shared memory");
   static_assert((LDX * sizeof(float)) % 16 == 0, "16-byte cp.async rows");
 };
-static_assert(SplitCfg<512>::BN == 8 && SplitCfg<448>::BN == 8 &&
-                  SplitCfg<384>::BN == 16 && SplitCfg<320>::BN == 16 &&
-                  SplitCfg<256>::BN == 16 && SplitCfg<192>::BN == 16 &&
-                  SplitCfg<128>::BN == 32 && SplitCfg<192>::RT == 64 &&
-                  SplitCfg<256>::RT == 32,
+static_assert(SplitCfg<512, true>::BN == 8 && SplitCfg<448, false>::BN == 8 &&
+                  SplitCfg<384, true>::BN == 16 &&
+                  SplitCfg<320, true>::BN == 16 &&
+                  SplitCfg<256, true>::BN == 16 &&
+                  SplitCfg<192, false>::BN == 16 &&
+                  SplitCfg<128, true>::BN == 32 &&
+                  SplitCfg<128, false>::BN == 16 &&
+                  SplitCfg<128, true>::RT == 128 &&
+                  SplitCfg<192, true>::RT == 64 &&
+                  SplitCfg<256, true>::RT == 32,
               "bwd_plan's rows, column groups and streamed rows");
 
 // load_a, load_bt and load_b on tiles of LDX floats a row
@@ -719,7 +739,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
 template <bool DQ, int D>
 __global__ void __launch_bounds__(256, 1)
     flash_bwd_split_tf32_kernel(const BwdArgs a) {
-  using C = SplitCfg<D>;
+  using C = SplitCfg<D, DQ>;
   constexpr int BN = C::BN, NSN = BN / 8, CW = C::CW, LDX = C::LDX;
   constexpr int NT = C::THREADS, SHARE = 16 * BN;  // floats a warp's share
   extern __shared__ __align__(16) float smem[];
@@ -752,8 +772,9 @@ __global__ void __launch_bounds__(256, 1)
                                seq_own);
   auto load_tile = [&](int tile, int st) {
     float* Y0 = stages + st * 2 * BN * LDX;
-    load_rows<BN, D, LDX, NT>(Y0, y0, y0_ss, tile * BN, seq_str);
-    load_rows<BN, D, LDX, NT>(Y0 + BN * LDX, y1, y1_ss, tile * BN, seq_str);
+    const int row = VST_K4_CUTOUT == 2 ? 0 : tile * BN;
+    load_rows<BN, D, LDX, NT>(Y0, y0, y0_ss, row, seq_str);
+    load_rows<BN, D, LDX, NT>(Y0 + BN * LDX, y1, y1_ss, row, seq_str);
   };
   load_tile(0, 0);
   cp_async_commit();
@@ -833,6 +854,11 @@ __global__ void __launch_bounds__(256, 1)
     const int st = tile & 1;
     if (tile + 1 < nt) load_tile(tile + 1, st ^ 1);
     cp_async_commit();
+#if VST_K4_CUTOUT == 1
+    cp_async_wait_all();
+    __syncthreads();
+    continue;
+#endif
     const float* Y0 = stages + st * 2 * BN * LDX;
     const float* Y1 = Y0 + BN * LDX;
     const int left = seq_str - tile * BN;  // streamed columns past: 0
@@ -853,27 +879,31 @@ __global__ void __launch_bounds__(256, 1)
     float s[NSN][4], dp[NSN][4];
     share(s, X0, Y0);
     share(dp, X1, Y1);
-    float4* mine = reinterpret_cast<float4*>(shares + (st * 8 + warp) * 2 *
-                                             SHARE);
-#pragma unroll
-    for (int n = 0; n < NSN; ++n) {
-      mine[lane * NSN + n] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-      mine[SHARE / 4 + lane * NSN + n] =
-          make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
-    }
-    __syncthreads();  // every share of this tile written
-    zero(s);
-    zero(dp);
-#pragma unroll
-    for (int q = 0; q < C::CG; ++q) {
-      const float4* theirs = reinterpret_cast<const float4*>(
-          shares + (st * 8 + C::CG * rg + q) * 2 * SHARE);
+    if constexpr (C::CG > 1) {
+      float4* mine = reinterpret_cast<float4*>(
+          shares + (st * 8 + warp) * 2 * SHARE);
 #pragma unroll
       for (int n = 0; n < NSN; ++n) {
-        const float4 x = theirs[lane * NSN + n];
-        const float4 y = theirs[SHARE / 4 + lane * NSN + n];
-        s[n][0] += x.x, s[n][1] += x.y, s[n][2] += x.z, s[n][3] += x.w;
-        dp[n][0] += y.x, dp[n][1] += y.y, dp[n][2] += y.z, dp[n][3] += y.w;
+        mine[lane * NSN + n] =
+            make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        mine[SHARE / 4 + lane * NSN + n] =
+            make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+      }
+      __syncthreads();  // every share of this tile written
+      zero(s);
+      zero(dp);
+#pragma unroll
+      for (int q = 0; q < C::CG; ++q) {
+        const float4* theirs = reinterpret_cast<const float4*>(
+            shares + (st * 8 + C::CG * rg + q) * 2 * SHARE);
+#pragma unroll
+        for (int n = 0; n < NSN; ++n) {
+          const float4 x = theirs[lane * NSN + n];
+          const float4 y = theirs[SHARE / 4 + lane * NSN + n];
+          s[n][0] += x.x, s[n][1] += x.y, s[n][2] += x.z, s[n][3] += x.w;
+          dp[n][0] += y.x, dp[n][1] += y.y, dp[n][2] += y.z,
+              dp[n][3] += y.w;
+        }
       }
     }
     // P and dS in place
@@ -928,7 +958,7 @@ __global__ void __launch_bounds__(256, 1)
 
 template <bool DQ, int D>
 int launch_split_tf32(const BwdArgs& a, int dev, cudaStream_t stream) {
-  using C = SplitCfg<D>;
+  using C = SplitCfg<D, DQ>;
   static std::atomic<uint64_t> smem_set{0};
   auto kernel = flash_bwd_split_tf32_kernel<DQ, D>;
   const int e = sm90::allow_smem_once(kernel, (int)C::SMEM, dev, smem_set);

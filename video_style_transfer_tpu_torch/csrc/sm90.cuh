@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks for the port's kernels: warpgroup
 // matrix products (wgmma) with shared-memory matrix descriptors, mbarriers,
-// named barriers, TMA tensor loads and stores and 1-D bulk copies, their
-// host-side tensor maps (with caches of encoded maps), register
-// rebalancing between warpgroups (setmaxnreg), and launch settings kept
-// once per device.
+// named barriers, thread-block clusters (distributed shared memory and
+// asynchronous stores into it), TMA tensor loads and stores and 1-D bulk
+// copies, their host-side tensor maps (with caches of encoded maps),
+// register rebalancing between warpgroups (setmaxnreg), and launch
+// settings kept once per device.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
 // of R rows x 64 bf16 (128 bytes a row) is one "panel"; row r lives at
@@ -611,15 +612,53 @@ __device__ __forceinline__ void cluster_sync() {
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Arrives on the barrier at `bar`'s offset in block `rank` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t rank) {
+// The address of shared-memory address `addr` (this block's) in block
+// `rank` of the cluster, for the ::cluster state space.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote)
-               : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// Arrives on the barrier at `bar`'s offset in block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   mapa(smem_u32(bar), rank))
                : "memory");
+}
+
+// 16 bytes into another block's shared memory, asynchronously: `addr` and
+// `bar` are addresses in that block (from mapa); the store completes 16
+// bytes of the transaction count of its barrier at `bar`, whose waiters
+// then see the data (no fence, no arrival of the sender's).
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait, acquiring at cluster scope: what other blocks' st.async
+// stores completed on the barrier is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // --------------------------------------------------------- named barriers

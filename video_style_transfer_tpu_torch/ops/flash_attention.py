@@ -24,7 +24,7 @@ merges the parts. K4 takes every head dim K1 takes, on four routes named
 by `bwd_route`: bf16 at d = 64 on wgmma with TMA loads ("wgmma"), fp32 at
 d = 64 on the 3xTF32 route's dk/dv and dq kernels ("tf32x3"), and at d =
 128-512 the same two-kernel form with D split (`bwd_plan`): bf16 on wgmma
-with TMA loads, D across blocks ("wgmma_sliced":
+with TMA loads, D across the blocks of a cluster ("wgmma_sliced":
 csrc/flash_attention_bwd_sliced.cu), fp32 at 3xTF32, D across a block's
 warps ("tf32x3_sliced": csrc/flash_attention_tf32.cu) -- the VAE's
 mid-block attention (d = 512) under a gradient. Its delta = rowsum(dO * O) is a
@@ -86,14 +86,17 @@ WIDE_BLOCK_Q, WIDE_BLOCK_K = 64, 64
 # K4 takes what K1 takes: d = 64 (every SDXL UNet head) on its own
 # kernels, 128-512 (the VAE's d = 512) on the sliced ones
 BWD_HEAD_DIMS = HEAD_DIMS
-# K4's kernels at d = 128-512 (`bwd_plan`): bf16 splits D across blocks
-# (64 rows a block, one warpgroup, at most two 64-wide panels of the
-# output a block; streamed rows a tile by kernel), fp32 across the 8
-# warps of a block (each warp 16 rows and a quarter of the output's
-# columns from d = 256 up, a half below)
-SLICED_ROWS = 64
+# K4's kernels at d = 128-512 (`bwd_plan`): bf16 splits D across the
+# blocks of a cluster (128 own rows a block, two consumer warpgroups, at
+# most two 64-wide panels of D a block, 64 streamed rows a tile in both
+# kernels; S and dP summed across the cluster through distributed shared
+# memory), fp32 across the 8 warps of a block (each warp 16 rows and a
+# quarter of the output's columns from d = 256 up, a half at 192, the
+# whole at 128)
+SLICED_ROWS = 128
 SLICE_PANELS = 2
-SLICED_STREAM = {"dkv": 32, "dq": 64}
+SLICED_STREAM = {"dkv": 64, "dq": 64}
+SLICED_MAX_STAGES = 4
 # the shared memory a block may take on an H100
 SMEM_PER_BLOCK = 232448
 
@@ -172,11 +175,11 @@ def bwd_route(dtype, head_dim: int) -> str:
     "wgmma" (bf16 d = 64: wgmma + TMA, warp-specialised, in
     csrc/flash_attention_bwd.cu), "tf32x3" (fp32 d = 64: mma.sync at
     3xTF32, in csrc/flash_attention_tf32.cu beside K1's fp32 d = 64
-    forward), "wgmma_sliced" (bf16 d = 128-512: wgmma + TMA, each block a
-    slice of D, in csrc/flash_attention_bwd_sliced.cu) or "tf32x3_sliced"
-    (fp32 d = 128-512: the 3xTF32 arithmetic with D split across a
-    block's warps, at the end of csrc/flash_attention_tf32.cu). Raises on
-    what K4 does not take."""
+    forward), "wgmma_sliced" (bf16 d = 128-512: wgmma + TMA, each block of
+    a cluster a slice of D, in csrc/flash_attention_bwd_sliced.cu) or
+    "tf32x3_sliced" (fp32 d = 128-512: the 3xTF32 arithmetic with D split
+    across a block's warps, at the end of csrc/flash_attention_tf32.cu).
+    Raises on what K4 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention backward takes float32 or "
                         f"bfloat16, got {dtype}")
@@ -189,20 +192,26 @@ def bwd_route(dtype, head_dim: int) -> str:
 
 def _split_groups(head_dim: int) -> tuple:
     """(row groups, column groups) of the fp32 kernels' 8 warps at d =
-    128-512: D in quarters from 256 up, in halves below."""
-    cg = 4 if head_dim >= 256 else 2
+    128-512: D in quarters from 256 up, in halves at 192, whole at 128."""
+    cg = 1 if head_dim == 128 else 4 if head_dim >= 256 else 2
     return 8 // cg, cg
 
 
-def _split_stream(head_dim: int) -> int:
-    """Streamed rows a tile of the fp32 kernels at d = 128-512: the most of
-    32, 16 and 8 whose two stages of both streamed tensors fit beside the
-    block's own rows of both own tensors and two buffers of its 8 warps'
-    shares of S and dP (rows of D + 4 floats)."""
-    ld, rows = head_dim + 4, 16 * _split_groups(head_dim)[0]
+def _split_stream(head_dim: int, kern: str) -> int:
+    """Streamed rows a tile of the fp32 dk/dv or dq kernel (`kern`) at d =
+    128-512: the most of 32, 16 and 8 (16 for dk/dv at d = 128, where a
+    warp's dK and dV take 128 registers) whose two stages of both streamed
+    tensors fit beside the block's own rows of both own tensors and, with
+    more than one column group, two buffers of its 8 warps' shares of S
+    and dP (rows of D + 4 floats)."""
+    ld = head_dim + 4
+    rg, cg = _split_groups(head_dim)
+    most = 16 if kern == "dkv" and head_dim == 128 else 32
     for bn in (32, 16, 8):
-        if (2 * rows * ld + 4 * bn * ld + 2 * 8 * 2 * 16 * bn) * 4 \
-                <= SMEM_PER_BLOCK:
+        if bn > most:
+            continue
+        shares = 2 * 8 * 2 * 16 * bn if cg > 1 else 0
+        if (2 * 16 * rg * ld + 4 * bn * ld + shares) * 4 <= SMEM_PER_BLOCK:
             return bn
     raise ValueError(f"no streamed tile fits at head_dim {head_dim}")
 
@@ -215,18 +224,22 @@ def bwd_plan(dtype, head_dim: int) -> dict:
     q rows) and streams the other side in tiles of `stream` rows (by
     kernel) through `stages` stages; `slices` (by kernel, as (first
     column, width)) split the output's columns, `split` says across what:
-    - bf16 ("blocks"): each slice is a block of the grid, 128 wide (the
-      last 64 where D / 64 is odd); a block keeps its 64 rows' whole D in
-      shared memory and streams one 64-wide panel of both streamed tensors
-      a stage, as many stages as fit (at most 8), and recomputes S and dP
-      over the full D: the pair does (4 * slices + 4) + (4 * slices + 2)
-      * Sq * Sk * D flops (`flops`) a (batch, head);
+    - bf16 ("cluster"): each slice is a block of a thread-block cluster of
+      `cluster` blocks along the grid, 128 wide (the last 64 where D / 64
+      is odd); the blocks share their own rows, each forms its share of S
+      and dP over its columns, and the cluster sums the shares through
+      distributed shared memory (block `owners[j]` forms P and dS of the
+      tile's 16-column k step j), so nothing is recomputed (14 flops);
+      the ring holds as many stages of 64 streamed rows of the block's
+      columns as fit beside the own rows and the exchange buffers (at most
+      4);
     - fp32 ("warps"): each slice is owned by a column group of the
-      block's 8 warps (16 rows a warp; quarters of D from 256 up, 64 own
-      rows and halves below); the warps sum their shares of S and dP
+      block's 8 warps (16 rows a warp; quarters of D from 256 up and 32
+      own rows, halves at 192 and 64 own rows, the whole of D at 128 and
+      128 own rows); the warps of a row group sum their shares of S and dP
       through shared memory, so nothing is recomputed (14 flops), and the
       tile is the most of 32, 16, 8 rows whose two cp.async stages fit
-      beside the block's own rows."""
+      beside the block's own rows (16 for dk/dv at d = 128)."""
     route = bwd_route(dtype, head_dim)
     if head_dim == 64:
         raise ValueError("K4's sliced kernels take head_dim 128-512; "
@@ -235,21 +248,44 @@ def bwd_plan(dtype, head_dim: int) -> dict:
         rg, cg = _split_groups(head_dim)
         cw = head_dim // cg
         parts = tuple((cw * i, cw) for i in range(cg))
-        bn = _split_stream(head_dim)
         return {"route": route, "split": "warps", "rows": 16 * rg,
-                "slices": {"dkv": parts, "dq": parts},
-                "stream": {"dkv": bn, "dq": bn},
+                "cluster": 1, "slices": {"dkv": parts, "dq": parts},
+                "stream": {k: _split_stream(head_dim, k)
+                           for k in ("dkv", "dq")},
                 "stages": {"dkv": 2, "dq": 2}, "flops": 14}
     panels = head_dim // 64
     slices = tuple((64 * p, 64 * min(SLICE_PANELS, panels - p))
                    for p in range(0, panels, SLICE_PANELS))
-    own = 2 * panels * SLICED_ROWS * 128   # both own tensors, bf16
-    stages = {kern: min(8, (SMEM_PER_BLOCK - 2048 - own) // (2 * rows * 128))
-              for kern, rows in SLICED_STREAM.items()}
-    return {"route": route, "split": "blocks", "rows": SLICED_ROWS,
+    cluster = len(slices)
+    # a block: both own tensors' slice panels, the stages (both streamed
+    # tensors' slice panels, 32 KB), with a cluster each consumer
+    # warpgroup's receive buffers (round 1: from each other block the
+    # shares of the k steps this block owns, 2 KB an n tile of S or dP;
+    # round 2: the fragments of P (dk/dv) and dS of every k step, 2 KB
+    # each); 1024 bytes of alignment, then a head of barriers and (dk/dv)
+    # each stage's lse and delta rows, to a kilobyte
+    owners = ((0, 0, 0, 0), (0, 0, 1, 1), (0, 0, 1, 2),
+              (0, 1, 2, 3))[cluster - 1]
+    most = max(owners.count(r) for r in range(cluster))
+    own = 2 * SLICE_PANELS * SLICED_ROWS * 128
+    stages = {}
+    for kern, rows in SLICED_STREAM.items():
+        stage = 2 * SLICE_PANELS * rows * 128
+        exchange = 0 if cluster == 1 else 2 * (
+            (cluster - 1) * most * 4 * 2048
+            + 4 * (1 if kern == "dq" else 2) * 2048)
+        n = SLICED_MAX_STAGES
+        while n > 1:
+            head = -(-(128 + (0 if kern == "dq" else n * 2 * rows * 4))
+                     // 1024) * 1024
+            if 1024 + head + own + n * stage + exchange <= SMEM_PER_BLOCK:
+                break
+            n -= 1
+        stages[kern] = n
+    return {"route": route, "split": "cluster", "rows": SLICED_ROWS,
+            "cluster": cluster, "owners": owners,
             "slices": {"dkv": slices, "dq": slices},
-            "stream": dict(SLICED_STREAM), "stages": stages,
-            "flops": 8 * len(slices) + 6}
+            "stream": dict(SLICED_STREAM), "stages": stages, "flops": 14}
 
 
 def kv_splits(blocks: int, kv_tiles: int, sms: int) -> int:
