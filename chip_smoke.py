@@ -44,8 +44,8 @@
    (`bwd_route`): at d = 64 bf16 on wgmma + TMA, fp32 on mma.sync at
    3xTF32; at d = 128-512 the sliced kernels (`bwd_plan`: D split, bf16
    on wgmma + TMA across the blocks of a thread-block cluster, which sum
-   their shares of S and dP through distributed shared memory, fp32 at
-   3xTF32 across a block's warps);
+   their shares of S and dP through distributed shared memory; fp32 at
+   3xTF32 the same way, every product on TF32 wgmma);
    its d = 64 phases (the train step's two levels and a ragged length,
    each in bf16 and fp32) also print the bound at the two-kernel design's
    14 flops, its sliced phases (`sliced_phases`: the VAE's head at 16384
@@ -164,8 +164,8 @@
    FMA kernels', the 3xTF32 kernels', K4's and K2's and K3's registers,
    spills and wgmma serialisation from nvcc's report; the FMA, 3xTF32,
    K3, K4, K2 and K1 wgmma kernels must not spill, and K1's, K2's and
-   K4's sliced bf16 wgmma kernels must not have their products
-   serialised; the
+   K4's sliced wgmma kernels (bf16 and fp32) must not have their
+   products serialised; the
    stage-2 precision check's launches count as a path of their own,
    "stage2_fp32", and stage 1's as "stage1"), then the last line
    {"ok": true, "device": {...}}. Any failure exits non-zero before
@@ -3093,11 +3093,11 @@ def sliced_ptxas(log):
     128-512: the bf16 dk/dv and dq kernels by head dim (a template on D /
     64 panels; 384 threads, 168 registers at launch, then setmaxnreg moves
     the producer warpgroup to 24 and the two consumer warpgroups to 240)
-    and the fp32 ones (a template on D; 256 threads, at most 255
-    registers a thread). Fails if one spills, or if ptxas serialised a
-    bf16 kernel's products."""
+    and the fp32 ones (a template on D, every product on TF32 wgmma; the
+    same threads and registers). Fails if one spills, or if ptxas
+    serialised a kernel's wgmma products."""
     rep = ptxas_report(log, r"(flash_bwd_sliced_sm90_kernelILb[01]ELi\d+E|"
-                            r"flash_bwd_split_tf32_kernelILb[01]ELi\d+E)")
+                            r"flash_bwd_sliced_tf32_kernelILb[01]ELi\d+E)")
     out = {"bf16": {}, "fp32": {}}
     for name, r in rep.items():
         kern = "dq" if "ILb1E" in name else "dkv"
@@ -3115,9 +3115,9 @@ def sliced_ptxas(log):
         for key, r in kernels.items():
             if r.get("spill_stores", 1) or r.get("spill_loads", 1):
                 fail(f"K4's {dt} sliced {key} kernel spills registers: {r}")
-            if dt == "bf16" and r["wgmma_serialized"]:
-                fail(f"ptxas serialised the wgmma products of K4's sliced "
-                     f"{key} kernel: {r['wgmma_serialized']}")
+            if r["wgmma_serialized"]:
+                fail(f"ptxas serialised the wgmma products of K4's {dt} "
+                     f"sliced {key} kernel: {r['wgmma_serialized']}")
     print(f"K4 sliced kernels (ptxas): {json.dumps(out)}", flush=True)
     return out
 
@@ -4460,12 +4460,12 @@ def main():
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "flash_attention.py:596"),
         # K4 at d = 128-512, D split across the blocks of a cluster (bf16,
-        # wgmma + TMA) or a block's warps (fp32, 3xTF32): the VAE gradient
-        # path's mid-block attention
+        # wgmma + TMA; fp32 on TF32 wgmma at 3xTF32): the VAE gradient
+        # path's mid-block attention (d = 512)
         "flash_attention_bwd_sliced": ("flash_attention_bwd_sliced.cu",
                                        "flash_attention.py:596"),
-        "flash_attention_bwd_sliced_tf32x3": ("flash_attention_tf32.cu",
-                                              "flash_attention.py:596"),
+        "flash_attention_bwd_sliced_tf32x3": (
+            "flash_attention_bwd_sliced_tf32.cu", "flash_attention.py:596"),
         # not a TPU kernel: JAX computes delta in XLA at this line
         "flash_attention_bwd_delta": ("flash_attention_bwd.cu",
                                       "flash_attention.py:657"),

@@ -115,28 +115,27 @@ BF16_STAGES = {128: (4, 4), 192: (3, 3), 256: (3, 3), 320: (2, 2),
 @pytest.mark.parametrize("d", WIDE_DIMS)
 def test_bwd_plan_pins_the_slices(dtype, d):
     # the plan of K4's kernels at d = 128-512 (static_asserted in their
-    # CUDA sources); nothing is recomputed (14 flops) at any d. bf16: D
-    # split across the blocks of a cluster, 128 columns a block (the last
-    # 64 where D / 64 is odd), which sum their shares of S and dP; 128 own
-    # rows a block, 64 streamed rows a tile in both kernels through as
-    # many ring stages as fit (at most 4). fp32: D split across a block's 8
-    # warps, in quarters (32 own rows) from d = 256 up, in halves (64) at
-    # 192, whole (128 own rows, one column group) at 128, the most of 32,
-    # 16, 8 streamed rows whose two stages fit (16 for dk/dv at 128)
+    # CUDA sources); nothing is recomputed (14 flops) at any d. D split
+    # across the blocks of a cluster, 128 columns a block (the last 64
+    # where D / 64 is odd), which sum their shares of S and dP. bf16: 128
+    # own rows a block, 64 streamed rows a tile in both kernels through as
+    # many ring stages as fit (at most 4). fp32: 64 own rows, 32 streamed
+    # rows a tile through two stages, S and dP on TF32 wgmma, and dV, dK
+    # and dQ too as transposed products (P^T, dS^T or dS written hi and lo
+    # as their B operand), each streamed tile's lo part copied once into
+    # one buffer, 231424 bytes a block
     plan = tfa.bwd_plan(dtype, d)
     bf16 = dtype == torch.bfloat16
     assert plan["route"] == ("wgmma_sliced" if bf16 else "tf32x3_sliced")
-    assert plan["split"] == ("cluster" if bf16 else "warps")
-    groups = 1 if d == 128 else 4 if d >= 256 else 2
-    assert plan["cluster"] == (-(-d // 128) if bf16 else 1)
-    assert plan["rows"] == (128 if bf16 else 16 * 8 // groups)
+    assert plan["split"] == "cluster"
+    assert plan["cluster"] == -(-d // 128)
+    assert plan["rows"] == (128 if bf16 else 64)
     for kern in ("dkv", "dq"):
         slices = plan["slices"][kern]
-        widest = 128 if bf16 else d // groups
-        assert [c for c, _ in slices] == list(range(0, d, widest))
+        assert [c for c, _ in slices] == list(range(0, d, 128))
         assert sum(w for _, w in slices) == d
-        assert all(w == widest for _, w in slices[:-1])
-        assert slices[-1][1] in (64, widest)
+        assert all(w == 128 for _, w in slices[:-1])
+        assert slices[-1][1] in (64, 128)
         assert all(w % 16 == 0 for _, w in slices)
     if bf16:
         assert plan["stream"] == {"dkv": 64, "dq": 64}
@@ -144,27 +143,31 @@ def test_bwd_plan_pins_the_slices(dtype, d):
             BF16_STAGES[d]
     else:
         assert plan["stages"] == {"dkv": 2, "dq": 2}
-
-        def smem(rows):
-            ld = d + 4
-            shares = 2 * 8 * 2 * 16 * rows if groups > 1 else 0
-            return (2 * plan["rows"] * ld + 4 * rows * ld + shares) * 4
-        for kern, bn in plan["stream"].items():
-            # at most 16 for dk/dv at d = 128 (its dK and dV take 128
-            # registers a thread)
-            most = 16 if kern == "dkv" and d == 128 else 32
-            assert smem(bn) <= 232448
-            assert bn == most or smem(2 * bn) > 232448
+        assert plan["stream"] == {"dkv": 32, "dq": 32}
+        # 1 KB of alignment and 1 KB of barriers and rows, the own rows (2
+        # x 64 x 128 fp32), two stages of both streamed tensors as landed
+        # (2 x 32 x 128 fp32 each), one lo buffer of the same size, P^T /
+        # dS^T hi and lo for two warpgroups (2 x 2 x 64 x 32 fp32), 6
+        # exchange slots of 2 KB for each of two warpgroups, the P hand-off
+        # (4 x 2 KB)
+        want = (2048 + 2 * 64 * 128 * 4 + 3 * 2 * 32 * 128 * 4
+                + 2 * 2 * 64 * 32 * 4 + 2 * 6 * 2048 + 4 * 2048)
+        assert want == 231424 <= 232448
+        assert plan["smem"] == {"dkv": want, "dq": want}
+        assert plan["wgmma"] == ("S", "dP", "dV", "dK", "dQ")
+        assert plan["copies"] == ("lo",)
+        assert plan["transposed"] == ("dV", "dK", "dQ")
+        assert plan["slots"] == 6
     assert plan["flops"] == 14
 
 
-@pytest.mark.parametrize("d", WIDE_DIMS)
-def test_bwd_plan_splits_the_cluster_columns(d):
-    # bf16: block r of the cluster owns columns [128 r, 128 r + 128) of D
-    # (the last 64 wide where D / 64 is odd), and each of a streamed
-    # tile's four 16-column k steps has one owner block, which forms its P
-    # and dS; every block owns at least one, in rank order
-    plan = tfa.bwd_plan(torch.bfloat16, d)
+def _cluster_columns(dtype, d):
+    # block r of the cluster owns columns [128 r, 128 r + 128) of D (the
+    # last 64 wide where D / 64 is odd), and each quarter of a streamed
+    # tile (bf16: a 16-column k step of 64; fp32: an 8-column n tile of
+    # 32) has one owner block, which sums its shares; every block owns at
+    # least one, in rank order
+    plan = tfa.bwd_plan(dtype, d)
     nc = plan["cluster"]
     assert nc == {128: 1, 192: 2, 256: 2, 320: 3, 384: 3, 448: 4,
                   512: 4}[d]
@@ -175,12 +178,49 @@ def test_bwd_plan_splits_the_cluster_columns(d):
     assert set(owners) == set(range(nc))
 
 
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_bwd_plan_splits_the_cluster_columns(d):
+    _cluster_columns(torch.bfloat16, d)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+def test_bwd_plan_splits_the_fp32_cluster_columns(d):
+    _cluster_columns(torch.float32, d)
+
+
+@pytest.mark.parametrize("cluster", [2, 3, 4])
+def test_exchange_slots_receive_every_share_once(cluster):
+    # fp32's exchange (csrc/flash_attention_bwd_sliced_tf32.cu's
+    # fs_r1_slot / fs_r2_slot): every n tile of a streamed tile has
+    # exactly one owner; each block receives, in distinct slots of its 6,
+    # every other block's share of each n tile it owns (round 1) and the
+    # sum of each n tile it does not own (round 2), and nothing else
+    owners = tfa.TILE_OWNERS[cluster - 1]
+    slots = tfa.exchange_slots(cluster)
+    assert sorted(slots) == list(range(cluster))
+    for r, got in slots.items():
+        want = {("share", s, j) for j in range(4) if owners[j] == r
+                for s in range(cluster) if s != r}
+        want |= {("sum", j) for j in range(4) if owners[j] != r}
+        assert set(got) == want
+        assert len(set(got.values())) == len(got)
+        assert set(got.values()) == set(range(len(got)))
+        assert len(got) <= tfa.TF32_SLICED_SLOTS
+    # the values the CUDA source static_asserts
+    if cluster == 3:
+        assert slots[0][("share", 2, 1)] == 3 and slots[1][("sum", 3)] == 4
+        assert [len(slots[r]) for r in range(3)] == [6, 5, 5]
+    if cluster == 4:
+        assert slots[0][("sum", 1)] == 3 and slots[3][("share", 0, 3)] == 0
+
+
 def test_bwd_plan_values_at_the_vae_head():
     # d = 512 (the VAE's head): bf16 is a cluster of four blocks, one k
     # step each, its dk/dv kernel keeping 2 ring stages and its dq kernel 3
-    # beside their receive buffers; fp32 streams 8 rows a tile beside its
-    # 32 own rows, 128 columns a warp; both do 14 * Sq * Sk * D flops, as
-    # at every d
+    # beside their receive buffers; fp32 is a cluster of four blocks too,
+    # one n tile each, 32 streamed rows a tile beside its 64 own rows, 128
+    # columns a block (at every d; one block at d = 128); both do 14 * Sq
+    # * Sk * D flops, as at every d
     bf, f32 = (tfa.bwd_plan(dt, 512) for dt in (torch.bfloat16,
                                                 torch.float32))
     assert bf["cluster"] == 4 and bf["owners"] == (0, 1, 2, 3)
@@ -189,12 +229,15 @@ def test_bwd_plan_values_at_the_vae_head():
     assert (bf["flops"], f32["flops"]) == (14, 14)
     assert tfa.bwd_plan(torch.bfloat16, 128)["flops"] == 14
     assert tfa.bwd_plan(torch.bfloat16, 128)["cluster"] == 1
-    assert f32["stream"]["dq"] == 8 and f32["slices"]["dq"][1] == (128, 128)
+    assert f32["cluster"] == 4 and f32["owners"] == (0, 1, 2, 3)
+    assert f32["stream"]["dq"] == 32 and f32["slices"]["dq"][1] == (128, 128)
     assert [tfa.bwd_plan(torch.float32, d)["stream"]["dkv"]
-            for d in WIDE_DIMS] == [16, 16, 16, 16, 16, 8, 8]
-    assert tfa.bwd_plan(torch.float32, 128)["stream"] == {"dkv": 16,
-                                                          "dq": 32}
-    assert tfa.bwd_plan(torch.float32, 128)["rows"] == 128
+            for d in WIDE_DIMS] == [32] * 7
+    assert [tfa.bwd_plan(torch.float32, d)["rows"]
+            for d in WIDE_DIMS] == [64] * 7
+    assert tfa.bwd_plan(torch.float32, 128)["cluster"] == 1
+    assert tfa.bwd_plan(torch.float32, 192)["slices"]["dkv"] == (
+        (0, 128), (128, 64))
     for d in (64, 96, 576):
         with pytest.raises(ValueError):
             tfa.bwd_plan(torch.float32, d)

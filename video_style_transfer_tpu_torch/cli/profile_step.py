@@ -69,8 +69,8 @@ copies as ``--k3_cutouts`` does K3's (``k5_cut_source``, the macro
 ``--k4_cutouts`` times those rows against copies of the flash-attention
 sources built apart with ``-DVST_K4_CUTOUT`` (``k4_cut_entries``): whole,
 with the sliced kernels' loads and stores alone, with their compute on
-data that stays in L2, and (bf16 from d = 192 up) without the exchange of
-S and dP shares between the blocks of a cluster.
+data that stays in L2, and (from d = 192 up) without the exchange of S
+and dP shares between the blocks of a cluster.
 
 ``--precision`` holds the first stage-2 step (2 frames by default) in bf16
 against fp32 on the same weights and draws, and the fp32 step against
@@ -107,8 +107,7 @@ CATEGORIES = (
     ("K2 geglu_projection", ("geglu_bf16_kernel", "geglu_f32_kernel",
                              "geglu_split_w_kernel")),
     ("K3 temporal_attention", ("ta_fwd_mma_kernel",)),
-    ("K4 flash_attention_bwd", ("flash_bwd_dkv", "flash_bwd_dq",
-                                "flash_bwd_delta")),
+    ("K4 flash_attention_bwd", ("flash_bwd_",)),
     ("K5 temporal_attention_bwd", ("ta_bwd_mma_kernel",)),
     ("K7 layer_norm", ("::layer_norm_kernel",)),
     ("layer_norm (library)", ("layer_norm", "layernorm")),
@@ -675,10 +674,11 @@ def k5_cutouts(dev, runs: int):
 
 
 # K4's cut-out copies: the sliced kernels take the cuts from the macro
-# VST_K4_CUTOUT (csrc/flash_attention_bwd_sliced.cu and the sliced kernels
-# of csrc/flash_attention_tf32.cu); "no-exchange" skips the bf16 kernels'
+# VST_K4_CUTOUT (csrc/flash_attention_bwd_sliced.cu and
+# csrc/flash_attention_bwd_sliced_tf32.cu); "no-exchange" skips the
 # exchange of S and dP shares between the blocks of a cluster (wrong
-# gradients; the fp32 kernels have none, and run whole)
+# gradients from d = 192 up; at d = 128 the cluster is one block, which
+# exchanges nothing and runs whole)
 K4_CUTS = ("whole", "load+store", "resident", "no-exchange")
 
 

@@ -114,14 +114,14 @@ int flash_fwd_tf32(const FlashArgs& a, cudaStream_t stream);
 // kernel wrote. Returns as flash_fwd_sm90 does.
 int flash_bwd_tf32(const BwdArgs& a, cudaStream_t stream);
 
-// K4 at head_dim 128-512 with D split: bf16 on wgmma + TMA, each block a
-// slice of at most 128 output columns (flash_attention_bwd_sliced.cu),
-// fp32 at 3xTF32 across a block's warps (flash_attention_tf32.cu), from
-// the delta that flash_attention_bwd.cu's kernel wrote. Return as
-// flash_fwd_sm90 does.
+// K4 at head_dim 128-512 with D split, from the delta that
+// flash_attention_bwd.cu's kernel wrote, each block of a cluster a slice
+// of at most 128 output columns: bf16 on wgmma + TMA
+// (flash_attention_bwd_sliced.cu), fp32 at 3xTF32 on TF32 wgmma
+// (flash_attention_bwd_sliced_tf32.cu). Return as flash_fwd_sm90 does.
 int flash_bwd_sliced_sm90(const BwdArgs& a, int head_dim,
                           cudaStream_t stream);
-int flash_bwd_tf32_sliced(const BwdArgs& a, int head_dim,
+int flash_bwd_sliced_tf32(const BwdArgs& a, int head_dim,
                           cudaStream_t stream);
 
 // Merges the kv splits' partial outputs and lse in `part` by their lse

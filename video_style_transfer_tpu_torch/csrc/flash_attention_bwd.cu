@@ -38,9 +38,9 @@
 //    mma.sync at 3xTF32 with cp.async tiles, in flash_attention_tf32.cu
 //    beside K1's fp32 d = 64 forward.
 // At d = 128-512 (the VAE's mid-block attention, d = 512, under a
-// gradient) the same two-kernel form with D split: bf16 across blocks in
-// flash_attention_bwd_sliced.cu, fp32 across a block's warps at the end of
-// flash_attention_tf32.cu.
+// gradient) the same two-kernel form with D split across the blocks of a
+// cluster: bf16 in flash_attention_bwd_sliced.cu, fp32 on TF32 wgmma at
+// 3xTF32 in flash_attention_bwd_sliced_tf32.cu.
 // This file also holds the delta kernel every route takes, and the C
 // entry point. The kv and q tails are zero-filled and masked.
 
@@ -607,7 +607,7 @@ extern "C" int vst_flash_attention_bwd(
   }
   // head_dim 128-512: the D-sliced kernels (the launchers refuse others)
   if (dtype == vst::kFloat32)
-    return vst::flash_bwd_tf32_sliced(a, head_dim, s);
+    return vst::flash_bwd_sliced_tf32(a, head_dim, s);
   if (dtype == vst::kBFloat16)
     return vst::flash_bwd_sliced_sm90(a, head_dim, s);
   return -1;

@@ -1,8 +1,7 @@
 // K1 and K4 in fp32 at head_dim 64: flash-attention forward and backward
 // on Hopper's tensor cores at 3xTF32 (the "tf32x3" route of
-// ops/flash_attention.py's `route` and `bwd_route`); and K4 in fp32 at
-// head_dim 128-512 in the same arithmetic, D split across the warps of a
-// block (the "tf32x3_sliced" route; at the end of the file).
+// ops/flash_attention.py's `route` and `bwd_route`; K4 in fp32 at head
+// dims 128-512 is flash_attention_bwd_sliced_tf32.cu's).
 //
 // Replaces, for fp32 inputs, the JAX package's Pallas kernels
 // ops/flash_attention.py `_attn_kernel_packed_single` /
@@ -88,13 +87,6 @@
 #include "flash_attention.cuh"
 #include "mma_sync.cuh"
 #include "sm90.cuh"
-
-// VST_K4_CUTOUT (cli/profile_step.py --k4_cutouts) cuts the sliced
-// kernels: 1 keeps their loads and stores alone, 2 keeps their compute on
-// data that stays in L2 (every streamed tile is the sequence's first)
-#ifndef VST_K4_CUTOUT
-#define VST_K4_CUTOUT 0
-#endif
 
 namespace vst {
 namespace {
@@ -619,364 +611,6 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
              o_ss, dq, row0, a.seq_q, t, one);
 }
 
-// ------------------------------------ backward at d = 128-512: D split
-//
-// K4's fp32 route at head dims 128, 192, ..., 512 ("tf32x3_sliced" in
-// ops/flash_attention.py's `bwd_route`; the VAE's mid-block attention at
-// d = 512 is its path): the 3xTF32 arithmetic and fragments above, the
-// two-kernel form, with D split across the warps of a block. At fp32
-// d = 512 no thread can hold the dK and dV of a 16-row fragment across
-// the whole D (256 floats each), so each of a block's 8 warps owns 16 of
-// its rows (keys for dk/dv, q rows for dq) and a quarter of the output's
-// columns (a half at d = 192, the block then 64 rows; the whole at 128,
-// the block 128 rows; `bwd_plan`). The block keeps its own rows of both
-// own tensors (K, V or Q, dO) whole in shared memory and streams tiles of
-// BN rows of the other two through two cp.async stages. For each tile:
-//  - each warp forms its columns' share of S (S^T for dk/dv) and dP, 64
-//    columns at a time summed from zero in the tensor core and added in
-//    f32, and (with more than one column group) writes both to shared
-//    memory;
-//  - after a block barrier each warp adds its row group's shares in one
-//    order, so the group's warps hold the same S and dP, bit for bit, and
-//    forms P and dS from them;
-//  - then dV += P^T dO and dK += dS^T Q (or dQ += dS K) over its columns,
-//    each tile's product summed from zero and added in f32.
-// No S or dP is recomputed (the pair does 14 * Sq * Sk * D flops, 3 TF32
-// products a product) and each tensor crosses L2 once a block. 256
-// threads, one block an SM; BN is the most of 32, 16, 8 whose stages fit
-// beside the own rows (8 at d >= 448).
-
-template <int D, bool DQ>
-struct SplitCfg {
-  // the 8 warps as RG row groups of 16 own rows by CG column groups: D in
-  // quarters from 256 up, in halves at 192, whole at 128 (one column
-  // group: 128 own rows and no shares to exchange, which ran faster on an
-  // H100 than D in halves)
-  static constexpr int CG = D == 128 ? 1 : D >= 256 ? 4 : 2;
-  static constexpr int RG = 8 / CG;
-  static constexpr int RT = 16 * RG;  // own rows a block
-  static constexpr int CW = D / CG;   // output columns a warp owns
-  static constexpr int LDX = D + 4;   // floats a row of a tile
-  static constexpr int THREADS = 256;
-  static constexpr size_t bytes(int bn) {
-    // both own tensors, two stages of both streamed ones, and (with more
-    // than one column group) two buffers of every warp's S and dP shares
-    // ([2][8 warps][2][16 * bn])
-    return (2 * RT * LDX + 2 * 2 * bn * LDX +
-            (CG > 1 ? 2 * 8 * 2 * 16 * bn : 0)) *
-           sizeof(float);
-  }
-  // the most of 32, 16, 8 streamed rows that fit; the dk/dv kernel at
-  // d = 128 takes 16 (a warp's dK and dV across the whole D take 128
-  // registers, and at 32 rows ptxas spilled)
-  static constexpr int MOST = !DQ && D == 128 ? 16 : 32;
-  static constexpr int BN = bytes(MOST) <= 232448 ? MOST
-                            : bytes(16) <= 232448 ? 16
-                                                  : 8;
-  static constexpr size_t SMEM = bytes(BN);
-  static_assert(D % 64 == 0 && D >= 128 && D <= 512, "head dim");
-  static_assert(CW % 16 == 0, "a warp's columns in pairs of n tiles");
-  static_assert(SMEM <= 232448, "tiles exceed shared memory");
-  static_assert((LDX * sizeof(float)) % 16 == 0, "16-byte cp.async rows");
-};
-static_assert(SplitCfg<512, true>::BN == 8 && SplitCfg<448, false>::BN == 8 &&
-                  SplitCfg<384, true>::BN == 16 &&
-                  SplitCfg<320, true>::BN == 16 &&
-                  SplitCfg<256, true>::BN == 16 &&
-                  SplitCfg<192, false>::BN == 16 &&
-                  SplitCfg<128, true>::BN == 32 &&
-                  SplitCfg<128, false>::BN == 16 &&
-                  SplitCfg<128, true>::RT == 128 &&
-                  SplitCfg<192, true>::RT == 64 &&
-                  SplitCfg<256, true>::RT == 32,
-              "bwd_plan's rows, column groups and streamed rows");
-
-// load_a, load_bt and load_b on tiles of LDX floats a row
-template <int LDX>
-__device__ __forceinline__ void load_a_w(FragA& f, const float* X, int r0,
-                                         int k0, int g, int t) {
-  const float* p = X + (r0 + g) * LDX + k0 + t;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[8 * LDX], f.hi[1], f.lo[1]);
-  split(p[4], f.hi[2], f.lo[2]);
-  split(p[8 * LDX + 4], f.hi[3], f.lo[3]);
-}
-
-template <int LDX>
-__device__ __forceinline__ void load_bt_w(FragB& f, const float* Y, int n0,
-                                          int k0, int g, int t) {
-  const float* p = Y + (n0 + g) * LDX + k0 + t;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[4], f.hi[1], f.lo[1]);
-}
-
-template <int LDX>
-__device__ __forceinline__ void load_b_w(FragB& f, const float* Y, int k0,
-                                         int n0, int g, int t) {
-  const float* p = Y + (k0 + 2 * t) * LDX + n0 + g;
-  split(p[0], f.hi[0], f.lo[0]);
-  split(p[LDX], f.hi[1], f.lo[1]);
-}
-
-// rows [r0, r0 + ROWS) of a (rows, D) fp32 matrix of row stride `stride`
-// -> a shared tile of LDX floats a row; rows at or past `nrows` zero-filled
-template <int ROWS, int D, int LDX, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long stride, int r0,
-                                          int nrows) {
-  constexpr int CH = D / 4;  // 16-byte chunks a row
-#pragma unroll 4
-  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 4;
-    const bool ok = r0 + r < nrows;
-    cp_async16(dst + r * LDX + c,
-               src + (ok ? (long long)(r0 + r) * stride + c : 0), ok);
-  }
-}
-
-// DQ = false: the dk/dv kernel (own K, V; streams Q, dO). DQ = true: the
-// dq kernel (own Q, dO; streams K, V).
-template <bool DQ, int D>
-__global__ void __launch_bounds__(256, 1)
-    flash_bwd_split_tf32_kernel(const BwdArgs a) {
-  using C = SplitCfg<D, DQ>;
-  constexpr int BN = C::BN, NSN = BN / 8, CW = C::CW, LDX = C::LDX;
-  constexpr int NT = C::THREADS, SHARE = 16 * BN;  // floats a warp's share
-  extern __shared__ __align__(16) float smem[];
-  float* X0 = smem;                    // own rows, both own tensors
-  float* X1 = X0 + C::RT * LDX;
-  float* stages = X1 + C::RT * LDX;    // [2][both streamed][BN][LDX]
-  float* shares = stages + 2 * 2 * BN * LDX;  // [2][8 warps][S, dP][SHARE]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int rg = warp / C::CG, cq = warp % C::CG;  // row and column group
-  const int r0 = 16 * rg, c0 = CW * cq;
-  const int own0 = blockIdx.x * C::RT, h = blockIdx.y, b = blockIdx.z;
-  const long long o_ss = (long long)a.heads * D;
-  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + h * a.v_sh;
-  const float* dob =
-      static_cast<const float*>(a.dout) + (long long)b * a.seq_q * o_ss + h * D;
-  const float* y0 = DQ ? kb : qb;
-  const float* y1 = DQ ? vb : dob;
-  const long long y0_ss = DQ ? a.k_ss : a.q_ss, y1_ss = DQ ? a.v_ss : o_ss;
-  const int seq_own = DQ ? a.seq_q : a.seq_k;
-  const int seq_str = DQ ? a.seq_k : a.seq_q;
-  const int nt = (seq_str + BN - 1) / BN;
-  const long long bh = ((long long)b * a.heads + h) * a.seq_q;
-
-  load_rows<C::RT, D, LDX, NT>(X0, DQ ? qb : kb, DQ ? a.q_ss : a.k_ss, own0,
-                               seq_own);
-  load_rows<C::RT, D, LDX, NT>(X1, DQ ? dob : vb, DQ ? o_ss : a.v_ss, own0,
-                               seq_own);
-  auto load_tile = [&](int tile, int st) {
-    float* Y0 = stages + st * 2 * BN * LDX;
-    const int row = VST_K4_CUTOUT == 2 ? 0 : tile * BN;
-    load_rows<BN, D, LDX, NT>(Y0, y0, y0_ss, row, seq_str);
-    load_rows<BN, D, LDX, NT>(Y0 + BN * LDX, y1, y1_ss, row, seq_str);
-  };
-  load_tile(0, 0);
-  cp_async_commit();
-  // dq: lse (log2 units) and delta of this lane's rows row0, row0 + 8
-  const int row0 = own0 + r0 + g;
-  float lr[2] = {0.f, 0.f}, dr[2] = {0.f, 0.f};
-  if constexpr (DQ) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const bool ok = row0 + 8 * r < a.seq_q;
-      lr[r] = ok ? a.lse[bh + row0 + 8 * r] * kLog2e : 0.f;
-      dr[r] = ok ? a.delta[bh + row0 + 8 * r] : 0.f;
-    }
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  const float sl2 = a.scale * kLog2e;
-  // this warp's quarter of dK (dk/dv) or dQ (dq), and of dV (dk/dv)
-  float acc0[CW / 8][4], acc1[DQ ? 1 : CW / 8][4];
-  zero(acc0);
-  if constexpr (!DQ) zero(acc1);
-
-  // out += X Y^T over this warp's quarter of D (its 16 own rows by the
-  // tile's BN rows), 64 columns at a time summed from zero
-  auto share = [&](float (&out)[NSN][4], const float* X, const float* Y) {
-    zero(out);
-#pragma unroll
-    for (int k0 = 0; k0 < CW / 8; k0 += 8) {
-      float tmp[NSN][4];
-      zero(tmp);
-#pragma unroll
-      for (int kk = k0; kk < (k0 + 8 < CW / 8 ? k0 + 8 : CW / 8); ++kk) {
-        FragA xa;
-        load_a_w<LDX>(xa, X, r0, c0 + 8 * kk, g, t);
-#pragma unroll
-        for (int n = 0; n < NSN; ++n) {
-          FragB f;
-          load_bt_w<LDX>(f, Y, 8 * n, c0 + 8 * kk, g, t);
-          mma3<!DQ>(tmp[n], xa, f);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NSN; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) out[n][e] += tmp[n][e];
-    }
-  };
-  // acc += w Y over the tile's rows and this warp's quarter of columns (w:
-  // P^T, dS^T or dS; Y read down its columns), two n tiles at a time,
-  // each tile's product summed from zero
-  auto product = [&](float (&acc)[CW / 8][4], const float (&w)[NSN][4],
-                     const float* Y) {
-    FragA wa[NSN];
-#pragma unroll
-    for (int j = 0; j < NSN; ++j) acc_to_a(wa[j], w[j]);
-#pragma unroll
-    for (int n0 = 0; n0 < CW / 8; n0 += 2) {
-      float tmp[2][4];
-      zero(tmp);
-#pragma unroll
-      for (int j = 0; j < NSN; ++j)
-#pragma unroll
-        for (int nn = 0; nn < 2; ++nn) {
-          FragB f;
-          load_b_w<LDX>(f, Y, 8 * j, c0 + 8 * (n0 + nn), g, t);
-          mma3<false>(tmp[nn], wa[j], f);
-        }
-#pragma unroll
-      for (int nn = 0; nn < 2; ++nn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n0 + nn][e] += tmp[nn][e];
-    }
-  };
-
-  for (int tile = 0; tile < nt; ++tile) {
-    const int st = tile & 1;
-    if (tile + 1 < nt) load_tile(tile + 1, st ^ 1);
-    cp_async_commit();
-#if VST_K4_CUTOUT == 1
-    cp_async_wait_all();
-    __syncthreads();
-    continue;
-#endif
-    const float* Y0 = stages + st * 2 * BN * LDX;
-    const float* Y1 = Y0 + BN * LDX;
-    const int left = seq_str - tile * BN;  // streamed columns past: 0
-    // dk/dv: lse (log2 units) and delta of this lane's q columns
-    float lc[NSN][2], dc[NSN][2];
-    if constexpr (!DQ) {
-#pragma unroll
-      for (int n = 0; n < NSN; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = 8 * n + 2 * t + e;
-          const bool ok = c < left;
-          lc[n][e] = ok ? a.lse[bh + tile * BN + c] * kLog2e : 0.f;
-          dc[n][e] = ok ? a.delta[bh + tile * BN + c] : 0.f;
-        }
-    }
-    // this warp's shares of S and dP, then the row group's sums
-    float s[NSN][4], dp[NSN][4];
-    share(s, X0, Y0);
-    share(dp, X1, Y1);
-    if constexpr (C::CG > 1) {
-      float4* mine = reinterpret_cast<float4*>(
-          shares + (st * 8 + warp) * 2 * SHARE);
-#pragma unroll
-      for (int n = 0; n < NSN; ++n) {
-        mine[lane * NSN + n] =
-            make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-        mine[SHARE / 4 + lane * NSN + n] =
-            make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
-      }
-      __syncthreads();  // every share of this tile written
-      zero(s);
-      zero(dp);
-#pragma unroll
-      for (int q = 0; q < C::CG; ++q) {
-        const float4* theirs = reinterpret_cast<const float4*>(
-            shares + (st * 8 + C::CG * rg + q) * 2 * SHARE);
-#pragma unroll
-        for (int n = 0; n < NSN; ++n) {
-          const float4 x = theirs[lane * NSN + n];
-          const float4 y = theirs[SHARE / 4 + lane * NSN + n];
-          s[n][0] += x.x, s[n][1] += x.y, s[n][2] += x.z, s[n][3] += x.w;
-          dp[n][0] += y.x, dp[n][1] += y.y, dp[n][2] += y.z,
-              dp[n][3] += y.w;
-        }
-      }
-    }
-    // P and dS in place
-#pragma unroll
-    for (int n = 0; n < NSN; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = 8 * n + 2 * t + (e & 1) < left;
-        float l, dl;
-        if constexpr (DQ) {
-          l = lr[e >> 1];
-          dl = dr[e >> 1];
-        } else {
-          l = lc[n][e & 1];
-          dl = dc[n][e & 1];
-        }
-        const float p = ok ? exp2f(fmaf(s[n][e], sl2, -l)) : 0.f;
-        dp[n][e] = p * (dp[n][e] - dl) * a.scale;
-        s[n][e] = p;
-      }
-    // dV += P^T dO and dK += dS^T Q, or dQ += dS K
-    if constexpr (DQ) {
-      product(acc0, dp, Y0);
-    } else {
-      product(acc1, s, Y1);
-      product(acc0, dp, Y0);
-    }
-    cp_async_wait_all();
-    __syncthreads();  // this stage read, the next one landed
-  }
-
-  const long long off = (long long)b * seq_own * o_ss + h * D + c0;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
-    if (row >= seq_own) continue;
-    const long long o = off + (long long)row * o_ss + 2 * t;
-#pragma unroll
-    for (int n = 0; n < CW / 8; ++n) {
-      if constexpr (DQ) {
-        *reinterpret_cast<float2*>(static_cast<float*>(a.dq) + o + 8 * n) =
-            make_float2(acc0[n][2 * r], acc0[n][2 * r + 1]);
-      } else {
-        *reinterpret_cast<float2*>(static_cast<float*>(a.dk) + o + 8 * n) =
-            make_float2(acc0[n][2 * r], acc0[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(static_cast<float*>(a.dv) + o + 8 * n) =
-            make_float2(acc1[n][2 * r], acc1[n][2 * r + 1]);
-      }
-    }
-  }
-}
-
-template <bool DQ, int D>
-int launch_split_tf32(const BwdArgs& a, int dev, cudaStream_t stream) {
-  using C = SplitCfg<D, DQ>;
-  static std::atomic<uint64_t> smem_set{0};
-  auto kernel = flash_bwd_split_tf32_kernel<DQ, D>;
-  const int e = sm90::allow_smem_once(kernel, (int)C::SMEM, dev, smem_set);
-  if (e != 0) return e;
-  const int seq_own = DQ ? a.seq_q : a.seq_k;
-  const dim3 grid((seq_own + C::RT - 1) / C::RT, a.heads, a.batch);
-  kernel<<<grid, C::THREADS, C::SMEM, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// the dk/dv kernel, then the dq kernel
-template <int D>
-int launch_split_pair(const BwdArgs& a, int dev, cudaStream_t stream) {
-  const int e = launch_split_tf32<false, D>(a, dev, stream);
-  if (e != 0) return e;
-  return launch_split_tf32<true, D>(a, dev, stream);
-}
-
 }  // namespace
 
 int flash_fwd_tf32(const FlashArgs& a, cudaStream_t stream) {
@@ -1008,22 +642,6 @@ int flash_bwd_tf32(const BwdArgs& a, cudaStream_t stream) {
   const dim3 gq((a.seq_q + BT - 1) / BT, a.heads, a.batch);
   flash_bwd_dq_tf32_kernel<<<gq, THREADS, SMEM_DQ, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-int flash_bwd_tf32_sliced(const BwdArgs& a, int head_dim,
-                          cudaStream_t stream) {
-  const int dev = sm90::current_device();
-  if (dev < 0) return -dev;
-  switch (head_dim) {
-    case 128: return launch_split_pair<128>(a, dev, stream);
-    case 192: return launch_split_pair<192>(a, dev, stream);
-    case 256: return launch_split_pair<256>(a, dev, stream);
-    case 320: return launch_split_pair<320>(a, dev, stream);
-    case 384: return launch_split_pair<384>(a, dev, stream);
-    case 448: return launch_split_pair<448>(a, dev, stream);
-    case 512: return launch_split_pair<512>(a, dev, stream);
-    default: return -2;
-  }
 }
 
 }  // namespace vst

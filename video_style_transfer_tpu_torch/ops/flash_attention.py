@@ -25,9 +25,10 @@ by `bwd_route`: bf16 at d = 64 on wgmma with TMA loads ("wgmma"), fp32 at
 d = 64 on the 3xTF32 route's dk/dv and dq kernels ("tf32x3"), and at d =
 128-512 the same two-kernel form with D split (`bwd_plan`): bf16 on wgmma
 with TMA loads, D across the blocks of a cluster ("wgmma_sliced":
-csrc/flash_attention_bwd_sliced.cu), fp32 at 3xTF32, D across a block's
-warps ("tf32x3_sliced": csrc/flash_attention_tf32.cu) -- the VAE's
-mid-block attention (d = 512) under a gradient. Its delta = rowsum(dO * O) is a
+csrc/flash_attention_bwd_sliced.cu), fp32 at 3xTF32 on TF32 wgmma, D
+across the blocks of a cluster too ("tf32x3_sliced":
+csrc/flash_attention_bwd_sliced_tf32.cu) -- the VAE's mid-block
+attention (d = 512) under a gradient. Its delta = rowsum(dO * O) is a
 kernel of its own. The TPU's head packing, MXU row-sum and block tuning
 have no counterpart:
 the kernels read (B, S, H, D) strided views, so the fused (B, S, 3*H*D)
@@ -90,13 +91,22 @@ BWD_HEAD_DIMS = HEAD_DIMS
 # blocks of a cluster (128 own rows a block, two consumer warpgroups, at
 # most two 64-wide panels of D a block, 64 streamed rows a tile in both
 # kernels; S and dP summed across the cluster through distributed shared
-# memory), fp32 across the 8 warps of a block (each warp 16 rows and a
-# quarter of the output's columns from d = 256 up, a half at 192, the
-# whole at 128)
+# memory)
 SLICED_ROWS = 128
 SLICE_PANELS = 2
 SLICED_STREAM = {"dkv": 64, "dq": 64}
 SLICED_MAX_STAGES = 4
+# fp32 splits D the same way (128 columns a block) with 64 own rows a
+# block (consumer warpgroup 0 forms S, 1 dP), 32 streamed rows a tile
+# through two TMA stages, each streamed tile's lo part copied into one
+# buffer, 6 exchange slots a warpgroup (a float4 a thread each)
+TF32_SLICED_ROWS = 64
+TF32_SLICED_STREAM = 32
+TF32_SLICED_STAGES = 2
+TF32_SLICED_SLOTS = 6
+# the block of a cluster of 1-4 blocks that owns each quarter of a
+# streamed tile (bf16: a 16-row k step of 64; fp32: an 8-row n tile of 32)
+TILE_OWNERS = ((0, 0, 0, 0), (0, 0, 1, 1), (0, 0, 1, 2), (0, 1, 2, 3))
 # the shared memory a block may take on an H100
 SMEM_PER_BLOCK = 232448
 
@@ -177,8 +187,9 @@ def bwd_route(dtype, head_dim: int) -> str:
     3xTF32, in csrc/flash_attention_tf32.cu beside K1's fp32 d = 64
     forward), "wgmma_sliced" (bf16 d = 128-512: wgmma + TMA, each block of
     a cluster a slice of D, in csrc/flash_attention_bwd_sliced.cu) or
-    "tf32x3_sliced" (fp32 d = 128-512: the 3xTF32 arithmetic with D split
-    across a block's warps, at the end of csrc/flash_attention_tf32.cu).
+    "tf32x3_sliced" (fp32 d = 128-512: each block of a cluster a slice of
+    D, every product on TF32 wgmma at 3xTF32, in
+    csrc/flash_attention_bwd_sliced_tf32.cu).
     Raises on what K4 does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash attention backward takes float32 or "
@@ -190,69 +201,86 @@ def bwd_route(dtype, head_dim: int) -> str:
     return route if head_dim == 64 else route + "_sliced"
 
 
-def _split_groups(head_dim: int) -> tuple:
-    """(row groups, column groups) of the fp32 kernels' 8 warps at d =
-    128-512: D in quarters from 256 up, in halves at 192, whole at 128."""
-    cg = 1 if head_dim == 128 else 4 if head_dim >= 256 else 2
-    return 8 // cg, cg
+def exchange_slots(cluster: int) -> dict:
+    """Where each block of an fp32 cluster of `cluster` blocks receives
+    what it sums (csrc/flash_attention_bwd_sliced_tf32.cu's fs_r1_slot and
+    fs_r2_slot static_assert the same): {receiver: {("share", sender, n
+    tile): slot, ("sum", n tile): slot}}. Round 1 brings the receiver
+    every other block's share of each n tile it owns (TILE_OWNERS), the
+    senders in rank order; round 2, in the slots after those, the sum of
+    each n tile it does not own, from that tile's owner."""
+    owners = TILE_OWNERS[cluster - 1]
+    out = {}
+    for r in range(cluster):
+        mine = [j for j in range(4) if owners[j] == r]
+        slots = {("share", s, j): (s if s < r else s - 1) * len(mine) + i
+                 for s in range(cluster) if s != r
+                 for i, j in enumerate(mine)}
+        rest = [j for j in range(4) if owners[j] != r]
+        slots.update({("sum", j): (cluster - 1) * len(mine) + i
+                      for i, j in enumerate(rest)})
+        out[r] = slots
+    return out
 
 
-def _split_stream(head_dim: int, kern: str) -> int:
-    """Streamed rows a tile of the fp32 dk/dv or dq kernel (`kern`) at d =
-    128-512: the most of 32, 16 and 8 (16 for dk/dv at d = 128, where a
-    warp's dK and dV take 128 registers) whose two stages of both streamed
-    tensors fit beside the block's own rows of both own tensors and, with
-    more than one column group, two buffers of its 8 warps' shares of S
-    and dP (rows of D + 4 floats)."""
-    ld = head_dim + 4
-    rg, cg = _split_groups(head_dim)
-    most = 16 if kern == "dkv" and head_dim == 128 else 32
-    for bn in (32, 16, 8):
-        if bn > most:
-            continue
-        shares = 2 * 8 * 2 * 16 * bn if cg > 1 else 0
-        if (2 * 16 * rg * ld + 4 * bn * ld + shares) * 4 <= SMEM_PER_BLOCK:
-            return bn
-    raise ValueError(f"no streamed tile fits at head_dim {head_dim}")
+def _tf32_sliced_plan(route: str, head_dim: int) -> dict:
+    """The fp32 kernels' plan (see `bwd_plan`)."""
+    slices = tuple((c, min(128, head_dim - c))
+                   for c in range(0, head_dim, 128))
+    cluster = len(slices)
+    # 1 KB of alignment, a 1 KB head (barriers; the dk/dv kernel's lse and
+    # delta rows), the own rows of both own tensors (128 columns), two
+    # stages of both streamed tensors as landed, one buffer of their lo
+    # copies, P^T / dS^T (dS for dq) hi and lo for each warpgroup (own rows
+    # by streamed rows), the two warpgroups' exchange slots and the P
+    # hand-off (four n tiles)
+    own = 2 * TF32_SLICED_ROWS * 128 * 4
+    stage = 2 * TF32_SLICED_STREAM * 128 * 4
+    pb = 2 * 2 * TF32_SLICED_ROWS * TF32_SLICED_STREAM * 4
+    slot = 128 * 16
+    smem = (1024 + 1024 + own + TF32_SLICED_STAGES * stage + stage + pb
+            + 2 * TF32_SLICED_SLOTS * slot + 4 * slot)
+    return {"route": route, "split": "cluster", "rows": TF32_SLICED_ROWS,
+            "cluster": cluster, "owners": TILE_OWNERS[cluster - 1],
+            "slices": {"dkv": slices, "dq": slices},
+            "stream": {"dkv": TF32_SLICED_STREAM, "dq": TF32_SLICED_STREAM},
+            "stages": {"dkv": TF32_SLICED_STAGES, "dq": TF32_SLICED_STAGES},
+            "flops": 14, "wgmma": ("S", "dP", "dV", "dK", "dQ"),
+            "copies": ("lo",), "transposed": ("dV", "dK", "dQ"),
+            "slots": TF32_SLICED_SLOTS,
+            "smem": {"dkv": smem, "dq": smem}}
 
 
 def bwd_plan(dtype, head_dim: int) -> dict:
     """K4's kernels at a head dim of 128-512, as
-    csrc/flash_attention_bwd_sliced.cu (bf16) and the end of
-    csrc/flash_attention_tf32.cu (fp32) make them and static_assert them.
-    Each of the dk/dv and the dq kernel owns `rows` rows a block (keys, or
-    q rows) and streams the other side in tiles of `stream` rows (by
-    kernel) through `stages` stages; `slices` (by kernel, as (first
-    column, width)) split the output's columns, `split` says across what:
-    - bf16 ("cluster"): each slice is a block of a thread-block cluster of
-      `cluster` blocks along the grid, 128 wide (the last 64 where D / 64
-      is odd); the blocks share their own rows, each forms its share of S
-      and dP over its columns, and the cluster sums the shares through
-      distributed shared memory (block `owners[j]` forms P and dS of the
-      tile's 16-column k step j), so nothing is recomputed (14 flops);
-      the ring holds as many stages of 64 streamed rows of the block's
-      columns as fit beside the own rows and the exchange buffers (at most
-      4);
-    - fp32 ("warps"): each slice is owned by a column group of the
-      block's 8 warps (16 rows a warp; quarters of D from 256 up and 32
-      own rows, halves at 192 and 64 own rows, the whole of D at 128 and
-      128 own rows); the warps of a row group sum their shares of S and dP
-      through shared memory, so nothing is recomputed (14 flops), and the
-      tile is the most of 32, 16, 8 rows whose two cp.async stages fit
-      beside the block's own rows (16 for dk/dv at d = 128)."""
+    csrc/flash_attention_bwd_sliced.cu (bf16) and
+    csrc/flash_attention_bwd_sliced_tf32.cu (fp32) make them and
+    static_assert them. Each of the dk/dv and the dq kernel owns `rows`
+    rows a block (keys, or q rows) and streams the other side in tiles of
+    `stream` rows (by kernel) through `stages` stages; `slices` (by
+    kernel, as (first column, width)) split the output's columns across
+    the blocks of a thread-block cluster of `cluster` blocks along the
+    grid (`split`), 128 wide (the last 64 where D / 64 is odd); the blocks
+    share their own rows, each forms its share of S and dP over its
+    columns, and the cluster sums the shares through distributed shared
+    memory (block `owners[j]` sums quarter j of a streamed tile), so
+    nothing is recomputed (14 flops).
+    - bf16: 128 own rows, 64 streamed rows a tile, as many ring stages as
+      fit beside the own rows and the exchange buffers (at most 4); the
+      owner forms P and dS and sends them back.
+    - fp32: 64 own rows, S on one consumer warpgroup and dP on the other,
+      32 streamed rows a tile through two stages, every product on TF32
+      wgmma at 3xTF32 (`wgmma`); each streamed tile's lo part is written
+      once into one buffer (`copies`; the tile as landed is hi), and dV,
+      dK and dQ run `transposed` (dV^T = dO^T P, ...: the streamed tile as
+      register A, P^T, dS^T or dS written hi and lo as B); the owner sends
+      the sums back (`exchange_slots`), and `smem` bytes a block."""
     route = bwd_route(dtype, head_dim)
     if head_dim == 64:
         raise ValueError("K4's sliced kernels take head_dim 128-512; "
                          "d = 64 has kernels of its own")
     if route == "tf32x3_sliced":
-        rg, cg = _split_groups(head_dim)
-        cw = head_dim // cg
-        parts = tuple((cw * i, cw) for i in range(cg))
-        return {"route": route, "split": "warps", "rows": 16 * rg,
-                "cluster": 1, "slices": {"dkv": parts, "dq": parts},
-                "stream": {k: _split_stream(head_dim, k)
-                           for k in ("dkv", "dq")},
-                "stages": {"dkv": 2, "dq": 2}, "flops": 14}
+        return _tf32_sliced_plan(route, head_dim)
     panels = head_dim // 64
     slices = tuple((64 * p, 64 * min(SLICE_PANELS, panels - p))
                    for p in range(0, panels, SLICE_PANELS))
@@ -264,8 +292,7 @@ def bwd_plan(dtype, head_dim: int) -> dict:
     # round 2: the fragments of P (dk/dv) and dS of every k step, 2 KB
     # each); 1024 bytes of alignment, then a head of barriers and (dk/dv)
     # each stage's lse and delta rows, to a kilobyte
-    owners = ((0, 0, 0, 0), (0, 0, 1, 1), (0, 0, 1, 2),
-              (0, 1, 2, 3))[cluster - 1]
+    owners = TILE_OWNERS[cluster - 1]
     most = max(owners.count(r) for r in range(cluster))
     own = 2 * SLICE_PANELS * SLICED_ROWS * 128
     stages = {}
