@@ -11,8 +11,13 @@
    PyTorch call computes the same function, that call (the yardstick
    only; the port never calls it): K1-K3 forward, K4-K5 backward, K1's
    d=192 instance, which stands for the JAX package's unpacked kernel
-   (K6), and the one-pass LayerNorm (K7), which no model calls, at the
-   LayerNorm shapes of the serving path. K1 has three routes (`route` in
+   (K6), and the one-pass LayerNorm (K7), which every LayerNorm of the
+   models launches, at the LayerNorm shapes of the paths, with its
+   statistics outputs, its dscale / dbias kernels (f32 column sums for
+   the trained norms) and the backward route the trainers take (dx from
+   aten's native_layer_norm_backward on K7's statistics, dscale / dbias
+   from those kernels) against the plain formula's autograd. K1 has three
+   routes (`route` in
    ops/flash_attention.py): bf16 on wgmma + TMA (d <= 256 one kernel,
    d >= 320 (the VAE under --vae_dtype bfloat16) the wide kernel, O split
    across two consumer warpgroups), fp32 at d = 64 (the UNet under
@@ -148,6 +153,13 @@
      tiny`` on the synthetic checkpoint: a CPU run's images are the
      reference outputs of a card run through all four stages, which must
      exit 0.
+   On each path K7's launches are exact too: three a transformer or
+   motion block (210 an SDXL UNet call, 255 with the motion modules) and
+   2 L + 1 a text-encoder call of L layers (90 a prompt encode: CLIP-L
+   25, bigG 65; the encoder calls are counted by a wrapper this script
+   puts around ``models.clip.clip_apply``); no path copies a LayerNorm
+   input, and ``F.layer_norm`` raises while the paths run, so no path
+   reaches the library call.
    On each path K1's launches are also counted by route: every bf16 UNet
    attention on the wgmma route's d <= 256 kernel, every bf16 VAE
    attention on its wide kernel, every fp32 VAE attention on the FMA
@@ -159,9 +171,10 @@
    multi-process, native preprocessing, LPIPS, runbook, bf16 decode and
    VAE gradient readings, then one JSON line with every kernel's numbers
    (K1 as its five kernels, the FMA route's d = 448 instance standing for
-   the JAX package's unpacked kernel, K4 as its four routes, K4's delta as a
-   kernel of its own, K2 as its two routes, with the wgmma kernels', the
-   FMA kernels', the 3xTF32 kernels', K4's and K2's and K3's registers,
+   the JAX package's unpacked kernel, K4 as its four routes, K4's delta and
+   K7's dscale / dbias as kernels of their own, K2 as its two routes,
+   with the wgmma kernels', the FMA kernels', the 3xTF32 kernels', K4's
+   and K2's and K3's registers,
    spills and wgmma serialisation from nvcc's report; the FMA, 3xTF32,
    K3, K4, K2 and K1 wgmma kernels must not spill, and K1's, K2's and
    K4's sliced wgmma kernels (bf16 and fp32) must not have their
@@ -253,8 +266,24 @@ PRECISION_FRAMES = 2
 # f32 difference in the last bits crosses a rounding boundary: 2^-7
 # relative, plus 1e-5 absolute for outputs near zero. fp32: 1e-5 (the
 # order of two 1280-term sums and rsqrt's last bits). The phase must
-# also refuse the two faulty copies of the backward phases.
+# also refuse the two faulty copies of the backward phases. Its
+# statistics (mean, rstd) are held to 1e-5 absolute plus 1e-5 relative
+# (f32 sums in another order); its backward route to the backward
+# limits (BWD_BF16_LIMITS, TOL_BWD_F32).
 TOL_LN = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 0.0)}
+TOL_LN_STATS = (1e-5, 1e-5)
+# K7's backward route in fp32: dscale and dbias are sums over all M rows
+# (32768 at the fp32 path's motion level 0), taken in another order than
+# the plain autograd's f32 sums; two such orders differ by up to ~4e-7 of
+# the largest entry there (f32 pairwise and blocked sums against
+# float64), far past TOL_BWD_F32's 1e-5 absolute near a small entry.
+# They are held to 1e-5 plus 2^-20 of their largest entry; dx to
+# TOL_BWD_F32.
+TOL_LN_BWD_SUMS_F32 = 2 ** -20
+# the text encoders' LayerNorms since the counters were last set to 0
+# (count_text_encoder_calls): each call of an encoder of L layers runs
+# 2 L + 1
+TEXT_ENCODERS = {"calls": 0, "layer_norms": 0}
 
 IMAGE_STEPS = 3
 LORA_RANK = 64
@@ -334,14 +363,20 @@ def tf32x3_bound(phase, flops, nbytes, library="SDPA"):
           f"{phase['library_ms']:.4f} ms", flush=True)
 
 
-def bwd_check(outs, refs, dtype_name):
+def bwd_check(outs, refs, dtype_name, sums_from=None):
     """(passes, worst normwise error, worst largest-error share) of
-    backward outputs against the plain ones (see BWD_BF16_LIMITS)."""
+    backward outputs against the plain ones (see BWD_BF16_LIMITS); in
+    fp32 the outputs from index `sums_from` on are sums over all rows,
+    held to TOL_LN_BWD_SUMS_F32 of their largest entry."""
     nrm = mx = excess = 0.0
-    for o, r in zip(outs, refs):
+    for i, (o, r) in enumerate(zip(outs, refs)):
         d, r = o.double() - r.double(), r.double()
         nrm = max(nrm, d.norm().item() / r.norm().item())
         mx = max(mx, d.abs().max().item() / r.abs().max().item())
+        if sums_from is not None and i >= sums_from:
+            excess = max(excess, d.abs().max().item()
+                         - TOL_LN_BWD_SUMS_F32 * r.abs().max().item())
+            continue
         excess = max(excess,
                      (d.abs() - TOL_BWD_F32[1] * r.abs()).max().item())
     if dtype_name == "bfloat16":
@@ -372,14 +407,15 @@ def linear_gelu_mul(x, w, bias):
 
 def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
                 iters, bwd=False, tol=None, own_scale=None,
-                library_name=None, exact=None):
+                library_name=None, exact=None, sums_from=None):
     """Compare kernel vs plain (bwd: each output against its own scale,
     with the faulty-copy controls; tol: an (atol, rtol) of its own, also
     with the controls, each fault on all outputs and on each alone;
     own_scale: the first output's normwise error is also held to this;
     exact: the plain version on float64 copies of the inputs, which the
     kernel is then held to instead, the fp32 plain version's own distance
-    reported beside), time all three; returns the phase dict."""
+    reported beside; sums_from: bwd_check's), time all three; returns
+    the phase dict."""
     import torch
     out = kernel()
     ref = plain()
@@ -410,8 +446,8 @@ def check_phase(name, kernel, plain, library, flops, nbytes, dtype_name,
               for o, r in zip(outs, refs))
     finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
     if bwd:
-        ok, nrm, mx = bwd_check(outs, refs, dtype_name)
-        controls = {c: bwd_check(f, refs, dtype_name)
+        ok, nrm, mx = bwd_check(outs, refs, dtype_name, sums_from)
+        controls = {c: bwd_check(f, refs, dtype_name, sums_from)
                     for c, f in faulty_copies(outs, refs).items()}
         limit = (f"limit normwise {BWD_BF16_LIMITS[0]:g}, largest "
                  f"{BWD_BF16_LIMITS[1]:g} of max|plain|"
@@ -1032,44 +1068,180 @@ def sliced_phases(phases, randn, sdpa_bwd):
 
 def layer_norm_phases():
     """K7 against its plain version and ``F.layer_norm`` at the LayerNorm
-    shapes of a serving step (UNet levels 2 and 1, motion level 0, the
-    CLIP bigG encoder with M not a multiple of 8), then forward and
-    backward through its autograd Function against the plain formula.
-    Returns (phases, launches made here)."""
+    shapes of the paths (the serving step's UNet levels 2 and 1 and motion
+    level 0, the image path's level 2, stage 1's level 2, the CLIP bigG
+    encoder with M not a multiple of 8, level 2 in fp32), each with its
+    statistics outputs against the plain formula's and its rows a block;
+    then the backward's dscale / dbias kernels alone at stage 2's motion
+    levels against the plain sums, beside aten's; then the backward route
+    the trainers take (``layer_norm_bwd``: dx from aten's
+    native_layer_norm_backward on K7's statistics, dscale and dbias from
+    those kernels, only what the path needs) against the plain formula's
+    autograd at the trainers' shapes in bf16 and fp32, timed beside
+    aten's native_layer_norm_backward alone with the same mask, whose own
+    dscale and dbias are held to the same limits and reported (the reason
+    the route does not take them); then the autograd Function end to end.
+    Returns ({kernel: phases} of K7 and the dscale / dbias kernels, the
+    backward route's phases, {kernel: launches made here})."""
     import torch
     import torch.nn.functional as F
     from video_style_transfer_tpu_torch.ops import layer_norm as ln
 
     gen = torch.Generator(device="cuda").manual_seed(3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def randn(*shape, dtype, scale=1.0, shift=0.0):
         return (torch.randn(*shape, device="cuda", generator=gen)
                 * scale + shift).to(dtype)
 
-    before = ln.LAUNCHES
+    def inputs(m, c, dt):
+        return (randn(m, c, dtype=dt, scale=1.5, shift=0.3),
+                randn(c, dtype=dt, scale=0.1, shift=1.0),
+                randn(c, dtype=dt, scale=0.1))
+
+    before = ln.LAUNCHES, ln.AFFINE_LAUNCHES
     phases = []
     for tag, (m, c), dt, iters in (
             ("unet_l2 (32*1024,1280)", (32 * 1024, 1280), torch.bfloat16, 50),
             ("unet_l1 (32*4096,640)", (32 * 4096, 640), torch.bfloat16, 50),
             ("motion_l0 (16*32768,320)", (16 * 32768, 320), torch.bfloat16,
              20),
+            ("image_l2 (2*1024,1280)", (2 * 1024, 1280), torch.bfloat16, 50),
+            ("stage1_l2 (1024,1280)", (1024, 1280), torch.bfloat16, 50),
             ("clip_g (2*77,1280)", (2 * 77, 1280), torch.bfloat16, 50),
             ("unet_l2 (32*1024,1280)", (32 * 1024, 1280), torch.float32,
              20)):
-        x = randn(m, c, dtype=dt, scale=1.5, shift=0.3)
-        w = randn(c, dtype=dt, scale=0.1, shift=1.0)
-        b = randn(c, dtype=dt, scale=0.1)
-        phases.append(check_phase(
-            f"K7 {tag} {str(dt)[6:]}",
+        x, w, b = inputs(m, c, dt)
+        name = str(dt)[6:]
+        phase = check_phase(
+            f"K7 {tag} {name}",
             lambda: ln.layer_norm_fwd(x, w, b),
             lambda: ln.layer_norm_reference(x, w, b),
             lambda: F.layer_norm(x, (c,), w, b, 1e-5),
             flops=8 * m * c, nbytes=2 * m * c * x.element_size(),
-            dtype_name=str(dt)[6:], iters=iters,
-            tol=TOL_LN[str(dt)[6:]]))
-        del x, w, b
+            dtype_name=name, iters=iters, tol=TOL_LN[name],
+            library_name="F.layer_norm")
+        # the statistics the backward reads, and y unchanged beside them
+        y, mean, rstd = ln.layer_norm_fwd(x, w, b, stats=True)
+        same = torch.equal(y, ln.layer_norm_fwd(x, w, b))
+        refs = ln.layer_norm_stats_reference(x)
+        stats_excess = max(
+            ((a - r).abs() - TOL_LN_STATS[1] * r.abs()).max().item()
+            for a, r in zip((mean, rstd), refs))
+        faulty = ((mean * 0.97 - refs[0]).abs()
+                  - TOL_LN_STATS[1] * refs[0].abs()).max().item()
+        phase.update(rows_per_block=ln.rows_per_block(m, sms),
+                     stats_excess=stats_excess)
+        print(f"    {phase['rows_per_block']} rows a block "
+              f"({-(-m // phase['rows_per_block'])} blocks on {sms} SMs); "
+              f"statistics: mean and rstd within {TOL_LN_STATS[0]:g} + "
+              f"{TOL_LN_STATS[1]:g}*|plain| (excess {stats_excess:.3e}; a "
+              f"0.97 mean "
+              f"{'refused' if faulty > TOL_LN_STATS[0] else 'passed'}), y "
+              f"with them bitwise y without: {same}", flush=True)
+        if not (same and stats_excess <= TOL_LN_STATS[0]
+                and faulty > TOL_LN_STATS[0]):
+            fail(f"K7 {tag} {name}: statistics outputs wrong")
+        phases.append(phase)
+        del x, w, b, y, mean, rstd, refs
 
-    # gradients: the Function's backward differentiates the plain formula
+    # dscale and dbias alone (stage 2's trained motion norms): f32 sums
+    # over all rows, held as such (TOL_LN_BWD_SUMS_F32) in both dtypes
+    affine = []
+    for tag, (m, c), dt, iters in (
+            ("stage2_motion_l0 (8*16384,320)", (8 * 16384, 320),
+             torch.bfloat16, 20),
+            ("stage2_motion_l1 (8*4096,640)", (8 * 4096, 640),
+             torch.bfloat16, 20),
+            ("stage2_motion_l2 (8*1024,1280)", (8 * 1024, 1280),
+             torch.bfloat16, 20),
+            ("stage2_fp32_motion_l0 (2*16384,320)", (2 * 16384, 320),
+             torch.float32, 20)):
+        x, w, b = inputs(m, c, dt)
+        g = randn(m, c, dtype=dt)
+        _, mean, rstd = ln.layer_norm_fwd(x, w, b, stats=True)
+        affine.append(check_phase(
+            f"K7 dscale/dbias {tag} {str(dt)[6:]}",
+            lambda: tuple(ln.layer_norm_affine_grads(g, x, mean, rstd)),
+            lambda: tuple(ln.layer_norm_affine_grads_plain(g, x, mean,
+                                                           rstd)),
+            lambda: torch.ops.aten.native_layer_norm_backward(
+                g, x, [c], mean, rstd, w, b, [False, True, True]),
+            flops=4 * m * c, nbytes=2 * m * c * x.element_size() + 8 * m
+            + 8 * c, dtype_name="float32", iters=iters, bwd=True,
+            library_name="aten native_layer_norm_backward (dscale, dbias)",
+            sums_from=0))
+        del x, w, b, g, mean, rstd
+
+    # the backward route at the trainers' shapes: frozen spatial norms
+    # need dx alone, stage 2's trained motion norms all three
+    bwd = []
+    for tag, (m, c), dt, need, iters in (
+            ("stage2_l2 (8*1024,1280)", (8 * 1024, 1280), torch.bfloat16,
+             (True, False, False), 20),
+            ("stage2_motion_l0 (8*16384,320)", (8 * 16384, 320),
+             torch.bfloat16, (True, True, True), 10),
+            ("stage2_motion_l1 (8*4096,640)", (8 * 4096, 640),
+             torch.bfloat16, (True, True, True), 20),
+            ("stage2_motion_l2 (8*1024,1280)", (8 * 1024, 1280),
+             torch.bfloat16, (True, True, True), 20),
+            ("stage1_l2 (1024,1280)", (1024, 1280), torch.bfloat16,
+             (True, False, False), 50),
+            ("stage2_l2 (8*1024,1280)", (8 * 1024, 1280), torch.float32,
+             (True, False, False), 20),
+            ("stage2_fp32_motion_l0 (2*16384,320)", (2 * 16384, 320),
+             torch.float32, (True, True, True), 20)):
+        x, w, b = inputs(m, c, dt)
+        cot = randn(m, c, dtype=dt)
+        name = str(dt)[6:]
+        _, mean, rstd = ln.layer_norm_fwd(x, w, b, stats=True)
+        leaves = [x.detach().requires_grad_(), w.detach().requires_grad_(
+            need[1]), b.detach().requires_grad_(need[2])]
+        wanted = [t for t, n in zip(leaves, need) if n]
+
+        def plain():
+            with torch.enable_grad():
+                return torch.autograd.grad(
+                    ln.layer_norm_reference(*leaves), wanted, cot)
+
+        def kernel():
+            return tuple(g for g in ln.layer_norm_bwd(cot, x, w, b, mean,
+                                                      rstd, need)
+                         if g is not None)
+
+        def library():
+            # the aten call alone, on the same inputs and mask: no
+            # autograd engine around it
+            return torch.ops.aten.native_layer_norm_backward(
+                cot, x, [c], mean, rstd, w, b, list(need))
+        es = x.element_size()
+        # read x and the gradient, write dx; the statistics; dscale and
+        # dbias where asked for
+        nbytes = 3 * m * c * es + 8 * m + (2 * c * es if need[1] else 0)
+        bwd.append(check_phase(
+            f"K7 backward route {tag} {name} "
+            f"({'dx, dscale, dbias' if need[1] else 'dx'})",
+            kernel, plain, library,
+            flops=(8 + 4 * need[1]) * m * c, nbytes=nbytes,
+            dtype_name=name, iters=iters, bwd=True,
+            library_name="aten native_layer_norm_backward",
+            sums_from=1 if need[1] else None))
+        if need[1]:
+            # aten's own dscale and dbias, held to the route's limits: at
+            # stage 2's motion level 0 (131072 rows) in bf16 they fall
+            # outside them, which is why the route takes K7's kernels
+            ok, nrm, mx = bwd_check(
+                [o for o, n in zip(library(), need) if n], plain(), name, 1)
+            bwd[-1].update(library_within_limits=ok,
+                           library_normwise_err=nrm)
+            print(f"    aten's native_layer_norm_backward alone (dx, "
+                  f"dscale, dbias) against the plain autograd: normwise "
+                  f"{nrm:.3e}, largest {mx:.3e} of max|plain|: "
+                  f"{'within' if ok else 'outside'} the limits", flush=True)
+        del x, w, b, cot, mean, rstd, leaves, wanted
+
+    # end to end through the autograd Function: its backward is the
+    # route above, never the plain formula's autograd
     worst = 0.0
     for dt in (torch.float32, torch.bfloat16):
         ins = [randn(4096, 640, dtype=dt), randn(640, dtype=dt, shift=1.0),
@@ -1081,16 +1253,20 @@ def layer_norm_phases():
             out = fn(*leaves)
             if out.grad_fn is None:
                 fail("K7: the output carries no grad_fn")
+            if fn is ln.layer_norm and "_LayerNorm" not in type(
+                    out.grad_fn).__name__:
+                fail(f"K7: the card's backward is {out.grad_fn}, not the "
+                     f"route's")
             grads.append(torch.autograd.grad(out, leaves, cot))
-        for a, r in zip(*grads):
-            worst = max(worst, (a.float() - r.float()).abs().max().item()
-                        / r.float().abs().max().item())
+        ok, nrm, mx = bwd_check(grads[0], grads[1], str(dt)[6:], 1)
+        worst = max(worst, nrm)
+        if not ok:
+            fail(f"K7: backward through the autograd Function disagrees "
+                 f"({str(dt)[6:]}: normwise {nrm:.2e}, largest {mx:.2e})")
     print(f"  K7 backward (4096,640) f32 and bf16 through the autograd "
-          f"Function vs the plain formula: worst error {worst:.2e} of the "
-          f"gradient's max (limit 1e-5: both differentiate the same "
-          f"formula on the same inputs)", flush=True)
-    if not worst <= 1e-5:
-        fail("K7: backward through the autograd Function disagrees")
+          f"Function (the route above) vs the plain formula's autograd: "
+          f"worst normwise {worst:.2e}, within the backward limits",
+          flush=True)
     try:
         ln.layer_norm_fwd(randn(8, 324, dtype=torch.bfloat16),
                           randn(324, dtype=torch.bfloat16),
@@ -1099,7 +1275,80 @@ def layer_norm_phases():
         pass
     else:
         fail("K7: an unsupported width on the card did not raise")
-    return phases, ln.LAUNCHES - before
+    return ({"layer_norm": phases, "layer_norm_affine_grad": affine}, bwd,
+            {"layer_norm": ln.LAUNCHES - before[0],
+             "layer_norm_affine_grad": ln.AFFINE_LAUNCHES - before[1]})
+
+
+def count_text_encoder_calls():
+    """Wraps ``models.clip.clip_apply`` (which ``encode_sdxl_prompt``
+    calls through its module) so that each call adds its encoder's
+    LayerNorms, 2 L + 1 for L layers, to TEXT_ENCODERS: the text
+    encoders' share of a path's K7 launches."""
+    from video_style_transfer_tpu_torch.models import clip
+    inner = clip.clip_apply
+    if getattr(inner, "counted", False):
+        return
+
+    def counted(params, cfg, *args, **kw):
+        TEXT_ENCODERS["calls"] += 1
+        TEXT_ENCODERS["layer_norms"] += 2 * cfg.num_layers + 1
+        return inner(params, cfg, *args, **kw)
+    counted.counted = True
+    clip.clip_apply = counted
+
+
+@contextlib.contextmanager
+def library_layer_norm_refused():
+    """While the paths run, ``F.layer_norm`` (and ``torch.layer_norm``
+    under it) raise: every LayerNorm of the port goes through K7."""
+    import torch
+    import torch.nn.functional as F
+
+    def refuse(*args, **kw):
+        raise RuntimeError("a path reached the library LayerNorm "
+                           "(F.layer_norm): every LayerNorm of the port "
+                           "must launch K7")
+    saved = F.layer_norm, torch.layer_norm
+    F.layer_norm = torch.layer_norm = refuse
+    try:
+        yield
+    finally:
+        F.layer_norm, torch.layer_norm = saved
+
+
+def with_text_encoders(expected, encodes, path):
+    """`expected` with the text encoders' LayerNorms since the counters
+    were set to 0 added to its K7 count (a UNet's come from its block
+    counts); fails unless the `path` made exactly `encodes` prompt
+    encodes since then, each through both encoders."""
+    check_text_encodes(path, TEXT_ENCODERS["calls"], encodes)
+    return {**expected, "layer_norm": expected.get("layer_norm", 0)
+            + TEXT_ENCODERS["layer_norms"]}
+
+
+def check_text_encodes(path, calls, encodes):
+    """Fails unless `calls` text-encoder calls are `encodes` prompt
+    encodes, each through both encoders: an extra or a missing encode
+    would otherwise hide in the K7 count, which adds what ran."""
+    if calls != 2 * encodes:
+        fail(f"the {path} path ran {calls} text-encoder calls, expected "
+             f"{2 * encodes} ({encodes} prompt encodes through both "
+             f"encoders)")
+
+
+def layer_norm_dtype_pairs():
+    """The (x, affine) dtypes K7 took since the counters were set to 0
+    (from the layouts its check accepted)."""
+    from video_style_transfer_tpu_torch.ops import layer_norm as ln
+    return sorted({(str(k[0])[6:], str(k[1])[6:]) for k in ln._ACCEPTED})
+
+
+def check_no_layer_norm_copies(path):
+    from video_style_transfer_tpu_torch.ops import layer_norm as ln
+    if ln.COPIES:
+        fail(f"K7 copied {ln.COPIES} LayerNorm inputs on the {path} path "
+             f"(not contiguous or not 16-byte aligned)")
 
 
 def small_reference():
@@ -1113,7 +1362,7 @@ def small_reference():
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.models.unet import init_unet
     from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
-    from video_style_transfer_tpu_torch.ops import geglu
+    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     from video_style_transfer_tpu_torch.pipelines.video import generate_video
     from video_style_transfer_tpu_torch.utils.convert import to_device
@@ -1141,13 +1390,15 @@ def small_reference():
                 dtype=torch.float32, decode_chunk=4, vae_scale_factor=2,
                 device=dev, noise=noise, check_finite=True).cpu()
 
-        before = (geglu.LAUNCHES, ta.LAUNCHES)
+        before = (geglu.LAUNCHES, ta.LAUNCHES, layer_norm.LAUNCHES)
         gpu_frames = run(torch.device("cuda"))
-        used = (geglu.LAUNCHES - before[0], ta.LAUNCHES - before[1])
+        used = (geglu.LAUNCHES - before[0], ta.LAUNCHES - before[1],
+                layer_norm.LAUNCHES - before[2])
         cpu_frames = run(torch.device("cpu"))
     diff = int((gpu_frames.int() - cpu_frames.int()).abs().max())
-    print(f"small-input reference: tiny 2-step video (GEGLU / temporal "
-          f"kernel launches on the card {used}), cuda vs cpu max frame "
+    print(f"small-input reference: tiny 2-step video (GEGLU / temporal / "
+          f"LayerNorm kernel launches on the card {used}), cuda vs cpu max "
+          f"frame "
           f"difference {diff} levels (limit 2)", flush=True)
     if diff > 2 or min(used) == 0:
         fail(f"tiny pipeline on cuda differs from cpu by {diff} levels "
@@ -1166,6 +1417,9 @@ def reset_counters():
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
+    layer_norm.COPIES = layer_norm.AFFINE_LAUNCHES = 0
+    layer_norm._ACCEPTED.clear()
+    TEXT_ENCODERS.update(calls=0, layer_norms=0)
     fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0)
     fa.WIDE_LAUNCHES = 0
     fa.BWD_ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, wgmma_sliced=0,
@@ -1368,10 +1622,12 @@ def small_training_reference():
     if not (loss_err <= 1e-5 and worst <= 1e-4):
         fail("tiny stage-2 step on cuda differs from cpu")
     # what a training step runs: the attention and feed-forward kernels
-    # and their backwards (no model calls K7)
+    # and their backwards, and the LayerNorms (the motion blocks' trained
+    # ones with K7's dscale / dbias kernels in the backward)
     for name in ("flash_attention_fwd", "flash_attention_bwd",
                  "geglu_projection", "temporal_attention",
-                 "temporal_attention_bwd"):
+                 "temporal_attention_bwd", "layer_norm",
+                 "layer_norm_affine_grad"):
         if used[name] <= 0:
             fail(f"kernel {name} was not launched by the tiny stage-2 step")
 
@@ -1381,9 +1637,12 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
     """Kernel launches of `steps` stage-2 steps at B = 1, from the UNet's
     block counts: spatial self-attentions of >= 1024 tokens and d % 64 ==
     0 take K1/K4, every spatial and motion feed-forward K2, every motion
-    attention K3/K5 (d % 8 == 0), and each frame through the VAE encoder
-    its mid-block attention K1: `encoded` frames (default: every frame of
-    every step, as without the moment cache). The trainer stores every
+    attention K3/K5 (d % 8 == 0), the three LayerNorms of every spatial
+    and motion block K7 (the text encoders' are added where they run:
+    with_text_encoders) and, in the backward, those of every motion block
+    (the trained ones) its dscale / dbias kernels, and each frame through
+    the VAE encoder its mid-block attention K1: `encoded` frames (default:
+    every frame of every step, as without the moment cache). The trainer stores every
     activation (no remat), so each forward runs once per step."""
     from video_style_transfer_tpu_torch.config import CROSS
     if encoded is None:
@@ -1414,7 +1673,10 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
             "temporal_attention": steps * 2 * motion,
             "flash_attention_bwd": steps * flash,
             "flash_attention_bwd_delta": steps * flash,
-            "temporal_attention_bwd": steps * 2 * motion}
+            "temporal_attention_bwd": steps * 2 * motion,
+            "layer_norm": steps * 3 * (spatial + motion),
+            # the motion blocks' LayerNorm parameters are trained
+            "layer_norm_affine_grad": steps * 3 * motion}
 
 
 class ArrayClips:
@@ -1521,9 +1783,10 @@ def stage2_path(tmp):
     if encoded != tr.cache.misses or encoded > TRAIN_VIDEO_FRAMES:
         fail(f"the moment cache encoded {encoded} frames (misses "
              f"{tr.cache.misses}), at most {TRAIN_VIDEO_FRAMES} expected")
-    expected = expected_train_launches(cfg, frames=TRAIN_FRAMES,
-                                       resolution=RESOLUTION,
-                                       steps=TRAIN_STEPS, encoded=encoded)
+    # the trainer's set-up encodes the prompt and the empty prompt
+    expected = with_text_encoders(expected_train_launches(
+        cfg, frames=TRAIN_FRAMES, resolution=RESOLUTION, steps=TRAIN_STEPS,
+        encoded=encoded), 2, "stage-2 (first run)")
     card = card_line()
     print(f"stage-2 path ({card}): one epoch of {len(clips)} clip starts of "
           f"a {TRAIN_VIDEO_FRAMES}-frame {RESOLUTION}^2 video in memory; "
@@ -1559,13 +1822,15 @@ def stage2_path(tmp):
           f"phase, drawing and normalising the clip on the host takes "
           f"{', '.join(f'{t:.4f}' for t in sample_s)} s", flush=True)
     print(f"launches on the stage-2 path, first run: {counts} (expected "
-          f"{expected})", flush=True)
+          f"{expected}; K7 took (x, affine) dtypes "
+          f"{layer_norm_dtype_pairs()})", flush=True)
     if not all(map(math.isfinite, report["loss"])):
         fail(f"non-finite stage-2 losses {report['loss']}")
     for name, n in counts.items():
         if n != expected.get(name, 0):
             fail(f"kernel {name} launched {n} times on the stage-2 path, "
                  f"expected {expected.get(name, 0)}")
+    check_no_layer_norm_copies("stage-2")
     frozen_moved, b_still, bf16_changed, bf16_total = 0, 0, 0, 0
     for path, t in iter_leaves(tr.params):
         was_trainable, before = snap[path]
@@ -1655,9 +1920,10 @@ def stage2_path(tmp):
     # the whole path: both runs' steps, the cache misses of each
     counts = counters()
     encoded += sum(resume_report["encoded_frames"])
-    expected = expected_train_launches(
+    expected = with_text_encoders(expected_train_launches(
         cfg, frames=TRAIN_FRAMES, resolution=RESOLUTION,
-        steps=TRAIN_STEPS + resumed_steps, encoded=encoded)
+        steps=TRAIN_STEPS + resumed_steps, encoded=encoded), 2 * 2,
+        "stage-2 (both runs)")
     print(f"launches on the stage-2 path, both runs: {counts} (expected "
           f"{expected}; K1's FMA route {encoded} encoded frames, "
           f"{(TRAIN_STEPS + resumed_steps) * TRAIN_FRAMES} without the "
@@ -1666,6 +1932,7 @@ def stage2_path(tmp):
         if n != expected.get(name, 0):
             fail(f"kernel {name} launched {n} times on the stage-2 path, "
                  f"expected {expected.get(name, 0)}")
+    check_no_layer_norm_copies("stage-2")
     motion_checkpoint = resume_report["motion_checkpoint"]
     folded = fold_temporal_lora(tr.params)
     written = load_motion_checkpoint(motion_checkpoint)
@@ -1695,7 +1962,8 @@ def stage1_launches(per, *, train_forwards, unet_calls, vae_calls):
     its backward), `unet_calls` inference UNet calls (a CFG pair in one)
     and `vae_calls` VAE encodes or decodes at 1024^2 (one mid-block
     attention each), from `per`, one training forward's
-    (expected_train_launches at one step and no encode)."""
+    (expected_train_launches at one step and no encode); the text
+    encoders' LayerNorms are added where they run (with_text_encoders)."""
     fwd = train_forwards + unet_calls
     return {"flash_attention_fwd": per["flash_attention_fwd"] * fwd
             + vae_calls,
@@ -1705,7 +1973,9 @@ def stage1_launches(per, *, train_forwards, unet_calls, vae_calls):
             * train_forwards,
             "flash_attention_bwd_delta": per["flash_attention_bwd_delta"]
             * train_forwards,
-            "temporal_attention_bwd": 0, "layer_norm": 0}
+            "temporal_attention_bwd": 0,
+            "layer_norm": per["layer_norm"] * fwd,
+            "layer_norm_affine_grad": 0}
 
 
 def stage1_selection_phase(captured, chosen, sep, card):
@@ -2033,16 +2303,25 @@ def stage1_path(tmp):
         return {"K1": dict(fa.ROUTE_LAUNCHES), "K4": dict(
             fa.BWD_ROUTE_LAUNCHES), "K2": dict(geglu.ROUTE_LAUNCHES)}
 
-    def run(label, argv, expect, routes, **kw):
-        """One trainer run; its launches must equal `expect`, and its
-        launches by route `routes` ({"K1": {route: n}, ...})."""
+    def run(label, argv, expect, routes, *, encodes, **kw):
+        """One trainer run; its launches must equal `expect`, its
+        launches by route `routes` ({"K1": {route: n}, ...}), and its
+        prompt encodes `encodes` (one a prior branch, the instance,
+        content and style prompts, ten a validation (the negative and
+        three a mode), two for --final_inference_check)."""
         before, rbefore = counters(), route_counts()
+        text_before = dict(TEXT_ENCODERS)
         report = {}
         t0 = time.perf_counter()
         tr = train_unziplora.train(parser.parse_args(shared + argv), report,
                                    **kw)
         total = time.perf_counter() - t0
         got = launches_since(before)
+        check_text_encodes(f"stage-1 run {label}", TEXT_ENCODERS["calls"]
+                           - text_before["calls"], encodes)
+        expect = {**expect, "layer_norm": expect["layer_norm"]
+                  + TEXT_ENCODERS["layer_norms"]
+                  - text_before["layer_norms"]}
         rafter = route_counts()
         by_route = {k: {r: rafter[k][r] - rbefore[k].get(r, 0)
                         for r in rafter[k]} for k in rafter}
@@ -2068,11 +2347,13 @@ def stage1_path(tmp):
               f"selected after each step {report['selected_columns']}",
               flush=True)
         print(f"  launches {got} (expected {expect}); by route {by_route} "
-              f"(expected {want_routes})", flush=True)
+              f"(expected {want_routes}); K7 took (x, affine) dtypes "
+              f"{layer_norm_dtype_pairs()}", flush=True)
         if not all(math.isfinite(v) for l in losses for v in l.values()):
             fail(f"stage-1 run {label}: non-finite losses")
         if got != expect:
             fail(f"stage-1 run {label}: launches {got}, expected {expect}")
+        check_no_layer_norm_copies(f"stage-1 run {label}")
         if by_route != want_routes:
             fail(f"stage-1 run {label}: launches by route {by_route}, "
                  f"expected {want_routes}")
@@ -2121,7 +2402,8 @@ def stage1_path(tmp):
         routes(per["flash_attention_fwd"] * (forwards_a + val_calls),
                per["flash_attention_bwd"] * forwards_a,
                per["geglu_projection"] * (forwards_a + val_calls), 4 + 3),
-        images=images, class_images=class_images, on_grads=on_grads,
+        encodes=1 + 3 + 10, images=images, class_images=class_images,
+        on_grads=on_grads,
         on_setup=lambda t: state_assignments.append(t.assignments))
     sep = tr.sep
     if rep_a["phase"] != STAGE1_PHASES:
@@ -2193,7 +2475,8 @@ def stage1_path(tmp):
                per["flash_attention_bwd"] * forwards_b,
                per["geglu_projection"] * (forwards_b + STAGE1_VAL_STEPS),
                4 + 1),
-        images=images, class_images=class_images, on_setup=on_resume)
+        encodes=1 + 3 + 2, images=images, class_images=class_images,
+        on_setup=on_resume)
     print(f"stage-1 resume ({card}): from {restored.get('path')} at step "
           f"{restored.get('step')}, bitwise as saved: LoRA leaves "
           f"{restored.get('trainable')}, the three {restored.get('kind')} "
@@ -2227,8 +2510,9 @@ def stage1_path(tmp):
     torch.cuda.empty_cache()
     readings["F"] = stage1_masked_run(
         written, step_f, mergers, selected,
+        # no prior, the three prompts, --final_inference_check's two
         lambda label, argv, expect, routes_, **kw: run(
-            label, sep_args + argv, expect, routes_, **kw),
+            label, sep_args + argv, expect, routes_, encodes=3 + 2, **kw),
         stage1_launches(per, train_forwards=1, unet_calls=STAGE1_VAL_STEPS,
                         vae_calls=2 + 1),
         routes(per["flash_attention_fwd"] * (1 + STAGE1_VAL_STEPS),
@@ -2251,7 +2535,7 @@ def stage1_path(tmp):
                 "fma": 2},
          "K4": {"tf32x3": per["flash_attention_bwd"] * forwards_c},
          "K2": {"tf32x3": per["geglu_projection"] * forwards_c}},
-        images=images)
+        encodes=3, images=images)
     readings["C"] = {"step_s": rep_c["step_s"],
                      "peak_memory_gib": rep_c.get("peak_memory_gib")}
     del tr
@@ -2269,7 +2553,7 @@ def stage1_path(tmp):
             routes(per["flash_attention_fwd"] * STAGE1_SHORT,
                    per["flash_attention_bwd"] * STAGE1_SHORT,
                    per["geglu_projection"] * STAGE1_SHORT, 2),
-            images=images)
+            encodes=3, images=images)
         readings["E"][opt] = {"step_s": rep_e["step_s"],
                               "losses": rep_e["losses"]}
         del tr
@@ -2279,10 +2563,12 @@ def stage1_path(tmp):
     train_fwd = forwards_a + forwards_b + 1 + 2 * STAGE1_SHORT
     unet = val_calls + 2 * STAGE1_VAL_STEPS
     vae = (4 + 3) + (4 + 1) + (2 + 1) + 2 + 2 * 2
+    # runs A, B, F, C and E's two
+    encodes = 14 + 6 + 5 + 3 + 2 * 3
     counts = counters()
-    check_counts("stage-1", counts, stage1_launches(
+    check_counts("stage-1", counts, with_text_encoders(stage1_launches(
         per, train_forwards=train_fwd + forwards_c, unet_calls=unet,
-        vae_calls=vae))
+        vae_calls=vae), encodes, "stage-1"))
     counts = check_routes(
         "stage-1", counts, per["flash_attention_fwd"] * (train_fwd + unet),
         vae,
@@ -2432,6 +2718,19 @@ def stage2_precision(artifacts):
     if counts["geglu_projection"] != 3 * step["geglu_projection"]:
         fail(f"stage-2 precision: {counts['geglu_projection']} K2 launches, "
              f"expected {3 * step['geglu_projection']}")
+    # the trainer's set-up encodes its two prompts
+    check_text_encodes("stage-2 precision", TEXT_ENCODERS["calls"], 2)
+    want_ln = 3 * step["layer_norm"] + TEXT_ENCODERS["layer_norms"]
+    print(f"stage-2 precision: {counts['layer_norm']} K7 launches (expected "
+          f"{want_ln}), (x, affine) dtypes {layer_norm_dtype_pairs()}",
+          flush=True)
+    if counts["layer_norm"] != want_ln or counts[
+            "layer_norm_affine_grad"] != 3 * step["layer_norm_affine_grad"]:
+        fail(f"stage-2 precision: {counts['layer_norm']} K7 launches and "
+             f"{counts['layer_norm_affine_grad']} calls of its dscale / "
+             f"dbias kernels, expected {want_ln} and "
+             f"{3 * step['layer_norm_affine_grad']}")
+    check_no_layer_norm_copies("stage-2 precision")
     counts = check_routes("stage-2 precision", counts, flash,
                           PRECISION_FRAMES, bwd_wgmma=flash,
                           tf32x3=2 * flash, bwd_tf32x3=2 * flash,
@@ -2441,24 +2740,30 @@ def stage2_precision(artifacts):
 
 def serving_launches(steps, frames):
     """Launches of one served video: per denoise step 70 spatial
-    transformer blocks (one self-attention and one feed-forward each) and
-    15 motion modules (two temporal attentions and one feed-forward
-    each); the VAE mid-block attention once per decoded frame. Serving
-    runs no backward and no model calls K7."""
+    transformer blocks (one self-attention, one feed-forward and three
+    LayerNorms each) and 15 motion modules (two temporal attentions, one
+    feed-forward and three LayerNorms each); the VAE mid-block attention
+    once per decoded frame. Serving runs no backward. The text encoders'
+    LayerNorms are added where they run (with_text_encoders)."""
     return {"flash_attention_fwd": 70 * steps + frames,
             "geglu_projection": 85 * steps,
             "temporal_attention": 30 * steps,
             "flash_attention_bwd": 0, "flash_attention_bwd_delta": 0,
-            "temporal_attention_bwd": 0, "layer_norm": 0}
+            "temporal_attention_bwd": 0, "layer_norm": 255 * steps,
+            "layer_norm_affine_grad": 0}
 
 
 def check_counts(path, counts, expected):
-    print(f"launches on the {path} path: {counts} (expected {expected})",
-          flush=True)
+    """Each kernel's launches on a path exact; no LayerNorm input copied;
+    prints the (x, affine) dtypes K7 took there."""
+    print(f"launches on the {path} path: {counts} (expected {expected}; "
+          f"K7 took (x, affine) dtypes {layer_norm_dtype_pairs()}, "
+          f"{TEXT_ENCODERS['calls']} text-encoder calls)", flush=True)
     for name, n in counts.items():
         if n != expected[name]:
             fail(f"kernel {name} launched {n} times on the {path} path, "
                  f"expected {expected[name]}")
+    check_no_layer_norm_copies(path)
 
 
 def main_path(artifacts, motion_checkpoint):
@@ -2523,8 +2828,10 @@ def main_path(artifacts, motion_checkpoint):
                 fail(f"modes {modes[a]} and {modes[b]} gave the same frames")
     print(f"frames: {shape} uint8 per mode, finite before the cast, "
           f"pairwise different between {modes}", flush=True)
-    check_counts("serving", counts,
-                 {k: len(modes) * v for k, v in per_mode.items()})
+    # the negative prompt and each mode's prompt, through both encoders
+    check_counts("serving", counts, with_text_encoders(
+        {k: len(modes) * v for k, v in per_mode.items()}, len(modes) + 1,
+        "serving"))
     routes = check_routes("serving", counts, len(modes) * 70 * STEPS,
                           len(modes) * NUM_FRAMES)
     # mode both's first UNet output (after base's STEPS calls), latents
@@ -2575,10 +2882,12 @@ def image_path(artifacts):
     if report["n_folded"] != 70 * 6:
         fail(f"the image path folded {report['n_folded']} projections, "
              f"expected {70 * 6}")
-    check_counts("image", counts,
-                 {**serving_launches(0, 0),
-                  "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
-                  "geglu_projection": 70 * IMAGE_STEPS})
+    # the prompt, the content and style prompts and the negative one
+    check_counts("image", counts, with_text_encoders(
+        {**serving_launches(0, 0),
+         "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
+         "geglu_projection": 70 * IMAGE_STEPS,
+         "layer_norm": 210 * IMAGE_STEPS}, 4, "image"))
     shape = (RESOLUTION, RESOLUTION, 3)
     if img.shape != shape or str(img.dtype) != "uint8":
         fail(f"image {img.shape} {img.dtype}, expected {shape} uint8")
@@ -3386,7 +3695,9 @@ def mp_serving(cfg, rank, fp32=False):
     counts = counters()
     frames = NUM_FRAMES // MP_WORLD
     steps = MP_FP32_STEPS if fp32 else STEPS
-    check_counts(label, counts, serving_launches(steps, frames))
+    # the negative prompt and mode both's
+    check_counts(label, counts, with_text_encoders(
+        serving_launches(steps, frames), 2, label))
     # fp32: every UNet attention and feed-forward on the 3xTF32 routes
     calls = 70 * steps
     routes = check_routes(label, counts, 0 if fp32 else calls, frames,
@@ -3468,7 +3779,9 @@ def mp_stage2_run(out_dir, flags, label, fp32=False, on_setup=None):
         model_configs(smoke=False, motion=True)[0], frames=frames,
         resolution=MP_TRAIN_RES,
         steps=MP_FP32_STEPS if fp32 else MP_TRAIN_STEPS, encoded=encoded)
-    check_counts(label, counts, {**serving_launches(0, 0), **want})
+    # the trainer's set-up encodes the prompt and the empty prompt
+    check_counts(label, counts, with_text_encoders(
+        {**serving_launches(0, 0), **want}, 2, label))
     flash = want["flash_attention_bwd"]
     # fp32: every UNet attention, its backward and every feed-forward on
     # the 3xTF32 routes
@@ -3636,8 +3949,10 @@ def mp_stage1(cfg, rank):
     # each process encodes both instance images (their moments are the
     # whole set's)
     check_counts(f"data-parallel stage-1 (rank {rank})", counts,
-                 stage1_launches(per, train_forwards=MP_STAGE1_STEPS,
-                                 unet_calls=0, vae_calls=2))
+                 with_text_encoders(stage1_launches(
+                     per, train_forwards=MP_STAGE1_STEPS, unet_calls=0,
+                     vae_calls=2), 3,
+                     f"data-parallel stage-1 (rank {rank})"))
     routes = check_routes(
         f"data-parallel stage-1 (rank {rank})", counts,
         per["flash_attention_fwd"] * MP_STAGE1_STEPS, 2,
@@ -3728,6 +4043,10 @@ def tp_unet_call(artifacts, device, grid=None):
         counts = counters()
     label = "fp32 UNet call" + ("" if grid is None else
                                 f" (--tp 2 rank {grid.model_index})")
+    # each rank normalises the whole width: 210 LayerNorms a UNet call
+    if counts["layer_norm"] != 210:
+        fail(f"{label}: {counts['layer_norm']} K7 launches, expected 210")
+    check_no_layer_norm_copies(label)
     routes = check_routes(label, counts, 0, 0, tf32x3=70, geglu_tf32x3=70)
     return {"unet": outs[0], "launches": routes,
             "reduced_bytes": distributed.MODEL_REDUCED_BYTES}
@@ -3763,10 +4082,12 @@ def mp_tp_image(cfg, rank):
     total = time.perf_counter() - t0
     counts = counters()
     label = f"--tp 2 image (rank {rank})"
-    check_counts(label, counts,
-                 {**serving_launches(0, 0),
-                  "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
-                  "geglu_projection": 70 * IMAGE_STEPS})
+    # the prompt, the content and style prompts and the negative one
+    check_counts(label, counts, with_text_encoders(
+        {**serving_launches(0, 0),
+         "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
+         "geglu_projection": 70 * IMAGE_STEPS,
+         "layer_norm": 210 * IMAGE_STEPS}, 4, label))
     routes = check_routes(label, counts, 70 * IMAGE_STEPS, 1)
     (name, img), = outs.items()
     rep = report["images"][name]
@@ -3797,7 +4118,10 @@ def mp_child(config_path, rank):
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method="file://" + cfg["store"],
                             world_size=MP_WORLD, rank=rank)
+    count_text_encoder_calls()
     out, seconds = {}, {}
+    stack = contextlib.ExitStack()
+    stack.enter_context(library_layer_norm_refused())
     for name, fn in (("probe", lambda: mp_probe(rank)),
                      ("serving", lambda: mp_serving(cfg, rank)),
                      ("serving_fp32", lambda: mp_serving(cfg, rank, True)),
@@ -3811,6 +4135,7 @@ def mp_child(config_path, rank):
         out[name] = fn()
         seconds[name] = time.perf_counter() - t0
         torch.cuda.empty_cache()
+    stack.close()
     out["seconds"] = seconds
     torch.save(out, os.path.join(cfg["root"], f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -4362,7 +4687,13 @@ def main():
     section("forward kernel phases")
     phases.update(bwd_phases())
     section("backward kernel phases")
-    phases["layer_norm"], ln_launches = layer_norm_phases()
+    ln_phases, ln_bwd_phases, ln_launches = layer_norm_phases()
+    phases.update(ln_phases)
+    # from here on every path's LayerNorms must launch K7: the library
+    # call raises, and the text encoders' calls are counted
+    count_text_encoder_calls()
+    paths_guard = contextlib.ExitStack()
+    paths_guard.enter_context(library_layer_norm_refused())
     small_reference()
     small_training_reference()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -4424,7 +4755,8 @@ def main():
         section("multi-process (two ranks time-sharing the card)")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    by_path["layer_norm_phase"] = {"layer_norm": ln_launches}
+        paths_guard.close()
+    by_path["layer_norm_phase"] = ln_launches
     main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32",
                   "stage1", "vae_grad")
 
@@ -4474,9 +4806,15 @@ def main():
         # K1's d=192 instance; no path of the port has that head dim
         "flash_attention_fwd_d192": ("flash_attention_sm90.cu",
                                      "flash_attention.py:50"),
-        # no model calls it (as in the JAX package): its launches are
-        # those of its own phase
+        # every LayerNorm of the models (the JAX package keeps its models
+        # on the XLA formula, a TPU choice): 255 a serving UNet call, 210
+        # an image or stage-1 one, 90 a prompt encode
         "layer_norm": ("layer_norm.cu", "layer_norm.py:60"),
+        # not a TPU kernel: the JAX package takes the LayerNorm backward
+        # from XLA (jax.vjp of _reference in _ln_bwd); stage 2's trained
+        # motion norms (45 calls a step, each the partial sums and their
+        # finish)
+        "layer_norm_affine_grad": ("layer_norm.cu", "layer_norm.py:121"),
     }
     wgmma_ptxas = sm90_ptxas(log)
     ptxas = {"flash_attention_sm90.cu": {d: r for d, r in wgmma_ptxas.items()
@@ -4513,6 +4851,16 @@ def main():
             entry["kernel"] = "ta_fwd_mma_kernel"
         if name == "temporal_attention_bwd":
             entry["kernel"] = "ta_bwd_mma_kernel"
+        if name == "layer_norm":
+            entry["backward_route"] = {
+                "route": "aten native_layer_norm_backward on K7's "
+                         "statistics (JAX: jax.vjp of _reference in XLA)",
+                "phases": ln_bwd_phases}
+        if name == "layer_norm_affine_grad":
+            entry["note"] = ("not a TPU kernel: dscale and dbias of K7's "
+                             "backward route (the partial sums and their "
+                             "finish, one call); the JAX package computes "
+                             "the LayerNorm backward in XLA (_ln_bwd)")
         if name == "flash_attention_bwd_delta":
             entry["note"] = ("not a TPU kernel: the JAX package computes "
                              "delta in XLA, in K4's launcher "

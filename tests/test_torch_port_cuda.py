@@ -907,9 +907,179 @@ def test_cuda_layer_norm_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="one CUDA device"):
         tln.layer_norm(torch.randn(8, 320, device="cuda"),
                        torch.ones(320), torch.ones(320))
-    with pytest.raises(TypeError, match="both in float32"):
+    with pytest.raises(TypeError, match="floating scale and bias"):
         tln.layer_norm(torch.randn(8, 320, device="cuda"),
-                       ones[:320].bfloat16(), ones[:320].bfloat16())
+                       ones[:320].int(), ones[:320].int())
+    # no fallback to the library call on the card
+    before = tln.LAUNCHES
+    with pytest.raises(ValueError):
+        tln.layer_norm(torch.randn(8, 324, device="cuda",
+                                   dtype=torch.bfloat16), ones, ones)
+    assert tln.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_casts_a_narrower_affine_to_f32():
+    # an affine held in neither x's dtype nor f32 (bf16 beside f32 x) is
+    # cast to f32, as the JAX formula's astype(float32) does
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn(300, 640, device="cuda", generator=g)
+    w = (1 + 0.1 * torch.randn(640, device="cuda", generator=g)).bfloat16()
+    b = (0.1 * torch.randn(640, device="cuda", generator=g)).bfloat16()
+    out = tln.layer_norm(x, w, b)
+    assert torch.equal(out, tln.layer_norm(x, w.float(), b.float()))
+    _assert_close(out, tln.layer_norm_reference(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,c", [(torch.bfloat16, 154, 1280),
+                                       (torch.bfloat16, 1024, 1280),
+                                       (torch.bfloat16, 300, 640),
+                                       (torch.bfloat16, 4096, 320),
+                                       (torch.float32, 77, 768),
+                                       (torch.float32, 2048, 1280)])
+def test_cuda_layer_norm_statistics(dtype, m, c):
+    # each row's f32 mean and rstd, written only when asked for, at M
+    # that take 1, 2, 4 and 8 rows a block; y is the same either way.
+    # f32 sums in another order: 1e-5 + 1e-5 relative
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = (torch.randn(m, c, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    y, mean, rstd = tln.layer_norm_fwd(x, w, b, stats=True)
+    assert torch.equal(y, tln.layer_norm_fwd(x, w, b))
+    assert mean.shape == rstd.shape == (m, 1)
+    assert mean.dtype == rstd.dtype == torch.float32
+    for got, want in zip((mean, rstd), tln.layer_norm_stats_reference(x)):
+        excess = (got - want).abs() - 1e-5 * want.abs()
+        assert excess.max().item() <= 1e-5
+        # the check sees a 3 % fault
+        assert ((got * 0.97 - want).abs()
+                - 1e-5 * want.abs()).max().item() > 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,sdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("need", [(True, False, False), (True, True, True)])
+def test_cuda_layer_norm_backward_route(xdt, sdt, need):
+    # the card's backward (dx from aten's native_layer_norm_backward on
+    # K7's statistics, dscale and dbias from K7's kernels) against the
+    # plain formula's autograd on the card: bf16
+    # normwise within 2^-10 of each gradient, fp32 dx within 1e-5 + 1e-5
+    # relative and dscale, dbias (sums over all rows) within 1e-5 plus
+    # 2^-20 of their largest entry; never the plain formula's autograd
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    m, c = 4096, 320
+    x = (torch.randn(m, c, device="cuda", generator=g) * 1.5 + 0.3).to(xdt)
+    w = (1 + 0.1 * torch.randn(c, device="cuda", generator=g)).to(sdt)
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).to(sdt)
+    cot = torch.randn(m, c, device="cuda", generator=g).to(xdt)
+    grads = []
+    for fn in (tln.layer_norm, tln.layer_norm_reference):
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_(
+            need[1]), b.clone().requires_grad_(need[2])]
+        before = tln.LAUNCHES
+        out = fn(*leaves)
+        if fn is tln.layer_norm:
+            assert "_LayerNorm" in type(out.grad_fn).__name__
+            assert tln.LAUNCHES == before + 1
+        out.backward(cot)
+        grads.append([t.grad for t in leaves])
+    for i, (got, want) in enumerate(zip(*grads)):
+        if not need[i]:
+            assert got is None and want is None
+            continue
+        assert got.dtype == want.dtype
+        d, r = got.double() - want.double(), want.double()
+        if xdt == torch.bfloat16:
+            assert d.norm().item() <= 2 ** -10 * r.norm().item()
+        elif i == 0:
+            assert ((d.abs() - 1e-5 * r.abs()).max().item()) <= 1e-5
+        else:
+            assert d.abs().max().item() <= 1e-5 + 2 ** -20 * r.abs().max(
+            ).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,m,c", [(torch.bfloat16, 8 * 16384, 320),
+                                       (torch.bfloat16, 1001, 1280),
+                                       (torch.bfloat16, 7, 8),
+                                       (torch.float32, 2 * 16384, 320),
+                                       (torch.float32, 515, 2048)])
+def test_cuda_layer_norm_affine_grads_match_plain(dtype, m, c):
+    # the backward's dscale and dbias kernels: f32 sums over all rows (any
+    # M, the last warp's run cut short), within 1e-5 plus 2^-20 of the
+    # largest entry of the plain sums (their order differs); rounded once
+    # to a bf16 output, within that plus half a bf16 ulp (2^-8 relative)
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (torch.randn(m, c, device="cuda", generator=g) * 1.5 + 0.3).to(dtype)
+    dy = torch.randn(m, c, device="cuda", generator=g).to(dtype)
+    mean, rstd = tln.layer_norm_stats_reference(x)
+    before = tln.AFFINE_LAUNCHES
+    got = tln.layer_norm_affine_grads(dy, x, mean, rstd)
+    assert tln.AFFINE_LAUNCHES == before + 1
+    want = tln.layer_norm_affine_grads_plain(dy, x, mean, rstd)
+    assert got.shape == want.shape == (2, c) and got.dtype == torch.float32
+    for a, r in zip(got, want):
+        limit = 1e-5 + 2 ** -20 * r.abs().max().item()
+        assert (a - r).abs().max().item() <= limit
+        assert (a * 0.97 - r).abs().max().item() > limit
+    half = tln.layer_norm_affine_grads(dy, x, mean, rstd, torch.bfloat16)
+    assert half.dtype == torch.bfloat16 and half.shape == (2, c)
+    for a, r in zip(half.float(), want):
+        limit = 1e-5 + 2 ** -20 * r.abs().max().item() + 2 ** -8 * r.abs()
+        assert ((a - r).abs() <= limit).all()
+
+
+@pytest.mark.cuda
+def test_cuda_layer_norm_no_copy_on_the_models_views():
+    # the motion modules' (F, N, C) tokens and the transformer blocks' (N,
+    # S, C) tokens are contiguous: no copy before the kernel
+    _need_cuda()
+    from video_style_transfer_tpu_torch.models import layers
+    p = {"weight": torch.ones(320, device="cuda"),
+         "bias": torch.zeros(320, device="cuda")}
+    x = torch.randn(4, 64, 320, device="cuda")
+    before = tln.COPIES
+    layers.layer_norm(p, x)
+    assert tln.COPIES == before
+    # a strided view is copied once and still normalised right
+    t = torch.randn(64, 4, 320, device="cuda").transpose(0, 1)
+    _assert_close(layers.layer_norm(p, t),
+                  tln.layer_norm_reference(t, p["weight"], p["bias"]))
+    assert tln.COPIES == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", ["x", "scale"])
+def test_cuda_layer_norm_misaligned_x_then_scale(first):
+    # x misaligned beside an aligned affine, then an aligned x beside a
+    # misaligned scale (and the reverse order), in one process at one
+    # shape: each call takes its own cached layout (a copy of x, a copy of
+    # the affine), never the other's, and both normalise right
+    _need_cuda()
+    c = 320
+
+    def at(n, offset):
+        base = torch.randn(n + 8, device="cuda").to(torch.bfloat16)
+        return base[offset:offset + n]
+    calls = {"x": (at(64 * c, 4).view(64, c), at(c, 0), at(c, 0)),
+             "scale": (at(64 * c, 0).view(64, c), at(c, 4), at(c, 0))}
+    order = [first, "scale" if first == "x" else "x"]
+    before = tln.COPIES
+    for name in order:
+        x, w, b = calls[name]
+        _assert_close(tln.layer_norm(x, w, b),
+                      tln.layer_norm_reference(x, w, b))
+        torch.cuda.synchronize()
+    # only the misaligned x is copied
+    assert tln.COPIES == before + 1
 
 
 @pytest.mark.cuda

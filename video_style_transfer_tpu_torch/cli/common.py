@@ -69,7 +69,8 @@ def kernel_launch_counts() -> dict:
             "flash_attention_bwd": fa.BWD_LAUNCHES,
             "flash_attention_bwd_delta": fa.DELTA_LAUNCHES,
             "temporal_attention_bwd": ta.BWD_LAUNCHES,
-            "layer_norm": layer_norm.LAUNCHES}
+            "layer_norm": layer_norm.LAUNCHES,
+            "layer_norm_affine_grad": layer_norm.AFFINE_LAUNCHES}
 
 
 def launches_since(before: dict) -> dict:

@@ -46,8 +46,10 @@ product) and of ``F.linear`` alone, readings of cuBLAS's rate;
 restarts its tensor-core sums every 8, 16 or 32 K values and reads each
 copy's time and its largest distance from the plain version in fp32 and
 in float64 at the fp32 path shapes; ``--k7`` times K7's wrapper
-(``ops.layer_norm.layer_norm_fwd``) at the serving step's LayerNorm
-shapes, each row with ``F.layer_norm``'s device ms;
+(``ops.layer_norm.layer_norm_fwd``) at the paths' LayerNorm shapes, each
+row with ``F.layer_norm``'s device ms and host µs; ``--k7_host_parts``
+gives the host µs of each part of K7's launch path (``k7_host_parts``)
+at the image path's and the CLIP encoder's shapes;
 ``--k3`` for K3's wrapper (``ops.temporal_attention.temporal_attention_fwd``)
 at every shape the paths give it (the serving path's motion levels at 16
 frames in bf16 and fp32, stage 2's at 8, level 2 at 32 frames in both),
@@ -81,7 +83,7 @@ line of readings (``precision_readings``).
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
         [--train | --image | --decode | --k1 | --k2 | --k2_restarts | --k3 |
          --k3_cutouts | --k4 | --k4_cutouts | --k5 |
-         --k5_cutouts | --k7 | --precision]
+         --k5_cutouts | --k7 | --k7_host_parts | --precision]
         [--mixed_precision bf16|no] [--vae_dtype float32|bfloat16]
         [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
@@ -110,6 +112,11 @@ CATEGORIES = (
     ("K4 flash_attention_bwd", ("flash_bwd_",)),
     ("K5 temporal_attention_bwd", ("ta_bwd_mma_kernel",)),
     ("K7 layer_norm", ("::layer_norm_kernel",)),
+    # K7's backward route on the card: its dscale / dbias kernels (the
+    # partial sums and their finish), and dx from aten's
+    # native_layer_norm_backward
+    ("K7 layer_norm dscale/dbias", ("layer_norm_affine_grad",)),
+    ("layer_norm backward (aten)", ("layer_norm_grad", "gammabetabackward")),
     ("layer_norm (library)", ("layer_norm", "layernorm")),
     ("conv", ("conv", "cudnn", "fprop", "dgrad", "wgrad", "winograd")),
     ("gemm", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
@@ -383,10 +390,14 @@ K2_SHAPES = (("spatial L2", (32768, 1280), torch.bfloat16),
 
 # (tag, (M, C), dtype): K7's shapes in chip_smoke.py's K7 phases: the
 # serving step's LayerNorms at UNet levels 2 and 1 and motion level 0,
+# the image path's level 2 (a CFG pair) and level 1, stage 1's level 2,
 # the CLIP bigG encoder's (two prompts of 77 tokens), level 2 in fp32
 K7_SHAPES = (("UNet L2", (32768, 1280), torch.bfloat16),
              ("UNet L1", (131072, 640), torch.bfloat16),
              ("motion L0", (524288, 320), torch.bfloat16),
+             ("image L2", (2048, 1280), torch.bfloat16),
+             ("image L1", (8192, 640), torch.bfloat16),
+             ("stage-1 L2", (1024, 1280), torch.bfloat16),
              ("CLIP bigG", (154, 1280), torch.bfloat16),
              ("UNet L2", (32768, 1280), torch.float32))
 
@@ -887,11 +898,13 @@ def _ln_inputs(shape, dtype, gen):
 
 
 def layer_norm_yardstick(shape, dtype, gen, runs: int):
-    """Device ms a call of F.layer_norm on seeded inputs of `shape`."""
+    """Device ms and host µs a call of F.layer_norm on seeded inputs of
+    `shape`."""
     import torch.nn.functional as F
     x, w, b = _ln_inputs(shape, dtype, gen)
-    return {"layer_norm_ms": _time_calls(
-        lambda: F.layer_norm(x, (shape[1],), w, b, 1e-5), runs)[0]}
+    ms, us = _time_calls(lambda: F.layer_norm(x, (shape[1],), w, b, 1e-5),
+                         runs)
+    return {"layer_norm_ms": ms, "layer_norm_host_us": us}
 
 
 def kernel_calls(dev, runs: int, shapes, make_call, yardsticks=None):
@@ -955,6 +968,71 @@ def k1_host_parts(dev, runs: int):
         result[name] = sorted(us)[runs // 2]
     torch.cuda.synchronize()
     return {"shape": f"image L2 {(b, s, h, d)} bfloat16", "host_us": result}
+
+
+def _host_us_in_turns(fns: dict, runs: int, calls: int = 100):
+    """Host µs a call of each of `fns` over `runs` rounds, as the median
+    and the least and most of a round; each round times `calls` calls of
+    every function in turn, queued behind a device sleep (so the host
+    never waits on the card), so that a drift of the host's speed reaches
+    every function alike."""
+    for fn in fns.values():
+        fn()
+    us = {name: [] for name in fns}
+    for _ in range(runs):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda._sleep(50_000_000)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {name: {"median": sorted(v)[runs // 2], "min": min(v),
+                   "max": max(v)} for name, v in us.items()}
+
+
+def k7_host_parts(dev, runs: int):
+    """Host µs a call of each part of K7's launch path, at the image
+    path's level 2 (2048,1280) and the CLIP bigG encoder's (154,1280) in
+    bf16, under ``torch.inference_mode`` as serving runs it, every part
+    timed in turns (`_host_us_in_turns`): the layout lookup (`_check`: its
+    key and one dict lookup), the grad-mode test, the output allocation,
+    the stream lookup, packing the pointers, the launcher (`_launch`: the
+    allocation, the packing, the stream lookup, the C call and the
+    count), the launch path (``layer_norm``: the lookup, the test and the
+    launcher), the models' entry (``models.layers.layer_norm``),
+    ``F.layer_norm``, and the autograd Function (``_LayerNorm.apply``,
+    which also writes the statistics). Yields one dict a shape."""
+    import torch.nn.functional as F
+    from video_style_transfer_tpu_torch.models import layers
+    from video_style_transfer_tpu_torch.ops import cuda_build
+    from video_style_transfer_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for tag, (m, c) in (("image L2", (2048, 1280)),
+                        ("CLIP bigG", (154, 1280))):
+        x, w, b = _ln_inputs((m, c), torch.bfloat16, gen)
+        p = {"weight": w, "bias": b}
+        entry = ln._check(x, w, b, 1e-5)
+        y = torch.empty_like(x)
+        with torch.inference_mode():
+            result = _host_us_in_turns({
+                "_check": lambda: ln._check(x, w, b, 1e-5),
+                "grad mode test": lambda: torch.is_grad_enabled() and (
+                    x.requires_grad or w.requires_grad or b.requires_grad),
+                "torch.empty_like": lambda: torch.empty_like(x),
+                "stream lookup": lambda: cuda_build.stream_of(x),
+                "_POINTERS.pack": lambda: ln._POINTERS.pack(
+                    x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
+                    0, 0, 0) + entry[0],
+                "_launch": lambda: ln._launch(x, w, b, entry),
+                "layer_norm": lambda: ln.layer_norm(x, w, b),
+                "models.layers.layer_norm": lambda: layers.layer_norm(p, x),
+                "F.layer_norm": lambda: F.layer_norm(x, (c,), w, b, 1e-5),
+                "_LayerNorm.apply (with statistics)":
+                    lambda: ln._LayerNorm.apply(x, w, b, entry)}, runs)
+        yield {"shape": f"{tag} {(m, c)} bfloat16", "host_us": result}
+        torch.cuda.empty_cache()
 
 
 def _host_seconds(fn):
@@ -1056,8 +1134,12 @@ def main(argv=None):
                         "and stores alone, with their compute on resident "
                         "data and without their cluster exchange")
     p.add_argument("--k7", action="store_true",
-                   help="time K7's wrapper alone at the serving step's "
-                        "LayerNorm shapes")
+                   help="time K7's wrapper alone at the paths' LayerNorm "
+                        "shapes, beside F.layer_norm's device ms and host "
+                        "µs")
+    p.add_argument("--k7_host_parts", action="store_true",
+                   help="host µs of each part of K7's launch path at the "
+                        "image path's and the CLIP encoder's shapes")
     p.add_argument("--mixed_precision", default="bf16",
                    choices=["bf16", "no"],
                    help="the serving phase's UNet dtype (no: fp32, as "
@@ -1115,6 +1197,12 @@ def main(argv=None):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": "K5 temporal_attention_bwd", **row}),
                   flush=True)
+        return
+    if args.k7_host_parts:
+        for row in k7_host_parts(dev, max(args.steps, 21)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "K7 launch path host parts",
+                              **row}), flush=True)
         return
     if args.k4_cutouts:
         for row in k4_cutouts(dev, max(args.steps, 5)):

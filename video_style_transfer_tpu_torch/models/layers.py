@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from video_style_transfer_tpu_torch.ops import layer_norm as ln_ops
+
 
 class Init:
     """Seeded initialiser: every tensor is drawn from one
@@ -139,11 +141,12 @@ def group_norm(p, x, *, num_groups: int, eps: float = 1e-5):
 
 
 def layer_norm(p, x, *, eps: float = 1e-5):
-    """LayerNorm over the minor axis. PyTorch's kernel takes fp32
-    statistics and applies the affine in fp32 for bf16 input too, rounding
-    once at the output, as the JAX package's f32 formula does."""
-    return F.layer_norm(x, (x.shape[-1],), p["weight"].to(x.dtype),
-                        p["bias"].to(x.dtype), eps)
+    """LayerNorm over the minor axis through K7's module
+    (ops/layer_norm.py): the kernel on the card, the JAX package's f32
+    formula on the CPU. fp32 statistics and an fp32 affine, the weight
+    and bias applied as they are held (the JAX formula's
+    ``astype(float32)``), rounded once at the output."""
+    return ln_ops.layer_norm(x, p["weight"], p["bias"], eps=eps)
 
 
 def silu(x):

@@ -45,7 +45,10 @@ SIGNATURES = {
     "vst_flash_attention_bwd_delta": [_I, _I, _P, _P, _P, _I, _I, _I, _P],
     # K2 too (ops/geglu.py: _POINTERS, _LAYOUT, _GATE)
     "vst_geglu_fwd": [_P],
-    "vst_layer_norm_fwd": [_I, _I, _P, _P, _P, _P, _L, _I, _F, _P],
+    # K7 too (ops/layer_norm.py: _POINTERS, _LAYOUT), and its backward's
+    # dscale / dbias kernels (_AFFINE_CALL)
+    "vst_layer_norm_fwd": [_P],
+    "vst_layer_norm_affine_grad": [_P],
     # K3 and K5 too (ops/temporal_attention.py: _POINTERS, _LAYOUT,
     # _SCALE; _BWD_POINTERS, _LAYOUT, _BWD_PLAN, _SCALE)
     "vst_temporal_attention_fwd": [_P],
