@@ -1,0 +1,6 @@
+"""Device ms of a denoise step of a video (CUDA events from before the sampler's call to its last step, over the steps)."""
+from bench_port.lib import readers
+
+
+def read(run):
+    return readers.step_ms(run)
