@@ -1910,7 +1910,8 @@ def stage2_path(tmp):
                 out_dir, "checkpoints", want_names[-1]):
         fail(f"the resumed run took {resumed_steps} steps and wrote "
              f"{resume_report['checkpoints']}")
-    keys = ("loss", "loss_mse", "loss_orth", "sec_per_step")
+    keys = ("loss", "loss_mse", "loss_orth", "sec_per_step", "data_s",
+            "optimizer_s")
     if len(logged) != first_logged + resumed_steps or not all(
             math.isfinite(ln[k]) for ln in logged for k in keys):
         fail(f"metrics.jsonl: {len(logged)} lines, expected "
@@ -2874,8 +2875,9 @@ def image_path(artifacts):
           f"{report['weight_init_s']:.3f} s, fold and text encode "
           f"{report['text_encode_s']:.3f} s ({report['n_folded']} "
           f"projections folded), denoise steps "
-          f"{', '.join(f'{t:.3f}' for t in rep['denoise_step_s'])} s (step 1 "
-          f"includes the cross-attention k/v precompute with live LoRA), "
+          f"{', '.join(f'{t:.3f}' for t in rep['denoise_step_s'])} s, "
+          f"cross-attention k/v precompute with live LoRA "
+          f"{rep['precompute_kv_s']:.3f} s, "
           f"decode {rep['decode_s']:.3f} s, total {total:.3f} s, peak "
           f"memory {report['peak_memory_gib']:.2f} GiB", flush=True)
     # 70 blocks: attn1 q, k, v, out and attn2 q, out fold; attn2 k, v stay

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import os
 import zlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -33,6 +34,7 @@ from video_style_transfer_tpu_torch.models.vae import (
     init_vae_decoder, init_vae_encoder, vae_encode, vae_encode_moments)
 from video_style_transfer_tpu_torch.pipelines.image import default_time_ids
 from video_style_transfer_tpu_torch.pipelines.sampling import Conditioning
+from video_style_transfer_tpu_torch.utils import tracing
 
 DEFAULT_NEGATIVE_PROMPT = (
     "watermark, lowres, low quality, blur, out of focus, grainy, "
@@ -59,22 +61,70 @@ class ModelBundle:
 
 def kernel_launch_counts() -> dict:
     """Launches of every hand-written kernel in this process so far, by
-    kernel name (each wrapper counts where it launches, nowhere else)."""
-    from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
-    from video_style_transfer_tpu_torch.ops import temporal_attention as ta
-    return {"flash_attention_fwd": fa.LAUNCHES,
-            "geglu_projection": geglu.LAUNCHES,
-            "temporal_attention": ta.LAUNCHES,
-            "flash_attention_bwd": fa.BWD_LAUNCHES,
-            "flash_attention_bwd_delta": fa.DELTA_LAUNCHES,
-            "temporal_attention_bwd": ta.BWD_LAUNCHES,
-            "layer_norm": layer_norm.LAUNCHES,
-            "layer_norm_affine_grad": layer_norm.AFFINE_LAUNCHES}
+    kernel name (``utils.tracing.launch_counts``)."""
+    return tracing.launch_counts()
 
 
 def launches_since(before: dict) -> dict:
     return {k: v - before[k] for k, v in kernel_launch_counts().items()}
+
+
+def phase_seconds(spans) -> dict:
+    """A serving request's report from its spans (``utils.tracing``):
+    text_encode_s and fold_s (host), precompute_kv_s, denoise_step_s (one
+    a step) and decode_s (device seconds where the spans carry events,
+    else host)."""
+    return {"text_encode_s": tracing.seconds(spans, "encode"),
+            "fold_s": tracing.seconds(spans, "fold"),
+            "precompute_kv_s": tracing.seconds(spans, "precompute_kv"),
+            "denoise_step_s": [s.seconds
+                               for s in tracing.named(spans, "step")],
+            "decode_s": tracing.seconds(spans, "decode")}
+
+
+def step_seconds(spans, report: dict, data_key: str):
+    """A trainer's per-step report from its spans: each ``train.step``'s
+    ``data`` seconds appended to report[data_key], the rest of the step
+    to report["step_s"] (host seconds). Returns the steps' spans."""
+    data = {id(s.parent): s.host_s for s in tracing.named(spans, "data")}
+    steps = tracing.named(spans, "train.step")
+    for s in steps:
+        report[data_key].append(data.get(id(s), 0.0))
+        report["step_s"].append(s.host_s - report[data_key][-1])
+    return steps
+
+
+def log_seconds(spans, steps) -> dict:
+    """data_s and optimizer_s of a trainer's logged line: host seconds a
+    step in ``data`` and ``optimizer`` spans."""
+    n = max(len(steps), 1)
+    return {"data_s": tracing.seconds(spans, "data") / n,
+            "optimizer_s": tracing.seconds(spans, "optimizer") / n}
+
+
+def add_trace_flag(p):
+    p.add_argument("--trace_dir", default=None,
+                   help="write a torch.profiler trace of the timed work "
+                        "here: the Chrome trace with the program's spans "
+                        "on a track of their own, and idle_gaps.json, the "
+                        "device's idle stretches by the span open when "
+                        "each began")
+
+
+@contextmanager
+def profiler_trace(trace_dir: Optional[str]):
+    """Profile the block into trace_dir (utils.observability's
+    exporter); nothing without one."""
+    if not trace_dir:
+        yield
+        return
+    from video_style_transfer_tpu_torch.utils import observability
+    observability.start_profiler_trace(trace_dir)
+    try:
+        yield
+    finally:
+        path = observability.stop_profiler_trace()
+        print("wrote", path, flush=True)
 
 
 def seeded_generator(seed: int) -> torch.Generator:
@@ -276,13 +326,15 @@ def make_conditioning(bundle: ModelBundle, prompt: str,
     """Triple-stream conditioning: the combined prompt, and optionally a
     content and a style prompt for the UnZipLoRA branches (a missing
     stream falls back to the combined one). The ``*_2`` prompts feed the
-    second encoder another text per stream."""
-    emb, pooled = encode_prompt(bundle, prompt, prompt_2)
-    emb_c = emb_s = None
-    if prompt_content is not None:
-        emb_c, _ = encode_prompt(bundle, prompt_content, prompt_content_2)
-    if prompt_style is not None:
-        emb_s, _ = encode_prompt(bundle, prompt_style, prompt_style_2)
+    second encoder another text per stream. Span: ``encode``."""
+    with tracing.span("encode"):
+        emb, pooled = encode_prompt(bundle, prompt, prompt_2)
+        emb_c = emb_s = None
+        if prompt_content is not None:
+            emb_c, _ = encode_prompt(bundle, prompt_content,
+                                     prompt_content_2)
+        if prompt_style is not None:
+            emb_s, _ = encode_prompt(bundle, prompt_style, prompt_style_2)
     return Conditioning(ctx=(emb, emb_c, emb_s), pooled=pooled,
                         time_ids=default_time_ids(height, width, 1,
                                                   device=bundle.device))
@@ -297,15 +349,17 @@ def negative_conditioning(bundle: ModelBundle, negative_prompt: str, *,
                           negative_prompt_style_2: Optional[str] = None
                           ) -> Conditioning:
     """Unconditional side of the CFG pair; streams without a negative of
-    their own share the combined one."""
-    emb, pooled = encode_prompt(bundle, negative_prompt, negative_prompt_2)
-    emb_c = emb_s = emb
-    if negative_prompt_content is not None:
-        emb_c, _ = encode_prompt(bundle, negative_prompt_content,
-                                 negative_prompt_content_2)
-    if negative_prompt_style is not None:
-        emb_s, _ = encode_prompt(bundle, negative_prompt_style,
-                                 negative_prompt_style_2)
+    their own share the combined one. Span: ``encode``."""
+    with tracing.span("encode"):
+        emb, pooled = encode_prompt(bundle, negative_prompt,
+                                    negative_prompt_2)
+        emb_c = emb_s = emb
+        if negative_prompt_content is not None:
+            emb_c, _ = encode_prompt(bundle, negative_prompt_content,
+                                     negative_prompt_content_2)
+        if negative_prompt_style is not None:
+            emb_s, _ = encode_prompt(bundle, negative_prompt_style,
+                                     negative_prompt_style_2)
     return Conditioning(ctx=(emb, emb_c, emb_s), pooled=pooled,
                         time_ids=default_time_ids(height, width, 1,
                                                   device=bundle.device))
@@ -424,7 +478,9 @@ class LatentMomentCache:
     The encoder runs in fp32, `chunk` missing frames a call, and encodes
     an id missing twice from one batch once. An entry is 0.5 MB at 1024²;
     past `max_entries` a frame is encoded and not kept. `misses` counts
-    the frames encoded, `hits` the frames served without an encode."""
+    the frames encoded, `hits` the frames served without an encode (and
+    ``utils.tracing``'s ``moment_cache.misses`` / ``.hits`` while it
+    records)."""
 
     def __init__(self, bundle: ModelBundle, max_entries: int = 4096,
                  chunk: int = 1):
@@ -451,13 +507,16 @@ class LatentMomentCache:
                 missing.append(k)
         self.misses += len(missing)
         self.hits += len(ids_flat) - len(missing)
+        tracing.count("moment_cache.misses", len(missing))
+        tracing.count("moment_cache.hits", len(ids_flat) - len(missing))
         for s in range(0, len(missing), self.chunk):
             grp = missing[s:s + self.chunk]
             x = torch.as_tensor(frames_flat[grp]).to(self.bundle.device,
                                                      torch.float32)
             mean, logvar = vae_encode_moments(self.bundle.vae_encoder,
                                               self.bundle.vae_cfg, x)
-            mean, logvar = mean.cpu(), logvar.cpu()
+            with tracing.span("sync.moment_cache"):
+                mean, logvar = mean.cpu(), logvar.cpu()
             for j, k in enumerate(grp):
                 fresh[ids_flat[k]] = (mean[j], logvar[j])
                 if len(self._cache) < self.max_entries:

@@ -31,6 +31,8 @@ import os
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
+from video_style_transfer_tpu_torch.utils import tracing
+
 
 def build_parser():
     p = argparse.ArgumentParser(description=__doc__,
@@ -98,6 +100,7 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an "
                         "error")
+    common.add_trace_flag(p)
     p.add_argument("--smoke", action="store_true",
                    help="tiny configs: 16^2, 2 steps, f32")
     p.add_argument("--config_preset", default="sdxl",
@@ -143,19 +146,23 @@ def _name(args, seed: int, i: int) -> str:
 def generate(args, report=None, bundle=None):
     """Generate --num images per seed; returns {name: (H, W, 3) uint8
     numpy}, name = "{mode}_seed{seed}[_{i}]". When `report` is a dict it
-    receives weight_init_s (models and LoRA import), text_encode_s (the
-    LoRA fold and the prompt encodings), n_folded, per image
-    denoise_step_s (a list; the first step includes the cross-attention
-    k/v precompute), decode_s, kernel_launches and the latents before the
-    decode (fp32, on the CPU), and peak_memory_gib
+    receives, read from the spans of ``utils.tracing`` (recording for the
+    call), weight_init_s (models and LoRA import) and text_encode_s (the
+    LoRA fold and the prompt encodings) in host seconds, n_folded, per
+    image precompute_kv_s (the cross-attention k/v), denoise_step_s (a
+    list) and decode_s (device seconds on CUDA, from the spans' events,
+    read once an image is done; host seconds on the CPU),
+    kernel_launches and the latents before the decode (fp32, on the
+    CPU), and peak_memory_gib
     (after the weights are in place) on CUDA; under --tp also per image
     model_reduced_bytes, the payload of this process's model-axis
     reductions. Under --dp every process returns every image; the
     per-image report holds the images this process generated (a padding
     repeat is generated and dropped). `bundle`: a common.ModelBundle
     already loaded for these flags (the parity runbook's load stage), used
-    in place of loading one."""
-    from video_style_transfer_tpu_torch.cli.infer_video import _Clock
+    in place of loading one. Nothing waits for the device between steps;
+    --trace_dir writes a profiler trace of the images
+    (``common.add_trace_flag``)."""
     from video_style_transfer_tpu_torch.lora.surgery import fold_unziplora
     from video_style_transfer_tpu_torch.pipelines.image import (
         decode_images, generate_latents)
@@ -182,19 +189,20 @@ def generate(args, report=None, bundle=None):
     steps = 2 if smoke else args.num_inference_steps
 
     outs = {}
-    with torch.inference_mode():
-        clock = _Clock(device)
-        if bundle is None:
-            bundle = common.load_models(
-                args.pretrained_model_name_or_path, smoke=smoke,
-                motion=False, dtype=dtype, seed=0, device=device,
-                vae_path=args.pretrained_vae_model_name_or_path,
-                configs=(common.tiny_checkpoint_configs()
-                         if args.config_preset == "tiny" else None))
-        params, state = load_lora(args, bundle.unet, device)
-        report["weight_init_s"] = clock.lap()
+    with torch.inference_mode(), tracing.recording() as rec:
+        with tracing.span("load") as load:
+            if bundle is None:
+                bundle = common.load_models(
+                    args.pretrained_model_name_or_path, smoke=smoke,
+                    motion=False, dtype=dtype, seed=0, device=device,
+                    vae_path=args.pretrained_vae_model_name_or_path,
+                    configs=(common.tiny_checkpoint_configs()
+                             if args.config_preset == "tiny" else None))
+            params, state = load_lora(args, bundle.unet, device)
+        report["weight_init_s"] = load.host_s
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
+        rec.take()
         report["n_folded"] = 0
         if state is not None:
             # distinct content/style prompts keep the cross-attention
@@ -217,18 +225,18 @@ def generate(args, report=None, bundle=None):
             negative_prompt_2=args.negative_prompt_2,
             negative_prompt_content=args.negative_prompt_content,
             negative_prompt_style=args.negative_prompt_style)
-        report["text_encode_s"] = clock.lap()
+        spans = rec.take()
+        report["text_encode_s"] = (tracing.seconds(spans, "fold")
+                                   + tracing.seconds(spans, "encode"))
         report["images"] = {}
         # one (seed, draw) job an image; with --dp, rounds of dp jobs,
         # job k of a round on process k
         jobs = [(seed, i) for seed in args.seeds
                 for i in range(max(args.num, 1))]
-        for start in range(0, len(jobs), dp):
-            chunk = jobs[start:start + dp]
-            seed, i = (chunk + [chunk[-1]] * dp)[grid.data_index]
+
+        def serve(seed, i):
             # draw i of a seed has its own stream; draw 0 is the seed
             gen = common.seeded_generator(seed + 0x9E3779B1 * i)
-            steps_s = []
             before = common.kernel_launch_counts()
             reduced = distributed.MODEL_REDUCED_BYTES
             latents = generate_latents(
@@ -237,24 +245,35 @@ def generate(args, report=None, bundle=None):
                 cfg_scale=args.guidance_scale, sampler=args.sampler,
                 mode=args.mode, state=state, dtype=dtype,
                 vae_scale_factor=bundle.vae_scale_factor, device=device,
-                generator=gen,
-                on_step=lambda _: steps_s.append(clock.lap()))
+                generator=gen)
             img = decode_images(
                 bundle.vae, bundle.vae_cfg, latents,
                 dtype=getattr(torch, args.vae_dtype), check_finite=True)
-            decode_s = clock.lap()
-            if grid.data_index < len(chunk):
-                report["images"][_name(args, seed, i)] = {
-                    "denoise_step_s": steps_s, "decode_s": decode_s,
-                    "kernel_launches": common.launches_since(before),
-                    "latents": latents.float().cpu(),
-                    "model_reduced_bytes":
-                        distributed.MODEL_REDUCED_BYTES - reduced}
-            if dp > 1:
-                img = distributed.gather_rows(img, [1] * dp,
-                                              grid.data_group)
-            for (s_, i_), im in zip(chunk, img):
-                outs[_name(args, s_, i_)] = im.cpu().numpy()
+            with tracing.span("sync.latents"):
+                rep = {"kernel_launches": common.launches_since(before),
+                       "latents": latents.float().cpu(),
+                       "model_reduced_bytes":
+                           distributed.MODEL_REDUCED_BYTES - reduced}
+            return img, rep
+
+        with common.profiler_trace(args.trace_dir):
+            for start in range(0, len(jobs), dp):
+                chunk = jobs[start:start + dp]
+                seed, i = (chunk + [chunk[-1]] * dp)[grid.data_index]
+                with tracing.request():
+                    img, rep = serve(seed, i)
+                    if dp > 1:
+                        img = distributed.gather_rows(img, [1] * dp,
+                                                      grid.data_group)
+                    with tracing.span("sync.frames"):
+                        for (s_, i_), im in zip(chunk, img):
+                            outs[_name(args, s_, i_)] = im.cpu().numpy()
+                spans = rec.take()
+                if grid.data_index < len(chunk):
+                    phases = common.phase_seconds(spans)
+                    rep.update({k: phases[k] for k in (
+                        "precompute_kv_s", "denoise_step_s", "decode_s")})
+                    report["images"][_name(args, seed, i)] = rep
         if device.type == "cuda":
             report["peak_memory_gib"] = (
                 torch.cuda.max_memory_allocated(device) / 2 ** 30)

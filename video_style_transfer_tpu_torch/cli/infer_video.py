@@ -26,11 +26,11 @@ from __future__ import annotations
 
 import argparse
 import os
-import time
 
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
+from video_style_transfer_tpu_torch.utils import tracing
 
 
 def build_parser():
@@ -95,6 +95,7 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a card is an "
                         "error")
+    common.add_trace_flag(p)
     p.add_argument("--smoke", action="store_true",
                    help="tiny configs: 4 frames at 16^2, 2 steps, f32")
     p.add_argument("--config_preset", default="sdxl",
@@ -105,30 +106,20 @@ def build_parser():
     return p
 
 
-class _Clock:
-    """Host seconds of phases that end in a device synchronise."""
-
-    def __init__(self, device):
-        self.device = device
-        self.t = time.perf_counter()
-
-    def lap(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        dt, self.t = now - self.t, now
-        return dt
-
-
 def generate(args, report=None):
     """Run the video pipeline for every mode; returns {mode: (F, H, W, 3)
     uint8 numpy frames}. When `report` is a dict it receives the phase
-    seconds: weight_init_s (models, motion checkpoint and LoRA import),
-    and per mode text_encode_s, fold_s and n_folded (the LoRA fold),
-    denoise_step_s (a list), decode_s, kernel_launches (this process's),
-    frame_range (this process's frames) and latents (its denoised
-    latents before the decode, on the CPU). Under --frame_parallel
-    every process returns the whole video."""
+    seconds, read from the spans of ``utils.tracing`` (recording for the
+    call) once a mode has ended: weight_init_s (models, motion checkpoint
+    and LoRA import; host), and per mode text_encode_s (the first mode's
+    with the negative prompt), fold_s and n_folded (the LoRA fold; host),
+    precompute_kv_s, denoise_step_s (a list) and decode_s (device seconds
+    on CUDA, from the spans' events; host seconds on the CPU),
+    kernel_launches (this process's), frame_range (this process's
+    frames) and latents (its denoised latents before the decode, on the
+    CPU). Nothing waits for the device between steps. Under
+    --frame_parallel every process returns the whole video; --trace_dir
+    writes a profiler trace of the modes (``common.add_trace_flag``)."""
     from video_style_transfer_tpu_torch.lora.surgery import (
         copy_structure, fold_unziplora, insert_unziplora)
     from video_style_transfer_tpu_torch.models.layers import Init
@@ -169,50 +160,45 @@ def generate(args, report=None):
                     "style": args.style_prompt or prompt}
 
     outs = {}
-    with torch.inference_mode():
-        clock = _Clock(device)
-        bundle = common.load_models(
-            args.pretrained_model_name_or_path, smoke=smoke, motion=True,
-            dtype=dtype, seed=0, device=device,
-            configs=(common.tiny_checkpoint_configs(motion=True)
-                     if args.config_preset == "tiny" else None))
-        base_params = bundle.unet
-        if args.motion_checkpoint:
-            from video_style_transfer_tpu_torch.utils.motion_convert import (
-                import_motion_state_dict, load_motion_checkpoint)
-            base_params = import_motion_state_dict(
-                base_params, load_motion_checkpoint(args.motion_checkpoint))
-        # "base" serves the tree without any LoRA entry
-        params, state = base_params, None
-        if artifacts:
-            params, state = common.load_unziplora(
-                base_params, base=args.unziplora_name_or_path,
-                name=args.unziplora_name,
-                content_path=args.unziplora_content_path,
-                style_path=args.unziplora_style_path,
-                content_weight_path=args.unziplora_content_weight_path,
-                style_weight_path=args.unziplora_style_weight_path)
-        elif smoke:
-            params, state = insert_unziplora(copy_structure(base_params),
-                                             Init(0, device), rank=4)
-        report["weight_init_s"] = clock.lap()
-        # the first mode's text_encode_s includes the negative prompt
-        uncond = common.negative_conditioning(
-            bundle, args.negative_prompt, height=height, width=width)
-        for mode in args.modes:
-            rep = report.setdefault(mode, {})
+    with torch.inference_mode(), tracing.recording() as rec:
+        with tracing.span("load") as load:
+            bundle = common.load_models(
+                args.pretrained_model_name_or_path, smoke=smoke, motion=True,
+                dtype=dtype, seed=0, device=device,
+                configs=(common.tiny_checkpoint_configs(motion=True)
+                         if args.config_preset == "tiny" else None))
+            base_params = bundle.unet
+            if args.motion_checkpoint:
+                from video_style_transfer_tpu_torch.utils.motion_convert \
+                    import import_motion_state_dict, load_motion_checkpoint
+                base_params = import_motion_state_dict(
+                    base_params,
+                    load_motion_checkpoint(args.motion_checkpoint))
+            # "base" serves the tree without any LoRA entry
+            params, state = base_params, None
+            if artifacts:
+                params, state = common.load_unziplora(
+                    base_params, base=args.unziplora_name_or_path,
+                    name=args.unziplora_name,
+                    content_path=args.unziplora_content_path,
+                    style_path=args.unziplora_style_path,
+                    content_weight_path=args.unziplora_content_weight_path,
+                    style_weight_path=args.unziplora_style_weight_path)
+            elif smoke:
+                params, state = insert_unziplora(
+                    copy_structure(base_params), Init(0, device), rank=4)
+        report["weight_init_s"] = load.host_s
+
+        def serve(mode, rep):
             cond = common.make_conditioning(bundle, mode_prompts[mode],
                                             height=height, width=width)
-            rep["text_encode_s"] = clock.lap()
             # video inference feeds one shared prompt, so every LoRA
             # folds into the base weights and no branch is left to run
             fparams, rep["n_folded"] = base_params, 0
             if state is not None and mode != "base":
                 fparams, rep["n_folded"] = fold_unziplora(
                     params, state, mode=mode, fold_cross_kv=True)
-            rep["fold_s"] = clock.lap()
             gen = common.seeded_generator(args.seed)
-            steps_s = []
             before = common.kernel_launch_counts()
             latents = generate_video_latents(
                 fparams, bundle.unet_cfg, uncond, cond,
@@ -220,13 +206,12 @@ def generate(args, report=None):
                 num_steps=steps, cfg_scale=args.guidance_scale, mode=mode,
                 state=state, dtype=dtype,
                 vae_scale_factor=bundle.vae_scale_factor, device=device,
-                generator=gen, on_step=lambda i: steps_s.append(clock.lap()),
-                frame_shard=shard)
+                generator=gen, frame_shard=shard)
             del fparams
-            rep["denoise_step_s"] = steps_s
             rep["frame_range"] = ((0, frames) if shard is None else
                                   (shard.start, shard.start + shard.local))
-            rep["latents"] = latents.float().cpu()
+            with tracing.span("sync.latents"):
+                rep["latents"] = latents.float().cpu()
             vae_dtype = getattr(torch, args.vae_dtype)
             if shard is None:
                 video = decode_video(bundle.vae, bundle.vae_cfg, latents,
@@ -236,9 +221,20 @@ def generate(args, report=None):
                 video = decode_video_frame_sharded(
                     bundle.vae, bundle.vae_cfg, latents, shard,
                     dtype=vae_dtype, check_finite=True)
-            rep["decode_s"] = clock.lap()
             rep["kernel_launches"] = common.launches_since(before)
-            outs[mode] = video.cpu().numpy()
+            with tracing.span("sync.frames"):
+                return video.cpu().numpy()
+
+        rec.take()
+        # the first mode's text_encode_s includes the negative prompt
+        uncond = common.negative_conditioning(
+            bundle, args.negative_prompt, height=height, width=width)
+        with common.profiler_trace(args.trace_dir):
+            for mode in args.modes:
+                rep = report.setdefault(mode, {})
+                with tracing.request():
+                    outs[mode] = serve(mode, rep)
+                rep.update(common.phase_seconds(rec.take()))
     return outs
 
 

@@ -15,7 +15,8 @@ phase runs once without the profiler, then once traced with
 both ways (each ending in a synchronise; their difference is the
 profiler's own cost), the device kernels' summed time by category (the
 port's kernels, GEMMs, convolutions, everything else) with launch counts,
-the device's idle share between the first and the last kernel, peak
+the device's idle share over the phase's own window (its idle stretches
+by the program span open when each began, ``utils.tracing``), peak
 memory and the slowest kernel names.
 
 With ``--steps N`` nothing is traced: each phase runs N more times and
@@ -1045,13 +1046,22 @@ def _host_seconds(fn):
 
 def trace(fn, top: int):
     """Run fn once without and once under the profiler; returns the
-    summary of the traced run."""
+    summary of the traced run. The idle share is over the phase's own
+    window: from its start (after a synchronise) to its end (after the
+    closing one), the ``phase`` span of ``utils.tracing``, which records
+    under the profiler on the profiler's clock."""
+    from video_style_transfer_tpu_torch.utils import tracing
+
     torch.cuda.reset_peak_memory_stats()
     untraced_s = _host_seconds(fn)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        traced_s = _host_seconds(fn)
+        torch.cuda.synchronize()
+        with tracing.span("phase") as phase:
+            traced_s = _host_seconds(fn)
+    spans = [s for s in tracing.read(clear=True)
+             if s.start >= phase.start]
 
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1066,24 +1076,20 @@ def trace(fn, top: int):
         n = by_name.setdefault(e.name[:120], [0.0, 0])
         n[0] += us / 1e3
         n[1] += 1
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    window = spans[-1][1] - spans[0][0]
+    lo, hi = phase.start * 1e-9, phase.end * 1e-9
+    gaps = tracing.idle_gaps(tracing.device_events(prof), spans, lo, hi)
+    window = hi - lo
+    idle = sum(g[1] for g in gaps)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
         "step_host_s": traced_s, "untraced_host_s": untraced_s,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "kernel_ms_total": sum(v[0] for v in by_cat.values()),
-        "device_busy_ms": busy / 1e3, "device_window_ms": window / 1e3,
-        "device_idle_share": 1.0 - busy / window,
+        "device_busy_ms": (window - idle) * 1e3,
+        "device_window_ms": window * 1e3,
+        "device_idle_share": idle / window,
+        "idle_ms_by_span": {str(k): v * 1e3 for k, v in
+                            tracing.gap_totals(gaps).items()},
         "by_category": {k: {"ms": v[0], "launches": v[1]}
                         for k, v in sorted(by_cat.items(),
                                            key=lambda kv: -kv[1][0])},

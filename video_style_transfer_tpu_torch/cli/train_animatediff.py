@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
-from video_style_transfer_tpu_torch.cli.infer_video import _Clock
+from video_style_transfer_tpu_torch.utils import tracing
 
 
 def build_parser():
@@ -371,24 +371,32 @@ def train(args, report=None, on_setup=None, dataset=None, on_grads=None):
     of --video_dir. When `report` is a dict it receives weight_init_s
     (set-up through the prompt encodings and any restore), start_step,
     max_steps, and per step encode_s, encoded_frames (frames that went
-    through the VAE encoder), step_s and the losses (host seconds, each
-    phase ending in a device synchronise), plus peak_memory_gib (from the
-    first step on) on CUDA, checkpoints (the paths written) and
-    motion_checkpoint, the file written at the end; the logged steps go
-    to <output_dir>/metrics.jsonl. on_setup(trainer)
+    through the VAE encoder), step_s and the losses, plus peak_memory_gib
+    (from the first step on) on CUDA, checkpoints and checkpoint_s (the
+    paths written), motion_checkpoint, the file written at the end, and
+    export_s: host seconds of the spans of ``utils.tracing`` (a step's:
+    ``train.step`` less its ``data``, which is encode_s). Nothing waits
+    for the device between log steps: the losses are read at each
+    logged step, and a step's time shows where the host next waits. The
+    logged steps go to <output_dir>/metrics.jsonl: the losses,
+    sec_per_step (wall seconds between logged steps over the steps),
+    data_s and optimizer_s (host seconds a step in ``data`` and
+    ``optimizer`` spans since the last log) and, with the moment cache,
+    cache_hits and cache_misses (frames since the last log).
+    on_setup(trainer)
     runs once before the first step; on_grads(grads) sees each step's
     gradients (summed over the processes) before the update
     (training.stage2.make_train_step)."""
     from video_style_transfer_tpu_torch.parallel import distributed
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
     from video_style_transfer_tpu_torch.utils.observability import (
-        MetricsLogger, StepTimer)
+        MetricsLogger)
 
     if report is None:
         report = {}
-    clock = _Clock(common.resolve_device(args.device))
-    tr = prepare(args, dataset)
-    report["weight_init_s"] = clock.lap()
+    with tracing.recording(), tracing.span("load") as load:
+        tr = prepare(args, dataset)
+    report["weight_init_s"] = load.host_s
     report.update(encode_s=[], encoded_frames=[], step_s=[], loss=[],
                   loss_mse=[], loss_orth=[], checkpoints=[],
                   checkpoint_s=[], start_step=tr.start,
@@ -403,55 +411,81 @@ def train(args, report=None, on_setup=None, dataset=None, on_grads=None):
                            use_tensorboard=args.report_to == "tensorboard",
                            use_wandb=args.report_to == "wandb",
                            project=args.name)
-    timer, last_log = StepTimer(), tr.start
-    clock.lap()
-    try:
-        for step in range(tr.start, tr.max_steps):
-            misses = tr.cache.misses if tr.cache is not None else 0
-            micro = sample_micro_batches(tr, step)
-            report["encode_s"].append(clock.lap())
-            report["encoded_frames"].append(
-                tr.cache.misses - misses if tr.cache is not None
-                else tr.accum * tr.batch * tr.frames)
-            metrics = tr.step(tr.params, micro, tr.generator,
-                              on_grads=on_grads)
-            report["step_s"].append(clock.lap())
-            for k in ("loss", "loss_mse", "loss_orth"):
-                report[k].append(float(metrics[k]))
-            if step % args.log_every == 0 or step == tr.max_steps - 1:
-                scalars = {k: report[k][-1]
-                           for k in ("loss", "loss_mse", "loss_orth")}
-                scalars["sec_per_step"] = timer.lap() / max(
-                    step - last_log, 1)
-                last_log = step
-                logger.log(step, scalars)
-                if distributed.is_main_process():
-                    print(f"step {step}: loss={scalars['loss']:.4f} "
-                          f"mse={scalars['loss_mse']:.4f} "
-                          f"orth={scalars['loss_orth']:.6f} "
-                          f"({report['step_s'][-1]:.3f} s)", flush=True)
-            if (step + 1) % args.checkpointing_steps == 0:
-                path = ckpt.save_checkpoint_main_process(
-                    tr.ckpt_dir,
-                    lambda: ckpt.train_state(tr.trainable, tr.optimizer,
-                                             step + 1),
-                    step + 1)
-                report["checkpoints"].append(path)
-                report["checkpoint_s"].append(clock.lap())
-                if distributed.is_main_process():
-                    print(f"saved checkpoint: {path}", flush=True)
-    finally:
-        logger.close()
-    if tr.device.type == "cuda":
-        report["peak_memory_gib"] = (
-            torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
-    out = os.path.join(args.output_dir,
-                       f"motion_modules.{args.checkpoint_format}")
-    if distributed.is_main_process():
-        ckpt.export_motion_checkpoint(out, tr.params)
-    distributed.barrier("motion-checkpoint")
+    losses = ("loss", "loss_mse", "loss_orth")
+    pending = []        # each step's metrics, on the device
+
+    def read_pending():
+        """The steps since the last read, their losses on the host."""
+        with tracing.span("sync.metrics"):
+            for metrics in pending:
+                for k in losses:
+                    report[k].append(float(metrics[k]))
+        pending.clear()
+
+    with tracing.recording() as rec:
+        for k in ("moment_cache.hits", "moment_cache.misses"):
+            rec.tracer.counters.pop(k, None)
+        last_log = (tr.start, tracing.now())
+        try:
+            for step in range(tr.start, tr.max_steps):
+                misses = tr.cache.misses if tr.cache is not None else 0
+                with tracing.span("train.step"):
+                    with tracing.span("data"):
+                        micro = sample_micro_batches(tr, step)
+                    metrics = tr.step(tr.params, micro, tr.generator,
+                                      on_grads=on_grads)
+                report["encoded_frames"].append(
+                    tr.cache.misses - misses if tr.cache is not None
+                    else tr.accum * tr.batch * tr.frames)
+                pending.append(metrics)
+                if step % args.log_every == 0 or step == tr.max_steps - 1:
+                    read_pending()
+                    spans = rec.take()
+                    steps = common.step_seconds(spans, report, "encode_s")
+                    scalars = {k: report[k][-1] for k in losses}
+                    scalars.update(
+                        sec_per_step=tracing.since(last_log[1])
+                        / max(step - last_log[0], 1),
+                        **common.log_seconds(spans, steps))
+                    if tr.cache is not None:
+                        counts = rec.tracer.counters
+                        scalars.update(
+                            cache_hits=counts.pop("moment_cache.hits", 0),
+                            cache_misses=counts.pop("moment_cache.misses",
+                                                    0))
+                    last_log = (step, tracing.now())
+                    logger.log(step, scalars)
+                    if distributed.is_main_process():
+                        print(f"step {step}: loss={scalars['loss']:.4f} "
+                              f"mse={scalars['loss_mse']:.4f} "
+                              f"orth={scalars['loss_orth']:.6f} "
+                              f"({report['step_s'][-1]:.3f} s)", flush=True)
+                if (step + 1) % args.checkpointing_steps == 0:
+                    with tracing.span("checkpoint") as sp:
+                        path = ckpt.save_checkpoint_main_process(
+                            tr.ckpt_dir,
+                            lambda: ckpt.train_state(tr.trainable,
+                                                     tr.optimizer, step + 1),
+                            step + 1)
+                    report["checkpoints"].append(path)
+                    report["checkpoint_s"].append(sp.host_s)
+                    if distributed.is_main_process():
+                        print(f"saved checkpoint: {path}", flush=True)
+        finally:
+            logger.close()
+        read_pending()
+        common.step_seconds(rec.take(), report, "encode_s")
+        if tr.device.type == "cuda":
+            report["peak_memory_gib"] = (
+                torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
+        out = os.path.join(args.output_dir,
+                           f"motion_modules.{args.checkpoint_format}")
+        with tracing.span("export") as sp:
+            if distributed.is_main_process():
+                ckpt.export_motion_checkpoint(out, tr.params)
+            distributed.barrier("motion-checkpoint")
     report["motion_checkpoint"] = out
-    report["export_s"] = clock.lap()
+    report["export_s"] = sp.host_s
     if distributed.is_main_process():
         print("saved motion checkpoint:", out, flush=True)
     return tr

@@ -51,10 +51,10 @@ import numpy as np
 import torch
 
 from video_style_transfer_tpu_torch.cli import common
-from video_style_transfer_tpu_torch.cli.infer_video import _Clock
 from video_style_transfer_tpu_torch.cli.train_animatediff import run_seed
 from video_style_transfer_tpu_torch.lora.surgery import (
     FREEZE_UNET_CONTENT, FREEZE_UNET_STYLE)
+from video_style_transfer_tpu_torch.utils import tracing
 
 
 def _bool(s):
@@ -368,61 +368,63 @@ def prepare(args, images=None, class_images=None):
     dp = grid.data
     dtype = (torch.float32 if args.smoke or args.mixed_precision == "no"
              else torch.bfloat16)
-    clock = _Clock(device)
-    bundle = common.load_models(
-        args.pretrained_model_name_or_path, smoke=args.smoke, motion=False,
-        dtype=dtype, seed=0, device=device, encoder=True,
-        vae_path=args.pretrained_vae_model_name_or_path)
-    res = 16 if args.smoke else args.resolution
-    time_ids = torch.tensor([[res, res, args.crops_coords_top_left_h,
-                              args.crops_coords_top_left_w, res, res]],
-                            dtype=torch.float32, device=device)
-    setup_s = clock.lap()
+    with tracing.recording(), tracing.span("load") as load:
+        bundle = common.load_models(
+            args.pretrained_model_name_or_path, smoke=args.smoke, motion=False,
+            dtype=dtype, seed=0, device=device, encoder=True,
+            vae_path=args.pretrained_vae_model_name_or_path)
+        res = 16 if args.smoke else args.resolution
+        time_ids = torch.tensor([[res, res, args.crops_coords_top_left_h,
+                                  args.crops_coords_top_left_w, res, res]],
+                                dtype=torch.float32, device=device)
+    setup_s = load.host_s
 
-    if images is None:
-        images = instance_images(args, res)
-    moments = common.encode_latent_moments(bundle, images)
-    if args.with_prior_preservation and class_images is None:
-        if not args.class_data_dir:
-            raise SystemExit(
-                "--with_prior_preservation needs --class_data_dir")
-        if args.class_prompt is None:
-            raise SystemExit("--with_prior_preservation needs --class_prompt")
-        # process 0 makes them, the others wait, then all read them
-        if distributed.is_main_process():
-            for ddir, prompt in ((args.class_data_dir, args.class_prompt),
-                                 (args.class_data_dir_2,
-                                  args.class_prompt_2)):
-                if ddir:
-                    n = ensure_class_images(args, bundle, ddir, prompt,
-                                            res)
-                    if n:
-                        print(f"generated {n} class images under {ddir}",
-                              flush=True)
-        distributed.barrier("class_images")
-    priors = {}
-    for branch, ddir, prompt in (
-            ("content", args.class_data_dir, args.class_prompt),
-            ("style", args.class_data_dir_2, args.class_prompt_2)):
-        if class_images is not None:
-            imgs = class_images.get(branch)
-        elif ddir:
-            from video_style_transfer_tpu_torch.data.video import (
-                load_image_dir)
-            imgs = load_image_dir(ddir, res, crop=_crop(args),
-                                  seed=args.seed)
-        else:
-            imgs = None
-        if imgs is None:
-            continue
-        if args.with_prior_preservation:
-            imgs = imgs[:args.num_class_images]
-        with torch.no_grad():
-            emb, pooled = common.encode_prompt(bundle, prompt or "")
-        priors[branch] = {"moments": common.encode_latent_moments(bundle,
-                                                                   imgs),
-                          "ctx": emb, "pooled": pooled}
-    encode_s = clock.lap()
+    with tracing.recording(), tracing.span("encode_latents") as enc:
+        if images is None:
+            images = instance_images(args, res)
+        moments = common.encode_latent_moments(bundle, images)
+        if args.with_prior_preservation and class_images is None:
+            if not args.class_data_dir:
+                raise SystemExit(
+                    "--with_prior_preservation needs --class_data_dir")
+            if args.class_prompt is None:
+                raise SystemExit(
+                    "--with_prior_preservation needs --class_prompt")
+            # process 0 makes them, the others wait, then all read them
+            if distributed.is_main_process():
+                for ddir, prompt in ((args.class_data_dir, args.class_prompt),
+                                     (args.class_data_dir_2,
+                                      args.class_prompt_2)):
+                    if ddir:
+                        n = ensure_class_images(args, bundle, ddir, prompt,
+                                                res)
+                        if n:
+                            print(f"generated {n} class images under {ddir}",
+                                  flush=True)
+            distributed.barrier("class_images")
+        priors = {}
+        for branch, ddir, prompt in (
+                ("content", args.class_data_dir, args.class_prompt),
+                ("style", args.class_data_dir_2, args.class_prompt_2)):
+            if class_images is not None:
+                imgs = class_images.get(branch)
+            elif ddir:
+                from video_style_transfer_tpu_torch.data.video import (
+                    load_image_dir)
+                imgs = load_image_dir(ddir, res, crop=_crop(args),
+                                      seed=args.seed)
+            else:
+                imgs = None
+            if imgs is None:
+                continue
+            if args.with_prior_preservation:
+                imgs = imgs[:args.num_class_images]
+            with torch.no_grad():
+                emb, pooled = common.encode_prompt(bundle, prompt or "")
+            priors[branch] = {"moments": common.encode_latent_moments(bundle,
+                                                                       imgs),
+                              "ctx": emb, "pooled": pooled}
+    encode_s = enc.host_s
 
     with torch.no_grad():
         emb, pooled = common.encode_prompt(bundle, args.instance_prompt)
@@ -678,10 +680,10 @@ def final_inference_check(args, tr, paths):
 
 
 def _selected(lora_state, assignments):
-    """Columns in the masks, per branch (one device read each)."""
+    """Columns in the masks, per branch, as device counts (read later)."""
     from video_style_transfer_tpu_torch.lora.surgery import tree_get
-    return {b: int(sum(tree_get(lora_state, p)[f"mask_{b}"].sum()
-                       for p in assignments))
+    return {b: sum(tree_get(lora_state, p)[f"mask_{b}"].sum()
+                   for p in assignments)
             for b in ("content", "style")}
 
 
@@ -698,13 +700,19 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
     latents), step_s, phase and the losses, selected_columns (per branch,
     after each step), checkpoints and checkpoint_s, validation_s, peak
     memory (peak_memory_gib on CUDA, from the first step on), artifacts,
-    export_s and final_check (the image written, or None); host seconds,
-    each phase ending in a device synchronise."""
+    export_s and final_check (the image written, or None): host seconds
+    of the spans of ``utils.tracing`` (a step's: ``train.step`` less its
+    ``data``). Nothing waits for the device between log steps: the
+    losses and column counts are read at each logged step, and a step's
+    time shows where the host next waits. metrics.jsonl gets
+    sec_per_step (wall seconds between logged steps over the steps),
+    data_s and optimizer_s (host seconds a step in ``data`` and
+    ``optimizer`` spans since the last log)."""
     from video_style_transfer_tpu_torch.parallel import distributed
     from video_style_transfer_tpu_torch.training import stage1
     from video_style_transfer_tpu_torch.utils import checkpoint as ckpt
     from video_style_transfer_tpu_torch.utils.observability import (
-        MetricsLogger, StepTimer, lora_merge_log, lora_norm_log)
+        MetricsLogger, lora_merge_log, lora_norm_log)
 
     if report is None:
         report = {}
@@ -726,79 +734,101 @@ def train(args, report=None, on_setup=None, images=None, class_images=None,
                            use_tensorboard=args.report_to == "tensorboard",
                            use_wandb=args.report_to == "wandb",
                            project=args.name)
-    timer, last_log = StepTimer(), tr.start
     state, sep = tr.state, tr.sep
     is_main = distributed.is_main_process()
-    clock = _Clock(tr.device)
-    try:
-        for step in range(tr.start, tr.max_steps):
-            micro = micro_batches(tr, args.train_batch_size)
-            report["sample_s"].append(clock.lap())
-            phase = stage1.phase_name(step, sep) if sep.enabled else None
-            metrics = tr.step(state, micro, tr.generator, on_grads=on_grads)
-            scalars = {k: float(v) for k, v in metrics.items()}
-            report["step_s"].append(clock.lap())
-            report["phase"].append(phase)
-            report["losses"].append(dict(scalars))
-            report["selected_columns"].append(
-                _selected(state.lora_state, tr.assignments))
-            if step % 10 == 0 or step == tr.max_steps - 1:
-                scalars["sec_per_step"] = timer.lap() / max(
-                    step - last_log, 1)
-                last_log = step
-                for branch in ("content", "style"):
-                    scalars.update(lora_norm_log(state.params, branch))
-                    scalars.update(lora_merge_log(state.params, branch))
-                logger.log(step, scalars)
-                if is_main:
-                    print(f"step {step}: loss={scalars['loss']:.4f} "
-                          f"({report['step_s'][-1]:.3f} s, phase {phase})",
-                          flush=True)
-            clock.lap()
-            if (step + 1) % args.checkpointing_steps == 0:
-                path = ckpt.save_checkpoint_main_process(
-                    tr.ckpt_dir, lambda: ckpt.train_state(
-                        tr.optimizer.trainable, tr.optimizer, step + 1,
-                        extra=checkpoint_extra(state)),
-                    step + 1, total_limit=args.checkpoints_total_limit)
-                report["checkpoints"].append(path)
-                report["checkpoint_s"].append(clock.lap())
-                if is_main:
-                    print(f"saved checkpoint: {path}", flush=True)
-            if args.validation_prompt and is_main and \
-                    (step + 1) % args.validation_epochs == 0:
-                if args.with_image_per_validation:
-                    run_validation(args, tr, step + 1, logger)
-                if args.with_saved_per_validation:
-                    vdir = os.path.join(args.output_dir,
-                                        f"validation_save_step{step + 1}")
-                    os.makedirs(vdir, exist_ok=True)
-                    ckpt.export_stage1_artifacts(vdir, args.name,
-                                                 state.params,
-                                                 state.lora_state)
-                report["validation_s"].append(clock.lap())
-            ne, ss = sep.steps_per_epoch, sep.sampled_steps
-            if (args.with_grad_record and sep.enabled and is_main
-                    and step >= ne
-                    and (step - ne) % ss == 0
-                    and step < sep.sample_times * ss):
-                rec_dir = os.path.join(args.output_dir, "grad_records")
-                os.makedirs(rec_dir, exist_ok=True)
-                np.savez(os.path.join(rec_dir, f"step{step + 1}.npz"),
-                         **grad_record(state.lora_state, tr.assignments))
-                clock.lap()
-    finally:
-        logger.close()
-    if tr.device.type == "cuda":
-        report["peak_memory_gib"] = (
-            torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
-    report["artifacts"] = report["final_check"] = None
-    if not is_main:
-        return tr
-    paths = ckpt.export_stage1_artifacts(args.output_dir, args.name,
-                                         state.params, state.lora_state)
+    pending = []        # (metrics, selected columns) on the device
+
+    def read_pending():
+        """The steps since the last read, their numbers on the host."""
+        with tracing.span("sync.metrics"):
+            for metrics, selected in pending:
+                report["losses"].append({k: float(v)
+                                         for k, v in metrics.items()})
+                report["selected_columns"].append(
+                    {b: int(n) for b, n in selected.items()})
+        pending.clear()
+
+    with tracing.recording() as rec:
+        last_log = (tr.start, tracing.now())
+        try:
+            for step in range(tr.start, tr.max_steps):
+                with tracing.span("train.step"):
+                    with tracing.span("data"):
+                        micro = micro_batches(tr, args.train_batch_size)
+                    phase = (stage1.phase_name(step, sep) if sep.enabled
+                             else None)
+                    metrics = tr.step(state, micro, tr.generator,
+                                      on_grads=on_grads)
+                report["phase"].append(phase)
+                pending.append((metrics, _selected(state.lora_state,
+                                                   tr.assignments)))
+                if step % 10 == 0 or step == tr.max_steps - 1:
+                    read_pending()
+                    spans = rec.take()
+                    steps = common.step_seconds(spans, report, "sample_s")
+                    scalars = dict(report["losses"][-1])
+                    scalars.update(
+                        sec_per_step=tracing.since(last_log[1])
+                        / max(step - last_log[0], 1),
+                        **common.log_seconds(spans, steps))
+                    last_log = (step, tracing.now())
+                    for branch in ("content", "style"):
+                        scalars.update(lora_norm_log(state.params, branch))
+                        scalars.update(lora_merge_log(state.params, branch))
+                    logger.log(step, scalars)
+                    if is_main:
+                        print(f"step {step}: loss={scalars['loss']:.4f} "
+                              f"({report['step_s'][-1]:.3f} s, phase "
+                              f"{phase})", flush=True)
+                if (step + 1) % args.checkpointing_steps == 0:
+                    with tracing.span("checkpoint") as sp:
+                        path = ckpt.save_checkpoint_main_process(
+                            tr.ckpt_dir, lambda: ckpt.train_state(
+                                tr.optimizer.trainable, tr.optimizer,
+                                step + 1, extra=checkpoint_extra(state)),
+                            step + 1, total_limit=args.checkpoints_total_limit)
+                    report["checkpoints"].append(path)
+                    report["checkpoint_s"].append(sp.host_s)
+                    if is_main:
+                        print(f"saved checkpoint: {path}", flush=True)
+                if args.validation_prompt and is_main and \
+                        (step + 1) % args.validation_epochs == 0:
+                    with tracing.span("validation") as sp:
+                        if args.with_image_per_validation:
+                            run_validation(args, tr, step + 1, logger)
+                        if args.with_saved_per_validation:
+                            vdir = os.path.join(
+                                args.output_dir,
+                                f"validation_save_step{step + 1}")
+                            os.makedirs(vdir, exist_ok=True)
+                            ckpt.export_stage1_artifacts(
+                                vdir, args.name, state.params,
+                                state.lora_state)
+                    report["validation_s"].append(sp.host_s)
+                ne, ss = sep.steps_per_epoch, sep.sampled_steps
+                if (args.with_grad_record and sep.enabled and is_main
+                        and step >= ne
+                        and (step - ne) % ss == 0
+                        and step < sep.sample_times * ss):
+                    rec_dir = os.path.join(args.output_dir, "grad_records")
+                    os.makedirs(rec_dir, exist_ok=True)
+                    np.savez(os.path.join(rec_dir, f"step{step + 1}.npz"),
+                             **grad_record(state.lora_state, tr.assignments))
+        finally:
+            logger.close()
+        read_pending()
+        common.step_seconds(rec.take(), report, "sample_s")
+        if tr.device.type == "cuda":
+            report["peak_memory_gib"] = (
+                torch.cuda.max_memory_allocated(tr.device) / 2 ** 30)
+        report["artifacts"] = report["final_check"] = None
+        if not is_main:
+            return tr
+        with tracing.span("export") as sp:
+            paths = ckpt.export_stage1_artifacts(
+                args.output_dir, args.name, state.params, state.lora_state)
     report["artifacts"] = paths
-    report["export_s"] = clock.lap()
+    report["export_s"] = sp.host_s
     print("saved artifacts:", paths, flush=True)
     report["final_check"] = (final_inference_check(args, tr, paths)
                              if args.final_inference_check else None)

@@ -18,6 +18,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 import torch
 
 from video_style_transfer_tpu_torch.lora.temporal import init_temporal_lora
+from video_style_transfer_tpu_torch.utils import tracing
 from video_style_transfer_tpu_torch.lora.unzip import (
     folded_delta, init_unzip_lora_params, init_unzip_lora_state)
 
@@ -224,25 +225,30 @@ def fold_unziplora(unet_params, lora_state, *, mode: str = "both",
 
     Returns (params, n_folded): a new tree that shares every untouched
     leaf (the input is unchanged, so one loaded tree serves every mode),
-    and the number of projections folded."""
+    and the number of projections folded (the ``fold`` span's
+    ``projections``)."""
     params = unet_params
     n = 0
-    for path in iter_spatial_attention_paths(unet_params):
-        is_cross = path[-1] == "attn2"
-        attn = tree_get(unet_params, path)
-        for proj in PROJS:
-            p = attn[proj]
-            if "lora" not in p:
-                continue
-            if is_cross and proj in ("to_k", "to_v") and not fold_cross_kv:
-                continue
-            delta = folded_delta(p["lora"], sub(lora_state, *path, proj),
-                                 mode=mode)
-            new_p = {k: v for k, v in p.items() if k != "lora"}
-            new_p["weight"] = (p["weight"].float()
-                               + delta.t()).to(p["weight"].dtype)
-            params = tree_replace(params, path + (proj,), new_p)
-            n += 1
+    with tracing.span("fold") as sp:
+        for path in iter_spatial_attention_paths(unet_params):
+            is_cross = path[-1] == "attn2"
+            attn = tree_get(unet_params, path)
+            for proj in PROJS:
+                p = attn[proj]
+                if "lora" not in p:
+                    continue
+                if is_cross and proj in ("to_k", "to_v") \
+                        and not fold_cross_kv:
+                    continue
+                delta = folded_delta(p["lora"],
+                                     sub(lora_state, *path, proj), mode=mode)
+                new_p = {k: v for k, v in p.items() if k != "lora"}
+                new_p["weight"] = (p["weight"].float()
+                                   + delta.t()).to(p["weight"].dtype)
+                params = tree_replace(params, path + (proj,), new_p)
+                n += 1
+        if sp is not None:
+            sp.attrs = {"projections": n}
     return params, n
 
 

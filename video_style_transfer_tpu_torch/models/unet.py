@@ -26,6 +26,7 @@ from video_style_transfer_tpu_torch.models.resnet import (
     resnet_block, upsample)
 from video_style_transfer_tpu_torch.models.transformer import (
     init_transformer_2d, transformer_2d, transformer_2d_cross_kv)
+from video_style_transfer_tpu_torch.utils import tracing
 
 
 def init_unet(ini, cfg: UNetConfig):
@@ -167,37 +168,38 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
     b = n // num_frames
     dt = sample.dtype
     dev = sample.device
-
-    ts = torch.as_tensor(timesteps, device=dev)
-    if ts.dim() == 0:
-        ts = ts.expand(b)
-    t_emb = sinusoidal_embedding(ts, cfg.block_out_channels[0],
-                                 flip_sin_to_cos=cfg.flip_sin_to_cos,
-                                 freq_shift=cfg.freq_shift)
-    # f32 conditioning math (weights cast up at use), cast at the end
-    emb = timestep_embedding(params["time_embedding"], t_emb)
-    emb = emb + sdxl_add_embedding(
-        params["add_embedding"], pooled_text, time_ids,
-        addition_time_embed_dim=cfg.addition_time_embed_dim,
-        flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift)
-    if num_frames > 1:
-        emb = emb.repeat_interleave(num_frames, dim=0)
-    emb = emb.to(dt)
-
-    if cross_kv is None:
-        def rep(e):
-            if e is None:
-                return None
-            if e.shape[0] != n:
-                e = e.repeat_interleave(num_frames, dim=0)
-            return e.to(dt)
-        ctx = tuple(rep(e) for e in ctx)
-    else:
-        ctx = None
-
     groups = cfg.norm_num_groups
     motion_on = cfg.use_motion_modules and (
         frame_shard.frames if frame_shard is not None else num_frames) > 1
+
+    with tracing.span("unet.embed"):
+        ts = torch.as_tensor(timesteps, device=dev)
+        if ts.dim() == 0:
+            ts = ts.expand(b)
+        t_emb = sinusoidal_embedding(ts, cfg.block_out_channels[0],
+                                     flip_sin_to_cos=cfg.flip_sin_to_cos,
+                                     freq_shift=cfg.freq_shift)
+        # f32 conditioning math (weights cast up at use), cast at the end
+        emb = timestep_embedding(params["time_embedding"], t_emb)
+        emb = emb + sdxl_add_embedding(
+            params["add_embedding"], pooled_text, time_ids,
+            addition_time_embed_dim=cfg.addition_time_embed_dim,
+            flip_sin_to_cos=cfg.flip_sin_to_cos, freq_shift=cfg.freq_shift)
+        if num_frames > 1:
+            emb = emb.repeat_interleave(num_frames, dim=0)
+        emb = emb.to(dt)
+
+        if cross_kv is None:
+            def rep(e):
+                if e is None:
+                    return None
+                if e.shape[0] != n:
+                    e = e.repeat_interleave(num_frames, dim=0)
+                return e.to(dt)
+            ctx = tuple(rep(e) for e in ctx)
+        else:
+            ctx = None
+        h = layers.conv2d(params["conv_in"], sample)
 
     def resnet(rp, h):
         return resnet_block(rp, h, emb, num_groups=groups, eps=cfg.norm_eps)
@@ -214,45 +216,47 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
                              max_seq_length=cfg.motion_max_seq_length,
                              remat=remat, frame_shard=frame_shard)
 
-    h = layers.conv2d(params["conv_in"], sample)
     skips = [h]
     for i, block in enumerate(params["down_blocks"]):
-        for j, rp in enumerate(block["resnets"]):
-            h = resnet(rp, h)
-            if cfg.down_block_types[i] == CROSS:
-                h = attn(block["attentions"][j], h,
-                         _kv(cross_kv, "down_blocks", i, j),
-                         cfg.num_attention_heads[i],
-                         sub(state, "down_blocks", i, "attentions", j))
-            if motion_on and block.get("motion_modules"):
-                h = motion(block["motion_modules"][j], h)
-            skips.append(h)
-        if "downsamplers" in block:
-            h = downsample(block["downsamplers"][0], h)
-            skips.append(h)
+        with tracing.span(f"unet.down.{i}"):
+            for j, rp in enumerate(block["resnets"]):
+                h = resnet(rp, h)
+                if cfg.down_block_types[i] == CROSS:
+                    h = attn(block["attentions"][j], h,
+                             _kv(cross_kv, "down_blocks", i, j),
+                             cfg.num_attention_heads[i],
+                             sub(state, "down_blocks", i, "attentions", j))
+                if motion_on and block.get("motion_modules"):
+                    h = motion(block["motion_modules"][j], h)
+                skips.append(h)
+            if "downsamplers" in block:
+                h = downsample(block["downsamplers"][0], h)
+                skips.append(h)
 
-    mid = params["mid_block"]
-    h = resnet(mid["resnets"][0], h)
-    h = attn(mid["attentions"][0], h, _kv(cross_kv, "mid_block", 0, 0),
-             cfg.num_attention_heads[-1],
-             sub(state, "mid_block", "attentions", 0))
-    if motion_on and mid.get("motion_modules"):
-        h = motion(mid["motion_modules"][0], h)
-    h = resnet(mid["resnets"][1], h)
+    with tracing.span("unet.mid"):
+        mid = params["mid_block"]
+        h = resnet(mid["resnets"][0], h)
+        h = attn(mid["attentions"][0], h, _kv(cross_kv, "mid_block", 0, 0),
+                 cfg.num_attention_heads[-1],
+                 sub(state, "mid_block", "attentions", 0))
+        if motion_on and mid.get("motion_modules"):
+            h = motion(mid["motion_modules"][0], h)
+        h = resnet(mid["resnets"][1], h)
 
     for i, block in enumerate(params["up_blocks"]):
-        tf_idx = len(cfg.block_out_channels) - 1 - i
-        for j, rp in enumerate(block["resnets"]):
-            h = resnet(rp, torch.cat([h, skips.pop()], dim=-1))
-            if cfg.up_block_types[i] == CROSS:
-                h = attn(block["attentions"][j], h,
-                         _kv(cross_kv, "up_blocks", i, j),
-                         cfg.num_attention_heads[tf_idx],
-                         sub(state, "up_blocks", i, "attentions", j))
-            if motion_on and block.get("motion_modules"):
-                h = motion(block["motion_modules"][j], h)
-        if "upsamplers" in block:
-            h = upsample(block["upsamplers"][0], h)
+        with tracing.span(f"unet.up.{i}"):
+            tf_idx = len(cfg.block_out_channels) - 1 - i
+            for j, rp in enumerate(block["resnets"]):
+                h = resnet(rp, torch.cat([h, skips.pop()], dim=-1))
+                if cfg.up_block_types[i] == CROSS:
+                    h = attn(block["attentions"][j], h,
+                             _kv(cross_kv, "up_blocks", i, j),
+                             cfg.num_attention_heads[tf_idx],
+                             sub(state, "up_blocks", i, "attentions", j))
+                if motion_on and block.get("motion_modules"):
+                    h = motion(block["motion_modules"][j], h)
+            if "upsamplers" in block:
+                h = upsample(block["upsamplers"][0], h)
 
     h = layers.silu(layers.group_norm(params["conv_norm_out"], h,
                                       num_groups=groups, eps=cfg.norm_eps))

@@ -46,6 +46,7 @@ import struct
 import torch
 
 from video_style_transfer_tpu_torch.ops import cuda_build
+from video_style_transfer_tpu_torch.utils import tracing
 
 # launches of the CUDA kernels in this process (the plain versions and
 # refused calls do not count): LAUNCHES the forward (K1; one per call,
@@ -579,21 +580,30 @@ def flash_attention_bshd(q, k, v, *, scale=None):
     return _FlashAttention.apply(q, k, v, float(scale))
 
 
+def _route_name(x, head_dim: int) -> str:
+    """The route a call on x launches, for its span."""
+    return route(x.dtype, head_dim) if x.is_cuda else "plain"
+
+
 def flash_attention(q, k, v, *, scale=None):
     """q, k, v: (B, S, H, D) -> (B, S, H, D) (the JAX `flash_attention`
     signature)."""
-    b, sq, h, d = q.shape
-    return flash_attention_bshd(q, k, v, scale=scale).reshape(b, sq, h, d)
+    with tracing.op_span("K1", _route_name, q, q.shape[-1]):
+        b, sq, h, d = q.shape
+        return flash_attention_bshd(q, k, v, scale=scale).reshape(
+            b, sq, h, d)
 
 
 def flash_attention_qkv(qkv, num_heads: int, *, scale=None):
     """Self-attention over a fused projection: qkv (B, S, 3*H*D) ->
     (B, S, H*D). The q, k and v segments are strided views of qkv; the
     kernel reads them in place."""
-    b, s, hd3 = qkv.shape
-    hd = hd3 // 3
-    d = hd // num_heads
-    q = qkv[..., :hd].unflatten(-1, (num_heads, d))
-    k = qkv[..., hd:2 * hd].unflatten(-1, (num_heads, d))
-    v = qkv[..., 2 * hd:].unflatten(-1, (num_heads, d))
-    return flash_attention_bshd(q, k, v, scale=scale)
+    with tracing.op_span("K1", _route_name, qkv,
+                         qkv.shape[-1] // 3 // num_heads):
+        b, s, hd3 = qkv.shape
+        hd = hd3 // 3
+        d = hd // num_heads
+        q = qkv[..., :hd].unflatten(-1, (num_heads, d))
+        k = qkv[..., hd:2 * hd].unflatten(-1, (num_heads, d))
+        v = qkv[..., 2 * hd:].unflatten(-1, (num_heads, d))
+        return flash_attention_bshd(q, k, v, scale=scale)

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from video_style_transfer_tpu_torch.ops import cuda_build
+from video_style_transfer_tpu_torch.utils import tracing
 
 # launches of the CUDA kernel in this process (the plain version and
 # refused calls do not count), split by route in ROUTE_LAUNCHES
@@ -249,10 +250,16 @@ class _Geglu(torch.autograd.Function):
 def geglu_projection(x, w, b, *, gate: str = None):
     """x: (..., C); w: (2*inner, C); b: (2*inner,). Returns (..., inner)
     = h * gelu(g) with [h | g] = x @ w^T + b; differentiable."""
-    if gate is None:
-        gate = _default_gate_for(x.dtype)
-    c = x.shape[-1]
-    inner = w.shape[0] // 2
-    lead = x.shape[:-1]
-    x2d = x.reshape(-1, c)
-    return _Geglu.apply(x2d, w, b, gate).reshape(*lead, inner)
+    with tracing.op_span("K2", _route_name, x):
+        if gate is None:
+            gate = _default_gate_for(x.dtype)
+        c = x.shape[-1]
+        inner = w.shape[0] // 2
+        lead = x.shape[:-1]
+        x2d = x.reshape(-1, c)
+        return _Geglu.apply(x2d, w, b, gate).reshape(*lead, inner)
+
+
+def _route_name(x) -> str:
+    """The route a call on x launches, for its span."""
+    return _ROUTES.get(x.dtype, "?") if x.is_cuda else "plain"

@@ -39,6 +39,7 @@ import struct
 import torch
 
 from video_style_transfer_tpu_torch.ops import cuda_build
+from video_style_transfer_tpu_torch.utils import tracing
 
 # launches of the CUDA kernel in this process (the plain version and
 # refused calls do not count)
@@ -336,13 +337,19 @@ def layer_norm(x, scale, bias, *, eps: float = 1e-5):
     """LayerNorm over the minor axis with scale and bias, one pass over
     x; differentiable. x: (..., C). On the card with no gradient to
     record, the launch alone."""
-    if not x.is_cuda:
-        return layer_norm_reference(x, scale, bias, eps)
-    entry = _check(x, scale, bias, eps)
-    grad = torch.is_grad_enabled() and (
-        x.requires_grad or scale.requires_grad or bias.requires_grad)
-    if entry[2] or entry[3] is not None:
-        x, scale, bias = _prepared(x, scale, bias, entry)
-    if grad:
-        return _LayerNorm.apply(x, scale, bias, entry)
-    return _launch(x, scale, bias, entry)[0]
+    with tracing.op_span("K7", _route_name, x):
+        if not x.is_cuda:
+            return layer_norm_reference(x, scale, bias, eps)
+        entry = _check(x, scale, bias, eps)
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or scale.requires_grad or bias.requires_grad)
+        if entry[2] or entry[3] is not None:
+            x, scale, bias = _prepared(x, scale, bias, entry)
+        if grad:
+            return _LayerNorm.apply(x, scale, bias, entry)
+        return _launch(x, scale, bias, entry)[0]
+
+
+def _route_name(x) -> str:
+    """The kernel a call on x launches, for its span: K7 has one."""
+    return "cuda" if x.is_cuda else "plain"

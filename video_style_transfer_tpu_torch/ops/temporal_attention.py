@@ -25,6 +25,7 @@ import struct
 import torch
 
 from video_style_transfer_tpu_torch.ops import cuda_build
+from video_style_transfer_tpu_torch.utils import tracing
 
 # kernel launches in this process: LAUNCHES the forward (K3),
 # BWD_LAUNCHES the backward (K5)
@@ -269,6 +270,12 @@ class _TemporalAttention(torch.autograd.Function):
 
 def temporal_attention(q, k, v, *, scale=None):
     """q, k, v: (F, N, H, d) views -> (F, N, H*d), differentiable (K5)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
-    return _TemporalAttention.apply(q, k, v, float(scale))
+    with tracing.op_span("K3", _route_name, q):
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        return _TemporalAttention.apply(q, k, v, float(scale))
+
+
+def _route_name(x) -> str:
+    """The kernel a call on x launches, for its span: K3's mma kernel."""
+    return "mma" if x.is_cuda else "plain"

@@ -14,6 +14,7 @@ from video_style_transfer_tpu_torch.pipelines.sampling import (
 from video_style_transfer_tpu_torch.schedulers.ddpm import make_schedule
 from video_style_transfer_tpu_torch.schedulers.dpm import dpm_timetable
 from video_style_transfer_tpu_torch.schedulers.euler import euler_timetable
+from video_style_transfer_tpu_torch.utils import tracing
 from video_style_transfer_tpu_torch.utils.convert import to_device
 
 
@@ -90,14 +91,28 @@ def decode_images(vae_params, vae_cfg, latents, *, dtype=torch.float32,
     reference's decode; bfloat16 is the opt-in fast decode (it keeps
     fp32's exponent range, so the overflow that forces fp32 over fp16
     cannot occur). check_finite raises if the decoder's output holds a
-    NaN or an infinity, which the uint8 cast would otherwise hide."""
-    if vae_params["post_quant_conv"]["weight"].dtype != dtype:
-        vae_params = to_device(vae_params, dtype=dtype)
-    imgs = vae_decode(vae_params, vae_cfg, latents.to(dtype)).float()
-    if check_finite and not bool(torch.isfinite(imgs).all()):
-        raise FloatingPointError("VAE decode produced non-finite pixels")
-    imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
-    return torch.round(imgs * 255.0).to(torch.uint8)
+    NaN or an infinity, which the uint8 cast would otherwise hide. Its
+    span is ``decode``, with one ``decode.frame``."""
+    with tracing.span("decode", device=latents.device):
+        if vae_params["post_quant_conv"]["weight"].dtype != dtype:
+            vae_params = to_device(vae_params, dtype=dtype)
+        return decode_chunk(vae_params, vae_cfg, latents, dtype=dtype,
+                            check_finite=check_finite)
+
+
+def decode_chunk(vae_params, vae_cfg, latents, *, dtype, check_finite):
+    """decode_images on a VAE already in `dtype`, in a ``decode.frame``
+    span: one call of a video's decode loop."""
+    with tracing.span("decode.frame", frames=latents.shape[0]):
+        imgs = vae_decode(vae_params, vae_cfg, latents.to(dtype)).float()
+        if check_finite:
+            with tracing.span("sync.check_finite"):
+                finite = bool(torch.isfinite(imgs).all())
+            if not finite:
+                raise FloatingPointError(
+                    "VAE decode produced non-finite pixels")
+        imgs = torch.clamp(imgs / 2 + 0.5, 0.0, 1.0)
+        return torch.round(imgs * 255.0).to(torch.uint8)
 
 
 def generate_images(unet_params, unet_cfg, vae_params, vae_cfg,

@@ -12,6 +12,7 @@ from video_style_transfer_tpu_torch.schedulers.dpm import (
     dpm_init_carry, dpm_step, to_x0)
 from video_style_transfer_tpu_torch.schedulers.euler import (
     euler_step, scale_model_input)
+from video_style_transfer_tpu_torch.utils import tracing
 
 
 class Conditioning(NamedTuple):
@@ -72,20 +73,23 @@ def make_cfg_denoiser(unet_params, unet_cfg, uncond: Conditioning,
     frames of a frame-parallel clip (unet_apply's); both CFG rows of
     them are local, so the combine needs no collective."""
     both = _cat_cond(uncond, cond)
-    kv = precompute_cross_kv(unet_params, unet_cfg, both.ctx, mode=mode,
-                             state=state, dtype=dtype,
-                             num_frames=num_frames)
+    with tracing.span("precompute_kv", device=both.pooled.device):
+        kv = precompute_cross_kv(unet_params, unet_cfg, both.ctx, mode=mode,
+                                 state=state, dtype=dtype,
+                                 num_frames=num_frames)
 
     def eps_fn(latents, t):
         doubled = torch.cat([latents, latents], dim=0)
-        out = unet_apply(unet_params, unet_cfg, doubled, t, both.ctx,
-                         both.pooled, both.time_ids, mode=mode, state=state,
-                         num_frames=num_frames, cross_kv=kv,
-                         frame_shard=frame_shard)
-        eps_u, eps_c = out.chunk(2, dim=0)
-        eps = eps_u + cfg_scale * (eps_c - eps_u)
-        if guidance_rescale > 0.0:
-            eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
+        with tracing.span("unet"):
+            out = unet_apply(unet_params, unet_cfg, doubled, t, both.ctx,
+                             both.pooled, both.time_ids, mode=mode,
+                             state=state, num_frames=num_frames, cross_kv=kv,
+                             frame_shard=frame_shard)
+        with tracing.span("guidance"):
+            eps_u, eps_c = out.chunk(2, dim=0)
+            eps = eps_u + cfg_scale * (eps_c - eps_u)
+            if guidance_rescale > 0.0:
+                eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
         return eps
 
     return eps_fn
@@ -98,12 +102,15 @@ def _timestep(t, device):
 def sample_euler(eps_fn, latents, table, *,
                  on_step: Optional[Callable[[int], None]] = None):
     """Run the Euler schedule; `latents` are already scaled by
-    table["init_sigma"]. on_step(i) is called after step i."""
+    table["init_sigma"]. on_step(i) is called after step i, outside its
+    span."""
     sigmas, timesteps = table["sigmas"], table["timesteps"]
     for i in range(len(timesteps)):
-        model_in = scale_model_input(latents, sigmas[i])
-        eps = eps_fn(model_in, _timestep(timesteps[i], latents.device))
-        latents = euler_step(latents, eps, sigmas[i], sigmas[i + 1])
+        with tracing.span("step", device=latents.device):
+            model_in = scale_model_input(latents, sigmas[i])
+            eps = eps_fn(model_in, _timestep(timesteps[i], latents.device))
+            with tracing.span("scheduler"):
+                latents = euler_step(latents, eps, sigmas[i], sigmas[i + 1])
         if on_step is not None:
             on_step(i)
     return latents
@@ -112,13 +119,17 @@ def sample_euler(eps_fn, latents, table, *,
 def sample_dpm(eps_fn, latents, table, *,
                on_step: Optional[Callable[[int], None]] = None):
     """Run DPM-Solver++ 2M; `latents` are plain noise (the tables are
-    VP-scaled: sigma_0 ~ 1). on_step(i) is called after step i."""
+    VP-scaled: sigma_0 ~ 1). on_step(i) is called after step i, outside
+    its span."""
     timesteps = table["timesteps"]
     carry = dpm_init_carry(latents.shape, latents.device)
     for i in range(len(timesteps)):
-        eps = eps_fn(latents, _timestep(timesteps[i], latents.device))
-        x0 = to_x0(latents, eps, table["alpha"][i], table["sigma"][i])
-        latents, carry = dpm_step(latents, x0, carry, i, table)
+        with tracing.span("step", device=latents.device):
+            eps = eps_fn(latents, _timestep(timesteps[i], latents.device))
+            with tracing.span("scheduler"):
+                x0 = to_x0(latents, eps, table["alpha"][i],
+                           table["sigma"][i])
+                latents, carry = dpm_step(latents, x0, carry, i, table)
         if on_step is not None:
             on_step(i)
     return latents

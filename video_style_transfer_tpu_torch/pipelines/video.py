@@ -13,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from video_style_transfer_tpu_torch.pipelines.image import (
-    decode_images, draw_noise, generate_latents)
+    decode_chunk, draw_noise, generate_latents)
 from video_style_transfer_tpu_torch.pipelines.sampling import Conditioning
+from video_style_transfer_tpu_torch.utils import tracing
 from video_style_transfer_tpu_torch.utils.convert import to_device
 
 
@@ -56,13 +57,15 @@ def decode_video(vae_params, vae_cfg, latents, *, chunk: int = 1,
                  dtype=torch.float32, check_finite: bool = False):
     """Per-frame (chunk frames at a time) VAE decode -> (F, H, W, 3)
     uint8, as the reference decodes frame by frame in fp32. Another
-    `dtype` casts the VAE once, before the loop."""
-    if vae_params["post_quant_conv"]["weight"].dtype != dtype:
-        vae_params = to_device(vae_params, dtype=dtype)
-    frames = [decode_images(vae_params, vae_cfg, latents[i:i + chunk],
-                            dtype=dtype, check_finite=check_finite)
-              for i in range(0, latents.shape[0], max(chunk, 1))]
-    return torch.cat(frames, dim=0)
+    `dtype` casts the VAE once, before the loop. Its span is ``decode``,
+    with a ``decode.frame`` a chunk."""
+    with tracing.span("decode", device=latents.device):
+        if vae_params["post_quant_conv"]["weight"].dtype != dtype:
+            vae_params = to_device(vae_params, dtype=dtype)
+        frames = [decode_chunk(vae_params, vae_cfg, latents[i:i + chunk],
+                               dtype=dtype, check_finite=check_finite)
+                  for i in range(0, latents.shape[0], max(chunk, 1))]
+        return torch.cat(frames, dim=0)
 
 
 def decode_video_frame_sharded(vae_params, vae_cfg, latents, frame_shard, *,

@@ -72,6 +72,7 @@ from video_style_transfer_tpu_torch.training.schedules import (
     make_lr_schedule)
 from video_style_transfer_tpu_torch.training.stage2 import (
     AdamW, check_state_like, clip_by_global_norm, iter_leaves)
+from video_style_transfer_tpu_torch.utils import tracing
 
 GROUPS = ("content", "style", "merger")
 OPTIMIZERS = ("adamw", "adamw8bit", "prodigy")
@@ -487,48 +488,51 @@ def make_train_step(unet_cfg: UNetConfig, sched, *,
         opt = state.optimizer
         accum = len(micro_batches)
         losses, auxs = [], []
-        for i, mb in enumerate(micro_batches):
-            if draws is not None:
-                dr = draws[i]
-            else:
-                def whole(shape):
-                    return (shape[0] * dp,) + tuple(shape[1:])
-                priors = {b: whole(mb[f"prior_{b}"]["latents"].shape)
-                          for b in BRANCHES if f"prior_{b}" in mb}
-                dr = draw_stage1(sched, whole(mb["latents"].shape), priors,
-                                 generator=generator,
-                                 device=mb["latents"].device)
-                if dp > 1:
-                    dr = grid.take(dr)
-            loss, aux = stage1_loss(
-                state.params, unet_cfg, sched, mb, dr,
-                lora_state=state.lora_state, lora_paths=paths,
-                orth_on=state.orth_on, similarity_lambda=similarity_lambda,
-                prior_weight=prior_weight, prior_weight_2=prior_weight_2,
-                remat=remat, dtype=dtype,
-                share=grid.size if dp > 1 else None)
-            loss.backward()
-            losses.append(loss.detach())
-            auxs.append({k: v.detach() for k, v in aux.items()})
-        grads = {}
-        for path, t in opt.trainable:
-            g = t.grad if t.grad is not None else torch.zeros_like(t)
-            grads[path] = g / accum if accum > 1 else g
-            t.grad = None
-        distributed.all_reduce_tensors(list(grads.values()))
-        if on_grads is not None:
-            on_grads(state, grads)
-        gates, ph = None, None
-        if sep_cfg.enabled:
-            gates, ph = column_sep_update(state.lora_state, state.params,
-                                          grads, state.step, sep_cfg,
-                                          assignments)
-        factors = _merger_factors(state, gates, paths)
-        mults = [factors.get(path) for path, _ in opt.trainable]
-        gated = [grads[path] if m is None else grads[path] * m
-                 for (path, _), m in zip(opt.trainable, mults)]
-        opt.step(gated, gates=mults)
-        clamp_mergers(state.params, paths)
+        with tracing.span("forward_backward"):
+            for i, mb in enumerate(micro_batches):
+                if draws is not None:
+                    dr = draws[i]
+                else:
+                    def whole(shape):
+                        return (shape[0] * dp,) + tuple(shape[1:])
+                    priors = {b: whole(mb[f"prior_{b}"]["latents"].shape)
+                              for b in BRANCHES if f"prior_{b}" in mb}
+                    dr = draw_stage1(sched, whole(mb["latents"].shape),
+                                     priors, generator=generator,
+                                     device=mb["latents"].device)
+                    if dp > 1:
+                        dr = grid.take(dr)
+                loss, aux = stage1_loss(
+                    state.params, unet_cfg, sched, mb, dr,
+                    lora_state=state.lora_state, lora_paths=paths,
+                    orth_on=state.orth_on,
+                    similarity_lambda=similarity_lambda,
+                    prior_weight=prior_weight, prior_weight_2=prior_weight_2,
+                    remat=remat, dtype=dtype,
+                    share=grid.size if dp > 1 else None)
+                loss.backward()
+                losses.append(loss.detach())
+                auxs.append({k: v.detach() for k, v in aux.items()})
+        with tracing.span("optimizer"):
+            grads = {}
+            for path, t in opt.trainable:
+                g = t.grad if t.grad is not None else torch.zeros_like(t)
+                grads[path] = g / accum if accum > 1 else g
+                t.grad = None
+            distributed.all_reduce_tensors(list(grads.values()))
+            if on_grads is not None:
+                on_grads(state, grads)
+            gates, ph = None, None
+            if sep_cfg.enabled:
+                gates, ph = column_sep_update(state.lora_state, state.params,
+                                              grads, state.step, sep_cfg,
+                                              assignments)
+            factors = _merger_factors(state, gates, paths)
+            mults = [factors.get(path) for path, _ in opt.trainable]
+            gated = [grads[path] if m is None else grads[path] * m
+                     for (path, _), m in zip(opt.trainable, mults)]
+            opt.step(gated, gates=mults)
+            clamp_mergers(state.params, paths)
         if ph is not None:
             state.orth_on, state.merger_on = apply_schedule_flags(state, ph)
         state.step += 1

@@ -44,6 +44,7 @@ from video_style_transfer_tpu_torch.schedulers.ddpm import (
     add_noise, velocity_target)
 from video_style_transfer_tpu_torch.training.schedules import (
     make_lr_schedule)
+from video_style_transfer_tpu_torch.utils import tracing
 
 _PROJS = ("to_q", "to_k", "to_v", "to_out")
 
@@ -350,36 +351,39 @@ def make_train_step(unet_cfg: UNetConfig, sched, optimizer: AdamW, pairs, *,
              on_grads=None):
         accum = len(micro_batches)
         losses, auxs = [], []
-        for mb in micro_batches:
-            shape = tuple(mb["latents"].shape)
-            shard, share = None, None
-            if grid is not None and grid.size > 1:
-                shape = (shape[0] * grid.data, shape[1] * grid.frame) \
-                    + shape[2:]
-                shard = grid.frame_shard(shape[1])
-                share = (math.prod(shape), grid.size)
-            dr = draw_stage2(sched, shape, cfg_dropout=cfg_dropout,
-                             generator=generator,
-                             device=mb["latents"].device)
-            if share is not None:
-                dr = grid.take(dr, frames=True)
-            loss, aux = stage2_loss(
-                params, unet_cfg, sched, mb, dr, pairs=pairs,
-                lambda_orth=lambda_orth, prediction_type=prediction_type,
-                mode=mode, state=lora_state, dtype=dtype, frame_shard=shard,
-                share=share)
-            loss.backward()
-            losses.append(loss.detach())
-            auxs.append({k: v.detach() for k, v in aux.items()})
-        grads = []
-        for p in optimizer.params:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            grads.append(g / accum if accum > 1 else g)
-            p.grad = None
-        distributed.all_reduce_tensors(grads)
-        if on_grads is not None:
-            on_grads(grads)
-        optimizer.step(grads)
+        with tracing.span("forward_backward"):
+            for mb in micro_batches:
+                shape = tuple(mb["latents"].shape)
+                shard, share = None, None
+                if grid is not None and grid.size > 1:
+                    shape = (shape[0] * grid.data, shape[1] * grid.frame) \
+                        + shape[2:]
+                    shard = grid.frame_shard(shape[1])
+                    share = (math.prod(shape), grid.size)
+                dr = draw_stage2(sched, shape, cfg_dropout=cfg_dropout,
+                                 generator=generator,
+                                 device=mb["latents"].device)
+                if share is not None:
+                    dr = grid.take(dr, frames=True)
+                loss, aux = stage2_loss(
+                    params, unet_cfg, sched, mb, dr, pairs=pairs,
+                    lambda_orth=lambda_orth,
+                    prediction_type=prediction_type, mode=mode,
+                    state=lora_state, dtype=dtype, frame_shard=shard,
+                    share=share)
+                loss.backward()
+                losses.append(loss.detach())
+                auxs.append({k: v.detach() for k, v in aux.items()})
+        with tracing.span("optimizer"):
+            grads = []
+            for p in optimizer.params:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                grads.append(g / accum if accum > 1 else g)
+                p.grad = None
+            distributed.all_reduce_tensors(grads)
+            if on_grads is not None:
+                on_grads(grads)
+            optimizer.step(grads)
         metrics = {"loss": torch.stack(losses).mean(),
                    **{k: torch.stack([a[k] for a in auxs]).mean()
                       for k in auxs[0]}}

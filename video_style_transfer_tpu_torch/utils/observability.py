@@ -14,9 +14,13 @@ merger scalars, the metrics sinks and a profiler trace.
   (``torch.utils.tensorboard``) and wandb (offline unless ``WANDB_MODE``
   says otherwise), as the reference's trackers do. ``enabled=False``
   opens and writes nothing;
-- start_profiler_trace / stop_profiler_trace: one ``torch.profiler``
-  trace of the process (CPU, and CUDA where there is a card), written as
-  a Chrome trace under the log directory.
+- start_profiler_trace / stop_profiler_trace: the port's one exporter,
+  a ``torch.profiler`` trace of the process (CPU, and CUDA where there
+  is a card) written as a Chrome trace under the log directory, with
+  the program's spans (``utils.tracing``, which records while the
+  profiler runs) on a track of their own on the same time base, and
+  ``idle_gaps.json`` beside it: the device's idle stretches over the
+  session, each with the span that was open when it began.
 """
 from __future__ import annotations
 
@@ -197,18 +201,6 @@ class MetricsLogger:
         self._f = self._tb = self._wandb = None
 
 
-class StepTimer:
-    """Host wall-clock seconds between laps."""
-
-    def __init__(self):
-        self._last = time.perf_counter()
-
-    def lap(self) -> float:
-        now = time.perf_counter()
-        dt, self._last = now - self._last, now
-        return dt
-
-
 # the trace start_profiler_trace opened: one a process, as a profiler
 # trace is (the JAX package's hooks wrap jax.profiler's global trace)
 _TRACE = {}
@@ -225,15 +217,36 @@ def start_profiler_trace(log_dir: str):
         acts.append(ProfilerActivity.CUDA)
     prof = profile(activities=acts)
     prof.start()
-    _TRACE.update(prof=prof, dir=log_dir)
+    _TRACE.update(prof=prof, dir=log_dir, start=time.time_ns())
 
 
 def stop_profiler_trace() -> str:
     """Stop the open trace; returns the Chrome trace file written under
-    its log_dir."""
+    its log_dir (``idle_gaps.json`` beside it)."""
+    from video_style_transfer_tpu_torch.utils import tracing
     prof, log_dir = _TRACE.pop("prof"), _TRACE.pop("dir")
+    lo, hi = _TRACE.pop("start"), time.time_ns()
     prof.stop()
+    spans = [s for s in tracing.read() if s.start is not None
+             and s.end is not None and s.start >= lo and s.end <= hi]
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, f"trace_{os.getpid()}.json")
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"].extend(tracing.chrome_events(
+        spans, trace.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(trace, f)
+    events = tracing.device_events(prof)
+    gaps = tracing.idle_gaps(events, spans, lo * 1e-9, hi * 1e-9)
+    window = (hi - lo) * 1e-9
+    idle = sum(g[1] for g in gaps) if events else None
+    with open(os.path.join(log_dir, "idle_gaps.json"), "w") as f:
+        json.dump({"window_s": window, "device_events": len(events),
+                   "idle_s": idle,
+                   "by_span": tracing.gap_totals(gaps) if events else {},
+                   "gaps": [{"start_s": t, "ms": length * 1e3, "span": n}
+                            for t, length, n in gaps] if events else []},
+                  f)
     return path
