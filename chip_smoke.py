@@ -280,6 +280,29 @@ TOL_LN_STATS = (1e-5, 1e-5)
 # They are held to 1e-5 plus 2^-20 of their largest entry; dx to
 # TOL_BWD_F32.
 TOL_LN_BWD_SUMS_F32 = 2 ** -20
+# GroupNorm(+SiLU) (csrc/group_norm.cu): kernel and plain version both
+# keep f32 statistics and round once, so in bf16 the norm differs by at
+# most one output ulp where the order of the statistics' sums moves a
+# value across a rounding boundary: 2^-7 relative plus 1e-5 absolute.
+# With SiLU both round the norm, then SiLU of it: a norm one ulp apart
+# at v < 0 moves silu(v), which is small there, by |silu'(v)| of an ulp
+# of v, up to ~0.002 absolute at |v| <= 8: 2^-8 absolute. fp32 1e-5 plus
+# 1e-5 relative (sums over up to 2^24 values in another order). The
+# fused SiLU is also held to F.silu of the same call's unfused output
+# (at most one ulp: expf's last bit). The statistics the kernel leaves
+# for its second launch, merged in float64, are held to float64
+# statistics of x: the mean to 1e-5 of the spread, the variance to 1e-5
+# of itself. Every phase refuses the two faulty copies.
+TOL_GN = {"bfloat16": (1e-5, 2 ** -7), "float32": (1e-5, 1e-5)}
+TOL_GN_SILU = {"bfloat16": (2 ** -8, 2 ** -7), "float32": (1e-5, 1e-5)}
+TOL_GN_STATS = 1e-5
+# GroupNorm calls of one UNet call (SDXL: 35 with SiLU, two a resnet and
+# conv_norm_out's, and 11 transformer norms; AnimateDiff-XL's 15 motion
+# modules add one each where they run on one rank), of one fp32 VAE
+# decode (29 with SiLU and the mid-block attention's) and one encode (21
+# and the attention's): (calls, calls with SiLU)
+GN_UNET, GN_UNET_MOTION, GN_DECODE, GN_ENCODE = (46, 35), (61, 35), \
+    (30, 29), (22, 21)
 # the text encoders' LayerNorms since the counters were last set to 0
 # (count_text_encoder_calls): each call of an encoder of L layers runs
 # 2 L + 1
@@ -1280,6 +1303,178 @@ def layer_norm_phases():
              "layer_norm_affine_grad": ln.AFFINE_LAUNCHES - before[1]})
 
 
+def gn_launches(unet_calls=0, *, motion=True, decodes=0, encodes=0):
+    """GroupNorm launches, {"group_norm": calls, "group_norm_silu": calls
+    with SiLU}, of `unet_calls` UNet calls (motion: with AnimateDiff's
+    motion modules on one rank), `decodes` VAE decodes and `encodes` VAE
+    encodes."""
+    unet = GN_UNET_MOTION if motion else GN_UNET
+    return {name: unet_calls * unet[i] + decodes * GN_DECODE[i]
+            + encodes * GN_ENCODE[i]
+            for i, name in enumerate(("group_norm", "group_norm_silu"))}
+
+
+def group_norm_phases():
+    """The GroupNorm kernels against their plain version (the formula the
+    models ran before them, then F.silu) and F.group_norm on an
+    NCHW-contiguous copy (+ F.silu) at the paths' principal shapes: the
+    video step's levels 0 and 2 and its motion level 0, the image step's
+    levels 0 and 2, the fp32 decode at 1024^2 and at 128^2 (the mid-block
+    attention's norm, no SiLU). Each phase also holds the fused SiLU to
+    F.silu of the same call's unfused output (one ulp), the statistics
+    the first launch leaves to float64 statistics of x (a 0.97 mean
+    refused), and two calls bitwise equal; then the autograd Function
+    (gradients equal to the plain formula's autograd, bitwise) and a
+    width the kernels refuse. Returns ({"group_norm": phases}, launches
+    made here)."""
+    import torch
+    import torch.nn.functional as F
+    from video_style_transfer_tpu_torch.ops import group_norm as gn
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+
+    def randn(*shape, dtype, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale + shift).to(dtype)
+
+    def statistics(x, w, b, eps):
+        """(mean, var) of each (row, group) from the kernel's partial
+        sums, merged in float64, and the float64 statistics of x."""
+        entry = gn._ACCEPTED[gn._key(x, w, b, 32, eps, False)]
+        rows, positions, chunk, c, _, chunks = gn._LAYOUT.unpack(
+            entry[0])[:6]
+        part = gn._SCRATCH[(x.get_device(), torch.cuda.current_stream(
+            ).cuda_stream)][:entry[4]].view(rows, 32, chunks, 2).double()
+        n = torch.tensor([e - s for s, e in gn.chunk_bounds(
+            positions, chunks, chunk)], dtype=torch.float64,
+            device="cuda") * (c // 32)
+        mean = (part[..., 0] * n).sum(-1) / n.sum()
+        var = (part[..., 1] + n * (part[..., 0] - mean[..., None]) ** 2
+               ).sum(-1) / n.sum()
+        var64, mean64 = torch.var_mean(
+            x.double().reshape(rows, -1, 32, c // 32), dim=(1, 3),
+            unbiased=False)
+        return mean, var, mean64, var64
+
+    before = gn.LAUNCHES, gn.SILU_LAUNCHES
+    phases = []
+    for tag, shape, dt, eps, silu, iters in (
+            ("video L0 (32,128,128,320)", (32, 128, 128, 320),
+             torch.bfloat16, 1e-5, True, 20),
+            ("video L0 up (32,128,128,960)", (32, 128, 128, 960),
+             torch.bfloat16, 1e-5, True, 10),
+            ("video motion L0 (2,16*128,128,320)", (2, 2048, 128, 320),
+             torch.bfloat16, 1e-6, False, 20),
+            ("video L2 (32,32,32,1280)", (32, 32, 32, 1280), torch.bfloat16,
+             1e-5, True, 50),
+            ("image L0 (8,128,128,320)", (8, 128, 128, 320), torch.bfloat16,
+             1e-5, True, 50),
+            ("image L2 (8,32,32,1280)", (8, 32, 32, 1280), torch.bfloat16,
+             1e-6, False, 50),
+            ("decode L3 (1,1024,1024,128)", (1, 1024, 1024, 128),
+             torch.float32, 1e-6, True, 20),
+            ("decode mid attention (1,128,128,512)", (1, 128, 128, 512),
+             torch.float32, 1e-6, False, 50)):
+        c = shape[-1]
+        x = randn(*shape, dtype=dt, scale=1.5, shift=0.3)
+        w = randn(c, dtype=dt, scale=0.1, shift=1.0)
+        b = randn(c, dtype=dt, scale=0.1)
+        xn = x.permute(0, 3, 1, 2).contiguous()
+        name = str(dt)[6:]
+
+        def library():
+            y = F.group_norm(xn, 32, w, b, eps)
+            return F.silu(y) if silu else y
+        n = x.numel()
+        phase = check_phase(
+            f"GN {tag} {name}{' +SiLU' if silu else ''}",
+            lambda: gn.group_norm(x, w, b, 32, eps=eps, silu=silu),
+            lambda: gn.group_norm_reference(x, w, b, 32, eps, silu),
+            library, flops=10 * n, nbytes=3 * n * x.element_size(),
+            dtype_name=name, iters=iters,
+            tol=(TOL_GN_SILU if silu else TOL_GN)[name],
+            library_name="F.group_norm on an NCHW copy"
+                         + (" + F.silu" if silu else ""))
+        vs_bound_and_library(phase, "F.group_norm")
+        y = gn.group_norm(x, w, b, 32, eps=eps)
+        torch.cuda.synchronize()
+        mean, var, mean64, var64 = statistics(x, w, b, eps)
+        spread = var64.sqrt()
+        mean_err = ((mean - mean64).abs() / spread).max().item()
+        var_err = ((var - var64).abs() / var64).max().item()
+        faulty = ((mean * 0.97 - mean64).abs() / spread).max().item()
+        same = all(torch.equal(gn.group_norm(x, w, b, 32, eps=eps,
+                                             silu=s),
+                               gn.group_norm(x, w, b, 32, eps=eps, silu=s))
+                   for s in (False, True))
+        fused = gn.group_norm(x, w, b, 32, eps=eps, silu=True).float()
+        apart = F.silu(y).float()
+        _, e = torch.frexp(torch.maximum(fused.abs(), apart.abs()))
+        ulps = ((fused - apart).abs() / torch.ldexp(
+            torch.ones_like(fused), e - (8 if dt == torch.bfloat16
+                                         else 24))).max().item()
+        bitwise = (fused == apart).float().mean().item()
+        phase.update(stats_mean_err=mean_err, stats_var_err=var_err,
+                     deterministic=same, silu_ulps=ulps,
+                     silu_bitwise_share=bitwise)
+        entry = gn._ACCEPTED[gn._key(x, w, b, 32, eps, silu)]
+        layout = gn._LAYOUT.unpack(entry[0])
+        print(f"    {layout[6]} threads a block, {layout[5]} chunks of "
+              f"{layout[2]} positions a row; statistics against float64: "
+              f"mean {mean_err:.2e} of the spread, var {var_err:.2e} "
+              f"(limit {TOL_GN_STATS:g}; a 0.97 mean "
+              f"{'refused' if faulty > TOL_GN_STATS else 'passed'}); two "
+              f"calls bitwise equal: {same}; fused SiLU vs F.silu of the "
+              f"unfused output: {ulps:.0f} ulp at most, "
+              f"{100 * bitwise:.4f} % bitwise", flush=True)
+        if not (mean_err <= TOL_GN_STATS and var_err <= TOL_GN_STATS
+                and faulty > TOL_GN_STATS):
+            fail(f"GN {tag} {name}: statistics wrong")
+        if not same or ulps > 1:
+            fail(f"GN {tag} {name}: not deterministic ({same}) or the fused "
+                 f"SiLU {ulps} ulp from F.silu of the unfused output")
+        phases.append(phase)
+        del x, w, b, xn, y, fused, apart
+        torch.cuda.empty_cache()
+
+    # the trainers' route: the kernels forward, the plain formula's vjp
+    # from the saved x backward; stage 2's motion norms train their affine
+    for dt in (torch.bfloat16, torch.float32):
+        ins = [randn(1, 8 * 64, 64, 640, dtype=dt, scale=1.5, shift=0.3),
+               randn(640, dtype=dt, shift=1.0, scale=0.1),
+               randn(640, dtype=dt, scale=0.1)]
+        cot = randn(1, 8 * 64, 64, 640, dtype=dt)
+        for silu in (False, True):
+            grads = []
+            for fn in (gn.group_norm, gn.group_norm_reference):
+                leaves = [t.clone().requires_grad_() for t in ins]
+                out = (fn(*leaves, 32, eps=1e-6, silu=silu)
+                       if fn is gn.group_norm else
+                       fn(*leaves, 32, 1e-6, silu))
+                if fn is gn.group_norm and "_GroupNorm" not in type(
+                        out.grad_fn).__name__:
+                    fail(f"GN: the card's backward is {out.grad_fn}")
+                grads.append(torch.autograd.grad(out, leaves, cot))
+            if not all(torch.equal(a, r) for a, r in zip(*grads)):
+                fail(f"GN: gradients through the autograd Function differ "
+                     f"from the plain autograd's ({str(dt)[6:]}, silu "
+                     f"{silu})")
+    print("  GN backward (1,8*64,64,640) bf16 and f32, with and without "
+          "SiLU, through the autograd Function: dx, dweight, dbias bitwise "
+          "the plain formula's autograd", flush=True)
+    try:
+        gn.group_norm(randn(2, 4, 4, 324, dtype=torch.bfloat16),
+                      randn(324, dtype=torch.bfloat16),
+                      randn(324, dtype=torch.bfloat16), 4)
+    except ValueError:
+        pass
+    else:
+        fail("GN: an unsupported width on the card did not raise")
+    return ({"group_norm": phases},
+            {"group_norm": gn.LAUNCHES - before[0],
+             "group_norm_silu": gn.SILU_LAUNCHES - before[1]})
+
+
 def count_text_encoder_calls():
     """Wraps ``models.clip.clip_apply`` (which ``encode_sdxl_prompt``
     calls through its module) so that each call adds its encoder's
@@ -1362,7 +1557,8 @@ def small_reference():
     from video_style_transfer_tpu_torch.models.layers import Init
     from video_style_transfer_tpu_torch.models.unet import init_unet
     from video_style_transfer_tpu_torch.models.vae import init_vae_decoder
-    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
+    from video_style_transfer_tpu_torch.ops import geglu, group_norm
+    from video_style_transfer_tpu_torch.ops import layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     from video_style_transfer_tpu_torch.pipelines.video import generate_video
     from video_style_transfer_tpu_torch.utils.convert import to_device
@@ -1390,14 +1586,17 @@ def small_reference():
                 dtype=torch.float32, decode_chunk=4, vae_scale_factor=2,
                 device=dev, noise=noise, check_finite=True).cpu()
 
-        before = (geglu.LAUNCHES, ta.LAUNCHES, layer_norm.LAUNCHES)
+        before = (geglu.LAUNCHES, ta.LAUNCHES, layer_norm.LAUNCHES,
+                  group_norm.LAUNCHES)
         gpu_frames = run(torch.device("cuda"))
         used = (geglu.LAUNCHES - before[0], ta.LAUNCHES - before[1],
-                layer_norm.LAUNCHES - before[2])
+                layer_norm.LAUNCHES - before[2],
+                group_norm.LAUNCHES - before[3])
         cpu_frames = run(torch.device("cpu"))
     diff = int((gpu_frames.int() - cpu_frames.int()).abs().max())
     print(f"small-input reference: tiny 2-step video (GEGLU / temporal / "
-          f"LayerNorm kernel launches on the card {used}), cuda vs cpu max "
+          f"LayerNorm / GroupNorm kernel launches on the card {used}), cuda "
+          f"vs cpu max "
           f"frame "
           f"difference {diff} levels (limit 2)", flush=True)
     if diff > 2 or min(used) == 0:
@@ -1413,11 +1612,13 @@ def counters():
 
 def reset_counters():
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
+    from video_style_transfer_tpu_torch.ops import geglu, group_norm
+    from video_style_transfer_tpu_torch.ops import layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     fa.LAUNCHES = fa.BWD_LAUNCHES = fa.DELTA_LAUNCHES = geglu.LAUNCHES = 0
     ta.LAUNCHES = ta.BWD_LAUNCHES = layer_norm.LAUNCHES = 0
     layer_norm.COPIES = layer_norm.AFFINE_LAUNCHES = 0
+    group_norm.LAUNCHES = group_norm.SILU_LAUNCHES = group_norm.COPIES = 0
     layer_norm._ACCEPTED.clear()
     TEXT_ENCODERS.update(calls=0, layer_norms=0)
     fa.ROUTE_LAUNCHES.update(wgmma=0, tf32x3=0, fma=0)
@@ -1633,7 +1834,7 @@ def small_training_reference():
 
 
 def expected_train_launches(cfg, *, frames, resolution, steps,
-                            encoded=None):
+                            encoded=None, motion_norms=True):
     """Kernel launches of `steps` stage-2 steps at B = 1, from the UNet's
     block counts: spatial self-attentions of >= 1024 tokens and d % 64 ==
     0 take K1/K4, every spatial and motion feed-forward K2, every motion
@@ -1643,7 +1844,10 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
     (the trained ones) its dscale / dbias kernels, and each frame through
     the VAE encoder its mid-block attention K1: `encoded` frames (default:
     every frame of every step, as without the moment cache). The trainer stores every
-    activation (no remat), so each forward runs once per step."""
+    activation (no remat), so each forward runs once per step. GroupNorm:
+    a UNet call's and an encode's (gn_launches; motion_norms False where
+    the motion modules' norms take the frame-parallel all-reduce
+    instead)."""
     from video_style_transfer_tpu_torch.config import CROSS
     if encoded is None:
         encoded = steps * frames
@@ -1676,7 +1880,9 @@ def expected_train_launches(cfg, *, frames, resolution, steps,
             "temporal_attention_bwd": steps * 2 * motion,
             "layer_norm": steps * 3 * (spatial + motion),
             # the motion blocks' LayerNorm parameters are trained
-            "layer_norm_affine_grad": steps * 3 * motion}
+            "layer_norm_affine_grad": steps * 3 * motion,
+            **gn_launches(steps, encodes=encoded,
+                          motion=cfg.use_motion_modules and motion_norms)}
 
 
 class ArrayClips:
@@ -1958,16 +2164,18 @@ def stage2_path(tmp):
     return counts, motion_checkpoint, adam8
 
 
-def stage1_launches(per, *, train_forwards, unet_calls, vae_calls):
+def stage1_launches(per, *, train_forwards, unet_calls, vae_encodes,
+                    vae_decodes=0):
     """Launches of `train_forwards` stage-1 training forwards (each with
     its backward), `unet_calls` inference UNet calls (a CFG pair in one)
-    and `vae_calls` VAE encodes or decodes at 1024^2 (one mid-block
-    attention each), from `per`, one training forward's
+    and `vae_encodes` VAE encodes and `vae_decodes` decodes at 1024^2 (one
+    mid-block attention each), from `per`, one training forward's
     (expected_train_launches at one step and no encode); the text
     encoders' LayerNorms are added where they run (with_text_encoders)."""
     fwd = train_forwards + unet_calls
+    vae = gn_launches(encodes=vae_encodes, decodes=vae_decodes)
     return {"flash_attention_fwd": per["flash_attention_fwd"] * fwd
-            + vae_calls,
+            + vae_encodes + vae_decodes,
             "geglu_projection": per["geglu_projection"] * fwd,
             "temporal_attention": 0,
             "flash_attention_bwd": per["flash_attention_bwd"]
@@ -1976,7 +2184,8 @@ def stage1_launches(per, *, train_forwards, unet_calls, vae_calls):
             * train_forwards,
             "temporal_attention_bwd": 0,
             "layer_norm": per["layer_norm"] * fwd,
-            "layer_norm_affine_grad": 0}
+            "layer_norm_affine_grad": 0,
+            **{k: per[k] * fwd + v for k, v in vae.items()}}
 
 
 def stage1_selection_phase(captured, chosen, sep, card):
@@ -2399,7 +2608,7 @@ def stage1_path(tmp):
             "a sbu horse in szn style", "--validation_epochs",
             str(STAGE1_STEPS)],
         stage1_launches(per, train_forwards=forwards_a, unet_calls=val_calls,
-                        vae_calls=4 + 3),
+                        vae_encodes=4, vae_decodes=3),
         routes(per["flash_attention_fwd"] * (forwards_a + val_calls),
                per["flash_attention_bwd"] * forwards_a,
                per["geglu_projection"] * (forwards_a + val_calls), 4 + 3),
@@ -2471,7 +2680,8 @@ def stage1_path(tmp):
             "--checkpointing_steps", str(STAGE1_STEPS + 1),
             "--final_inference_check"],
         stage1_launches(per, train_forwards=forwards_b,
-                        unet_calls=STAGE1_VAL_STEPS, vae_calls=4 + 1),
+                        unet_calls=STAGE1_VAL_STEPS, vae_encodes=4,
+                        vae_decodes=1),
         routes(per["flash_attention_fwd"] * (forwards_b + STAGE1_VAL_STEPS),
                per["flash_attention_bwd"] * forwards_b,
                per["geglu_projection"] * (forwards_b + STAGE1_VAL_STEPS),
@@ -2515,7 +2725,7 @@ def stage1_path(tmp):
         lambda label, argv, expect, routes_, **kw: run(
             label, sep_args + argv, expect, routes_, encodes=3 + 2, **kw),
         stage1_launches(per, train_forwards=1, unet_calls=STAGE1_VAL_STEPS,
-                        vae_calls=2 + 1),
+                        vae_encodes=2, vae_decodes=1),
         routes(per["flash_attention_fwd"] * (1 + STAGE1_VAL_STEPS),
                per["flash_attention_bwd"],
                per["geglu_projection"] * (1 + STAGE1_VAL_STEPS), 2 + 1),
@@ -2531,7 +2741,7 @@ def stage1_path(tmp):
                      "--max_train_steps", str(STAGE1_SHORT),
                      "--mixed_precision", "no"],
         stage1_launches(per, train_forwards=forwards_c, unet_calls=0,
-                        vae_calls=2),
+                        vae_encodes=2),
         {"K1": {"tf32x3": per["flash_attention_fwd"] * forwards_c,
                 "fma": 2},
          "K4": {"tf32x3": per["flash_attention_bwd"] * forwards_c},
@@ -2550,7 +2760,7 @@ def stage1_path(tmp):
                            "--max_train_steps", str(STAGE1_SHORT),
                            "--optimizer", opt],
             stage1_launches(per, train_forwards=STAGE1_SHORT, unet_calls=0,
-                            vae_calls=2),
+                            vae_encodes=2),
             routes(per["flash_attention_fwd"] * STAGE1_SHORT,
                    per["flash_attention_bwd"] * STAGE1_SHORT,
                    per["geglu_projection"] * STAGE1_SHORT, 2),
@@ -2563,13 +2773,16 @@ def stage1_path(tmp):
     # the whole path, by route since the counters were set to 0
     train_fwd = forwards_a + forwards_b + 1 + 2 * STAGE1_SHORT
     unet = val_calls + 2 * STAGE1_VAL_STEPS
-    vae = (4 + 3) + (4 + 1) + (2 + 1) + 2 + 2 * 2
+    # encodes and decodes of runs A, B, F, C and E's two
+    vae_encodes, vae_decodes = 4 + 4 + 2 + 2 + 2 * 2, 3 + 1 + 1
+    vae = vae_encodes + vae_decodes
     # runs A, B, F, C and E's two
     encodes = 14 + 6 + 5 + 3 + 2 * 3
     counts = counters()
     check_counts("stage-1", counts, with_text_encoders(stage1_launches(
         per, train_forwards=train_fwd + forwards_c, unet_calls=unet,
-        vae_calls=vae), encodes, "stage-1"))
+        vae_encodes=vae_encodes, vae_decodes=vae_decodes), encodes,
+        "stage-1"))
     counts = check_routes(
         "stage-1", counts, per["flash_attention_fwd"] * (train_fwd + unet),
         vae,
@@ -2739,19 +2952,23 @@ def stage2_precision(artifacts):
     return {"frames": PRECISION_FRAMES, **r}, counts
 
 
-def serving_launches(steps, frames):
+def serving_launches(steps, frames, motion_norms=True):
     """Launches of one served video: per denoise step 70 spatial
     transformer blocks (one self-attention, one feed-forward and three
     LayerNorms each) and 15 motion modules (two temporal attentions, one
     feed-forward and three LayerNorms each); the VAE mid-block attention
-    once per decoded frame. Serving runs no backward. The text encoders'
-    LayerNorms are added where they run (with_text_encoders)."""
+    once per decoded frame; GroupNorm 61 a step (46 where the motion
+    modules' norms take the frame-parallel all-reduce: motion_norms
+    False), 30 a decoded frame (gn_launches). Serving runs no backward.
+    The text encoders' LayerNorms are added where they run
+    (with_text_encoders)."""
     return {"flash_attention_fwd": 70 * steps + frames,
             "geglu_projection": 85 * steps,
             "temporal_attention": 30 * steps,
             "flash_attention_bwd": 0, "flash_attention_bwd_delta": 0,
             "temporal_attention_bwd": 0, "layer_norm": 255 * steps,
-            "layer_norm_affine_grad": 0}
+            "layer_norm_affine_grad": 0,
+            **gn_launches(steps, motion=motion_norms, decodes=frames)}
 
 
 def check_counts(path, counts, expected):
@@ -2765,6 +2982,10 @@ def check_counts(path, counts, expected):
             fail(f"kernel {name} launched {n} times on the {path} path, "
                  f"expected {expected[name]}")
     check_no_layer_norm_copies(path)
+    from video_style_transfer_tpu_torch.ops import group_norm as gn
+    if gn.COPIES:
+        fail(f"the GroupNorm kernels copied {gn.COPIES} inputs on the "
+             f"{path} path (not contiguous or not 16-byte aligned)")
 
 
 def main_path(artifacts, motion_checkpoint):
@@ -2889,7 +3110,8 @@ def image_path(artifacts):
         {**serving_launches(0, 0),
          "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
          "geglu_projection": 70 * IMAGE_STEPS,
-         "layer_norm": 210 * IMAGE_STEPS}, 4, "image"))
+         "layer_norm": 210 * IMAGE_STEPS,
+         **gn_launches(IMAGE_STEPS, motion=False, decodes=1)}, 4, "image"))
     shape = (RESOLUTION, RESOLUTION, 3)
     if img.shape != shape or str(img.dtype) != "uint8":
         fail(f"image {img.shape} {img.dtype}, expected {shape} uint8")
@@ -2942,7 +3164,8 @@ def vae_bf16_decode_path():
                                       wide=NUM_FRAMES)
     check_counts("bf16 decode", counts,
                  {**serving_launches(0, 0),
-                  "flash_attention_fwd": NUM_FRAMES})
+                  "flash_attention_fwd": NUM_FRAMES,
+                  **gn_launches(decodes=NUM_FRAMES)})
     diff = np.abs(frames["bf16"].astype(np.int32)
                   - frames["fp32"].astype(np.int32))
     mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
@@ -3070,7 +3293,10 @@ def vae_grad_path():
         check_counts(label, counts, {**serving_launches(0, 0),
                                      "flash_attention_fwd": 1,
                                      "flash_attention_bwd": 1,
-                                     "flash_attention_bwd_delta": 1})
+                                     "flash_attention_bwd_delta": 1,
+                                     **gn_launches(
+                                         decodes=int(side == "decode"),
+                                         encodes=int(side == "encode"))})
         with plain_attention():
             t1 = time.perf_counter()
             want, _ = run()
@@ -3466,6 +3692,23 @@ def geglu_ptxas(log):
     return out
 
 
+def gn_ptxas(log):
+    """Registers and spills of the GroupNorm kernels (the statistics
+    kernel by dtype, the normalisation kernel by dtype, affine dtype and
+    SiLU). Fails if one spills: a spill is a round trip to memory in a
+    kernel bound by memory."""
+    rep = ptxas_report(log, r"(vst_gn_(?:stats|apply)_kernel\w*)")
+    if len(rep) != 2 + 8:
+        fail(f"the build log names {len(rep)} GroupNorm kernels, expected "
+             f"10: {sorted(rep)}")
+    for key, r in rep.items():
+        if r.get("spill_stores", 1) or r.get("spill_loads", 1):
+            fail(f"the GroupNorm kernel {key} spills registers: {r}")
+    out = {k: {"registers": r.get("registers")} for k, r in rep.items()}
+    print(f"GroupNorm kernels (ptxas): {json.dumps(out)}", flush=True)
+    return out
+
+
 def tf32_ptxas(log):
     """Registers and spills of the 3xTF32 route's kernels (K1's fp32 d =
     64 forward, K4's fp32 dk/dv and dq; 128 threads, two blocks an SM, so
@@ -3698,8 +3941,9 @@ def mp_serving(cfg, rank, fp32=False):
     frames = NUM_FRAMES // MP_WORLD
     steps = MP_FP32_STEPS if fp32 else STEPS
     # the negative prompt and mode both's
+    # the motion modules' norms take the frame-parallel all-reduce
     check_counts(label, counts, with_text_encoders(
-        serving_launches(steps, frames), 2, label))
+        serving_launches(steps, frames, motion_norms=False), 2, label))
     # fp32: every UNet attention and feed-forward on the 3xTF32 routes
     calls = 70 * steps
     routes = check_routes(label, counts, 0 if fp32 else calls, frames,
@@ -3777,10 +4021,13 @@ def mp_stage2_run(out_dir, flags, label, fp32=False, on_setup=None):
     encoded = sum(report["encoded_frames"])
     if encoded != frames:
         fail(f"{label} encoded {encoded} frames, expected {frames}")
+    # frame-parallel ranks take the motion modules' norms through the
+    # all-reduce of their statistics, one process through the kernels
     want = expected_train_launches(
         model_configs(smoke=False, motion=True)[0], frames=frames,
         resolution=MP_TRAIN_RES,
-        steps=MP_FP32_STEPS if fp32 else MP_TRAIN_STEPS, encoded=encoded)
+        steps=MP_FP32_STEPS if fp32 else MP_TRAIN_STEPS, encoded=encoded,
+        motion_norms=tr.grid.frame == 1)
     # the trainer's set-up encodes the prompt and the empty prompt
     check_counts(label, counts, with_text_encoders(
         {**serving_launches(0, 0), **want}, 2, label))
@@ -3953,7 +4200,7 @@ def mp_stage1(cfg, rank):
     check_counts(f"data-parallel stage-1 (rank {rank})", counts,
                  with_text_encoders(stage1_launches(
                      per, train_forwards=MP_STAGE1_STEPS, unet_calls=0,
-                     vae_calls=2), 3,
+                     vae_encodes=2), 3,
                      f"data-parallel stage-1 (rank {rank})"))
     routes = check_routes(
         f"data-parallel stage-1 (rank {rank})", counts,
@@ -4089,7 +4336,8 @@ def mp_tp_image(cfg, rank):
         {**serving_launches(0, 0),
          "flash_attention_fwd": 70 * IMAGE_STEPS + 1,
          "geglu_projection": 70 * IMAGE_STEPS,
-         "layer_norm": 210 * IMAGE_STEPS}, 4, label))
+         "layer_norm": 210 * IMAGE_STEPS,
+         **gn_launches(IMAGE_STEPS, motion=False, decodes=1)}, 4, label))
     routes = check_routes(label, counts, 70 * IMAGE_STEPS, 1)
     (name, img), = outs.items()
     rep = report["images"][name]
@@ -4691,6 +4939,9 @@ def main():
     section("backward kernel phases")
     ln_phases, ln_bwd_phases, ln_launches = layer_norm_phases()
     phases.update(ln_phases)
+    gn_phases, gn_phase_launches = group_norm_phases()
+    phases.update(gn_phases)
+    section("K7 and GroupNorm phases")
     # from here on every path's LayerNorms must launch K7: the library
     # call raises, and the text encoders' calls are counted
     count_text_encoder_calls()
@@ -4701,7 +4952,7 @@ def main():
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         small_cli_reference(tmp)
-        section("K7 and the small references")
+        section("the small references")
         # before stage 2, whose clips go through it
         native = native_phase()
         section("native preprocessing")
@@ -4759,6 +5010,7 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
         paths_guard.close()
     by_path["layer_norm_phase"] = ln_launches
+    by_path["group_norm_phase"] = gn_phase_launches
     main_paths = ("serving", "stage2", "image", "bf16_decode", "stage2_fp32",
                   "stage1", "vae_grad")
 
@@ -4817,6 +5069,11 @@ def main():
         # motion norms (45 calls a step, each the partial sums and their
         # finish)
         "layer_norm_affine_grad": ("layer_norm.cu", "layer_norm.py:121"),
+        # not a TPU kernel: the JAX package's GroupNorm is XLA
+        # (models/layers.py:118 group_norm); every GroupNorm of the
+        # models, 61 a serving step (35 with SiLU fused), 46 an image
+        # step, 30 a decoded frame
+        "group_norm": ("group_norm.cu", None),
     }
     wgmma_ptxas = sm90_ptxas(log)
     ptxas = {"flash_attention_sm90.cu": {d: r for d, r in wgmma_ptxas.items()
@@ -4829,14 +5086,17 @@ def main():
              "flash_attention_bwd_sliced.cu": sliced_ptxas(log),
              "temporal_attention.cu": ta_ptxas(log),
              "temporal_attention_bwd.cu": ta_bwd_ptxas(log),
-             "geglu.cu": geglu_ptxas(log)}
+             "geglu.cu": geglu_ptxas(log),
+             "group_norm.cu": gn_ptxas(log)}
     kernels = []
     for name, (src, replaces) in sources.items():
         first = phases[name][0]  # the path's principal shape
         launches = {path: c.get(name, 0) for path, c in by_path.items()}
         entry = {
             "name": name, "route": "cuda", "source": csrc + src,
-            "replaces": jax_ops + replaces,
+            "replaces": (jax_ops + replaces if replaces else
+                         "video_style_transfer_tpu/models/layers.py:118 "
+                         "(XLA)"),
             "launches": sum(launches[path] for path in main_paths),
             "launches_by_path": launches,
             "max_abs_err": first["max_abs_err"], "ms": first["ms"],
@@ -4867,6 +5127,14 @@ def main():
             entry["note"] = ("not a TPU kernel: the JAX package computes "
                              "delta in XLA, in K4's launcher "
                              "_flash_bwd_bhsd")
+        if name == "group_norm":
+            entry["note"] = ("not a TPU kernel: GroupNorm (+SiLU) in two "
+                             "launches a call, the statistics and the "
+                             "normalisation; the JAX package's GroupNorm "
+                             "is XLA")
+            entry["silu_launches_by_path"] = {
+                path: c.get("group_norm_silu", 0)
+                for path, c in by_path.items()}
         if name == "flash_attention_bwd":
             entry["launches_by_route"] = {
                 r: sum(by_path[path]["flash_attention_bwd_by_route"][r]

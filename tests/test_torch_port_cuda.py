@@ -2,7 +2,7 @@
 wide kernel at d >= 320 and the FMA template at every fp32 head dim but
 64 included, K2 on both its routes, K3's tensor-core forward at every
 frame count, K4 on its four routes (d = 64 and the D-sliced kernels at
-d = 128-512), K5, K7)
+d = 128-512), K5, K7, the GroupNorm(+SiLU) kernels)
 against their plain PyTorch versions on the card, and gradients through
 their autograd wrappers against the CPU.
 Every test here is marked ``cuda`` and skips without a GPU. The
@@ -18,6 +18,7 @@ import torch
 
 from video_style_transfer_tpu_torch.ops import flash_attention as tfa
 from video_style_transfer_tpu_torch.ops import geglu as tgeglu
+from video_style_transfer_tpu_torch.ops import group_norm as tgn
 from video_style_transfer_tpu_torch.ops import layer_norm as tln
 from video_style_transfer_tpu_torch.ops import temporal_attention as tta
 
@@ -1092,3 +1093,175 @@ def test_cuda_autograd_through_layer_norm():
     before = tln.LAUNCHES
     _grads_vs_cpu(tln.layer_norm, [x, w, b])
     assert tln.LAUNCHES == before + 1
+
+
+# the GroupNorm calls of the paths, one of each distinct (shape, eps): the
+# video step's (32 rows; its motion modules 2 rows of 16 frames), the image
+# step's (8 rows), the fp32 decode's (a frame; the image path's 4 rows)
+_BF, _F32 = torch.bfloat16, torch.float32
+GN_SHAPES = [
+    ((32, 128, 128, 320), _BF, 1e-5), ((32, 128, 128, 640), _BF, 1e-5),
+    ((32, 128, 128, 960), _BF, 1e-5), ((2, 16 * 128, 128, 320), _BF, 1e-6),
+    ((32, 64, 64, 320), _BF, 1e-5), ((32, 64, 64, 640), _BF, 1e-5),
+    ((32, 64, 64, 960), _BF, 1e-5), ((32, 64, 64, 1280), _BF, 1e-5),
+    ((32, 64, 64, 1920), _BF, 1e-5), ((32, 64, 64, 640), _BF, 1e-6),
+    ((2, 16 * 64, 64, 640), _BF, 1e-6), ((32, 32, 32, 640), _BF, 1e-5),
+    ((32, 32, 32, 1280), _BF, 1e-5), ((32, 32, 32, 1920), _BF, 1e-5),
+    ((32, 32, 32, 2560), _BF, 1e-5), ((2, 16 * 32, 32, 1280), _BF, 1e-6),
+    ((8, 128, 128, 320), _BF, 1e-5), ((8, 64, 64, 1920), _BF, 1e-5),
+    ((8, 32, 32, 2560), _BF, 1e-5), ((8, 32, 32, 1280), _BF, 1e-6),
+    ((1, 128, 128, 512), _F32, 1e-6), ((1, 256, 256, 512), _F32, 1e-6),
+    ((1, 512, 512, 512), _F32, 1e-6), ((1, 512, 512, 256), _F32, 1e-6),
+    ((1, 1024, 1024, 256), _F32, 1e-6), ((1, 1024, 1024, 128), _F32, 1e-6),
+    ((4, 1024, 1024, 128), _F32, 1e-6)]
+
+
+def _gn_inputs(shape, dtype, seed=0, shift=0.3):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, device="cuda", generator=g) * 1.5
+         + shift).to(dtype)
+    w = (1 + 0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    b = (0.1 * torch.randn(c, device="cuda", generator=g)).to(dtype)
+    return x, w, b
+
+
+def _assert_gn_close(out, ref, atol=1e-5):
+    """bf16: within one ulp of ref plus `atol` (the two differ only in the
+    order of the f32 statistics' sums: ~1e-7 of the f32 affine's terms,
+    which may move a value across a rounding boundary, and which near a
+    zero of x * scale + shift exceed that small output's ulp); fp32: 1e-5
+    + 1e-5*|ref|."""
+    a, r = out.float(), ref.float()
+    if out.dtype == torch.bfloat16:
+        _, e = torch.frexp(torch.maximum(a.abs(), r.abs()))
+        ulp = torch.ldexp(torch.ones_like(a), e - 8)
+        assert bool(((a - r).abs() <= ulp + atol).all())
+    else:
+        assert ((a - r).abs() - 1e-5 * r.abs()).max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,eps", GN_SHAPES,
+                         ids=[f"{s}-{str(d)[6:]}-{e}" for s, d, e in
+                              GN_SHAPES])
+def test_cuda_group_norm_matches_plain(shape, dtype, eps):
+    # with and without SiLU: the norm against the plain version; the fused
+    # SiLU against F.silu of the same call's norm (one ulp: expf's last
+    # bit), and in fp32 against the plain version too
+    _need_cuda()
+    x, w, b = _gn_inputs(shape, dtype)
+    before = tgn.LAUNCHES, tgn.SILU_LAUNCHES
+    y = tgn.group_norm(x, w, b, 32, eps=eps)
+    ys = tgn.group_norm(x, w, b, 32, eps=eps, silu=True)
+    assert (tgn.LAUNCHES, tgn.SILU_LAUNCHES) == (before[0] + 2,
+                                                 before[1] + 1)
+    assert y.dtype == ys.dtype == dtype and y.shape == shape
+    ref = tgn.group_norm_plain(x, w, b, 32, eps)
+    _assert_gn_close(y, ref)
+    _assert_gn_close(ys, torch.nn.functional.silu(y), atol=0.0)
+    if dtype == torch.float32:
+        _assert_gn_close(ys, torch.nn.functional.silu(ref))
+
+
+def _row_statistics(x, w, b, groups, eps):
+    """Each (row, group)'s mean and variance from the partial sums the
+    statistics kernel left in the scratch, merged in float64."""
+    entry = tgn._ACCEPTED[tgn._key(x, w, b, groups, eps, False)]
+    rows, positions, chunk, c, _, chunks = tgn._LAYOUT.unpack(entry[0])[:6]
+    part = tgn._SCRATCH[(x.get_device(), torch.cuda.current_stream(
+        ).cuda_stream)][:entry[4]].view(rows, groups, chunks, 2).double()
+    n = torch.tensor([e - s for s, e in tgn.chunk_bounds(positions, chunks,
+                                                         chunk)],
+                     dtype=torch.float64, device=x.device) * (c // groups)
+    mean = (part[..., 0] * n).sum(-1) / n.sum()
+    m2 = (part[..., 1] + n * (part[..., 0] - mean[..., None]) ** 2).sum(-1)
+    return mean, m2 / n.sum()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,shift", [
+    ((32, 64, 64, 960), _BF, 0.3), ((2, 16 * 32, 32, 1280), _BF, 0.3),
+    ((1, 1024, 1024, 128), _F32, 0.3), ((8, 32, 32, 1280), _BF, 20.0),
+    ((1, 256, 256, 512), _F32, 20.0)])
+def test_cuda_group_norm_statistics(shape, dtype, shift):
+    # the statistics kernel's partial sums, merged, against float64
+    # statistics of x: a common offset 13x the spread does not cancel
+    _need_cuda()
+    x, w, b = _gn_inputs(shape, dtype, shift=shift)
+    tgn.group_norm(x, w, b, 32, eps=1e-6)
+    torch.cuda.synchronize()
+    mean, var = _row_statistics(x, w, b, 32, 1e-6)
+    xg = x.double().reshape(shape[0], -1, 32, shape[-1] // 32)
+    var64, mean64 = torch.var_mean(xg, dim=(1, 3), unbiased=False)
+    assert ((mean - mean64).abs() <= 1e-5 * var64.sqrt()).all()
+    assert ((var - var64).abs() <= 1e-5 * var64).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [((2, 16 * 128, 128, 320), _BF),
+                                         ((1, 1024, 1024, 128), _F32)])
+def test_cuda_group_norm_deterministic(shape, dtype):
+    _need_cuda()
+    x, w, b = _gn_inputs(shape, dtype)
+    for silu in (False, True):
+        first = tgn.group_norm(x, w, b, 32, eps=1e-6, silu=silu)
+        assert torch.equal(first, tgn.group_norm(x, w, b, 32, eps=1e-6,
+                                                 silu=silu))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [_F32, _BF])
+@pytest.mark.parametrize("need", [(True, False, False), (True, True, True)])
+@pytest.mark.parametrize("silu", [False, True])
+def test_cuda_autograd_through_group_norm(dtype, need, silu):
+    # the Function's forward launches the kernels, its backward is the
+    # plain formula's vjp from the saved x: the plain autograd's gradients
+    _need_cuda()
+    ins = _gn_inputs((4, 16, 16, 320), dtype)
+    cot = _gn_inputs((4, 16, 16, 320), dtype, seed=1)[0]
+    grads = []
+    for fn in (tgn.group_norm, tgn.group_norm_reference):
+        leaves = [t.clone().requires_grad_(n) for t, n in zip(ins, need)]
+        before = tgn.LAUNCHES
+        if fn is tgn.group_norm:
+            y = fn(*leaves, 32, eps=1e-5, silu=silu)
+            assert "_GroupNorm" in type(y.grad_fn).__name__
+            assert tgn.LAUNCHES == before + 1
+        else:
+            y = fn(*leaves, 32, 1e-5, silu)
+        grads.append(torch.autograd.grad(
+            y, [t for t in leaves if t.requires_grad], cot))
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_raises_on_what_it_does_not_take():
+    _need_cuda()
+
+    def call(x, c=None, groups=32, wdev="cuda"):
+        c = x.shape[-1] if c is None else c
+        w = torch.ones(c, device=wdev, dtype=x.dtype)
+        return tgn.group_norm(x, w, torch.zeros_like(w), groups)
+
+    with pytest.raises(TypeError):
+        call(torch.randn(2, 4, 4, 320, device="cuda", dtype=torch.float16))
+    with pytest.raises(ValueError):
+        call(torch.randn(2, 4, 4, 36, device="cuda", dtype=_BF), groups=4)
+    with pytest.raises(ValueError):
+        call(torch.randn(2, 4, 4, 320, device="cuda"), groups=24)
+    with pytest.raises(ValueError):
+        call(torch.randn(2, 4, 4, 320, device="cuda"), wdev="cpu")
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_copies_a_strided_x():
+    _need_cuda()
+    x, w, b = _gn_inputs((2, 16, 16, 640), _BF)
+    view = x[..., :320]
+    before = tgn.COPIES
+    y = tgn.group_norm(view, w[:320], b[:320], 32, silu=True)
+    assert tgn.COPIES == before + 1
+    _assert_gn_close(y, tgn.group_norm(view.contiguous(), w[:320], b[:320],
+                                       32, silu=True))

@@ -50,7 +50,11 @@ in float64 at the fp32 path shapes; ``--k7`` times K7's wrapper
 (``ops.layer_norm.layer_norm_fwd``) at the paths' LayerNorm shapes, each
 row with ``F.layer_norm``'s device ms and host µs; ``--k7_host_parts``
 gives the host µs of each part of K7's launch path (``k7_host_parts``)
-at the image path's and the CLIP encoder's shapes;
+at the image path's and the CLIP encoder's shapes; ``--gn`` times the
+GroupNorm kernels (``ops.group_norm.group_norm``) at every distinct
+GroupNorm call of a video step, an image step and a decoded frame, each
+row with the plain version's and ``F.group_norm``'s device ms and the
+bound, then each path's sums over its calls (``gn_calls``);
 ``--k3`` for K3's wrapper (``ops.temporal_attention.temporal_attention_fwd``)
 at every shape the paths give it (the serving path's motion levels at 16
 frames in bf16 and fp32, stage 2's at 8, level 2 at 32 frames in both),
@@ -84,7 +88,7 @@ line of readings (``precision_readings``).
     python -m video_style_transfer_tpu_torch.cli.profile_step \\
         [--train | --image | --decode | --k1 | --k2 | --k2_restarts | --k3 |
          --k3_cutouts | --k4 | --k4_cutouts | --k5 |
-         --k5_cutouts | --k7 | --k7_host_parts | --precision]
+         --k5_cutouts | --k7 | --k7_host_parts | --gn | --precision]
         [--mixed_precision bf16|no] [--vae_dtype float32|bfloat16]
         [--num_frames N] [--resolution 1024] [--steps N]
         [--unziplora_name_or_path DIR]
@@ -1036,6 +1040,84 @@ def k7_host_parts(dev, runs: int):
         torch.cuda.empty_cache()
 
 
+def _gn_shapes():
+    """(path, shape, dtype, eps, silu, calls) of every distinct GroupNorm
+    call of a video step (32 rows; the motion modules 2 rows of 16
+    frames), an image step (8 rows) and an fp32 decoded frame, with its
+    calls a step or a frame (61, 46 and 30 in all)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = []
+    for path, r in (("video step", 32), ("image step", 8)):
+        for hw, c, silu, eps, n in (
+                (128, 320, True, 1e-5, 8), (128, 640, True, 1e-5, 2),
+                (128, 960, True, 1e-5, 1), (64, 320, True, 1e-5, 1),
+                (64, 640, True, 1e-5, 6), (64, 960, True, 1e-5, 1),
+                (64, 1280, True, 1e-5, 1), (64, 1920, True, 1e-5, 1),
+                (64, 640, False, 1e-6, 5), (32, 640, True, 1e-5, 1),
+                (32, 1280, True, 1e-5, 10), (32, 1920, True, 1e-5, 1),
+                (32, 2560, True, 1e-5, 2), (32, 1280, False, 1e-6, 6)):
+            out.append((path, (r, hw, hw, c), bf, eps, silu, n))
+        if path == "video step":
+            out += [(path, (2, 16 * hw, hw, c), bf, 1e-6, False, 5)
+                    for hw, c in ((128, 320), (64, 640), (32, 1280))]
+    out += [("decoded frame", (1, hw, hw, c), f32, 1e-6, silu, n)
+            for hw, c, silu, n in ((128, 512, True, 10),
+                                   (128, 512, False, 1),
+                                   (256, 512, True, 6), (512, 512, True, 1),
+                                   (512, 256, True, 5),
+                                   (1024, 256, True, 1),
+                                   (1024, 128, True, 6))]
+    return out
+
+
+def gn_calls(dev, runs: int):
+    """Yields a row a distinct GroupNorm call of the paths
+    (`_gn_shapes`): the device ms and host µs of the port's call
+    (``ops.group_norm.group_norm``: the kernels), of its plain version
+    (the eleven-op formula, then ``F.silu``) and of ``F.group_norm`` on an
+    NCHW-contiguous copy (then ``F.silu``), with its bound (x read twice,
+    y written once at 3.35 TB/s); then each path's sums over its calls."""
+    import torch.nn.functional as F
+    from video_style_transfer_tpu_torch.ops import group_norm as gn
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sums = {}
+    with torch.inference_mode():
+        for path, shape, dtype, eps, silu, n in _gn_shapes():
+            c = shape[-1]
+            x = (torch.randn(shape, generator=gen, device=dev) * 1.5
+                 + 0.3).to(dtype)
+            w = (1 + 0.1 * torch.randn(c, generator=gen,
+                                       device=dev)).to(dtype)
+            b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+            xn = x.permute(0, 3, 1, 2).contiguous()
+
+            def library():
+                y = F.group_norm(xn, 32, w, b, eps)
+                return F.silu(y) if silu else y
+            row = {"path": path, "shape": list(shape),
+                   "dtype": str(dtype)[6:], "silu": silu, "calls": n,
+                   "bound_ms": 3 * x.numel() * x.element_size()
+                   / 3.35e12 * 1e3}
+            for name, fn in (
+                    ("kernel", lambda: gn.group_norm(x, w, b, 32, eps=eps,
+                                                     silu=silu)),
+                    ("plain", lambda: gn.group_norm_reference(
+                        x, w, b, 32, eps, silu)),
+                    ("library", library)):
+                row[f"{name}_ms"], row[f"{name}_host_us"] = _time_calls(
+                    fn, runs)
+            row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+            total = sums.setdefault(path, dict.fromkeys(
+                ("kernel_ms", "plain_ms", "library_ms", "bound_ms"), 0.0))
+            for k in total:
+                total[k] += n * row[k]
+            yield row
+            del x, xn
+            torch.cuda.empty_cache()
+    for path, total in sums.items():
+        yield {"path": path, "sum_over_calls": total}
+
+
 def _host_seconds(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1143,6 +1225,10 @@ def main(argv=None):
                    help="time K7's wrapper alone at the paths' LayerNorm "
                         "shapes, beside F.layer_norm's device ms and host "
                         "µs")
+    p.add_argument("--gn", action="store_true",
+                   help="time the GroupNorm kernels, their plain version "
+                        "and F.group_norm at every GroupNorm shape of the "
+                        "paths, summed over a step's or a frame's calls")
     p.add_argument("--k7_host_parts", action="store_true",
                    help="host µs of each part of K7's launch path at the "
                         "image path's and the CLIP encoder's shapes")
@@ -1203,6 +1289,11 @@ def main(argv=None):
             print(json.dumps({"card": card, "package": common.__file__,
                               "kernel": "K5 temporal_attention_bwd", **row}),
                   flush=True)
+        return
+    if args.gn:
+        for row in gn_calls(dev, max(args.steps, 5)):
+            print(json.dumps({"card": card, "package": common.__file__,
+                              "kernel": "GroupNorm", **row}), flush=True)
         return
     if args.k7_host_parts:
         for row in k7_host_parts(dev, max(args.steps, 21)):

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from video_style_transfer_tpu_torch.ops import group_norm as gn_ops
 from video_style_transfer_tpu_torch.ops import layer_norm as ln_ops
 
 
@@ -118,26 +119,17 @@ def init_norm(ini: Init, num_channels: int):
     return {"weight": ini.ones(num_channels), "bias": ini.zeros(num_channels)}
 
 
-def group_norm(p, x, *, num_groups: int, eps: float = 1e-5):
+def group_norm(p, x, *, num_groups: int, eps: float = 1e-5,
+               silu: bool = False):
     """GroupNorm over channels-last input (B, ..., C): each group of
     C/num_groups channels is normalised jointly with all positions, with
-    fp32 statistics (torch.nn.GroupNorm semantics)."""
-    c = x.shape[-1]
-    lead = x.shape[0]
-    xf = x.reshape(lead, -1, num_groups, c // num_groups).float()
-    var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False, keepdim=True)
-    # fold the statistics and the affine into per-(row, channel) f32
-    # scale and shift (the JAX package's form), then one pass computes
-    # x*scale + shift in f32 and rounds once into the input dtype
-    scale = torch.rsqrt(var + eps) * p["weight"].float().view(num_groups, -1)
-    shift = p["bias"].float().view(num_groups, -1) - mean * scale
-    if scale.requires_grad or shift.requires_grad:
-        # autograd cannot differentiate an ``out=`` write: the same f32
-        # affine as a graph op, rounded once to the input dtype
-        return torch.addcmul(shift, xf, scale).to(x.dtype).reshape(x.shape)
-    out = torch.empty(xf.shape, dtype=x.dtype, device=x.device)
-    torch.addcmul(shift, xf, scale, out=out)
-    return out.reshape(x.shape)
+    fp32 statistics (torch.nn.GroupNorm semantics), then SiLU where
+    `silu`, through ops/group_norm.py: the kernels on the card, the plain
+    formula on the CPU. The output is rounded once to x's dtype, and
+    with `silu` that value goes through SiLU as ``silu(group_norm(...))``
+    would take it."""
+    return gn_ops.group_norm(x, p["weight"], p["bias"], num_groups, eps=eps,
+                             silu=silu)
 
 
 def layer_norm(p, x, *, eps: float = 1e-5):

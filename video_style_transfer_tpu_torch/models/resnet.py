@@ -27,14 +27,14 @@ def init_resnet_block(ini, in_channels: int, out_channels: int, *,
 
 def resnet_block(p, x, temb=None, *, num_groups: int, eps: float = 1e-5):
     """x: (N, H, W, C); temb: (N, temb_channels) or None."""
-    h = layers.silu(layers.group_norm(p["norm1"], x, num_groups=num_groups,
-                                      eps=eps))
+    h = layers.group_norm(p["norm1"], x, num_groups=num_groups, eps=eps,
+                          silu=True)
     h = layers.conv2d(p["conv1"], h)
     if temb is not None and "time_emb_proj" in p:
         t = layers.linear(p["time_emb_proj"], layers.silu(temb))
         h = h + t[:, None, None, :].to(h.dtype)
-    h = layers.silu(layers.group_norm(p["norm2"], h, num_groups=num_groups,
-                                      eps=eps))
+    h = layers.group_norm(p["norm2"], h, num_groups=num_groups, eps=eps,
+                          silu=True)
     h = layers.conv2d(p["conv2"], h)
     if "conv_shortcut" in p:
         x = layers.conv2d(p["conv_shortcut"], x)

@@ -258,6 +258,6 @@ def unet_apply(params, cfg: UNetConfig, sample, timesteps, ctx: Tuple,
             if "upsamplers" in block:
                 h = upsample(block["upsamplers"][0], h)
 
-    h = layers.silu(layers.group_norm(params["conv_norm_out"], h,
-                                      num_groups=groups, eps=cfg.norm_eps))
+    h = layers.group_norm(params["conv_norm_out"], h, num_groups=groups,
+                          eps=cfg.norm_eps, silu=True)
     return layers.conv2d(params["conv_out"], h)

@@ -95,8 +95,8 @@ def vae_encode_moments(params, cfg: VAEConfig, x):
         if "downsamplers" in block:
             h = downsample(block["downsamplers"][0], h)
     h = _mid(enc["mid_block"], h, g)
-    h = layers.silu(layers.group_norm(enc["conv_norm_out"], h, num_groups=g,
-                                      eps=VAE_EPS))
+    h = layers.group_norm(enc["conv_norm_out"], h, num_groups=g, eps=VAE_EPS,
+                          silu=True)
     moments = layers.conv2d(params["quant_conv"],
                             layers.conv2d(enc["conv_out"], h))
     mean, logvar = moments.chunk(2, dim=-1)
@@ -124,6 +124,6 @@ def vae_decode(params, cfg: VAEConfig, z):
             h = resnet_block(rp, h, None, num_groups=g, eps=VAE_EPS)
         if "upsamplers" in block:
             h = upsample(block["upsamplers"][0], h)
-    h = layers.silu(layers.group_norm(dec["conv_norm_out"], h, num_groups=g,
-                                      eps=VAE_EPS))
+    h = layers.group_norm(dec["conv_norm_out"], h, num_groups=g, eps=VAE_EPS,
+                          silu=True)
     return layers.conv2d(dec["conv_out"], h)

@@ -49,6 +49,11 @@ SIGNATURES = {
     # dscale / dbias kernels (_AFFINE_CALL)
     "vst_layer_norm_fwd": [_P],
     "vst_layer_norm_affine_grad": [_P],
+    # the GroupNorm kernels too (ops/group_norm.py: _POINTERS, _LAYOUT),
+    # and their occupancy query (dtype, affine dtype, silu, threads,
+    # device, int* blocks)
+    "vst_group_norm_fwd": [_P],
+    "vst_group_norm_resident": [_I, _I, _I, _I, _I, _P],
     # K3 and K5 too (ops/temporal_attention.py: _POINTERS, _LAYOUT,
     # _SCALE; _BWD_POINTERS, _LAYOUT, _BWD_PLAN, _SCALE)
     "vst_temporal_attention_fwd": [_P],

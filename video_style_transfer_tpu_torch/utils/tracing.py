@@ -406,7 +406,8 @@ def launch_counts() -> dict:
     kernel name (each op wrapper counts where it launches, nowhere
     else)."""
     from video_style_transfer_tpu_torch.ops import flash_attention as fa
-    from video_style_transfer_tpu_torch.ops import geglu, layer_norm
+    from video_style_transfer_tpu_torch.ops import geglu, group_norm
+    from video_style_transfer_tpu_torch.ops import layer_norm
     from video_style_transfer_tpu_torch.ops import temporal_attention as ta
     return {"flash_attention_fwd": fa.LAUNCHES,
             "geglu_projection": geglu.LAUNCHES,
@@ -415,7 +416,9 @@ def launch_counts() -> dict:
             "flash_attention_bwd_delta": fa.DELTA_LAUNCHES,
             "temporal_attention_bwd": ta.BWD_LAUNCHES,
             "layer_norm": layer_norm.LAUNCHES,
-            "layer_norm_affine_grad": layer_norm.AFFINE_LAUNCHES}
+            "layer_norm_affine_grad": layer_norm.AFFINE_LAUNCHES,
+            "group_norm": group_norm.LAUNCHES,
+            "group_norm_silu": group_norm.SILU_LAUNCHES}
 
 
 # ---- spans beside a profiler trace ------------------------------------------
